@@ -1,0 +1,319 @@
+"""One whole search round per kernel launch: kernels 1 and 2 of the dense
+search (modes ``fused`` and ``fused_alt``), plus the one-thread fold.
+
+- :func:`fused_dual_round` (CUDA ``fused_dual_kernel``,
+  csrc/fused_level.cu) replaces
+  ``bibfs_tpu/ops/pallas_fused.py::_fused_kernel``: a lock-step round for
+  both sides, with every per-round reduction and the meet vote.
+- :func:`fused_single_round` (CUDA ``fused_single_kernel``) replaces
+  ``_fused_kernel_single``: an alt round for the smaller side, chosen on
+  the device (``cnt_s <= cnt_t``).
+- :func:`fold_round` (CUDA ``fold_round_kernel``) applies a round's
+  reductions to the scalar state, as the JAX solver's scalar fixup does.
+
+The search state never leaves the device: the scalar state is one int32
+row (:data:`STATE_SLOTS`), the per-round reductions go to ``acc int32[6]``
+and a 64-bit meet key ``int64[1]`` (``(sum << 32) | id``; -1, all ones,
+when empty). dist and par rows are updated in place and the dual frontier
+row (uint8, bit 0 = source side, bit 1 = target side) is ping-ponged.
+A round whose search has stopped does nothing, so a host may launch
+several rounds between reads of the state.
+
+Fit: the port's gates are its own. The kernels have no VMEM budget and
+no parent-key bound (the first hit slot gives the parent, with no
+``slot * KS + nbr`` key), so any plain ELL table with int32 ids fits; the
+one rule kept is the layout one: tiered graphs run the ``pallas`` modes,
+as in the JAX solver (``solvers/dense.resolve_mode``).
+
+CPU tensors run the plain torch twins (``*_plain``); CUDA tensors launch
+the kernels or raise. Each wrapper counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bibfs_tpu_torch.ops import _cuda
+from bibfs_tpu_torch.ops.pull_expand import (
+    _check_table,
+    claim_plain,
+    gather_bits,
+    sentinel_transposed_table,
+)
+
+INF32 = 1 << 30
+NO_MEET = -1  # the empty meet key: all ones as a 64-bit unsigned
+STATE_SLOTS = ("lvl_s", "lvl_t", "best", "meet", "cnt_s", "cnt_t",
+               "md_s", "md_t", "ds_s", "ds_t", "levels", "edges")
+S = {k: i for i, k in enumerate(STATE_SLOTS)}
+_BIG64 = (1 << 63) - 1
+
+
+def prepare_fused_tables(nbr, deg) -> tuple:
+    """``(nbr_t, deg)``: the one table of all four kernels
+    (:func:`sentinel_transposed_table`) and the degree row, unpadded."""
+    return sentinel_transposed_table(nbr, deg), deg
+
+
+def dual_seed(src: int, dst: int, n_rows: int, device) -> torch.Tensor:
+    """The initial dual frontier row: bit 0 at ``src``, bit 1 at ``dst``."""
+    z = torch.zeros(n_rows, dtype=torch.uint8, device=device)
+    z[src] = 1
+    z[dst] = 3 if src == dst else 2
+    return z
+
+
+def new_state(src: int, dst: int, deg) -> torch.Tensor:
+    """The initial scalar state: both frontiers hold one vertex whose
+    degree is the max degree and degree sum of its side."""
+    same = src == dst
+    st = torch.tensor(
+        [0, 0, 0 if same else INF32, src if same else -1, 1, 1,
+         0, 0, 0, 0, 0, 0],
+        dtype=torch.int32, device=deg.device,
+    )
+    ends = torch.tensor([src, dst, src, dst], device=deg.device)
+    st[S["md_s"]:S["ds_t"] + 1] = deg[ends]
+    return st
+
+
+def new_scratch(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cleared per-round accumulators ``(acc int32[6], meet_key int64[1])``."""
+    return (torch.zeros(6, dtype=torch.int32, device=device),
+            torch.full((1,), NO_MEET, dtype=torch.int64, device=device))
+
+
+def active(st: list) -> bool:
+    """The search goes on: ``lvl_s + lvl_t < best`` and both frontiers
+    non-empty (``st`` is the state row as a list)."""
+    return (st[S["lvl_s"]] + st[S["lvl_t"]] < st[S["best"]]
+            and st[S["cnt_s"]] > 0 and st[S["cnt_t"]] > 0)
+
+
+def decode_meet(key: int) -> tuple[int, int]:
+    """``(meet_val, meet_idx)`` of a meet key; ``(INF32, -1)`` when empty."""
+    if key == NO_MEET:
+        return INF32, -1
+    return key >> 32, key & 0xFFFFFFFF
+
+
+def _fold_side(acc, key, side: int, nf, deg, d_a, d_b):
+    """Plain accumulation of one side's round reductions and the meet
+    candidates of ``(d_a, d_b)``, as the kernels' atomics do."""
+    nd = torch.where(nf, deg, 0)
+    acc[side] += nf.sum(dtype=torch.int32)
+    acc[2 + side] = torch.maximum(acc[2 + side], nd.max())
+    acc[4 + side] += nd.sum(dtype=torch.int32)
+    both = (d_a < INF32) & (d_b < INF32)
+    ids = torch.arange(d_a.shape[0], device=d_a.device)
+    cand = torch.where(both, ((d_a + d_b).long() << 32) | ids, _BIG64).min()
+    cur = key[0]
+    new = torch.where(cur == NO_MEET, cand, torch.minimum(cur, cand))
+    key[0] = torch.where(cand == _BIG64, cur, new)
+
+
+def fused_dual_round_plain(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t,
+                           par_s, par_t, state, acc, key):
+    """Plain twin of :func:`fused_dual_round` (reads the state on the
+    host)."""
+    st = state.tolist()
+    if not active(st):
+        return
+    n_rows = dual_out.shape[0]
+    vals = gather_bits(dual_in, nbr_t, n_rows)
+    rows = nbr_t[:, :n_rows]
+    nfs = []
+    for bit, dist, par, lvl in ((0, dist_s, par_s, st[S["lvl_s"]] + 1),
+                                (1, dist_t, par_t, st[S["lvl_t"]] + 1)):
+        nf, p = claim_plain(((vals >> bit) & 1) > 0, rows, dist >= INF32)
+        dist.copy_(torch.where(nf, lvl, dist))
+        par.copy_(torch.where(nf, p, par))
+        nfs.append(nf)
+    dual_out.copy_(nfs[0].to(torch.uint8) | (nfs[1].to(torch.uint8) << 1))
+    _fold_side(acc, key, 0, nfs[0], deg2, dist_s, dist_t)
+    _fold_side(acc, key, 1, nfs[1], deg2, dist_s, dist_t)
+
+
+def check_round(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t, par_s,
+                par_t, state, acc, key) -> None:
+    """Validate the buffers of a round on the card (shapes, dtypes, one
+    device, contiguous). A search checks its
+    buffers once and then launches with ``checked=True``."""
+    _check_table(nbr_t)
+    n_rows = dual_out.shape[0]
+    rows = (deg2, dist_s, dist_t, par_s, par_t)
+    if any(r.shape[0] != n_rows for r in rows) or n_rows > nbr_t.shape[1]:
+        raise ValueError("deg/dist/par/dual_out rows must match and fit the table")
+    if dual_in.shape[0] < n_rows:
+        raise ValueError("dual_in must span at least the table's rows")
+    if state.shape[0] < len(STATE_SLOTS) or acc.shape[0] < 6 or key.shape[0] < 1:
+        raise ValueError("state/acc/key are too short")
+    _cuda.check_dtype(torch.uint8, dual_in=dual_in, dual_out=dual_out)
+    _cuda.check_dtype(torch.int32, deg2=deg2, dist_s=dist_s, dist_t=dist_t,
+                      par_s=par_s, par_t=par_t, state=state, acc=acc)
+    _cuda.check_dtype(torch.int64, key=key)
+    _cuda.check_cuda(nbr_t.device, nbr_t=nbr_t, deg2=deg2, dual_in=dual_in,
+                     dual_out=dual_out, dist_s=dist_s, dist_t=dist_t,
+                     par_s=par_s, par_t=par_t, state=state, acc=acc, key=key)
+
+
+def _launch_round(fn: str, checked: bool, nbr_t, deg2, dual_in, dual_out,
+                  dist_s, dist_t, par_s, par_t, state, acc, key):
+    if not checked:
+        check_round(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t, par_s,
+                    par_t, state, acc, key)
+    _cuda.launch(
+        "fused_level", fn, nbr_t.data_ptr(), nbr_t.stride(0), nbr_t.shape[0],
+        dual_out.shape[0], deg2.data_ptr(), dual_in.data_ptr(), dual_in.shape[0],
+        dual_out.data_ptr(), dist_s.data_ptr(), dist_t.data_ptr(),
+        par_s.data_ptr(), par_t.data_ptr(), state.data_ptr(),
+        acc.data_ptr(), key.data_ptr(),
+    )
+
+
+def fused_dual_round(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t, par_s,
+                     par_t, state, acc, key, *, checked: bool = False) -> None:
+    """One lock-step round for both sides, in place: claims the next
+    frontier into ``dual_out`` and dist/par, and accumulates counts, max
+    degrees, degree sums and the meet vote into ``acc``/``key``. Does
+    nothing when the state says the search has stopped. ``checked`` skips
+    the validation a caller has already run (:func:`check_round`)."""
+    if not nbr_t.is_cuda:
+        return fused_dual_round_plain(nbr_t, deg2, dual_in, dual_out, dist_s,
+                                      dist_t, par_s, par_t, state, acc, key)
+    _launch_round("bibfs_fused_dual", checked, nbr_t, deg2, dual_in,
+                  dual_out, dist_s, dist_t, par_s, par_t, state, acc, key)
+    fused_dual_round.launches += 1
+
+
+fused_dual_round.launches = 0
+
+
+def _alt_side(st: list) -> int:
+    """The side an alt round advances: the smaller frontier, source on a
+    tie."""
+    return 0 if st[S["cnt_s"]] <= st[S["cnt_t"]] else 1
+
+
+def fused_single_round_plain(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t,
+                             par_s, par_t, state, acc, key):
+    """Plain twin of :func:`fused_single_round`."""
+    st = state.tolist()
+    if not active(st):
+        return
+    side = _alt_side(st)
+    dist_a, dist_p = (dist_s, dist_t) if side == 0 else (dist_t, dist_s)
+    par_a = par_s if side == 0 else par_t
+    n_rows = dual_out.shape[0]
+    vals = gather_bits(dual_in, nbr_t, n_rows)
+    nf, p = claim_plain(((vals >> side) & 1) > 0, nbr_t[:, :n_rows],
+                        dist_a >= INF32)
+    dist_a.copy_(torch.where(nf, st[S["lvl_s"] + side] + 1, dist_a))
+    par_a.copy_(torch.where(nf, p, par_a))
+    passive = 3 ^ (1 << side)
+    dual_out.copy_((dual_in[:n_rows] & passive) | (nf.to(torch.uint8) << side))
+    _fold_side(acc, key, side, nf, deg2, dist_a, dist_p)
+
+
+def fused_single_round(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t, par_s,
+                       par_t, state, acc, key, *, checked: bool = False) -> None:
+    """One alt round, in place, for the side the state picks (the smaller
+    frontier): the other side's frontier bit passes through and its rows
+    are only read (for the meet vote)."""
+    if not nbr_t.is_cuda:
+        return fused_single_round_plain(nbr_t, deg2, dual_in, dual_out,
+                                        dist_s, dist_t, par_s, par_t, state,
+                                        acc, key)
+    _launch_round("bibfs_fused_single", checked, nbr_t, deg2, dual_in,
+                  dual_out, dist_s, dist_t, par_s, par_t, state, acc, key)
+    fused_single_round.launches += 1
+
+
+fused_single_round.launches = 0
+
+
+def fold_round_plain(state, acc, key, *, alt: bool) -> None:
+    """Plain twin of :func:`fold_round`."""
+    st = state.tolist()
+    if active(st):
+        side = _alt_side(st)
+        mval, midx = decode_meet(int(key[0]))
+        if mval < st[S["best"]]:
+            st[S["best"]], st[S["meet"]] = mval, midx
+        a = acc.tolist()
+        for s in (side,) if alt else (0, 1):
+            st[S["edges"]] += st[S["ds_s"] + s]
+            st[S["lvl_s"] + s] += 1
+            st[S["cnt_s"] + s] = a[s]
+            st[S["md_s"] + s] = a[2 + s]
+            st[S["ds_s"] + s] = a[4 + s]
+        st[S["levels"]] += 1 if alt else 2
+        state[: len(st)] = torch.tensor(st, dtype=torch.int32)
+    acc.zero_()
+    key.fill_(NO_MEET)
+
+
+def fold_round(state, acc, key, *, alt: bool, checked: bool = False) -> None:
+    """Apply a round's reductions to the state (best/meet, levels, edges
+    += the degree sums of the frontier the round expanded, the new counts,
+    max degrees and degree sums, the level numbers), when the search was
+    active; then clear ``acc`` and ``key``."""
+    if not state.is_cuda:
+        return fold_round_plain(state, acc, key, alt=alt)
+    if not checked:
+        _cuda.check_dtype(torch.int32, state=state, acc=acc)
+        _cuda.check_dtype(torch.int64, key=key)
+        _cuda.check_cuda(state.device, state=state, acc=acc, key=key)
+    _cuda.launch("fused_level", "bibfs_fold_round", state.data_ptr(),
+                 acc.data_ptr(), key.data_ptr(), int(alt))
+    fold_round.launches += 1
+
+
+fold_round.launches = 0
+
+
+def _level_state(lvl_s: int, lvl_t: int, cnt_s: int, device) -> torch.Tensor:
+    st = torch.zeros(len(STATE_SLOTS), dtype=torch.int32)
+    st[S["lvl_s"]], st[S["lvl_t"]] = lvl_s - 1, lvl_t - 1
+    st[S["best"]], st[S["meet"]] = INF32, -1
+    st[S["cnt_s"]], st[S["cnt_t"]] = cnt_s, 1
+    return st.to(device)
+
+
+def fused_dual_level(dual_row, nbr_t, deg2, dist_s, dist_t, par_s, par_t,
+                     lvl_s: int, lvl_t: int):
+    """Functional form of one lock-step round at levels ``(lvl_s, lvl_t)``
+    (the contract of the JAX ``fused_dual_level``): returns ``(dual_next,
+    dist_s', dist_t', par_s', par_t', cnt_s, cnt_t, md_s, md_t, degsum_s,
+    degsum_t, meet_val, meet_idx)`` with the scalars as ints; the inputs
+    are left untouched."""
+    dev = nbr_t.device
+    ds, dt, ps, pt = (x.clone() for x in (dist_s, dist_t, par_s, par_t))
+    out = torch.zeros(ds.shape[0], dtype=torch.uint8, device=dev)
+    state = _level_state(lvl_s, lvl_t, 1, dev)
+    acc, key = new_scratch(dev)
+    fused_dual_round(nbr_t, deg2, dual_row, out, ds, dt, ps, pt, state, acc, key)
+    return (out, ds, dt, ps, pt, *acc.tolist(), *decode_meet(int(key[0])))
+
+
+def fused_single_level(dual_row, nbr_t, deg2, dist_a, dist_p, par_a,
+                       lvl_a: int, *, bit: int):
+    """Functional form of one alt round advancing side ``bit`` (the
+    contract of the JAX ``fused_single_level``): returns ``(dual_next,
+    dist_a', par_a', cnt, md, degsum, meet_val, meet_idx)``."""
+    dev = nbr_t.device
+    da, pa = dist_a.clone(), par_a.clone()
+    spare = torch.full_like(pa, -1)
+    out = torch.zeros(da.shape[0], dtype=torch.uint8, device=dev)
+    # cnt_s <= cnt_t picks the source side, cnt_s > cnt_t the target side
+    state = _level_state(lvl_a if bit == 0 else 1, lvl_a if bit == 1 else 1,
+                         1 + bit, dev)
+    acc, key = new_scratch(dev)
+    if bit == 0:
+        sides = (da, dist_p, pa, spare)
+    else:
+        sides = (dist_p, da, spare, pa)
+    fused_single_round(nbr_t, deg2, dual_row, out, *sides, state, acc, key)
+    a = acc.tolist()
+    return (out, da, pa, a[bit], a[2 + bit], a[4 + bit],
+            *decode_meet(int(key[0])))

@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+Usage: ``python3 chip_smoke.py`` from the root of a checkout, with one
+NVIDIA Hopper card. It exits non-zero on any failed phase and when CUDA
+is unavailable. Phases:
+
+1. Device and build: the card's name and power limit (``nvidia-smi``),
+   then ``nvcc`` builds the CUDA sources of ``bibfs_tpu_torch/csrc``.
+2. Kernels against their plain torch versions, on the card, at the
+   geometry of phase 3 and at a small ragged one, from a seeded random
+   mid-search state: exact equality, median time per launch (CUDA events,
+   25 launches), the least time the card could take (bytes moved over
+   3.35 TB/s) and the least time any launch takes (an empty kernel,
+   ``launch_floor_ms``), which is the real floor of the one-thread fold.
+3. Main path: G(2^20, 8/2^20) (1,048,576 vertices, about 4.19M edges),
+   plain ELL, 8 seeded pairs plus one src == dst pair, modes sync, alt,
+   beamer, pallas, pallas_alt, fused and fused_alt. Every answer matches
+   the serial oracle and passes ``validate_path``; fused == pallas == sync
+   and fused_alt == pallas_alt == alt exactly on (best, meet, par_s,
+   par_t, levels, edges); fused gives the same result with unroll 1 and 8;
+   every kernel's launch count rises.
+4. Tiered: RMAT scale 20, edge factor 16 (about 15.7M edges); the
+   kernels against their plain versions at its base table, then modes
+   sync, pallas, pallas_alt and fused (which runs as pallas); oracle hops
+   and pallas == sync exactly.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it
+holds the card's name and power limit, and before that the ``kernels``
+JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from bibfs_tpu_torch.graph.csr import build_csr, canonical_pairs
+from bibfs_tpu_torch.graph.generate import gnp_random_graph, rmat_graph
+from bibfs_tpu_torch.ops import _cuda
+from bibfs_tpu_torch.ops import fused_level as fl
+from bibfs_tpu_torch.ops import pull_expand as pe
+from bibfs_tpu_torch.ops.expand import pack_dual
+from bibfs_tpu_torch.solvers import dense
+from bibfs_tpu_torch.solvers.api import validate_path
+from bibfs_tpu_torch.solvers.serial import solve_serial_csr
+
+INF32 = 1 << 30
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+ALU_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (NVIDIA data sheet)
+SLEEP_CYCLES = 2_000_000  # keeps the card busy while the host enqueues a launch
+REPS = 25
+
+KERNELS = {  # wrapper, plain twin, source, the Pallas kernel it replaces
+    "fused_dual_round": (fl.fused_dual_round, fl.fused_dual_round_plain,
+                         "bibfs_tpu_torch/csrc/fused_level.cu",
+                         "bibfs_tpu/ops/pallas_fused.py:145"),
+    "fused_single_round": (fl.fused_single_round, fl.fused_single_round_plain,
+                           "bibfs_tpu_torch/csrc/fused_level.cu",
+                           "bibfs_tpu/ops/pallas_fused.py:249"),
+    "pull_dual": (pe.pull_dual, pe.pull_dual_plain,
+                  "bibfs_tpu_torch/csrc/pull_expand.cu",
+                  "bibfs_tpu/ops/pallas_expand.py:195"),
+    "pull_single": (pe.pull_single, pe.pull_single_plain,
+                    "bibfs_tpu_torch/csrc/pull_expand.cu",
+                    "bibfs_tpu/ops/pallas_expand.py:186"),
+    # not a Pallas kernel: the scalar fixup after each fused round
+    "fold_round": (fl.fold_round, fl.fold_round_plain,
+                   "bibfs_tpu_torch/csrc/fused_level.cu",
+                   "bibfs_tpu/solvers/dense.py:812"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def reset_counts() -> None:
+    for wrapper, *_ in KERNELS.values():
+        wrapper.launches = 0
+
+
+def counts() -> dict:
+    return {name: k[0].launches for name, k in KERNELS.items()}
+
+
+def max_abs_err(a, b) -> int:
+    """Largest absolute difference over matching outputs (ints)."""
+    err = 0
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            check(x.shape == y.shape, f"shape {tuple(x.shape)} != {tuple(y.shape)}")
+            if x.numel():
+                err = max(err, int((x.long() - y.long()).abs().max()))
+        else:
+            err = max(err, abs(int(x) - int(y)))
+    return err
+
+
+def time_launch(fn, prep=None) -> float:
+    """Median ms of one call of ``fn`` over REPS calls (after 2 warm-ups),
+    each between two CUDA events; ``prep`` restores the inputs outside the
+    timed interval, and a sleep kernel keeps the card busy while the host
+    enqueues the call."""
+    times = []
+    for i in range(REPS + 2):
+        if prep is not None:
+            prep()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        if i >= 2:
+            times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def slots_needed(nbr_t, n_rows: int, front, want) -> int:
+    """Table slots a row-at-a-time claim must read for this state: live
+    slots of each row, in order, until every wanted side has a hit."""
+    vals = pe.gather_bits(front, nbr_t, n_rows)
+    live = nbr_t[:, :n_rows] < front.shape[0]
+    want = want.to(torch.uint8)
+    found = torch.zeros(n_rows, dtype=torch.uint8, device=nbr_t.device)
+    read = torch.zeros(n_rows, dtype=torch.int64, device=nbr_t.device)
+    for j in range(nbr_t.shape[0]):
+        going = (found != want) & live[j]
+        read += going.long()
+        found |= torch.where(going, vals[j] & want, 0).to(torch.uint8)
+    return int(read.sum())
+
+
+def mid_search(rng, n: int, rows: int, level: int):
+    """A seeded mid-search side: ~30% of the vertices visited at levels
+    0..level, the frontier being those at ``level``; parents random ids
+    where visited."""
+    dist = np.full(rows, INF32, np.int32)
+    vis = rng.random(n) < 0.3
+    dist[:n][vis] = rng.integers(0, level + 1, int(vis.sum()))
+    par = np.where(dist < INF32, rng.integers(0, n, rows), -1).astype(np.int32)
+    return dist, dist == level, par
+
+
+def kernel_phase(g, seed: int, results: dict | None) -> None:
+    """Each kernel against its plain version on one seeded state of
+    graph ``g``; times and bounds go into ``results`` when given."""
+    dev = g.device
+    rng = np.random.default_rng(seed)
+    n, n_pad = g.n, g.n_pad
+    cu = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+
+    # one table serves all four kernels, as in the solver
+    nbr_t, deg2 = fl.prepare_fused_tables(g.nbr, g.deg)
+    rows = nbr_t.shape[1]
+
+    # kernels 3 and 4
+    ds, frs, _ = mid_search(rng, n, n_pad, 2)
+    dt, frt, _ = mid_search(rng, n, n_pad, 2)
+    fr_s, fr_t = cu(frs), cu(frt)
+    vis_s, vis_t = cu(ds < INF32), cu(dt < INF32)
+    dual = pack_dual(fr_s, fr_t).contiguous()
+    row_bytes = n_pad
+
+    def cmp(name, args, nbytes, ops):
+        wrapper, plain = KERNELS[name][:2]
+        got, want = wrapper(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        check(err == 0, f"{name} differs from its plain version (max {err})")
+        if results is not None:
+            b, by = bound_ms(nbytes, ops)
+            results[name] = dict(
+                max_abs_err=err, ms=time_launch(lambda: wrapper(*args)),
+                plain_ms=time_launch(lambda: plain(*args)),
+                bound_ms=b, bound_by=by,
+            )
+
+    sl = slots_needed(nbr_t, n_pad, dual, (~vis_s).to(torch.uint8) | ((~vis_t).to(torch.uint8) << 1))
+    cmp("pull_dual", (nbr_t, dual, vis_s, vis_t),
+        3 * row_bytes + 4 * sl + 10 * row_bytes, 4 * sl)
+    sl = slots_needed(nbr_t, n_pad, fr_s, ~vis_s)
+    cmp("pull_single", (nbr_t, fr_s, vis_s),
+        2 * row_bytes + 4 * sl + 5 * row_bytes, 4 * sl)
+
+    # kernels 1 and 2 and the fold
+    ds, frs, ps = mid_search(rng, n, rows, 2)
+    dt, frt, pt = mid_search(rng, n, rows, 3)
+    base = dict(
+        dual=pack_dual(cu(frs), cu(frt)).contiguous(),
+        dist_s=cu(ds), dist_t=cu(dt), par_s=cu(ps), par_t=cu(pt),
+    )
+    cnt_s, cnt_t = int(frs.sum()), int(frt.sum())
+    for name, alt, side_s in (("fused_dual_round", False, 0),
+                              ("fused_single_round", True, 0),
+                              ("fused_single_round", True, 1)):
+        st0 = torch.tensor([2, 3, INF32, -1, cnt_s if side_s == 0 else cnt_t + 1,
+                            cnt_t, 0, 0, 5, 7, 9, 11], dtype=torch.int32)
+
+        def fresh():
+            acc, key = fl.new_scratch(dev)
+            return dict(dual_out=torch.zeros(rows, dtype=torch.uint8, device=dev),
+                        dist_s=base["dist_s"].clone(), dist_t=base["dist_t"].clone(),
+                        par_s=base["par_s"].clone(), par_t=base["par_t"].clone(),
+                        state=st0.to(dev), acc=acc, key=key)
+
+        def run(fn, b):
+            fn(nbr_t, deg2, base["dual"], b["dual_out"], b["dist_s"], b["dist_t"],
+               b["par_s"], b["par_t"], b["state"], b["acc"], b["key"])
+
+        wrapper, plain = KERNELS[name][:2]
+        k, p = fresh(), fresh()
+        run(wrapper, k)
+        run(plain, p)
+        torch.cuda.synchronize()
+        outs = ("dual_out", "dist_s", "dist_t", "par_s", "par_t", "acc", "key")
+        err = max_abs_err([k[o] for o in outs], [p[o] for o in outs])
+        check(err == 0, f"{name} (side {side_s}) differs from its plain version")
+        # the fold of this round's reductions, kernel against plain
+        fl.fold_round(k["state"], k["acc"], k["key"], alt=alt)
+        fl.fold_round_plain(p["state"], p["acc"], p["key"], alt=alt)
+        torch.cuda.synchronize()
+        ferr = max_abs_err([k["state"], k["acc"], k["key"]],
+                           [p["state"], p["acc"], p["key"]])
+        check(ferr == 0, f"fold_round (alt={alt}) differs from its plain version")
+        if results is None or name in results:
+            continue
+        sides = (0, 1) if not alt else (side_s,)
+        want = torch.zeros(rows, dtype=torch.uint8, device=dev)
+        for s in sides:
+            want |= ((base["dist_s" if s == 0 else "dist_t"] >= INF32)
+                     .to(torch.uint8) << s)
+        sl = slots_needed(nbr_t, rows, base["dual"], want)
+        new = [int((k[d] != base[d]).sum()) for d in ("dist_s", "dist_t")]
+        nbytes = (8 * rows + 2 * rows + 4 * sl + 4 * sum(new) + 8 * sum(new))
+        work = fresh()
+
+        def prep(fn=None, b=work):
+            for key in ("dist_s", "dist_t", "par_s", "par_t"):
+                b[key].copy_(base[key])
+            b["state"].copy_(st0)
+            b["acc"].zero_()
+            b["key"].fill_(fl.NO_MEET)
+
+        t_k = time_launch(lambda: run(wrapper, work), prep)
+        t_p = time_launch(lambda: run(plain, work), prep)
+        bms, by = bound_ms(nbytes, 4 * sl)
+        results[name] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
+                             bound_ms=bms, bound_by=by)
+        if "fold_round" not in results:
+            def fold_prep(b=work):
+                prep()
+                run(wrapper, b)
+
+            results["fold_round"] = dict(
+                max_abs_err=ferr,
+                ms=time_launch(lambda: fl.fold_round(work["state"], work["acc"],
+                                                     work["key"], alt=False),
+                               fold_prep),
+                plain_ms=time_launch(
+                    lambda: fl.fold_round_plain(work["state"], work["acc"],
+                                                work["key"], alt=False),
+                    fold_prep),
+                # reads and writes the state row, accumulators and key; one
+                # thread, so the launch floor binds long before the bytes
+                bound_ms=2 * (4 * 12 + 4 * 6 + 8) / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes",
+            )
+
+
+def oracle(n, csr, pairs):
+    return [solve_serial_csr(n, csr[0], csr[1], s, d) for s, d in pairs]
+
+
+def raw(g, s, d, mode, unroll=1):
+    best, meet, par_s, par_t, levels, edges = dense._run(g, s, d, mode, unroll, None)
+    return (best, meet, par_s, par_t, levels, edges)
+
+
+def same_raw(a, b) -> bool:
+    return (a[0] == b[0] and a[1] == b[1] and a[4] == b[4] and a[5] == b[5]
+            and torch.equal(a[2], b[2]) and torch.equal(a[3], b[3]))
+
+
+def drive(g, csr, pairs, want, modes, groups, repeats: int) -> list[dict]:
+    """Solve every pair in every mode through ``time_search``; check each
+    against the oracle and ``validate_path``, and each mode of a group
+    against the group's first mode exactly."""
+    rows = []
+    ref = {}
+    for mode in modes:
+        times, teps, syncs, ran = [], [], [], set()
+        for (s, d), w in zip(pairs, want):
+            ts, res = dense.time_search(g, s, d, repeats=repeats, mode=mode)
+            check(res.found == w.found and res.hops == w.hops,
+                  f"{mode} {s}->{d}: hops {res.hops} != oracle {w.hops}")
+            if res.found:
+                check(validate_path(csr, res.path, s, d, hops=res.hops),
+                      f"{mode} {s}->{d}: invalid path")
+            out = raw(g, s, d, mode)
+            check(out[2].shape == (g.n_pad,) and out[3].shape == (g.n_pad,),
+                  f"{mode}: parent rows of the wrong shape")
+            for group in groups:
+                if mode in group:
+                    key = (group[0], s, d)
+                    if mode == group[0]:
+                        ref[key] = out
+                    else:
+                        check(same_raw(out, ref[key]),
+                              f"{mode} != {group[0]} on {s}->{d}")
+            times.append(float(np.median(ts)))
+            teps.append(res.edges_scanned / float(np.median(ts)))
+            syncs.append(res.host_syncs)
+            ran.add(res.mode)
+        rows.append(dict(mode=mode, ran=sorted(ran),
+                         median_search_ms=float(np.median(times)) * 1e3,
+                         median_teps=float(np.median(teps)),
+                         host_syncs_per_solve=float(np.mean(syncs))))
+        print(json.dumps({"phase": "solve", **rows[-1]}), flush=True)
+    return rows
+
+
+def seeded_pairs(rng, candidates, k: int) -> list[tuple[int, int]]:
+    pick = rng.choice(candidates, size=(k, 2))
+    pairs = [(int(a), int(b)) for a, b in pick]
+    return pairs + [(pairs[0][0], pairs[0][0])]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+
+    # phase 1: build
+    t0 = time.perf_counter()
+    build_s = _cuda.build()
+    print(json.dumps({"phase": "build", "nvcc_s": build_s,
+                      "total_s": time.perf_counter() - t0}), flush=True)
+    for name, log in _cuda.build_logs().items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+
+    # the main-path graph: G(2^20, 8/2^20), plain ELL
+    t0 = time.perf_counter()
+    n = 1 << 20
+    edges = gnp_random_graph(n, 8 / n, seed=7)
+    pairs_all = canonical_pairs(n, edges)
+    csr = build_csr(n, pairs=pairs_all)
+    g = dense.DeviceGraph.build(n, edges, layout="ell", device=dev, pairs=pairs_all)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "graph", "name": "gnp-deg8-s20", "n": n,
+                      "edges": int(edges.shape[0]), "width": g.width,
+                      "build_s": time.perf_counter() - t0}), flush=True)
+
+    # phase 2: kernels against their plain versions
+    results: dict = {}
+    kernel_phase(g, seed=11, results=results)
+    n_small = 3001  # a row count that is a multiple of no block
+    e_small = gnp_random_graph(n_small, 3.0 / n_small, seed=5)
+    kernel_phase(dense.DeviceGraph.build(n_small, e_small, device=dev),
+                 seed=12, results=None)
+    # the least time any launch takes: an empty kernel between two events
+    floor_ms = time_launch(lambda: torch.cuda._sleep(0))
+    print(json.dumps({"phase": "kernels_vs_plain", "ok": True,
+                      "launch_floor_ms": floor_ms}), flush=True)
+
+    # phase 3: the main path
+    rng = np.random.default_rng(7)
+    pairs = seeded_pairs(rng, np.arange(n), 8)
+    want = oracle(n, csr, pairs)
+    reset_counts()
+    drive(g, csr, pairs, want,
+          ["sync", "alt", "beamer", "pallas", "pallas_alt", "fused", "fused_alt"],
+          [("sync", "pallas", "fused"), ("alt", "pallas_alt", "fused_alt")],
+          repeats=5)
+    for s, d in pairs:
+        check(same_raw(raw(g, s, d, "fused", 1), raw(g, s, d, "fused", 8)),
+              f"fused unroll 1 != unroll 8 on {s}->{d}")
+    main_counts = counts()
+    print(json.dumps({"phase": "main_path_launches", **main_counts}), flush=True)
+    for name, c in main_counts.items():
+        check(c > 0, f"kernel {name} was not launched on the main path")
+
+    # phase 4: tiered RMAT scale 20
+    del g
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n2, e2 = rmat_graph(20, edge_factor=16, seed=7)
+    p2 = canonical_pairs(n2, e2)
+    csr2 = build_csr(n2, pairs=p2)
+    g2 = dense.DeviceGraph.build(n2, e2, layout="tiered", device=dev, pairs=p2)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "graph", "name": "rmat-s20-ef16", "n": n2,
+                      "edges": int(e2.shape[0]), "width": g2.width,
+                      "tiers": [list(m) for m in g2.tier_meta],
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    # the kernels against their plain versions at the tiered base table
+    kernel_phase(g2, seed=13, results=None)
+    print(json.dumps({"phase": "kernels_vs_plain_tiered", "ok": True}),
+          flush=True)
+    linked = np.flatnonzero(np.diff(csr2[0]) > 0)
+    pairs2 = seeded_pairs(np.random.default_rng(7), linked, 8)
+    want2 = oracle(n2, csr2, pairs2)
+    reset_counts()
+    rows = drive(g2, csr2, pairs2, want2, ["sync", "pallas", "pallas_alt", "fused"],
+                 [("sync", "pallas", "fused")], repeats=3)
+    check(rows[-1]["ran"] == ["pallas"], "tiered fused did not run as pallas")
+    tier_counts = counts()
+    print(json.dumps({"phase": "tiered_launches", **tier_counts}), flush=True)
+    for name in ("pull_dual", "pull_single"):
+        check(tier_counts[name] > 0, f"kernel {name} not launched on the tiered path")
+
+    kernels = []
+    for name, (_w, _p, source, replaces) in KERNELS.items():
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=main_counts[name],
+                            **results[name], library_ms=None,
+                            launch_floor_ms=floor_ms))
+    print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),
+          flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,77 @@
+"""The PyTorch port and chip_smoke.py import neither JAX nor the JAX
+package: checked in a fresh interpreter and by an AST scan."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "bibfs_tpu_torch"
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "bibfs_tpu")
+
+
+def test_fresh_import_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import bibfs_tpu_torch\n"
+        "for m in pkgutil.walk_packages(bibfs_tpu_torch.__path__, 'bibfs_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'bibfs_tpu')]\n"
+        "mods = [m for m in sys.modules if m.startswith('bibfs_tpu_torch.')]\n"
+        "print(len(mods), bad)\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr
+    count = int(out.stdout.split()[0])
+    assert count >= len(list(PORT.rglob("*.py"))) - 1  # every module loaded
+
+
+def test_ast_scan_finds_no_jax_import():
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
+
+
+def test_chip_smoke_alone_fails_without_output(tmp_path):
+    """Copied into a directory with nothing else of the repository,
+    chip_smoke.py exits non-zero and prints no result."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+        text=True, timeout=120, env={"PATH": "/usr/bin:/bin"},
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_without_cuda_fails_without_output():
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+        env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
+             "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

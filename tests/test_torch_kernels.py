@@ -1,0 +1,359 @@
+"""The four level kernels of the PyTorch port: their plain torch versions
+(what a CPU tensor runs) against the Pallas kernels of bibfs_tpu in
+interpret mode, exactly, on seeded random mid-search states; the fold;
+the no-fallback build; and, on a CUDA card only, each CUDA kernel against
+its plain version."""
+
+import numpy as np
+import pytest
+
+INF32 = 1 << 30
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    import torch
+
+    torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _setup(n, avg, seed, kind="random", fr_density=0.05):
+    """Seeded mid-search state over G(n, avg/n): numpy arrays plus the ELL
+    tables. ``kind``: "random", "empty" (no frontier anywhere) or
+    "src_eq_dst" (both searches at one vertex, level 0)."""
+    # the port's builders (array-identical to the reference's, see
+    # test_torch_graph.py), so the CUDA cases need no JAX on the card's host
+    from bibfs_tpu_torch.graph.csr import build_ell
+    from bibfs_tpu_torch.graph.generate import gnp_random_graph
+
+    rng = np.random.default_rng(seed)
+    g = build_ell(n, gnp_random_graph(n, avg / n, seed=seed))
+    n_pad = g.n_pad
+    fr_s = np.zeros(n_pad, bool)
+    fr_t = np.zeros(n_pad, bool)
+    dist_s = np.full(n_pad, INF32, np.int32)
+    dist_t = np.full(n_pad, INF32, np.int32)
+    if kind == "random":
+        fr_s[rng.integers(0, n, max(1, int(n * fr_density)))] = True
+        fr_t[rng.integers(0, n, max(1, int(n * fr_density)))] = True
+        dist_s = np.where(rng.random(n_pad) < 0.1, rng.integers(0, 5, n_pad),
+                          INF32).astype(np.int32)
+        dist_t = np.where(rng.random(n_pad) < 0.1, rng.integers(0, 5, n_pad),
+                          INF32).astype(np.int32)
+        dist_s[fr_s] = 3
+        dist_t[fr_t] = 2
+    elif kind == "src_eq_dst":
+        v = int(rng.integers(0, n))
+        fr_s[v] = fr_t[v] = True
+        dist_s[v] = dist_t[v] = 0
+    dist_s[n:] = INF32
+    dist_t[n:] = INF32
+    par = np.where(dist_s < INF32, rng.integers(0, n, n_pad), -1).astype(np.int32)
+    return g, fr_s, fr_t, dist_s, dist_t, par
+
+
+CASES = [(1_000, 2.2, 0, "random"), (4_000, 3.0, 1, "random"),
+         (3_001, 1.5, 2, "random"),  # a row count that is a multiple of no block
+         (2_000, 2.5, 3, "empty"), (2_000, 2.5, 4, "src_eq_dst")]
+IDS = [f"{c[3]}-{c[0]}-{c[2]}" for c in CASES]
+
+
+def _np(x):
+    return x.numpy() if hasattr(x, "numpy") else np.asarray(x)
+
+
+def _assert_same_live_table(jt, tt, n_rows):
+    """The reference's padded table holds the port's unpadded one: the
+    live region agrees, with the reference's sentinel read as the port's
+    (``n_rows``), and everything outside it is a sentinel."""
+    j, t = _np(jt), _np(tt)
+    width = t.shape[0]
+    assert t.shape == (width, n_rows) and j.shape[0] >= width
+    live = j[:width, :n_rows]
+    assert np.array_equal(np.where(live >= n_rows, n_rows, live), t)
+    assert (j[width:] >= n_rows).all() and (j[:, n_rows:] >= n_rows).all()
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_pull_plain_matches_pallas(case):
+    """Kernels 3 and 4 (plain versions): next frontier exactly; parent
+    where the next frontier is set (the Pallas raw parent is key garbage
+    elsewhere, the port's is -1)."""
+    import jax.numpy as jnp
+    import torch
+
+    from bibfs_tpu.ops import pallas_expand as jpe
+
+    from bibfs_tpu_torch.ops import pull_expand as tpe
+
+    g, fr_s, fr_t, dist_s, dist_t, _par = _setup(*case)
+    (jt,) = jpe.prepare_pallas_tables(jnp.asarray(g.nbr), jnp.asarray(g.deg))
+    (tt,) = tpe.prepare_pallas_tables(torch.as_tensor(g.nbr), torch.as_tensor(g.deg))
+    _assert_same_live_table(jt, tt, g.n_pad)
+    vs, vt = dist_s < INF32, dist_t < INF32
+    nf_j, pc_j = jpe.run_pull((jt,), jnp.asarray(fr_s), jnp.asarray(vs))
+    nf_t, pc_t = tpe.run_pull((tt,), torch.as_tensor(fr_s), torch.as_tensor(vs))
+    nf_j, nf_t = _np(nf_j), _np(nf_t)
+    assert np.array_equal(nf_j, nf_t)
+    assert np.array_equal(_np(pc_j)[nf_j], _np(pc_t)[nf_t])
+    assert (_np(pc_t)[~nf_t] == -1).all()
+    outs_j = [_np(x) for x in jpe.run_pull_dual(
+        (jt,), jnp.asarray(fr_s), jnp.asarray(fr_t), jnp.asarray(vs),
+        jnp.asarray(vt))]
+    outs_t = [_np(x) for x in tpe.run_pull_dual(
+        (tt,), torch.as_tensor(fr_s), torch.as_tensor(fr_t),
+        torch.as_tensor(vs), torch.as_tensor(vt))]
+    for i in (0, 2):
+        assert np.array_equal(outs_j[i], outs_t[i])
+        nf = outs_t[i]
+        assert np.array_equal(outs_j[i + 1][nf], outs_t[i + 1][nf])
+        assert (outs_t[i + 1][~nf] == -1).all()
+    if case[3] == "empty":
+        assert not nf_t.any() and not outs_t[0].any() and not outs_t[2].any()
+
+
+def _state_rows(g, fr_s, fr_t, dist_s, dist_t, par, rows):
+    """The state rows as numpy, padded to ``rows`` with unreached rows."""
+
+    def lift(a, fill):
+        return np.pad(a, (0, rows - g.n_pad), constant_values=fill)
+
+    dual = lift(fr_s.astype(np.int32) | (fr_t.astype(np.int32) << 1), 0)
+    return dict(dual=dual, dist_s=lift(dist_s, INF32),
+                dist_t=lift(dist_t, INF32), par_s=lift(par, -1),
+                par_t=lift(par[::-1].copy(), -1))
+
+
+def _fused_rows(g, fr_s, fr_t, dist_s, dist_t, par):
+    """The port's fused tables (unpadded) and its torch state rows."""
+    import torch
+
+    from bibfs_tpu_torch.ops import fused_level as tfl
+
+    nbr_tt, deg2_t = tfl.prepare_fused_tables(torch.as_tensor(g.nbr),
+                                              torch.as_tensor(g.deg))
+    host = _state_rows(g, fr_s, fr_t, dist_s, dist_t, par, g.n_pad)
+    t = {k: torch.as_tensor(v) for k, v in host.items()}
+    t["dual"] = t["dual"].to(torch.uint8)
+    return nbr_tt, deg2_t, t
+
+
+def _fused_inputs(g, fr_s, fr_t, dist_s, dist_t, par):
+    """Both packages' fused tables and state rows (the reference's padded
+    to its 4096-row tiles); the tables must agree on the live region."""
+    import jax.numpy as jnp
+
+    from bibfs_tpu.ops import pallas_fused as jpf
+
+    nbr_tt, deg2_t, t = _fused_rows(g, fr_s, fr_t, dist_s, dist_t, par)
+    nbr_tj, deg2_j = jpf.prepare_fused_tables(jnp.asarray(g.nbr), jnp.asarray(g.deg))
+    _assert_same_live_table(nbr_tj, nbr_tt, g.n_pad)
+    assert np.array_equal(_np(deg2_j)[0, :g.n_pad], _np(deg2_t))
+    assert not _np(deg2_j)[0, g.n_pad:].any()
+    rows = nbr_tj.shape[1]
+    host = _state_rows(g, fr_s, fr_t, dist_s, dist_t, par, rows)
+    j = {k: jnp.asarray(v).reshape(1, rows) for k, v in host.items()}
+    return (nbr_tj, deg2_j, j), (nbr_tt, deg2_t, t), jpf.key_stride(g.n_pad)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_fused_dual_plain_matches_pallas(case):
+    """Kernel 1 (plain version) against ``fused_dual_level``: every output
+    row in full and every scalar (the meet index where a meet exists)."""
+    import jax.numpy as jnp
+
+    from bibfs_tpu.ops import pallas_fused as jpf
+
+    from bibfs_tpu_torch.ops import fused_level as tfl
+
+    (nj, dj, j), (nt, dt, t), ks = _fused_inputs(*_setup(*case))
+    a = jpf.fused_dual_level(j["dual"], nj, dj, j["dist_s"], j["dist_t"],
+                             j["par_s"], j["par_t"], jnp.int32(4),
+                             jnp.int32(3), ks=ks)
+    b = tfl.fused_dual_level(t["dual"], nt, dt, t["dist_s"], t["dist_t"],
+                             t["par_s"], t["par_t"], 4, 3)
+    for x, y in zip(a[:5], b[:5]):  # the port's rows are the unpadded ones
+        assert np.array_equal(_np(x)[0, :len(y)], _np(y).astype(np.int32))
+    assert [int(x) for x in a[5:12]] == list(b[5:12])
+    if int(a[11]) < INF32:
+        assert int(a[12]) == b[12]
+    else:
+        assert b[12] == -1
+
+
+@pytest.mark.parametrize("bit", [0, 1])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_fused_single_plain_matches_pallas(case, bit):
+    """Kernel 2 (plain version) against ``fused_single_level`` for each
+    advancing side: the passive side's frontier bit passes through."""
+    from bibfs_tpu.ops import pallas_fused as jpf
+
+    from bibfs_tpu_torch.ops import fused_level as tfl
+
+    (nj, dj, j), (nt, dt, t), ks = _fused_inputs(*_setup(*case))
+    act, pas = ("dist_s", "dist_t") if bit == 0 else ("dist_t", "dist_s")
+    par = "par_s" if bit == 0 else "par_t"
+    a = jpf.fused_single_level(j["dual"], nj, dj, j[act], j[pas], j[par], 4,
+                               bit=bit, ks=ks)
+    b = tfl.fused_single_level(t["dual"], nt, dt, t[act], t[pas], t[par], 4,
+                               bit=bit)
+    for x, y in zip(a[:3], b[:3]):
+        assert np.array_equal(_np(x)[0, :len(y)], _np(y).astype(np.int32))
+    assert [int(x) for x in a[3:7]] == list(b[3:7])
+    if int(a[6]) < INF32:
+        assert int(a[7]) == b[7]
+
+
+@pytest.mark.parametrize("alt", [False, True])
+def test_fold_round_plain(alt):
+    """The fold applies one round to the state as the JAX solver's scalar
+    fixup does, then clears the accumulators; an inactive state only has
+    its accumulators cleared."""
+    import torch
+
+    from bibfs_tpu_torch.ops import fused_level as fl
+
+    st0 = [2, 1, 9, 4, 5, 3, 6, 7, 40, 30, 6, 100]
+    state = torch.tensor(st0, dtype=torch.int32)
+    acc = torch.tensor([11, 12, 13, 14, 15, 16], dtype=torch.int32)
+    key = torch.tensor([(5 << 32) | 77], dtype=torch.int64)
+    fl.fold_round(state, acc, key, alt=alt)
+    want = list(st0)
+    want[fl.S["best"]], want[fl.S["meet"]] = 5, 77
+    if alt:  # cnt_s 5 > cnt_t 3: the target side advanced
+        want[fl.S["edges"]] += 30
+        want[fl.S["lvl_t"]] += 1
+        want[fl.S["cnt_t"]], want[fl.S["md_t"]], want[fl.S["ds_t"]] = 12, 14, 16
+        want[fl.S["levels"]] += 1
+    else:
+        want[fl.S["edges"]] += 70
+        want[fl.S["lvl_s"]] += 1
+        want[fl.S["lvl_t"]] += 1
+        want[fl.S["cnt_s"]:fl.S["ds_t"] + 1] = [11, 12, 13, 14, 15, 16]
+        want[fl.S["levels"]] += 2
+    assert state.tolist() == want
+    assert acc.tolist() == [0] * 6 and key.tolist() == [fl.NO_MEET]
+    # a stopped search (lvl_s + lvl_t >= best) is left as it is
+    done = torch.tensor(want, dtype=torch.int32)
+    done[fl.S["best"]] = 3
+    before = done.tolist()
+    acc.fill_(9)
+    key.fill_(1)
+    fl.fold_round(done, acc, key, alt=alt)
+    assert done.tolist() == before
+    assert acc.tolist() == [0] * 6 and key.tolist() == [fl.NO_MEET]
+
+
+def test_meet_key_round_trip():
+    from bibfs_tpu_torch.ops.fused_level import INF32 as FINF
+    from bibfs_tpu_torch.ops.fused_level import NO_MEET, decode_meet
+
+    assert decode_meet(NO_MEET) == (FINF, -1)
+    assert decode_meet(((2 * FINF - 2) << 32) | 123) == (2 * FINF - 2, 123)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """No silent fallback: with no nvcc a kernel library cannot load and
+    the loader raises."""
+    import shutil
+
+    from bibfs_tpu_torch.ops import _cuda
+
+    for p in _cuda.CSRC.glob("*.cu*"):
+        shutil.copy(p, tmp_path / p.name)
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    monkeypatch.setattr(_cuda, "_libs", {})
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    real_exists = _cuda.os.path.exists
+    monkeypatch.setattr(_cuda.os.path, "exists",
+                        lambda p: False if str(p).endswith("nvcc") else real_exists(p))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _cuda.lib("pull_expand")
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_cuda_kernels_match_plain(case, cuda_device):
+    """On a card: each CUDA kernel against its plain version on the same
+    device inputs, exactly, with the launch counters moving."""
+    import torch
+
+    from bibfs_tpu_torch.ops import fused_level as fl
+    from bibfs_tpu_torch.ops import pull_expand as pe
+
+    g, fr_s, fr_t, dist_s, dist_t, par = _setup(*case)
+    dev = cuda_device
+    (nbr_t,) = pe.prepare_pallas_tables(torch.as_tensor(g.nbr).to(dev),
+                                        torch.as_tensor(g.deg).to(dev))
+    f_s = torch.as_tensor(fr_s).to(dev)
+    v_s = torch.as_tensor(dist_s < INF32).to(dev)
+    v_t = torch.as_tensor(dist_t < INF32).to(dev)
+    dual = pe.pack_dual(f_s, torch.as_tensor(fr_t).to(dev)).contiguous()
+    before = pe.pull_single.launches
+    for x, y in zip(pe.pull_single(nbr_t, f_s, v_s),
+                    pe.pull_single_plain(nbr_t, f_s, v_s)):
+        assert torch.equal(x, y)
+    for x, y in zip(pe.pull_dual(nbr_t, dual, v_s, v_t),
+                    pe.pull_dual_plain(nbr_t, dual, v_s, v_t)):
+        assert torch.equal(x, y)
+    assert pe.pull_single.launches == before + 1
+    nt, d2, t = _fused_rows(g, fr_s, fr_t, dist_s, dist_t, par)
+    t = {k: v.to(dev) for k, v in t.items()}
+    nt, d2 = nt.to(dev), d2.to(dev)
+    for alt, cnt_s in ((False, 1), (True, 1), (True, 2)):
+        runs = []
+        for fn in ((fl.fused_single_round, fl.fused_single_round_plain) if alt
+                   else (fl.fused_dual_round, fl.fused_dual_round_plain)):
+            st = torch.tensor([3, 2, INF32, -1, cnt_s, 1, 0, 0, 4, 5, 6, 7],
+                              dtype=torch.int32, device=dev)
+            acc, key = fl.new_scratch(dev)
+            rows = [torch.zeros_like(t["dual"]), t["dist_s"].clone(),
+                    t["dist_t"].clone(), t["par_s"].clone(), t["par_t"].clone()]
+            fn(nt, d2, t["dual"], *rows, st, acc, key)
+            fold = fl.fold_round if fn in (fl.fused_dual_round,
+                                          fl.fused_single_round) else fl.fold_round_plain
+            fold(st, acc, key, alt=alt)
+            runs.append(rows + [st])
+        for x, y in zip(*runs):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ell", "tiered"])
+def test_cuda_solve_matches_cpu(layout, cuda_device):
+    """On a card: every mode's raw outputs through the CUDA kernels equal
+    the plain versions' on the CPU (ragged row count; unroll 3 on the
+    card, 1 on the CPU)."""
+    import torch
+
+    from bibfs_tpu_torch.graph.generate import gnp_random_graph, rmat_graph
+    from bibfs_tpu_torch.solvers import dense as td
+
+    if layout == "tiered":
+        n, edges = rmat_graph(11, edge_factor=8, seed=3)
+    else:
+        n = 3001
+        edges = gnp_random_graph(n, 3.0 / n, seed=2)
+    gc = td.DeviceGraph.build(n, edges, layout=layout, device="cpu")
+    gg = td.DeviceGraph.build(n, edges, layout=layout, device=cuda_device)
+    for mode in td.DENSE_MODES:
+        for s, d in ((0, n - 1), (5, 17), (9, 9)):
+            a = td._run(gc, s, d, mode, 1, None)
+            b = td._run(gg, s, d, mode, 3, None)
+            assert a[0] == b[0] and a[1] == b[1] and a[4:] == b[4:], (mode, s, d)
+            assert torch.equal(a[2], b[2].cpu()) and torch.equal(a[3], b[3].cpu())
+
+
+def test_cuda_marker_is_registered(pytestconfig):
+    markers = pytestconfig.getini("markers")
+    assert any(m.startswith("cuda") for m in markers)

@@ -8,35 +8,70 @@
 // and dense_fused_alt_kernel bodies) and runs on one thread.
 //
 // Bound on the H100: device-memory bytes. A round reads the live slots of
-// the unvisited rows (4 B each, plus a frontier byte each), the dist rows
-// (4 B per side per row) and the frontier row, and writes the next
-// frontier row plus dist and par of each newly reached vertex. The
-// frontier row (1 B per vertex) stays in the 50 MB L2 at 2^20 vertices.
+// the unvisited rows (4 B each) until each wanted side has a hit, their
+// degrees, the dist rows (4 B per side per row) and the frontier bitmaps,
+// and writes the next bitmaps plus dist and par of each newly reached
+// vertex. Integer work (a few operations per slot) is never the bound.
+// The card moves whole 32-byte sectors, and a sector of the slot-major
+// table is one slot of 8 consecutive rows: it is read when any of the 8
+// rows needs that slot, so the bytes moved exceed the slots needed.
 //
-// Design:
-// - One thread per vertex row; the frontier lookup dual_in[nbr_t[j, v]]
-//   happens inside the kernel, behind a bounds check that makes the
-//   sentinel id read as no hit. A side that is already visited is not
-//   looked up, and a row stops at its first sentinel slot.
-// - The first hit slot gives the parent (the lowest-slot rule), so no
-//   slot*KS+nbr key is needed.
-// - dist and par are updated in place: each thread reads and writes only
-//   its own row entry. The frontier row is ping-ponged between two
-//   buffers (dual_in, dual_out), since threads read other rows' bits.
-// - Blocks run in no order, so the TPU's sequential-grid (1,1)
-//   accumulators become a block reduction plus one atomic per block into
-//   `acc` (counts and degree sums by atomicAdd, max degree by atomicMax)
-//   and, for the meet vote, an atomicMin on the 64-bit key
-//   (sum << 32) | vertex: lowest sum first, then lowest id. Integer sums,
-//   mins and maxes are order-free, so the results are deterministic.
-// - The level kernels read lvl + 1 from the state row and return at once
-//   when the search has stopped; the fold applies the round to the state
-//   under the same test and clears the accumulators. A host can so launch
-//   several rounds between reads of the state: rounds past the end do
-//   nothing.
+// The frontier is a bitmap, one bit per vertex per side (uint32 words,
+// bit u & 31 of word u >> 5), in two parity buffers per side:
+// bits[side][lvl & 1] is the frontier at that side's level lvl, read
+// from the state row. A round reads parity lvl & 1 and writes parity
+// (lvl + 1) & 1, so the host swaps nothing, and an alt round leaves the
+// passive side's bitmap where it is.
+//
+// What holds a row-at-a-time claim back, and what each design step does
+// about it:
+// 1. A dependent load chain per thread (slot j, then its frontier word,
+//    then slot j + 1). The claim reads deg[v] once, bounds the row by
+//    min(deg, width) instead of testing a sentinel, and walks it in
+//    chunks of kChunk slots: the chunk's slot loads (coalesced across
+//    the warp, the table being slot-major) are issued together, then its
+//    frontier lookups, then the lowest hit slot per wanted side is taken.
+//    The next chunk is read only while a wanted side has no hit, so a row
+//    reads at most kChunk - 1 slots past its first hit.
+// 2. Many small blocks, each with its own reductions and atomics. The
+//    grid is persistent: as many blocks as the card holds at once, each
+//    warp striding over tiles of 32 consecutive rows and loading its next
+//    tile's dist and deg entries while it claims the current one. Counts,
+//    max degrees, degree sums and the meet key stay in registers across
+//    the loop and are reduced once per block (warp shuffles, one shared
+//    exchange, one set of atomics).
+// 3. A byte per vertex, so each random lookup moves a 32-byte L2 sector
+//    for one useful byte. The bitmap is 8x smaller (128 KB per side at
+//    2^20 vertices), read through the read-only path, and a warp writes
+//    its tile's next frontier as one word per side with __ballot_sync.
+// 4. (single-side kernel) The active side's bitmap is staged into shared
+//    memory at the start of the round by Hopper's bulk asynchronous copy
+//    (cp.async.bulk completing on an mbarrier) when it fits one block's
+//    227 KB (up to about 1.8M rows); every lookup then hits shared
+//    memory. Above that the same template reads it through __ldg.
+//
+// Exactness is that of the reference: the lowest hit slot gives the
+// parent (no slot * KS + nbr key), the meet vote is an atomicMin on the
+// 64-bit key (sum << 32) | vertex (lowest sum, then lowest id), and the
+// counts, maxima and sums are order-free integers, so any grid size and
+// either instantiation of the single-side kernel give the same result.
+//
+// The level kernels read the state row and return at once when the
+// search has stopped; the fold applies the round to the state under the
+// same test and clears the accumulators. A host can so launch several
+// rounds between reads of the state: rounds past the end do nothing.
 #include "level_common.cuh"
 
 using namespace bibfs;
+
+// the staged single-side kernel's copy of the active bitmap
+extern __shared__ __align__(128) uint32_t stage_bits[];
+
+namespace {
+
+constexpr int kChunk = 8;            // slots per chunk of independent loads
+constexpr int kStagedBlock = 1024;   // one block per SM holds a 128 KB bitmap
+constexpr unsigned kBulkBytes = 16384;  // bytes per cp.async.bulk request
 
 __device__ __forceinline__ unsigned long long meet_key(int32_t d_a, int32_t d_b,
                                                        int64_t v) {
@@ -44,120 +79,295 @@ __device__ __forceinline__ unsigned long long meet_key(int32_t d_a, int32_t d_b,
   return ((unsigned long long)(uint32_t)(d_a + d_b) << 32) | (uint32_t)v;
 }
 
-__global__ void __launch_bounds__(kBlock) fused_dual_kernel(
-    const int32_t* __restrict__ nbr_t, int64_t stride, int wp, int64_t n_rows,
-    const int32_t* __restrict__ deg, const uint8_t* __restrict__ dual_in,
-    int64_t id_space, uint8_t* __restrict__ dual_out, int32_t* dist_s,
-    int32_t* dist_t, int32_t* par_s, int32_t* par_t,
-    const int32_t* __restrict__ state, int32_t* acc,
-    unsigned long long* meet) {
-  if (!search_active(state)) return;  // the same answer for every thread
-  const int32_t lvl_s = state[kLvlS] + 1;
-  const int32_t lvl_t = state[kLvlT] + 1;
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int cnt_s = 0, cnt_t = 0, md_s = 0, md_t = 0, ds_s = 0, ds_t = 0;
-  unsigned long long key = kNoMeet;
-  if (v < n_rows) {
-    int32_t d_s = dist_s[v];
-    int32_t d_t = dist_t[v];
-    const unsigned want = (d_s >= kInf ? 1u : 0u) | (d_t >= kInf ? 2u : 0u);
-    int32_t p_s = -1, p_t = -1;
-    unsigned got = 0u;
-    if (want) {
-      got = claim_first_slot(nbr_t, stride, wp, v, dual_in, id_space, want,
-                             &p_s, &p_t);
-    }
-    if (got) {
-      const int32_t dg = deg[v];
-      if (got & 1u) {
-        d_s = lvl_s;
-        dist_s[v] = lvl_s;
-        par_s[v] = p_s;
-        cnt_s = 1; md_s = dg; ds_s = dg;
-      }
-      if (got & 2u) {
-        d_t = lvl_t;
-        dist_t[v] = lvl_t;
-        par_t[v] = p_t;
-        cnt_t = 1; md_t = dg; ds_t = dg;
-      }
-    }
-    dual_out[v] = (uint8_t)got;
-    key = meet_key(d_s, d_t, v);
+__device__ __forceinline__ unsigned long long umin64(unsigned long long a,
+                                                    unsigned long long b) {
+  return a < b ? a : b;
+}
+
+// Frontier word of vertex u: from the staged shared copy, or from device
+// memory through the read-only path.
+template <bool kShared>
+__device__ __forceinline__ uint32_t frontier_word(const uint32_t* __restrict__ bits,
+                                                  int32_t u) {
+  if constexpr (kShared) {
+    return stage_bits[u >> 5];
+  } else {
+    return __ldg(bits + (u >> 5));
   }
-  cnt_s = block_reduce(cnt_s, SumOp{}, 0);
-  cnt_t = block_reduce(cnt_t, SumOp{}, 0);
-  md_s = block_reduce(md_s, MaxOp{}, 0);
-  md_t = block_reduce(md_t, MaxOp{}, 0);
-  ds_s = block_reduce(ds_s, SumOp{}, 0);
-  ds_t = block_reduce(ds_t, SumOp{}, 0);
-  key = block_reduce(key, MinOp{}, kNoMeet);
-  if (threadIdx.x == 0) {
-    if (cnt_s) {
-      atomicAdd(acc + kAccCnt, cnt_s);
-      atomicMax(acc + kAccMd, md_s);
-      atomicAdd(acc + kAccDs, ds_s);
+}
+
+// Row v's claim for kSides frontiers (f0 for want bit 0, f1 for bit 1):
+// the neighbour of the lowest live slot whose frontier bit is set, per
+// wanted side, into *par0 / *par1. `live` = min(deg[v], width) bounds the
+// row, so no sentinel is read; ids outside [0, n_ids) read as no hit.
+// Returns the bits that were found.
+template <int kSides, bool kShared>
+__device__ __forceinline__ unsigned claim_chunked(
+    const int32_t* __restrict__ nbr_t, int64_t stride, int live, int64_t v,
+    const uint32_t* __restrict__ f0, const uint32_t* __restrict__ f1,
+    uint32_t n_ids, unsigned want, int32_t* par0, int32_t* par1) {
+  unsigned got = 0u;
+  for (int c = 0; c < live && got != want; c += kChunk) {
+    int32_t u[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      u[k] = c + k < live ? __ldg(nbr_t + (int64_t)(c + k) * stride + v) : -1;
     }
-    if (cnt_t) {
-      atomicAdd(acc + kAccCnt + 1, cnt_t);
-      atomicMax(acc + kAccMd + 1, md_t);
-      atomicAdd(acc + kAccDs + 1, ds_t);
+    const unsigned need = want & ~got;
+    uint32_t w0[kChunk], w1[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      const bool ok = (uint32_t)u[k] < n_ids;
+      w0[k] = ok && (need & 1u) ? frontier_word<kShared>(f0, u[k]) : 0u;
+      w1[k] = kSides == 2 && ok && (need & 2u)
+                  ? frontier_word<kShared>(f1, u[k]) : 0u;
+    }
+    // descending, so the lowest hit slot writes last
+#pragma unroll
+    for (int k = kChunk - 1; k >= 0; --k) {
+      const unsigned sh = (uint32_t)u[k] & 31u;
+      if ((w0[k] >> sh) & 1u) { *par0 = u[k]; got |= 1u; }
+      if (kSides == 2 && ((w1[k] >> sh) & 1u)) { *par1 = u[k]; got |= 2u; }
+    }
+  }
+  return got;
+}
+
+// One row's dist entries (two sides) and degree, which decide whether
+// and how far the row is walked.
+struct Row {
+  int32_t d0, d1, dg;
+};
+
+// Row v's entries, for the next tile a warp will take: loaded a tile
+// ahead, their latency hides behind the current tile's claim. Rows past
+// n_rows read as unreachable and are never claimed.
+__device__ __forceinline__ Row load_row(const int32_t* d0, const int32_t* d1,
+                                        const int32_t* __restrict__ deg,
+                                        int64_t v, int64_t n_rows) {
+  Row r{kInf, kInf, 0};
+  if (v < n_rows) {
+    r.d0 = d0[v];
+    r.d1 = d1[v];
+    r.dg = __ldg(deg + v);
+  }
+  return r;
+}
+
+// Reduce the block's tally once and make one set of atomics into `acc`
+// and `meet`. t = {cnt_a, cnt_b, md_a, md_b, ds_a, ds_b}: side a lands at
+// acc offset side_a, side b at 1 - side_a. The counts are already
+// warp-uniform (popcounts of the ballots); the rest are per thread.
+template <int kWarps>
+__device__ __forceinline__ void flush_tally(int (&t)[6], unsigned long long key,
+                                            int side_a, int32_t* acc,
+                                            unsigned long long* meet) {
+  __shared__ int part[kWarps][6];
+  __shared__ unsigned long long part_key[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 2; i < 4; ++i) t[i] = warp_reduce(t[i], MaxOp{});
+#pragma unroll
+  for (int i = 4; i < 6; ++i) t[i] = warp_reduce(t[i], SumOp{});
+  key = warp_reduce(key, MinOp{});
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) part[warp][i] = t[i];
+    part_key[warp] = key;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  int x[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) x[i] = lane < kWarps ? part[lane][i] : 0;
+  key = lane < kWarps ? part_key[lane] : kNoMeet;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) x[i] = warp_reduce(x[i], SumOp{});
+#pragma unroll
+  for (int i = 2; i < 4; ++i) x[i] = warp_reduce(x[i], MaxOp{});
+#pragma unroll
+  for (int i = 4; i < 6; ++i) x[i] = warp_reduce(x[i], SumOp{});
+  key = warp_reduce(key, MinOp{});
+  if (lane == 0) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (x[s]) {
+        const int side = s ? 1 - side_a : side_a;
+        atomicAdd(acc + kAccCnt + side, x[s]);
+        atomicMax(acc + kAccMd + side, x[2 + s]);
+        atomicAdd(acc + kAccDs + side, x[4 + s]);
+      }
     }
     if (key != kNoMeet) atomicMin(meet, key);
   }
 }
 
-__global__ void __launch_bounds__(kBlock) fused_single_kernel(
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Copy `bytes` (a multiple of 16, from a 16-byte aligned address) of
+// device memory into stage_bits with cp.async.bulk on one mbarrier, and
+// make every thread of the block wait for it. Called by all threads.
+__device__ __forceinline__ void stage_bitmap(const uint32_t* src, uint32_t bytes,
+                                             unsigned long long* bar) {
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(b), "r"(bytes) : "memory");
+    const uint32_t dst = smem_addr(stage_bits);
+    for (uint32_t off = 0; off < bytes; off += kBulkBytes) {
+      const uint32_t len = bytes - off < kBulkBytes ? bytes - off : kBulkBytes;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];"
+          ::"r"(dst + off), "l"((const char*)src + off), "r"(len), "r"(b)
+          : "memory");
+    }
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.b32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(b), "r"(0u) : "memory");
+  }
+}
+
+// The lock-step round: both sides claim from one read of each row.
+__global__ void __launch_bounds__(kBlock) fused_dual_kernel(
     const int32_t* __restrict__ nbr_t, int64_t stride, int wp, int64_t n_rows,
-    const int32_t* __restrict__ deg, const uint8_t* __restrict__ dual_in,
-    int64_t id_space, uint8_t* __restrict__ dual_out, int32_t* dist_s,
-    int32_t* dist_t, int32_t* par_s, int32_t* par_t,
+    const int32_t* __restrict__ deg, uint32_t* bits, int64_t nw_pad,
+    int32_t* dist_s, int32_t* dist_t, int32_t* par_s, int32_t* par_t,
     const int32_t* __restrict__ state, int32_t* acc,
     unsigned long long* meet) {
+  if (!search_active(state)) return;  // the same answer for every thread
+  const int32_t lvl_s = state[kLvlS];
+  const int32_t lvl_t = state[kLvlT];
+  const uint32_t* in_s = bits + (lvl_s & 1) * nw_pad;
+  const uint32_t* in_t = bits + (2 + (lvl_t & 1)) * nw_pad;
+  uint32_t* out_s = bits + ((lvl_s + 1) & 1) * nw_pad;
+  uint32_t* out_t = bits + (2 + ((lvl_t + 1) & 1)) * nw_pad;
+  constexpr int kWarps = kBlock / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t tiles = (n_rows + 31) >> 5;
+  const int64_t step = (int64_t)gridDim.x * kWarps;
+  int t[6] = {0, 0, 0, 0, 0, 0};
+  unsigned long long key = kNoMeet;
+  int64_t tile = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  Row next = load_row(dist_s, dist_t, deg, (tile << 5) + lane, n_rows);
+  for (; tile < tiles; tile += step) {
+    const int64_t v = (tile << 5) + lane;
+    const Row row = next;
+    next = load_row(dist_s, dist_t, deg, ((tile + step) << 5) + lane, n_rows);
+    unsigned got = 0u;
+    if (v < n_rows) {
+      int32_t d_s = row.d0;
+      int32_t d_t = row.d1;
+      const unsigned want = (d_s >= kInf ? 1u : 0u) | (d_t >= kInf ? 2u : 0u);
+      if (want) {
+        const int32_t dg = row.dg;
+        int32_t p_s = -1, p_t = -1;
+        got = claim_chunked<2, false>(nbr_t, stride, min(dg, wp), v, in_s,
+                                      in_t, (uint32_t)n_rows, want, &p_s, &p_t);
+        if (got & 1u) {
+          d_s = lvl_s + 1;
+          dist_s[v] = d_s;
+          par_s[v] = p_s;
+          t[2] = max(t[2], dg);
+          t[4] += dg;
+        }
+        if (got & 2u) {
+          d_t = lvl_t + 1;
+          dist_t[v] = d_t;
+          par_t[v] = p_t;
+          t[3] = max(t[3], dg);
+          t[5] += dg;
+        }
+      }
+      key = umin64(key, meet_key(d_s, d_t, v));
+    }
+    const unsigned ws = __ballot_sync(0xffffffffu, got & 1u);
+    const unsigned wt = __ballot_sync(0xffffffffu, got & 2u);
+    if (lane == 0) {
+      out_s[tile] = ws;
+      out_t[tile] = wt;
+    }
+    t[0] += __popc(ws);
+    t[1] += __popc(wt);
+  }
+  flush_tally<kWarps>(t, key, 0, acc, meet);
+}
+
+// The alt round: the smaller frontier (the source on a tie), chosen from
+// the state on the device, claims; the other side is only read.
+template <bool kStaged>
+__global__ void __launch_bounds__(kStaged ? kStagedBlock : kBlock)
+fused_single_kernel(const int32_t* __restrict__ nbr_t, int64_t stride, int wp,
+                    int64_t n_rows, const int32_t* __restrict__ deg,
+                    uint32_t* bits, int64_t nw_pad, int32_t* dist_s,
+                    int32_t* dist_t, int32_t* par_s, int32_t* par_t,
+                    const int32_t* __restrict__ state, int32_t* acc,
+                    unsigned long long* meet) {
   if (!search_active(state)) return;
-  // the alt schedule advances the smaller frontier, the source on a tie
   const int side = state[kCntS] <= state[kCntT] ? 0 : 1;
-  const unsigned bit = 1u << side;
-  const unsigned passive = 3u ^ bit;
-  const int32_t lvl = state[kLvlS + side] + 1;
+  const int32_t lvl = state[kLvlS + side];
+  const uint32_t* in = bits + (2 * side + (lvl & 1)) * nw_pad;
+  uint32_t* out = bits + (2 * side + ((lvl + 1) & 1)) * nw_pad;
   int32_t* dist_a = side ? dist_t : dist_s;
   const int32_t* dist_p = side ? dist_s : dist_t;
   int32_t* par_a = side ? par_t : par_s;
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int cnt = 0, md = 0, ds = 0;
+  constexpr int kWarps = (kStaged ? kStagedBlock : kBlock) / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t tiles = (n_rows + 31) >> 5;
+  const int64_t step = (int64_t)gridDim.x * kWarps;
+  int t[6] = {0, 0, 0, 0, 0, 0};
   unsigned long long key = kNoMeet;
-  if (v < n_rows) {
-    int32_t d_a = dist_a[v];
-    const int32_t d_p = dist_p[v];
-    int32_t p[2] = {-1, -1};
+  int64_t tile = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  Row next = load_row(dist_a, dist_p, deg, (tile << 5) + lane, n_rows);
+  if constexpr (kStaged) {  // the first rows load while the bitmap copies
+    __shared__ __align__(8) unsigned long long bar;
+    stage_bitmap(in, (uint32_t)(nw_pad * 4), &bar);
+  }
+  for (; tile < tiles; tile += step) {
+    const int64_t v = (tile << 5) + lane;
+    const Row row = next;
+    next = load_row(dist_a, dist_p, deg, ((tile + step) << 5) + lane, n_rows);
     unsigned got = 0u;
-    if (d_a >= kInf) {
-      got = claim_first_slot(nbr_t, stride, wp, v, dual_in, id_space, bit,
-                             &p[0], &p[1]);
+    if (v < n_rows) {
+      int32_t d_a = row.d0;
+      const int32_t d_p = row.d1;
+      if (d_a >= kInf) {
+        const int32_t dg = row.dg;
+        int32_t p = -1;
+        got = claim_chunked<1, kStaged>(nbr_t, stride, min(dg, wp), v, in,
+                                        nullptr, (uint32_t)n_rows, 1u, &p,
+                                        nullptr);
+        if (got) {
+          d_a = lvl + 1;
+          dist_a[v] = d_a;
+          par_a[v] = p;
+          t[2] = max(t[2], dg);
+          t[4] += dg;
+        }
+      }
+      key = umin64(key, meet_key(d_a, d_p, v));
     }
-    if (got) {
-      const int32_t dg = deg[v];
-      d_a = lvl;
-      dist_a[v] = lvl;
-      par_a[v] = p[side];
-      cnt = 1; md = dg; ds = dg;
-    }
-    dual_out[v] = (uint8_t)((dual_in[v] & passive) | got);
-    key = meet_key(d_a, d_p, v);
+    const unsigned w = __ballot_sync(0xffffffffu, got);
+    if (lane == 0) out[tile] = w;
+    t[0] += __popc(w);
   }
-  cnt = block_reduce(cnt, SumOp{}, 0);
-  md = block_reduce(md, MaxOp{}, 0);
-  ds = block_reduce(ds, SumOp{}, 0);
-  key = block_reduce(key, MinOp{}, kNoMeet);
-  if (threadIdx.x == 0) {
-    if (cnt) {
-      atomicAdd(acc + kAccCnt + side, cnt);
-      atomicMax(acc + kAccMd + side, md);
-      atomicAdd(acc + kAccDs + side, ds);
-    }
-    if (key != kNoMeet) atomicMin(meet, key);
-  }
+  flush_tally<kWarps>(t, key, side, acc, meet);
 }
+
+}  // namespace
 
 // Apply one round's reductions to the state: best = min, meet take,
 // levels += 2 (dual) or 1 (alt), edges += the degree sums of the frontier
@@ -189,47 +399,117 @@ __global__ void fold_round_kernel(int32_t* state, int32_t* acc,
   *meet = kNoMeet;
 }
 
-typedef void (*RoundKernel)(const int32_t*, int64_t, int, int64_t,
-                            const int32_t*, const uint8_t*, int64_t, uint8_t*,
-                            int32_t*, int32_t*, int32_t*, int32_t*,
-                            const int32_t*, int32_t*, unsigned long long*);
+namespace {
 
-static int launch_round(RoundKernel kernel, const void* nbr_t, int64_t stride,
-                        int wp, int64_t n_rows, const void* deg,
-                        const void* dual_in, int64_t id_space, void* dual_out,
-                        void* dist_s, void* dist_t, void* par_s, void* par_t,
-                        const void* state, void* acc, void* meet,
-                        void* stream) {
-  if (n_rows > 0) {
-    kernel<<<grid_for(n_rows), kBlock, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)nbr_t, stride, wp, n_rows, (const int32_t*)deg,
-        (const uint8_t*)dual_in, id_space, (uint8_t*)dual_out,
-        (int32_t*)dist_s, (int32_t*)dist_t, (int32_t*)par_s, (int32_t*)par_t,
-        (const int32_t*)state, (int32_t*)acc, (unsigned long long*)meet);
+typedef void (*RoundKernel)(const int32_t*, int64_t, int, int64_t,
+                            const int32_t*, uint32_t*, int64_t, int32_t*,
+                            int32_t*, int32_t*, int32_t*, const int32_t*,
+                            int32_t*, unsigned long long*);
+
+// Blocks of `kernel` the card holds at once with `dyn` bytes of dynamic
+// shared memory each: SMs x resident blocks per SM, queried at the first
+// launch (and again when the device or `dyn` changes). A staged kernel
+// is also allowed, once, all the dynamic shared memory a block can opt in
+// to.
+struct Resident {
+  int dev = -1;
+  size_t dyn = 0;
+  int blocks = 0;
+  int max_dyn = -1;
+};
+
+int resident_blocks(RoundKernel kernel, int block, size_t dyn, Resident* r,
+                    int* blocks) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev != r->dev || dyn != r->dyn) {
+    if (dyn > 0 && (dev != r->dev || r->max_dyn < 0)) {
+      int optin = 0;
+      cudaFuncAttributes attr;
+      if ((e = cudaDeviceGetAttribute(
+               &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
+          (e = cudaFuncGetAttributes(&attr, (const void*)kernel)))
+        return (int)e;
+      r->max_dyn = optin - (int)attr.sharedSizeBytes;
+      e = cudaFuncSetAttribute((const void*)kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               r->max_dyn);
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (dyn > 0 && (int64_t)dyn > r->max_dyn) return (int)cudaErrorInvalidValue;
+    int sms = 0, per_sm = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                           block, dyn)))
+      return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    r->dev = dev;
+    r->dyn = dyn;
+    r->blocks = sms * per_sm;
   }
+  *blocks = r->blocks;
+  return 0;
+}
+
+// One launch of `kernel` over n_rows rows in tiles of 32 on a persistent
+// grid: the resident block count (or fewer blocks when there are fewer
+// tiles), each warp striding over the tiles.
+int launch_round(RoundKernel kernel, int block, size_t dyn, Resident* r,
+                 const void* nbr_t, int64_t stride, int wp, int64_t n_rows,
+                 const void* deg, void* bits, int64_t nw_pad, void* dist_s,
+                 void* dist_t, void* par_s, void* par_t, const void* state,
+                 void* acc, void* meet, void* stream) {
+  if (n_rows <= 0) return (int)cudaGetLastError();
+  const int64_t tiles = (n_rows + 31) / 32;
+  const int64_t warps = block / 32;
+  int64_t grid = (tiles + warps - 1) / warps;
+  int resident = 0;
+  const int e = resident_blocks(kernel, block, dyn, r, &resident);
+  if (e != 0) return e;
+  if (grid > resident) grid = resident;
+  kernel<<<(unsigned)grid, block, dyn, (cudaStream_t)stream>>>(
+      (const int32_t*)nbr_t, stride, wp, n_rows, (const int32_t*)deg,
+      (uint32_t*)bits, nw_pad, (int32_t*)dist_s, (int32_t*)dist_t,
+      (int32_t*)par_s, (int32_t*)par_t, (const int32_t*)state, (int32_t*)acc,
+      (unsigned long long*)meet);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// Kernel 1.
 extern "C" int bibfs_fused_dual(const void* nbr_t, int64_t stride, int wp,
-                                int64_t n_rows, const void* deg,
-                                const void* dual_in, int64_t id_space,
-                                void* dual_out, void* dist_s, void* dist_t,
+                                int64_t n_rows, const void* deg, void* bits,
+                                int64_t nw_pad, void* dist_s, void* dist_t,
                                 void* par_s, void* par_t, const void* state,
                                 void* acc, void* meet, void* stream) {
-  return launch_round(fused_dual_kernel, nbr_t, stride, wp, n_rows, deg,
-                      dual_in, id_space, dual_out, dist_s, dist_t, par_s,
-                      par_t, state, acc, meet, stream);
+  static Resident r;
+  return launch_round(&fused_dual_kernel, kBlock, 0, &r, nbr_t, stride, wp,
+                      n_rows, deg, bits, nw_pad, dist_s, dist_t, par_s, par_t,
+                      state, acc, meet, stream);
 }
 
+// Kernel 2. staged = 1 copies the active bitmap (nw_pad * 4 bytes) into
+// shared memory first and takes 1024-thread blocks; staged = 0 reads it
+// through __ldg.
 extern "C" int bibfs_fused_single(const void* nbr_t, int64_t stride, int wp,
-                                  int64_t n_rows, const void* deg,
-                                  const void* dual_in, int64_t id_space,
-                                  void* dual_out, void* dist_s, void* dist_t,
+                                  int64_t n_rows, const void* deg, void* bits,
+                                  int64_t nw_pad, void* dist_s, void* dist_t,
                                   void* par_s, void* par_t, const void* state,
-                                  void* acc, void* meet, void* stream) {
-  return launch_round(fused_single_kernel, nbr_t, stride, wp, n_rows, deg,
-                      dual_in, id_space, dual_out, dist_s, dist_t, par_s,
-                      par_t, state, acc, meet, stream);
+                                  void* acc, void* meet, int staged,
+                                  void* stream) {
+  static Resident r, rs;
+  if (staged) {
+    if (nw_pad % 4 != 0) return (int)cudaErrorInvalidValue;
+    return launch_round(&fused_single_kernel<true>, kStagedBlock,
+                        (size_t)nw_pad * 4, &rs, nbr_t, stride, wp, n_rows,
+                        deg, bits, nw_pad, dist_s, dist_t, par_s, par_t,
+                        state, acc, meet, stream);
+  }
+  return launch_round(&fused_single_kernel<false>, kBlock, 0, &r, nbr_t,
+                      stride, wp, n_rows, deg, bits, nw_pad, dist_s, dist_t,
+                      par_s, par_t, state, acc, meet, stream);
 }
 
 extern "C" int bibfs_fold_round(void* state, void* acc, void* meet, int alt,

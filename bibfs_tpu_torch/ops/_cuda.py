@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
-_ROUND = [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+_ROUND = [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P]
 # extern "C" launchers per source; every pointer and the stream are
 # c_void_p, sizes c_int64, small ints c_int; each returns a cudaError_t
 SIGNATURES = {
@@ -41,8 +41,8 @@ SIGNATURES = {
                             _P, _P, _P],
     },
     "fused_level": {
-        "bibfs_fused_dual": _ROUND,
-        "bibfs_fused_single": _ROUND,
+        "bibfs_fused_dual": _ROUND + [_P],
+        "bibfs_fused_single": _ROUND + [_I, _P],
         "bibfs_fold_round": [_P, _P, _P, _I, _P],
     },
 }

@@ -14,16 +14,27 @@ search (modes ``fused`` and ``fused_alt``), plus the one-thread fold.
 The search state never leaves the device: the scalar state is one int32
 row (:data:`STATE_SLOTS`), the per-round reductions go to ``acc int32[6]``
 and a 64-bit meet key ``int64[1]`` (``(sum << 32) | id``; -1, all ones,
-when empty). dist and par rows are updated in place and the dual frontier
-row (uint8, bit 0 = source side, bit 1 = target side) is ping-ponged.
-A round whose search has stopped does nothing, so a host may launch
-several rounds between reads of the state.
+when empty). dist and par rows are updated in place. The frontiers are
+bitmaps, ``bits int32[2, 2, words]`` (:func:`new_frontier`): side, then
+level parity, then little-endian words of 32 vertices (bit ``u & 31`` of
+word ``u >> 5``, as :func:`pack_bits`). Side ``s`` at level ``lvl`` of the
+state row lives in ``bits[s, lvl & 1]``; a round writes the other parity
+of the side it advances, so the host swaps no buffer and an alt round
+leaves the passive side's bitmap in place. A round whose search has
+stopped does nothing, so a host may launch several rounds between reads
+of the state.
+
+The functional forms :func:`fused_dual_level` / :func:`fused_single_level`
+keep the JAX contract (a uint8 dual row in and out: bit 0 source side,
+bit 1 target side) and pack and unpack around one round.
 
 Fit: the port's gates are its own. The kernels have no VMEM budget and
 no parent-key bound (the first hit slot gives the parent, with no
 ``slot * KS + nbr`` key), so any plain ELL table with int32 ids fits; the
 one rule kept is the layout one: tiered graphs run the ``pallas`` modes,
-as in the JAX solver (``solvers/dense.resolve_mode``).
+as in the JAX solver (``solvers/dense.resolve_mode``). The single-side
+kernel stages the active bitmap in shared memory when it fits
+(:func:`stage_fits`) and reads it from device memory otherwise.
 
 CPU tensors run the plain torch twins (``*_plain``); CUDA tensors launch
 the kernels or raise. Each wrapper counts its launches in ``.launches``.
@@ -47,6 +58,10 @@ STATE_SLOTS = ("lvl_s", "lvl_t", "best", "meet", "cnt_s", "cnt_t",
                "md_s", "md_t", "ds_s", "ds_t", "levels", "edges")
 S = {k: i for i, k in enumerate(STATE_SLOTS)}
 _BIG64 = (1 << 63) - 1
+CHUNK = 8  # table slots per chunk of independent loads (kChunk in the kernels)
+# dynamic shared memory the staged single-side kernel may take: a block's
+# 227 KB less 2 KB kept for its static shared memory (1,032 B)
+STAGE_MAX_BYTES = 227 * 1024 - 2048
 
 
 def prepare_fused_tables(nbr, deg) -> tuple:
@@ -55,12 +70,52 @@ def prepare_fused_tables(nbr, deg) -> tuple:
     return sentinel_transposed_table(nbr, deg), deg
 
 
-def dual_seed(src: int, dst: int, n_rows: int, device) -> torch.Tensor:
-    """The initial dual frontier row: bit 0 at ``src``, bit 1 at ``dst``."""
-    z = torch.zeros(n_rows, dtype=torch.uint8, device=device)
-    z[src] = 1
-    z[dst] = 3 if src == dst else 2
-    return z
+def frontier_words(n_rows: int) -> int:
+    """Words per bitmap row: ``ceil(n_rows / 32)`` rounded up to a multiple
+    of 4, so each row is a whole number of 16-byte pieces (the shared-
+    memory staging copies 16-byte aligned pieces)."""
+    return -(-n_rows // 128) * 4
+
+
+def pack_bits(fr, words: int) -> torch.Tensor:
+    """``bool[n]`` as little-endian ``int32[words]`` bitmap words (bit
+    ``k`` of word ``i`` is vertex ``32 i + k``, the bit order of
+    ``bibfs_tpu/parallel/collectives.pack_bits``); the bits past ``n``
+    are zero."""
+    n = fr.shape[0]
+    if words * 32 < n:
+        raise ValueError(f"{words} words cannot hold {n} bits")
+    b = torch.zeros(words * 32, dtype=torch.int64, device=fr.device)
+    b[:n] = fr.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=fr.device)
+    w = (b.view(words, 32) << shifts).sum(dim=1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def unpack_bits(words, n: int) -> torch.Tensor:
+    """The first ``n`` bits of :func:`pack_bits` words as ``bool[n]``."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:n] > 0
+
+
+def new_frontier(src: int, dst: int, n_rows: int, device) -> torch.Tensor:
+    """The search's frontier bitmaps at level 0 of both sides:
+    ``int32[2, 2, frontier_words(n_rows)]`` with ``src`` set in the source
+    side's parity 0 and ``dst`` in the target side's."""
+    # made on the device: a host-built row would cost a blocking copy
+    bits = torch.zeros(2, 2, frontier_words(n_rows), dtype=torch.int32,
+                       device=device)
+    for side, v in ((0, src), (1, dst)):
+        w = 1 << (v & 31)
+        bits[side, 0, v >> 5] = w - (1 << 32) if w >= 1 << 31 else w
+    return bits
+
+
+def stage_fits(words: int) -> bool:
+    """Whether the single-side kernel stages a bitmap row of ``words``
+    words in shared memory (up to about 1.84M rows)."""
+    return words * 4 <= STAGE_MAX_BYTES
 
 
 def new_state(src: int, dst: int, deg) -> torch.Tensor:
@@ -112,77 +167,97 @@ def _fold_side(acc, key, side: int, nf, deg, d_a, d_b):
     key[0] = torch.where(cand == _BIG64, cur, new)
 
 
-def fused_dual_round_plain(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t,
-                           par_s, par_t, state, acc, key):
+def _claim_side(nbr_t, bits, side: int, lvl: int, dist, par):
+    """Plain claim of one side from its bitmap at level ``lvl``: updates
+    ``dist``/``par`` in place, writes the next bitmap into the other parity
+    and returns the new frontier ``bool[n_rows]``."""
+    n_rows = dist.shape[0]
+    front = unpack_bits(bits[side, lvl & 1], n_rows)
+    hit = gather_bits(front, nbr_t, n_rows) > 0
+    nf, p = claim_plain(hit, nbr_t[:, :n_rows], dist >= INF32)
+    dist.copy_(torch.where(nf, lvl + 1, dist))
+    par.copy_(torch.where(nf, p, par))
+    bits[side, (lvl + 1) & 1] = pack_bits(nf, bits.shape[2])
+    return nf
+
+
+def fused_dual_round_plain(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
+                           state, acc, key):
     """Plain twin of :func:`fused_dual_round` (reads the state on the
     host)."""
     st = state.tolist()
     if not active(st):
         return
-    n_rows = dual_out.shape[0]
-    vals = gather_bits(dual_in, nbr_t, n_rows)
-    rows = nbr_t[:, :n_rows]
-    nfs = []
-    for bit, dist, par, lvl in ((0, dist_s, par_s, st[S["lvl_s"]] + 1),
-                                (1, dist_t, par_t, st[S["lvl_t"]] + 1)):
-        nf, p = claim_plain(((vals >> bit) & 1) > 0, rows, dist >= INF32)
-        dist.copy_(torch.where(nf, lvl, dist))
-        par.copy_(torch.where(nf, p, par))
-        nfs.append(nf)
-    dual_out.copy_(nfs[0].to(torch.uint8) | (nfs[1].to(torch.uint8) << 1))
-    _fold_side(acc, key, 0, nfs[0], deg2, dist_s, dist_t)
-    _fold_side(acc, key, 1, nfs[1], deg2, dist_s, dist_t)
+    nf_s = _claim_side(nbr_t, bits, 0, st[S["lvl_s"]], dist_s, par_s)
+    nf_t = _claim_side(nbr_t, bits, 1, st[S["lvl_t"]], dist_t, par_t)
+    _fold_side(acc, key, 0, nf_s, deg2, dist_s, dist_t)
+    _fold_side(acc, key, 1, nf_t, deg2, dist_s, dist_t)
 
 
-def check_round(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t, par_s,
-                par_t, state, acc, key) -> None:
+def check_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t, state, acc,
+                key) -> None:
     """Validate the buffers of a round on the card (shapes, dtypes, one
-    device, contiguous). A search checks its
-    buffers once and then launches with ``checked=True``."""
+    device, contiguous). A search checks its buffers once and then
+    launches with ``checked=True``."""
     _check_table(nbr_t)
-    n_rows = dual_out.shape[0]
+    n_rows = nbr_t.shape[1]
     rows = (deg2, dist_s, dist_t, par_s, par_t)
-    if any(r.shape[0] != n_rows for r in rows) or n_rows > nbr_t.shape[1]:
-        raise ValueError("deg/dist/par/dual_out rows must match and fit the table")
-    if dual_in.shape[0] < n_rows:
-        raise ValueError("dual_in must span at least the table's rows")
+    if any(r.shape[0] != n_rows for r in rows):
+        raise ValueError("deg/dist/par rows must match the table's rows")
+    if bits.shape != (2, 2, frontier_words(n_rows)):
+        raise ValueError("bits must be [2, 2, frontier_words(n_rows)] "
+                         "(new_frontier)")
     if state.shape[0] < len(STATE_SLOTS) or acc.shape[0] < 6 or key.shape[0] < 1:
         raise ValueError("state/acc/key are too short")
-    _cuda.check_dtype(torch.uint8, dual_in=dual_in, dual_out=dual_out)
-    _cuda.check_dtype(torch.int32, deg2=deg2, dist_s=dist_s, dist_t=dist_t,
-                      par_s=par_s, par_t=par_t, state=state, acc=acc)
+    _cuda.check_dtype(torch.int32, bits=bits, deg2=deg2, dist_s=dist_s,
+                      dist_t=dist_t, par_s=par_s, par_t=par_t, state=state,
+                      acc=acc)
     _cuda.check_dtype(torch.int64, key=key)
-    _cuda.check_cuda(nbr_t.device, nbr_t=nbr_t, deg2=deg2, dual_in=dual_in,
-                     dual_out=dual_out, dist_s=dist_s, dist_t=dist_t,
-                     par_s=par_s, par_t=par_t, state=state, acc=acc, key=key)
+    _cuda.check_cuda(nbr_t.device, nbr_t=nbr_t, deg2=deg2, bits=bits,
+                     dist_s=dist_s, dist_t=dist_t, par_s=par_s, par_t=par_t,
+                     state=state, acc=acc, key=key)
 
 
-def _launch_round(fn: str, checked: bool, nbr_t, deg2, dual_in, dual_out,
-                  dist_s, dist_t, par_s, par_t, state, acc, key):
+def _launch_round(fn: str, checked: bool, nbr_t, deg2, bits, dist_s, dist_t,
+                  par_s, par_t, state, acc, key, *flags: int) -> None:
+    """Launch one round kernel; ``flags`` are the launcher's trailing ints
+    (the single-side kernel's ``staged``)."""
     if not checked:
-        check_round(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t, par_s,
-                    par_t, state, acc, key)
+        check_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t, state,
+                    acc, key)
     _cuda.launch(
         "fused_level", fn, nbr_t.data_ptr(), nbr_t.stride(0), nbr_t.shape[0],
-        dual_out.shape[0], deg2.data_ptr(), dual_in.data_ptr(), dual_in.shape[0],
-        dual_out.data_ptr(), dist_s.data_ptr(), dist_t.data_ptr(),
-        par_s.data_ptr(), par_t.data_ptr(), state.data_ptr(),
-        acc.data_ptr(), key.data_ptr(),
+        nbr_t.shape[1], deg2.data_ptr(), bits.data_ptr(), bits.shape[2],
+        dist_s.data_ptr(), dist_t.data_ptr(), par_s.data_ptr(),
+        par_t.data_ptr(), state.data_ptr(), acc.data_ptr(), key.data_ptr(),
+        *flags,
     )
 
 
-def fused_dual_round(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t, par_s,
-                     par_t, state, acc, key, *, checked: bool = False) -> None:
+def _single_round_unstaged(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
+                           state, acc, key) -> None:
+    """The single-side kernel's unstaged instantiation (the bitmap read
+    through ``__ldg``), which :func:`fused_single_round` takes only where
+    the bitmap does not fit shared memory; ``chip_smoke.py`` and the CUDA
+    test hold it against the plain twin where the wrapper stages. Not
+    counted in ``.launches``; the search never calls it."""
+    _launch_round("bibfs_fused_single", False, nbr_t, deg2, bits, dist_s,
+                  dist_t, par_s, par_t, state, acc, key, 0)
+
+
+def fused_dual_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t, state,
+                     acc, key, *, checked: bool = False) -> None:
     """One lock-step round for both sides, in place: claims the next
-    frontier into ``dual_out`` and dist/par, and accumulates counts, max
-    degrees, degree sums and the meet vote into ``acc``/``key``. Does
-    nothing when the state says the search has stopped. ``checked`` skips
-    the validation a caller has already run (:func:`check_round`)."""
+    frontiers into the other parity of ``bits`` and into dist/par, and
+    accumulates counts, max degrees, degree sums and the meet vote into
+    ``acc``/``key``. Does nothing when the state says the search has
+    stopped. ``checked`` skips the validation a caller has already run
+    (:func:`check_round`)."""
     if not nbr_t.is_cuda:
-        return fused_dual_round_plain(nbr_t, deg2, dual_in, dual_out, dist_s,
-                                      dist_t, par_s, par_t, state, acc, key)
-    _launch_round("bibfs_fused_dual", checked, nbr_t, deg2, dual_in,
-                  dual_out, dist_s, dist_t, par_s, par_t, state, acc, key)
+        return fused_dual_round_plain(nbr_t, deg2, bits, dist_s, dist_t,
+                                      par_s, par_t, state, acc, key)
+    _launch_round("bibfs_fused_dual", checked, nbr_t, deg2, bits, dist_s,
+                  dist_t, par_s, par_t, state, acc, key)
     fused_dual_round.launches += 1
 
 
@@ -195,8 +270,8 @@ def _alt_side(st: list) -> int:
     return 0 if st[S["cnt_s"]] <= st[S["cnt_t"]] else 1
 
 
-def fused_single_round_plain(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t,
-                             par_s, par_t, state, acc, key):
+def fused_single_round_plain(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
+                             state, acc, key):
     """Plain twin of :func:`fused_single_round`."""
     st = state.tolist()
     if not active(st):
@@ -204,28 +279,22 @@ def fused_single_round_plain(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t,
     side = _alt_side(st)
     dist_a, dist_p = (dist_s, dist_t) if side == 0 else (dist_t, dist_s)
     par_a = par_s if side == 0 else par_t
-    n_rows = dual_out.shape[0]
-    vals = gather_bits(dual_in, nbr_t, n_rows)
-    nf, p = claim_plain(((vals >> side) & 1) > 0, nbr_t[:, :n_rows],
-                        dist_a >= INF32)
-    dist_a.copy_(torch.where(nf, st[S["lvl_s"] + side] + 1, dist_a))
-    par_a.copy_(torch.where(nf, p, par_a))
-    passive = 3 ^ (1 << side)
-    dual_out.copy_((dual_in[:n_rows] & passive) | (nf.to(torch.uint8) << side))
+    nf = _claim_side(nbr_t, bits, side, st[S["lvl_s"] + side], dist_a, par_a)
     _fold_side(acc, key, side, nf, deg2, dist_a, dist_p)
 
 
-def fused_single_round(nbr_t, deg2, dual_in, dual_out, dist_s, dist_t, par_s,
-                       par_t, state, acc, key, *, checked: bool = False) -> None:
+def fused_single_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
+                       state, acc, key, *, checked: bool = False) -> None:
     """One alt round, in place, for the side the state picks (the smaller
-    frontier): the other side's frontier bit passes through and its rows
-    are only read (for the meet vote)."""
+    frontier): the other side's bitmap stays where it is and its rows are
+    only read (for the meet vote). The kernel stages the active bitmap in
+    shared memory when :func:`stage_fits`."""
     if not nbr_t.is_cuda:
-        return fused_single_round_plain(nbr_t, deg2, dual_in, dual_out,
-                                        dist_s, dist_t, par_s, par_t, state,
-                                        acc, key)
-    _launch_round("bibfs_fused_single", checked, nbr_t, deg2, dual_in,
-                  dual_out, dist_s, dist_t, par_s, par_t, state, acc, key)
+        return fused_single_round_plain(nbr_t, deg2, bits, dist_s, dist_t,
+                                        par_s, par_t, state, acc, key)
+    _launch_round("bibfs_fused_single", checked, nbr_t, deg2, bits, dist_s,
+                  dist_t, par_s, par_t, state, acc, key,
+                  int(stage_fits(bits.shape[2])))
     fused_single_round.launches += 1
 
 
@@ -280,6 +349,24 @@ def _level_state(lvl_s: int, lvl_t: int, cnt_s: int, device) -> torch.Tensor:
     return st.to(device)
 
 
+def _bits_of_row(dual_row, lvl_s: int, lvl_t: int, n_rows: int):
+    """The bitmaps of a uint8 dual row whose sides are at levels
+    ``(lvl_s, lvl_t)`` of the state row."""
+    bits = torch.zeros(2, 2, frontier_words(n_rows), dtype=torch.int32,
+                       device=dual_row.device)
+    for side, lvl in ((0, lvl_s), (1, lvl_t)):
+        fr = ((dual_row[:n_rows] >> side) & 1) > 0
+        bits[side, lvl & 1] = pack_bits(fr, bits.shape[2])
+    return bits
+
+
+def _row_of_bits(bits, lvl_s: int, lvl_t: int, n_rows: int):
+    """The uint8 dual row of the bitmaps at levels ``(lvl_s, lvl_t)``."""
+    fs = unpack_bits(bits[0, lvl_s & 1], n_rows).to(torch.uint8)
+    ft = unpack_bits(bits[1, lvl_t & 1], n_rows).to(torch.uint8)
+    return fs | (ft << 1)
+
+
 def fused_dual_level(dual_row, nbr_t, deg2, dist_s, dist_t, par_s, par_t,
                      lvl_s: int, lvl_t: int):
     """Functional form of one lock-step round at levels ``(lvl_s, lvl_t)``
@@ -289,10 +376,12 @@ def fused_dual_level(dual_row, nbr_t, deg2, dist_s, dist_t, par_s, par_t,
     are left untouched."""
     dev = nbr_t.device
     ds, dt, ps, pt = (x.clone() for x in (dist_s, dist_t, par_s, par_t))
-    out = torch.zeros(ds.shape[0], dtype=torch.uint8, device=dev)
+    n_rows = ds.shape[0]
+    bits = _bits_of_row(dual_row, lvl_s - 1, lvl_t - 1, n_rows)
     state = _level_state(lvl_s, lvl_t, 1, dev)
     acc, key = new_scratch(dev)
-    fused_dual_round(nbr_t, deg2, dual_row, out, ds, dt, ps, pt, state, acc, key)
+    fused_dual_round(nbr_t, deg2, bits, ds, dt, ps, pt, state, acc, key)
+    out = _row_of_bits(bits, lvl_s, lvl_t, n_rows)
     return (out, ds, dt, ps, pt, *acc.tolist(), *decode_meet(int(key[0])))
 
 
@@ -300,20 +389,27 @@ def fused_single_level(dual_row, nbr_t, deg2, dist_a, dist_p, par_a,
                        lvl_a: int, *, bit: int):
     """Functional form of one alt round advancing side ``bit`` (the
     contract of the JAX ``fused_single_level``): returns ``(dual_next,
-    dist_a', par_a', cnt, md, degsum, meet_val, meet_idx)``."""
+    dist_a', par_a', cnt, md, degsum, meet_val, meet_idx)``; the passive
+    side's frontier bits pass through."""
     dev = nbr_t.device
     da, pa = dist_a.clone(), par_a.clone()
     spare = torch.full_like(pa, -1)
-    out = torch.zeros(da.shape[0], dtype=torch.uint8, device=dev)
-    # cnt_s <= cnt_t picks the source side, cnt_s > cnt_t the target side
-    state = _level_state(lvl_a if bit == 0 else 1, lvl_a if bit == 1 else 1,
-                         1 + bit, dev)
+    n_rows = da.shape[0]
+    # cnt_s <= cnt_t picks the source side, cnt_s > cnt_t the target side;
+    # the passive side sits at level 1
+    lvl_s, lvl_t = (lvl_a, 1) if bit == 0 else (1, lvl_a)
+    bits = _bits_of_row(dual_row, lvl_s - 1, lvl_t - 1, n_rows)
+    state = _level_state(lvl_s, lvl_t, 1 + bit, dev)
     acc, key = new_scratch(dev)
     if bit == 0:
         sides = (da, dist_p, pa, spare)
     else:
         sides = (dist_p, da, spare, pa)
-    fused_single_round(nbr_t, deg2, dual_row, out, *sides, state, acc, key)
+    fused_single_round(nbr_t, deg2, bits, *sides, state, acc, key)
+    if bit == 0:
+        out = _row_of_bits(bits, lvl_s, lvl_t - 1, n_rows)
+    else:
+        out = _row_of_bits(bits, lvl_s - 1, lvl_t, n_rows)
     a = acc.tolist()
     return (out, da, pa, a[bit], a[2 + bit], a[4 + bit],
             *decode_meet(int(key[0])))

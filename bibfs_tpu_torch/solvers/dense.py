@@ -134,10 +134,25 @@ class DeviceGraph:
         raise ValueError(f"unknown layout {layout!r} (expected 'ell' or 'tiered')")
 
 
-def _auto_push_cap(n_pad: int) -> int:
-    """Frontier size below which push beats pull: the uncalibrated rule,
+def _auto_push_cap(n_pad: int, platform: str) -> int:
+    """Frontier size below which push beats pull, as the reference
+    computes it. With a calibration block for ``platform`` (``cpu`` or
+    ``cuda``, :func:`bibfs_tpu_torch.utils.calibrate.load_calibration`):
+    ``n_pad // push_cap_divisor`` rounded down to a power of two, clamped
+    to ``[128, 4096]`` and to ``n_pad``, and 0 (pull only) where the block
+    measured that push never wins. Otherwise the uncalibrated rule:
     ``n_pad / 256`` rounded up to a power of two, clamped to
     ``[128, 2048]`` and to ``n_pad``."""
+    from bibfs_tpu_torch.utils.calibrate import load_calibration
+
+    cal = load_calibration(platform) or {}
+    if "push_cap" in cal:
+        if not cal["push_cap"]:
+            return 0
+        divisor = cal.get("push_cap_divisor")
+        if isinstance(divisor, int) and divisor > 0:
+            cap = 1 << max(7, (n_pad // divisor).bit_length() - 1)
+            return int(min(4096, cap, max(128, n_pad)))
     cap = 1 << max(7, (n_pad // 256).bit_length())
     return int(min(2048, cap, max(128, n_pad)))
 
@@ -163,10 +178,10 @@ DENSE_MODES = {
 _LAYOUT_ROUTE = {"fused": "pallas", "fused_alt": "pallas_alt"}
 
 
-def kernel_cap(mode: str, n_pad: int) -> int:
-    """The push cap of (mode, graph): the auto cap for Beamer modes, 0 for
-    pull-only modes."""
-    return _auto_push_cap(n_pad) if DENSE_MODES[mode][1] else 0
+def kernel_cap(mode: str, n_pad: int, platform: str) -> int:
+    """The push cap of (mode, graph, platform of the graph's tensors): the
+    auto cap for Beamer modes, 0 for pull-only modes."""
+    return _auto_push_cap(n_pad, platform) if DENSE_MODES[mode][1] else 0
 
 
 def _resolve_pallas_mode(mode: str) -> str:
@@ -432,10 +447,10 @@ def _build_fused_kernel(tier_meta: tuple = (), unroll: int = 1, *,
         S,
         active,
         check_round,
-        dual_seed,
         fold_round,
         fused_dual_round,
         fused_single_round,
+        new_frontier,
         new_scratch,
         new_state,
     )
@@ -456,19 +471,18 @@ def _build_fused_kernel(tier_meta: tuple = (), unroll: int = 1, *,
         dist_t[dst] = 0
         par_s = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
         par_t = par_s.clone()
-        dual = [dual_seed(src, dst, n_pad, dev),
-                torch.empty(n_pad, dtype=torch.uint8, device=dev)]
+        # each side's frontier bitmap sits at its level's parity
+        bits = new_frontier(src, dst, n_pad, dev)
         state = new_state(src, dst, deg)
         acc, key = new_scratch(dev)
         if dev.type == "cuda":  # the buffers of every round, checked once
-            check_round(nbr_t, deg, dual[0], dual[1], dist_s, dist_t, par_s,
-                        par_t, state, acc, key)
+            check_round(nbr_t, deg, bits, dist_s, dist_t, par_s, par_t,
+                        state, acc, key)
         while True:
             for _ in range(unroll):
-                round_fn(nbr_t, deg, dual[0], dual[1], dist_s, dist_t,
-                         par_s, par_t, state, acc, key, checked=True)
+                round_fn(nbr_t, deg, bits, dist_s, dist_t, par_s, par_t,
+                         state, acc, key, checked=True)
                 fold_round(state, acc, key, alt=alt, checked=True)
-                dual.reverse()
             sc = state.tolist()
             if stats is not None:
                 stats["host_syncs"] += 1
@@ -531,7 +545,8 @@ def _check_pair(g: DeviceGraph, src: int, dst: int) -> None:
 
 
 def _run(g: DeviceGraph, src: int, dst: int, mode: str, unroll: int, stats):
-    kern = _get_kernel(mode, kernel_cap(mode, g.n_pad), g.tier_meta, unroll)
+    kern = _get_kernel(mode, kernel_cap(mode, g.n_pad, g.device.type),
+                       g.tier_meta, unroll)
     return kern(g.nbr, g.deg, g.aux, src, dst, cache=g.tables, stats=stats)
 
 

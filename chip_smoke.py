@@ -13,6 +13,10 @@ is unavailable. Phases:
    25 launches), the least time the card could take (bytes moved over
    3.35 TB/s) and the least time any launch takes (an empty kernel,
    ``launch_floor_ms``), which is the real floor of the one-thread fold.
+   Both instantiations of kernel 2, staged (the wrapper) and unstaged
+   (:data:`UNSTAGED`), are held against the plain twin and timed, one
+   ``step`` line each (kernel 1 has one), with an estimate of the table
+   sectors the claim touches (``est_sector_mb``, from the inputs).
 3. Main path: G(2^20, 8/2^20) (1,048,576 vertices, about 4.19M edges),
    plain ELL, 8 seeded pairs plus one src == dst pair, modes sync, alt,
    beamer, pallas, pallas_alt, fused and fused_alt. Every answer matches
@@ -74,6 +78,11 @@ KERNELS = {  # wrapper, plain twin, source, the Pallas kernel it replaces
                    "bibfs_tpu_torch/csrc/fused_level.cu",
                    "bibfs_tpu/solvers/dense.py:812"),
 }
+
+
+# the unstaged instantiation of kernel 2, which the wrapper takes only
+# where the bitmap does not fit shared memory (not counted in .launches)
+UNSTAGED = fl._single_round_unstaged
 
 
 def fail(msg: str) -> None:
@@ -150,6 +159,30 @@ def slots_needed(nbr_t, n_rows: int, front, want) -> int:
     return int(read.sum())
 
 
+def sector_bytes(nbr_t, n_rows: int, front, want, chunk: int) -> int:
+    """Table bytes a claim in chunks of ``chunk`` slots pulls from device
+    memory on this state, counted in 32-byte sectors (one slot of 8
+    consecutive rows in the slot-major table): a row reads whole chunks
+    of its live slots until every wanted side has a hit, and a sector is
+    read when any of its 8 rows reads that slot."""
+    width = nbr_t.shape[0]
+    vals = pe.gather_bits(front, nbr_t, n_rows)
+    live = nbr_t[:, :n_rows] < front.shape[0]
+    want = want.to(torch.uint8)
+    found = torch.zeros_like(want)
+    read = torch.zeros(n_rows, dtype=torch.int64, device=nbr_t.device)
+    for c in range(0, width, chunk):
+        going = found != want
+        hits = torch.zeros_like(want)
+        for j in range(c, min(c + chunk, width)):
+            read += going & live[j]
+            hits |= torch.where(live[j], vals[j] & want, 0).to(torch.uint8)
+        found |= torch.where(going, hits, 0).to(torch.uint8)
+    touched = torch.arange(width, device=nbr_t.device)[:, None] < read[None, :]
+    touched = torch.nn.functional.pad(touched, (0, -n_rows % 8))
+    return int(touched.view(width, -1, 8).any(2).sum()) * 32
+
+
 def mid_search(rng, n: int, rows: int, level: int):
     """A seeded mid-search side: ~30% of the vertices visited at levels
     0..level, the frontier being those at ``level``; parents random ids
@@ -202,11 +235,13 @@ def kernel_phase(g, seed: int, results: dict | None) -> None:
     cmp("pull_single", (nbr_t, fr_s, vis_s),
         2 * row_bytes + 4 * sl + 5 * row_bytes, 4 * sl)
 
-    # kernels 1 and 2 and the fold
+    # kernels 1 and 2 and the fold; the frontiers are bitmaps at the
+    # parity of each side's level (source side at level 2, target at 3)
     ds, frs, ps = mid_search(rng, n, rows, 2)
     dt, frt, pt = mid_search(rng, n, rows, 3)
+    dual = pack_dual(cu(frs), cu(frt)).contiguous()
     base = dict(
-        dual=pack_dual(cu(frs), cu(frt)).contiguous(),
+        bits=fl._bits_of_row(dual, 2, 3, rows),
         dist_s=cu(ds), dist_t=cu(dt), par_s=cu(ps), par_t=cu(pt),
     )
     cnt_s, cnt_t = int(frs.sum()), int(frt.sum())
@@ -218,23 +253,30 @@ def kernel_phase(g, seed: int, results: dict | None) -> None:
 
         def fresh():
             acc, key = fl.new_scratch(dev)
-            return dict(dual_out=torch.zeros(rows, dtype=torch.uint8, device=dev),
+            return dict(bits=base["bits"].clone(),
                         dist_s=base["dist_s"].clone(), dist_t=base["dist_t"].clone(),
                         par_s=base["par_s"].clone(), par_t=base["par_t"].clone(),
                         state=st0.to(dev), acc=acc, key=key)
 
         def run(fn, b):
-            fn(nbr_t, deg2, base["dual"], b["dual_out"], b["dist_s"], b["dist_t"],
+            fn(nbr_t, deg2, b["bits"], b["dist_s"], b["dist_t"],
                b["par_s"], b["par_t"], b["state"], b["acc"], b["key"])
 
         wrapper, plain = KERNELS[name][:2]
-        k, p = fresh(), fresh()
-        run(wrapper, k)
+        p = fresh()
         run(plain, p)
-        torch.cuda.synchronize()
-        outs = ("dual_out", "dist_s", "dist_t", "par_s", "par_t", "acc", "key")
-        err = max_abs_err([k[o] for o in outs], [p[o] for o in outs])
-        check(err == 0, f"{name} (side {side_s}) differs from its plain version")
+        outs = ("bits", "dist_s", "dist_t", "par_s", "par_t", "acc", "key")
+        # kernel 1, or kernel 2 unstaged and then through the wrapper (which
+        # stages, as every geometry here fits), each exactly against the
+        # plain twin; the fold below takes the wrapper's round
+        for label, fn in ([("unstaged", UNSTAGED)] if alt else []) + [
+                ("wrapper", wrapper)]:
+            k = fresh()
+            run(fn, k)
+            torch.cuda.synchronize()
+            err = max_abs_err([k[o] for o in outs], [p[o] for o in outs])
+            check(err == 0, f"{name} ({label}, side {side_s}) differs from "
+                  "its plain version")
         # the fold of this round's reductions, kernel against plain
         fl.fold_round(k["state"], k["acc"], k["key"], alt=alt)
         fl.fold_round_plain(p["state"], p["acc"], p["key"], alt=alt)
@@ -249,12 +291,14 @@ def kernel_phase(g, seed: int, results: dict | None) -> None:
         for s in sides:
             want |= ((base["dist_s" if s == 0 else "dist_t"] >= INF32)
                      .to(torch.uint8) << s)
-        sl = slots_needed(nbr_t, rows, base["dual"], want)
+        sl = slots_needed(nbr_t, rows, dual, want)
         new = [int((k[d] != base[d]).sum()) for d in ("dist_s", "dist_t")]
-        nbytes = (8 * rows + 2 * rows + 4 * sl + 4 * sum(new) + 8 * sum(new))
+        # each advancing side reads its frontier bitmap and writes the next
+        bitmaps = 2 * len(sides) * 4 * ((rows + 31) // 32)
+        nbytes = 8 * rows + bitmaps + 4 * sl + 4 * sum(new) + 8 * sum(new)
         work = fresh()
 
-        def prep(fn=None, b=work):
+        def prep(b=work):
             for key in ("dist_s", "dist_t", "par_s", "par_t"):
                 b[key].copy_(base[key])
             b["state"].copy_(st0)
@@ -264,8 +308,22 @@ def kernel_phase(g, seed: int, results: dict | None) -> None:
         t_k = time_launch(lambda: run(wrapper, work), prep)
         t_p = time_launch(lambda: run(plain, work), prep)
         bms, by = bound_ms(nbytes, 4 * sl)
+        steps = ({"persistent": time_launch(lambda: run(UNSTAGED, work), prep),
+                  "staged": t_k} if alt else {"persistent": t_k})
+        # estimates from this state, not measured: the whole table sectors
+        # a claim touches in chunks of CHUNK slots and in a row-at-a-time
+        # chain, plus the dist rows of both sides and the degree row
+        est = {c: sector_bytes(nbr_t, rows, dual, want, c) + 12 * rows
+               for c in (1, fl.CHUNK)}
+        for step, ms in steps.items():
+            print(json.dumps({"phase": "step", "kernel": name, "step": step,
+                              "ms": ms, "bound_ms": bms,
+                              "est_sector_mb": est[fl.CHUNK] / 1e6,
+                              "est_sector_mb_chain": est[1] / 1e6,
+                              "est_sector_tb_per_s": est[fl.CHUNK] / ms / 1e9}),
+                  flush=True)
         results[name] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
-                             bound_ms=bms, bound_by=by)
+                             bound_ms=bms, bound_by=by, steps_ms=steps)
         if "fold_round" not in results:
             def fold_prep(b=work):
                 prep()
@@ -364,7 +422,7 @@ def main() -> int:
                       "total_s": time.perf_counter() - t0}), flush=True)
     for name, log in _cuda.build_logs().items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill")):
                 print(f"ptxas {name}: {line.strip()}")
 
     # the main-path graph: G(2^20, 8/2^20), plain ELL

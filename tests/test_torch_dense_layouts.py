@@ -87,7 +87,8 @@ def test_unroll_is_exact(mode):
         outs, syncs = [], []
         for unroll in (1, 3):
             stats = {"host_syncs": 0}
-            k = td._get_kernel(mode, td.kernel_cap(mode, g.n_pad), g.tier_meta,
+            k = td._get_kernel(mode, td.kernel_cap(mode, g.n_pad, g.device.type),
+                               g.tier_meta,
                                unroll)
             outs.append(k(g.nbr, g.deg, g.aux, s, d, cache=g.tables, stats=stats))
             syncs.append(stats["host_syncs"])

@@ -63,7 +63,8 @@ def _setup(n, avg, seed, kind="random", fr_density=0.05):
 
 CASES = [(1_000, 2.2, 0, "random"), (4_000, 3.0, 1, "random"),
          (3_001, 1.5, 2, "random"),  # a row count that is a multiple of no block
-         (2_000, 2.5, 3, "empty"), (2_000, 2.5, 4, "src_eq_dst")]
+         (2_000, 2.5, 3, "empty"), (2_000, 2.5, 4, "src_eq_dst"),
+         (1_500, 14.0, 5, "random")]  # rows whose first hit needs a 2nd chunk
 IDS = [f"{c[3]}-{c[0]}-{c[2]}" for c in CASES]
 
 
@@ -213,6 +214,100 @@ def test_fused_single_plain_matches_pallas(case, bit):
         assert int(a[7]) == b[7]
 
 
+def test_deep_case_needs_a_second_chunk():
+    """In the last case some unvisited row's first frontier hit lies past
+    the kernels' first chunk of 8 slots, so the chunked claim must go on
+    to a second chunk (and the case is the same for the CUDA test)."""
+    from bibfs_tpu_torch.ops.fused_level import CHUNK
+
+    g, fr_s, fr_t, dist_s, dist_t, _par = _setup(*CASES[-1])
+    deep = 0
+    for fr, dist in ((fr_s, dist_s), (fr_t, dist_t)):
+        hit = fr[np.where(g.nbr >= 0, g.nbr, 0)]
+        hit &= np.arange(g.nbr.shape[1])[None, :] < g.deg[:, None]
+        first = np.where(hit.any(1), hit.argmax(1), -1)
+        deep += int(((first >= CHUNK) & (dist >= INF32)).sum())
+    assert g.nbr.shape[1] > 2 * CHUNK and deep > 0
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 3_001])
+def test_pack_bits_round_trip(n):
+    """The bitmap words round-trip a bool row at row counts that are not a
+    multiple of 32, the bits past ``n`` are zero, and the bit order is the
+    reference's ``parallel/collectives.pack_bits``."""
+    import torch
+
+    from bibfs_tpu.parallel.collectives import pack_bits as jpack
+
+    from bibfs_tpu_torch.ops import fused_level as fl
+
+    fr = np.random.default_rng(n).random(n) < 0.4
+    fr[-1] = True
+    words = fl.frontier_words(n)
+    assert words % 4 == 0 and words * 32 >= n
+    w = fl.pack_bits(torch.as_tensor(fr), words)
+    assert w.dtype == torch.int32 and w.shape == (words,)
+    assert np.array_equal(fl.unpack_bits(w, n).numpy(), fr)
+    assert not fl.unpack_bits(w, words * 32)[n:].any()
+    ref = np.asarray(jpack(fr)).astype(np.uint32)
+    assert np.array_equal(w.numpy()[:ref.shape[0]].view(np.uint32), ref)
+    seed = fl.new_frontier(n - 1, 0, n, "cpu")
+    assert seed.shape == (2, 2, words) and int(seed.ne(0).sum()) == 2
+    assert fl.unpack_bits(seed[0, 0], n)[n - 1] and fl.unpack_bits(seed[1, 0], n)[0]
+
+
+def test_alt_rounds_keep_the_passive_bitmap():
+    """A fused_alt search driven round by round through the level-parity
+    bitmaps: each round rewrites only the advancing side's other parity,
+    both sides advance over the search, and the result is the
+    reference's ``fused_alt`` solve exactly."""
+    import torch
+
+    from bibfs_tpu.graph.generate import gnp_random_graph
+    from bibfs_tpu.solvers import dense as jd
+
+    from bibfs_tpu_torch.ops import fused_level as fl
+    from bibfs_tpu_torch.solvers import dense as td
+
+    n = 2_000
+    edges = gnp_random_graph(n, 2.5 / n, seed=11)
+    gj = jd.DeviceGraph.build(n, edges)
+    gt = td.DeviceGraph.build(n, edges, device="cpu")
+    nbr_t, deg = fl.prepare_fused_tables(gt.nbr, gt.deg)
+    kj = jd._get_kernel("fused_alt", 0, (), jd._geom_of(gj), 1)
+    for s, d in ((0, n - 1), (7, 1_234)):
+        dist_s = torch.full((gt.n_pad,), INF32, dtype=torch.int32)
+        dist_t = dist_s.clone()
+        dist_s[s] = 0
+        dist_t[d] = 0
+        par_s = torch.full((gt.n_pad,), -1, dtype=torch.int32)
+        par_t = par_s.clone()
+        bits = fl.new_frontier(s, d, gt.n_pad, "cpu")
+        state = fl.new_state(s, d, deg)
+        acc, key = fl.new_scratch("cpu")
+        sides = set()
+        while fl.active(state.tolist()):
+            st = state.tolist()
+            side = 0 if st[fl.S["cnt_s"]] <= st[fl.S["cnt_t"]] else 1
+            lvl = st[fl.S["lvl_s"] + side]
+            before = bits.clone()
+            fl.fused_single_round(nbr_t, deg, bits, dist_s, dist_t, par_s,
+                                  par_t, state, acc, key)
+            fl.fold_round(state, acc, key, alt=True)
+            assert torch.equal(bits[1 - side], before[1 - side])
+            assert torch.equal(bits[side, lvl & 1], before[side, lvl & 1])
+            assert state.tolist()[fl.S["lvl_s"] + side] == lvl + 1
+            sides.add(side)
+        assert sides == {0, 1}
+        st = state.tolist()
+        oj = kj(gj.nbr, gj.deg, gj.aux, jd._device_scalar(s), jd._device_scalar(d))
+        assert [int(oj[0]), int(oj[1]), int(oj[4]), int(oj[5])] == [
+            st[fl.S["best"]], st[fl.S["meet"]], st[fl.S["levels"]],
+            st[fl.S["edges"]]]
+        assert np.array_equal(np.asarray(oj[2]), par_s.numpy())
+        assert np.array_equal(np.asarray(oj[3]), par_t.numpy())
+
+
 @pytest.mark.parametrize("alt", [False, True])
 def test_fold_round_plain(alt):
     """The fold applies one round to the state as the JAX solver's scalar
@@ -310,22 +405,28 @@ def test_cuda_kernels_match_plain(case, cuda_device):
     nt, d2, t = _fused_rows(g, fr_s, fr_t, dist_s, dist_t, par)
     t = {k: v.to(dev) for k, v in t.items()}
     nt, d2 = nt.to(dev), d2.to(dev)
+    n_rows = nt.shape[1]
+    # kernel 1, and both instantiations of kernel 2: the wrapper stages at
+    # these sizes, the private launcher does not
+    shapes = {False: [fl.fused_dual_round],
+              True: [fl.fused_single_round, fl._single_round_unstaged]}
+    assert fl.stage_fits(fl.frontier_words(n_rows))
     for alt, cnt_s in ((False, 1), (True, 1), (True, 2)):
-        runs = []
-        for fn in ((fl.fused_single_round, fl.fused_single_round_plain) if alt
-                   else (fl.fused_dual_round, fl.fused_dual_round_plain)):
+        def run(fn, fold):
             st = torch.tensor([3, 2, INF32, -1, cnt_s, 1, 0, 0, 4, 5, 6, 7],
                               dtype=torch.int32, device=dev)
             acc, key = fl.new_scratch(dev)
-            rows = [torch.zeros_like(t["dual"]), t["dist_s"].clone(),
+            rows = [fl._bits_of_row(t["dual"], 3, 2, n_rows), t["dist_s"].clone(),
                     t["dist_t"].clone(), t["par_s"].clone(), t["par_t"].clone()]
-            fn(nt, d2, t["dual"], *rows, st, acc, key)
-            fold = fl.fold_round if fn in (fl.fused_dual_round,
-                                          fl.fused_single_round) else fl.fold_round_plain
+            fn(nt, d2, *rows, st, acc, key)
             fold(st, acc, key, alt=alt)
-            runs.append(rows + [st])
-        for x, y in zip(*runs):
-            assert torch.equal(x, y)
+            return rows + [st, acc, key]
+
+        want = run(fl.fused_single_round_plain if alt
+                   else fl.fused_dual_round_plain, fl.fold_round_plain)
+        for fn in shapes[alt]:
+            for x, y in zip(run(fn, fl.fold_round), want):
+                assert torch.equal(x, y)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,134 @@
+"""Parent against change: dense search times of two checkouts of this
+package in one process, interleaved solve by solve.
+
+``python -m bibfs_tpu_torch.cli.ab PARENT_ROOT`` loads ``bibfs_tpu_torch``
+from the checkout at PARENT_ROOT beside the one this module comes from
+(each with its own modules, kernels and graph), builds G(2^scale,
+8/2^scale) as plain ELL in each, and for 8 seeded pairs and each mode
+times one solve in each checkout in turn (median of 3; host clock around
+the solve and a synchronize), the first checkout alternating from round
+to round. It prints one JSON line: the card, and per checkout and mode
+the median and quartiles of those times, and whether the two checkouts
+gave the same ``(best, meet, par_s, par_t, levels, edges)`` everywhere.
+
+The host-bound modes' times drift by tens of percent from process to
+process and over minutes; run in turns within one process, both
+checkouts see the same drift. A card is used unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import pkgutil
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PKG = "bibfs_tpu_torch"
+
+
+def _ours(name: str) -> bool:
+    return name == PKG or name.startswith(PKG + ".")
+
+
+def _load(root: Path | None) -> dict:
+    """Every module of the package (its CLIs aside) from ``root``, or the
+    ones already imported when ``root`` is None, as a ``sys.modules``
+    snapshot."""
+    if root is not None:
+        for name in [m for m in sys.modules if _ours(m)]:
+            del sys.modules[name]
+        sys.path.insert(0, str(root))
+    try:
+        pkg = importlib.import_module(PKG)
+        for info in pkgutil.walk_packages(pkg.__path__, PKG + "."):
+            if not info.name.startswith(PKG + ".cli"):
+                importlib.import_module(info.name)
+    finally:
+        if root is not None:
+            sys.path.remove(str(root))
+    return {m: mod for m, mod in sys.modules.items() if _ours(m)}
+
+
+def _same(a, b) -> bool:
+    return (a[0] == b[0] and a[1] == b[1] and a[4:] == b[4:]
+            and torch.equal(a[2], b[2]) and torch.equal(a[3], b[3]))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent", type=Path, help="root of the other checkout")
+    ap.add_argument("--modes", default="pallas_alt,pallas,beamer,sync")
+    ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--scale", type=int, default=20)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print("ab: CUDA is not available", file=sys.stderr)
+        return 2
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    saved = {m: mod for m, mod in sys.modules.items() if _ours(m)}
+    snaps = {"change": _load(None), "parent": _load(args.parent.resolve())}
+    try:
+        n = 1 << args.scale
+        graphs, dense = {}, {}
+        for who, snap in snaps.items():
+            sys.modules.update(snap)
+            mods = {m: snap[f"{PKG}.{m}"] for m in
+                    ("solvers.dense", "graph.generate", "graph.csr")}
+            edges = mods["graph.generate"].gnp_random_graph(n, 8 / n, seed=7)
+            canon = mods["graph.csr"].canonical_pairs(n, edges)
+            dense[who] = mods["solvers.dense"]
+            graphs[who] = dense[who].DeviceGraph.build(
+                n, edges, layout="ell", device=dev, pairs=canon)
+        rng = np.random.default_rng(7)
+        pairs = [(int(a), int(b)) for a, b in rng.integers(0, n, (8, 2))]
+        modes = args.modes.split(",")
+        times = {(w, m): [] for w in snaps for m in modes}
+        same = True
+        for rnd in range(args.rounds):
+            order = ("parent", "change") if rnd % 2 == 0 else ("change", "parent")
+            for mode in modes:
+                for s, d in pairs:
+                    outs = {}
+                    for who in order:
+                        sys.modules.update(snaps[who])
+                        run = dense[who]._run
+                        outs[who] = run(graphs[who], s, d, mode, 1, None)  # warm
+                        sync()
+                        ts = []
+                        for _ in range(3):
+                            t0 = time.perf_counter()
+                            run(graphs[who], s, d, mode, 1, None)
+                            sync()
+                            ts.append(time.perf_counter() - t0)
+                        times[(who, mode)].append(float(np.median(ts)) * 1e3)
+                    same &= _same(outs["parent"], outs["change"])
+    finally:
+        for name in [m for m in sys.modules if _ours(m)]:
+            del sys.modules[name]
+        sys.modules.update(saved)
+    card = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    print(json.dumps({
+        "card": card, "n": n, "pairs": len(pairs), "rounds": args.rounds,
+        "same_results": bool(same),
+        **{f"{w}/{m}": {"median_ms": float(np.median(v)),
+                        "p25_ms": float(np.percentile(v, 25)),
+                        "p75_ms": float(np.percentile(v, 75)), "solves": len(v)}
+           for (w, m), v in times.items()},
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

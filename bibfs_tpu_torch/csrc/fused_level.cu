@@ -26,7 +26,8 @@
 // What holds a row-at-a-time claim back, and what each design step does
 // about it:
 // 1. A dependent load chain per thread (slot j, then its frontier word,
-//    then slot j + 1). The claim reads deg[v] once, bounds the row by
+//    then slot j + 1). The claim (claim_chunked in level_common.cuh, the
+//    one claim of all four kernels) reads deg[v] once, bounds the row by
 //    min(deg, width) instead of testing a sentinel, and walks it in
 //    chunks of kChunk slots: the chunk's slot loads (coalesced across
 //    the warp, the table being slot-major) are issued together, then its
@@ -64,14 +65,9 @@
 
 using namespace bibfs;
 
-// the staged single-side kernel's copy of the active bitmap
-extern __shared__ __align__(128) uint32_t stage_bits[];
-
 namespace {
 
-constexpr int kChunk = 8;            // slots per chunk of independent loads
 constexpr int kStagedBlock = 1024;   // one block per SM holds a 128 KB bitmap
-constexpr unsigned kBulkBytes = 16384;  // bytes per cp.async.bulk request
 
 __device__ __forceinline__ unsigned long long meet_key(int32_t d_a, int32_t d_b,
                                                        int64_t v) {
@@ -82,55 +78,6 @@ __device__ __forceinline__ unsigned long long meet_key(int32_t d_a, int32_t d_b,
 __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
                                                     unsigned long long b) {
   return a < b ? a : b;
-}
-
-// Frontier word of vertex u: from the staged shared copy, or from device
-// memory through the read-only path.
-template <bool kShared>
-__device__ __forceinline__ uint32_t frontier_word(const uint32_t* __restrict__ bits,
-                                                  int32_t u) {
-  if constexpr (kShared) {
-    return stage_bits[u >> 5];
-  } else {
-    return __ldg(bits + (u >> 5));
-  }
-}
-
-// Row v's claim for kSides frontiers (f0 for want bit 0, f1 for bit 1):
-// the neighbour of the lowest live slot whose frontier bit is set, per
-// wanted side, into *par0 / *par1. `live` = min(deg[v], width) bounds the
-// row, so no sentinel is read; ids outside [0, n_ids) read as no hit.
-// Returns the bits that were found.
-template <int kSides, bool kShared>
-__device__ __forceinline__ unsigned claim_chunked(
-    const int32_t* __restrict__ nbr_t, int64_t stride, int live, int64_t v,
-    const uint32_t* __restrict__ f0, const uint32_t* __restrict__ f1,
-    uint32_t n_ids, unsigned want, int32_t* par0, int32_t* par1) {
-  unsigned got = 0u;
-  for (int c = 0; c < live && got != want; c += kChunk) {
-    int32_t u[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      u[k] = c + k < live ? __ldg(nbr_t + (int64_t)(c + k) * stride + v) : -1;
-    }
-    const unsigned need = want & ~got;
-    uint32_t w0[kChunk], w1[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const bool ok = (uint32_t)u[k] < n_ids;
-      w0[k] = ok && (need & 1u) ? frontier_word<kShared>(f0, u[k]) : 0u;
-      w1[k] = kSides == 2 && ok && (need & 2u)
-                  ? frontier_word<kShared>(f1, u[k]) : 0u;
-    }
-    // descending, so the lowest hit slot writes last
-#pragma unroll
-    for (int k = kChunk - 1; k >= 0; --k) {
-      const unsigned sh = (uint32_t)u[k] & 31u;
-      if ((w0[k] >> sh) & 1u) { *par0 = u[k]; got |= 1u; }
-      if (kSides == 2 && ((w1[k] >> sh) & 1u)) { *par1 = u[k]; got |= 2u; }
-    }
-  }
-  return got;
 }
 
 // One row's dist entries (two sides) and degree, which decide whether
@@ -203,44 +150,6 @@ __device__ __forceinline__ void flush_tally(int (&t)[6], unsigned long long key,
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Copy `bytes` (a multiple of 16, from a 16-byte aligned address) of
-// device memory into stage_bits with cp.async.bulk on one mbarrier, and
-// make every thread of the block wait for it. Called by all threads.
-__device__ __forceinline__ void stage_bitmap(const uint32_t* src, uint32_t bytes,
-                                             unsigned long long* bar) {
-  const uint32_t b = smem_addr(bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 ::"r"(b), "r"(bytes) : "memory");
-    const uint32_t dst = smem_addr(stage_bits);
-    for (uint32_t off = 0; off < bytes; off += kBulkBytes) {
-      const uint32_t len = bytes - off < kBulkBytes ? bytes - off : kBulkBytes;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];"
-          ::"r"(dst + off), "l"((const char*)src + off), "r"(len), "r"(b)
-          : "memory");
-    }
-  }
-  __syncthreads();  // the barrier is initialised before anyone waits on it
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.b32 %0, 1, 0, p;\n}"
-        : "=r"(done) : "r"(b), "r"(0u) : "memory");
-  }
-}
-
 // The lock-step round: both sides claim from one read of each row.
 __global__ void __launch_bounds__(kBlock) fused_dual_kernel(
     const int32_t* __restrict__ nbr_t, int64_t stride, int wp, int64_t n_rows,
@@ -275,8 +184,9 @@ __global__ void __launch_bounds__(kBlock) fused_dual_kernel(
       if (want) {
         const int32_t dg = row.dg;
         int32_t p_s = -1, p_t = -1;
-        got = claim_chunked<2, false>(nbr_t, stride, min(dg, wp), v, in_s,
-                                      in_t, (uint32_t)n_rows, want, &p_s, &p_t);
+        got = claim_chunked(nbr_t, stride, min(dg, wp), v,
+                            BitsFront{in_s, in_t, (uint32_t)n_rows}, want,
+                            &p_s, &p_t);
         if (got & 1u) {
           d_s = lvl_s + 1;
           dist_s[v] = d_s;
@@ -346,10 +256,15 @@ fused_single_kernel(const int32_t* __restrict__ nbr_t, int64_t stride, int wp,
       const int32_t d_p = row.d1;
       if (d_a >= kInf) {
         const int32_t dg = row.dg;
-        int32_t p = -1;
-        got = claim_chunked<1, kStaged>(nbr_t, stride, min(dg, wp), v, in,
-                                        nullptr, (uint32_t)n_rows, 1u, &p,
-                                        nullptr);
+        int32_t p = -1, unused = -1;
+        if constexpr (kStaged) {
+          got = claim_chunked(nbr_t, stride, min(dg, wp), v,
+                              StagedFront{(uint32_t)n_rows}, 1u, &p, &unused);
+        } else {
+          got = claim_chunked(nbr_t, stride, min(dg, wp), v,
+                              BitsFront{in, nullptr, (uint32_t)n_rows}, 1u, &p,
+                              &unused);
+        }
         if (got) {
           d_a = lvl + 1;
           dist_a[v] = d_a;

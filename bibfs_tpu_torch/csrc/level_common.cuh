@@ -1,20 +1,33 @@
 // Device code shared by the four level kernels (pull_expand.cu,
-// fused_level.cu): the first-hit-slot claim and a block reduction.
+// fused_level.cu): the one first-hit-slot claim (claim_chunked), the
+// frontier lookups it takes (BitsFront: kernels 1, 4 and unstaged 2;
+// StagedFront, filled by stage_bitmap: staged kernel 2; PairFront: kernel
+// 3) and warp reductions.
 //
-// Tables are slot-major and sentinel-padded: nbr_t[j * stride + v] is the
-// j-th neighbour of vertex row v, and every dead slot holds an id >=
-// id_space (the sentinel), so the live slots of a row are a prefix. The
-// frontier is one byte per vertex; bit 0 is the source side and bit 1 the
-// target side.
+// Tables are slot-major: nbr_t[j * stride + v] is the j-th neighbour of
+// vertex row v. A row's live slots are a prefix of length min(deg[v],
+// width), so a claim bounded by the degree never reads a dead slot (which
+// holds the sentinel id, the table's row count). On a tiered base table a
+// hub row's degree exceeds the width and the bound is the width.
+//
+// Frontiers are bitmaps of uint32 words: one bit per vertex (bit u & 31 of
+// word u >> 5) per side, or, for the dual pull kernel, one pair row of 2
+// bits per vertex (bits 2 (u & 15) and 2 (u & 15) + 1 of word u >> 4 for
+// the source and the target side).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// the staged kernel's copy of the active bitmap (dynamic shared memory)
+extern __shared__ __align__(128) uint32_t stage_bits[];
+
 namespace bibfs {
 
 constexpr int32_t kInf = 1 << 30;               // unreached distance
-constexpr int kBlock = 256;                     // threads (vertex rows) per block
+constexpr int kBlock = 256;                     // threads per block
+constexpr int kChunk = 8;                       // slots per chunk of independent loads
+constexpr unsigned kBulkBytes = 16384;          // bytes per cp.async.bulk request
 constexpr unsigned long long kNoMeet = ~0ull;   // empty meet-vote key
 
 // The fused search's scalar state, one int32 row on the device.
@@ -32,26 +45,128 @@ __device__ __forceinline__ bool search_active(const int32_t* state) {
          state[kCntT] > 0;
 }
 
-// THE claim routine of all four kernels. Walk row v's slots in order and,
-// for each bit of `want` (1 = source side, 2 = target side), record in
-// *par0 / *par1 the neighbour of the lowest slot whose frontier byte has
-// that bit. Stops at the first sentinel slot or once every wanted bit is
-// found. Returns the bits that were found. A sentinel id reads as no hit
-// through the bounds check, so the frontier row is never read past its end.
-__device__ __forceinline__ unsigned claim_first_slot(
-    const int32_t* __restrict__ nbr_t, int64_t stride, int wp, int64_t v,
-    const uint8_t* __restrict__ front, int64_t id_space, unsigned want,
-    int32_t* par0, int32_t* par1) {
+// Frontier lookups. A claim first issues a chunk's loads, load(u, need),
+// then reads the hits out of what came back, hits(w, u, need): the bits
+// of `need` (1 = source side, 2 = target side) whose frontier holds
+// vertex u. Kept apart, the loads of a chunk are all in flight before
+// the first one is used. Ids outside [0, n) load nothing and read as no
+// hit, so a slot past a row's end (u = -1) finds nothing.
+
+// One bitmap per side read through the read-only path: f0 answers bit 0,
+// f1 bit 1 (unused by a one-side claim).
+struct BitsFront {
+  const uint32_t* __restrict__ f0;
+  const uint32_t* __restrict__ f1;
+  uint32_t n;
+  struct Word {
+    uint32_t w0, w1;
+  };
+  __device__ __forceinline__ Word load(int32_t u, unsigned need) const {
+    const bool ok = (uint32_t)u < n;
+    return {ok && (need & 1u) ? __ldg(f0 + (u >> 5)) : 0u,
+            ok && (need & 2u) ? __ldg(f1 + (u >> 5)) : 0u};
+  }
+  __device__ __forceinline__ unsigned hits(Word w, int32_t u, unsigned) const {
+    const unsigned sh = (uint32_t)u & 31u;
+    return ((w.w0 >> sh) & 1u) | (((w.w1 >> sh) & 1u) << 1);
+  }
+};
+
+// One side's bitmap staged in shared memory (stage_bitmap).
+struct StagedFront {
+  uint32_t n;
+  typedef uint32_t Word;
+  __device__ __forceinline__ Word load(int32_t u, unsigned need) const {
+    return (uint32_t)u < n && (need & 1u) ? stage_bits[u >> 5] : 0u;
+  }
+  __device__ __forceinline__ unsigned hits(Word w, int32_t u, unsigned) const {
+    return (w >> ((uint32_t)u & 31u)) & 1u;
+  }
+};
+
+// Both sides in one row of 2 bits per vertex: one load answers both.
+struct PairFront {
+  const uint32_t* __restrict__ f;
+  uint32_t n;
+  typedef uint32_t Word;
+  __device__ __forceinline__ Word load(int32_t u, unsigned need) const {
+    return (uint32_t)u < n && need ? __ldg(f + (u >> 4)) : 0u;
+  }
+  __device__ __forceinline__ unsigned hits(Word w, int32_t u, unsigned need) const {
+    return (w >> (((uint32_t)u & 15u) << 1)) & need;
+  }
+};
+
+// THE claim of all four kernels. Row v's first `live` slots are walked in
+// chunks of kChunk: the chunk's slot loads (coalesced across a warp, the
+// table being slot-major) are issued together, then its kChunk frontier
+// loads, then the lowest hit slot per wanted side (bits of `want`) gives
+// *par0 / *par1. The next chunk is read only while a wanted side has no
+// hit, so a row reads at most kChunk - 1 slots past its first hit.
+// Returns the bits that were found.
+template <class Front>
+__device__ __forceinline__ unsigned claim_chunked(
+    const int32_t* __restrict__ nbr_t, int64_t stride, int live, int64_t v,
+    const Front& front, unsigned want, int32_t* par0, int32_t* par1) {
   unsigned got = 0u;
-  for (int j = 0; j < wp && got != want; ++j) {
-    const int32_t u = __ldg(nbr_t + (int64_t)j * stride + v);
-    if (u < 0 || (int64_t)u >= id_space) break;
-    const unsigned b = (unsigned)__ldg(front + u) & want & ~got;
-    if (b & 1u) *par0 = u;
-    if (b & 2u) *par1 = u;
-    got |= b;
+  for (int c = 0; c < live && got != want; c += kChunk) {
+    int32_t u[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      u[k] = c + k < live ? __ldg(nbr_t + (int64_t)(c + k) * stride + v) : -1;
+    }
+    const unsigned need = want & ~got;
+    typename Front::Word w[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) w[k] = front.load(u[k], need);
+    // descending, so the lowest hit slot writes last
+#pragma unroll
+    for (int k = kChunk - 1; k >= 0; --k) {
+      const unsigned h = front.hits(w[k], u[k], need);
+      if (h & 1u) *par0 = u[k];
+      if (h & 2u) *par1 = u[k];
+      got |= h;
+    }
   }
   return got;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Copy `bytes` (a multiple of 16, from a 16-byte aligned address) of
+// device memory into stage_bits with cp.async.bulk on one mbarrier, and
+// make every thread of the block wait for it. Called by all threads.
+__device__ __forceinline__ void stage_bitmap(const uint32_t* src, uint32_t bytes,
+                                             unsigned long long* bar) {
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(b), "r"(bytes) : "memory");
+    const uint32_t dst = smem_addr(stage_bits);
+    for (uint32_t off = 0; off < bytes; off += kBulkBytes) {
+      const uint32_t len = bytes - off < kBulkBytes ? bytes - off : kBulkBytes;
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];"
+          ::"r"(dst + off), "l"((const char*)src + off), "r"(len), "r"(b)
+          : "memory");
+    }
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.b32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(b), "r"(0u) : "memory");
+  }
 }
 
 struct SumOp {
@@ -69,29 +184,6 @@ __device__ __forceinline__ T warp_reduce(T x, Op op) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = op(x, __shfl_down_sync(0xffffffffu, x, o));
   return x;
-}
-
-// Block-wide reduction of one value per thread; the result is valid in
-// thread 0. Every thread of the block must call it (no early return before
-// it), and the block size is a multiple of 32 and at most kBlock.
-template <class T, class Op>
-__device__ T block_reduce(T x, Op op, T identity) {
-  __shared__ T partial[kBlock / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  x = warp_reduce(x, op);
-  __syncthreads();  // a previous call's partials have been read
-  if (lane == 0) partial[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    x = lane < (int)(blockDim.x >> 5) ? partial[lane] : identity;
-    x = warp_reduce(x, op);
-  }
-  return x;
-}
-
-inline unsigned grid_for(int64_t n_rows) {
-  return (unsigned)((n_rows + kBlock - 1) / kBlock);
 }
 
 }  // namespace bibfs

@@ -36,9 +36,10 @@ _ROUND = [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P]
 # c_void_p, sizes c_int64, small ints c_int; each returns a cudaError_t
 SIGNATURES = {
     "pull_expand": {
-        "bibfs_pull": [_P, _I64, _I, _I64, _P, _I64, _P, _P, _P, _P],
-        "bibfs_pull_dual": [_P, _I64, _I, _I64, _P, _I64, _P, _P, _P, _P,
-                            _P, _P, _P],
+        "bibfs_pull": [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P, _P,
+                       _I64, _P],
+        "bibfs_pull_dual": [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P,
+                            _P, _P, _P, _P, _I64, _P],
     },
     "fused_level": {
         "bibfs_fused_dual": _ROUND + [_P],

@@ -45,6 +45,13 @@ from __future__ import annotations
 import torch
 
 from bibfs_tpu_torch.ops import _cuda
+from bibfs_tpu_torch.ops.bitmap import (
+    frontier_words,
+    pack_bits,
+    set_bits,
+    stage_fits,
+    unpack_bits,
+)
 from bibfs_tpu_torch.ops.pull_expand import (
     _check_table,
     claim_plain,
@@ -58,45 +65,12 @@ STATE_SLOTS = ("lvl_s", "lvl_t", "best", "meet", "cnt_s", "cnt_t",
                "md_s", "md_t", "ds_s", "ds_t", "levels", "edges")
 S = {k: i for i, k in enumerate(STATE_SLOTS)}
 _BIG64 = (1 << 63) - 1
-CHUNK = 8  # table slots per chunk of independent loads (kChunk in the kernels)
-# dynamic shared memory the staged single-side kernel may take: a block's
-# 227 KB less 2 KB kept for its static shared memory (1,032 B)
-STAGE_MAX_BYTES = 227 * 1024 - 2048
 
 
 def prepare_fused_tables(nbr, deg) -> tuple:
     """``(nbr_t, deg)``: the one table of all four kernels
     (:func:`sentinel_transposed_table`) and the degree row, unpadded."""
     return sentinel_transposed_table(nbr, deg), deg
-
-
-def frontier_words(n_rows: int) -> int:
-    """Words per bitmap row: ``ceil(n_rows / 32)`` rounded up to a multiple
-    of 4, so each row is a whole number of 16-byte pieces (the shared-
-    memory staging copies 16-byte aligned pieces)."""
-    return -(-n_rows // 128) * 4
-
-
-def pack_bits(fr, words: int) -> torch.Tensor:
-    """``bool[n]`` as little-endian ``int32[words]`` bitmap words (bit
-    ``k`` of word ``i`` is vertex ``32 i + k``, the bit order of
-    ``bibfs_tpu/parallel/collectives.pack_bits``); the bits past ``n``
-    are zero."""
-    n = fr.shape[0]
-    if words * 32 < n:
-        raise ValueError(f"{words} words cannot hold {n} bits")
-    b = torch.zeros(words * 32, dtype=torch.int64, device=fr.device)
-    b[:n] = fr.to(torch.int64)
-    shifts = torch.arange(32, dtype=torch.int64, device=fr.device)
-    w = (b.view(words, 32) << shifts).sum(dim=1)
-    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
-
-
-def unpack_bits(words, n: int) -> torch.Tensor:
-    """The first ``n`` bits of :func:`pack_bits` words as ``bool[n]``."""
-    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
-    bits = (words.to(torch.int64)[:, None] >> shifts) & 1
-    return bits.reshape(-1)[:n] > 0
 
 
 def new_frontier(src: int, dst: int, n_rows: int, device) -> torch.Tensor:
@@ -107,15 +81,8 @@ def new_frontier(src: int, dst: int, n_rows: int, device) -> torch.Tensor:
     bits = torch.zeros(2, 2, frontier_words(n_rows), dtype=torch.int32,
                        device=device)
     for side, v in ((0, src), (1, dst)):
-        w = 1 << (v & 31)
-        bits[side, 0, v >> 5] = w - (1 << 32) if w >= 1 << 31 else w
+        set_bits(bits[side, 0], [v])
     return bits
-
-
-def stage_fits(words: int) -> bool:
-    """Whether the single-side kernel stages a bitmap row of ``words``
-    words in shared memory (up to about 1.84M rows)."""
-    return words * 4 <= STAGE_MAX_BYTES
 
 
 def new_state(src: int, dst: int, deg) -> torch.Tensor:

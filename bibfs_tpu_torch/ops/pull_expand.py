@@ -1,22 +1,37 @@
-"""Pull expansion of one level over the slot-major sentinel table: kernels
-3 and 4 of the dense search (modes ``pallas`` and ``pallas_alt``).
+"""Pull expansion of one level over the slot-major table: kernels 3 and 4
+of the dense search (modes ``pallas`` and ``pallas_alt``).
 
 - :func:`pull_dual` (CUDA ``pull_dual_kernel``, csrc/pull_expand.cu)
   replaces ``bibfs_tpu/ops/pallas_expand.py::_pull_kernel_dual``: both
-  sides' next frontier and parent from one dual-coded frontier row.
+  sides' next frontier and parent in one pass over the table.
 - :func:`pull_single` (CUDA ``pull_kernel``) replaces ``_pull_kernel``:
   the single-side form.
 
 The table is the TPU kernels' slot-major table without their padding:
 ``nbr_t int32[width, n_rows]``, dead slots holding the sentinel id
-``n_rows`` (:func:`sentinel_transposed_table`). The dist update, the
-hub tiers and the max degree stay outside the kernel, as plain torch
-(:func:`pallas_pull_level`, :func:`pallas_pull_level_dual`).
+``n_rows`` (:func:`sentinel_transposed_table`). The kernels bound row
+``v`` by ``min(deg[v], width)``, so they never read a dead slot; on a
+tiered base table a hub row's degree exceeds the width and the whole row
+is live. The frontier comes in as bitmaps (:mod:`.bitmap`) and the
+kernels write the next one in the same form beside ``nf`` and the
+parent, so a search hands it from round to round without repacking
+(:func:`pull_round`, :func:`pull_round_dual`). The dist update, the hub
+tiers and the max degree stay outside the kernels, as plain torch.
+
+Each row is claimed as in kernels 1 and 2 (``level_common.cuh``): the
+row's slots in chunks of :data:`CHUNK` independent loads, the lowest hit
+slot per wanted side giving the parent, a warp per tile of 32 rows. The
+single-side kernel reads one bitmap, the dual kernel the pair row of
+both sides (:func:`pack_front`), so one load per slot answers both.
+
+The functional forms :func:`run_pull`, :func:`run_pull_dual`,
+:func:`pallas_pull_level` and :func:`pallas_pull_level_dual` keep the
+JAX contract (``bool`` frontier rows) and pack around the kernels.
 
 A wrapper launches its CUDA kernel for CUDA tensors (or raises) and runs
-its plain torch twin (``*_plain``) for CPU tensors. The raw parent output
-is the first-hit-slot neighbour where the new-frontier output is set and
--1 everywhere else. Each wrapper counts its kernel launches in
+its plain torch twin (``*_plain``) for CPU tensors. The parent output is
+the first-hit-slot neighbour where the new-frontier output is set and -1
+everywhere else. Each wrapper counts its kernel launches in
 ``.launches``.
 """
 
@@ -25,12 +40,22 @@ from __future__ import annotations
 import torch
 
 from bibfs_tpu_torch.ops import _cuda
+from bibfs_tpu_torch.ops.bitmap import (
+    frontier_words,
+    pack_bits,
+    pack_pairs,
+    set_bits,
+    unpack_bits,
+    unpack_pairs,
+)
 from bibfs_tpu_torch.ops.expand import (
     apply_tiers,
     apply_tiers_dual,
     max_new_degree,
     pack_dual,
 )
+
+CHUNK = 8  # table slots per chunk of independent loads (kChunk in the kernels)
 
 
 def sentinel_transposed_table(nbr, deg):
@@ -48,6 +73,12 @@ def prepare_pallas_tables(nbr, deg) -> tuple:
     """The pull kernels' table as a one-element tuple ``(nbr_t,)``
     (:func:`sentinel_transposed_table`)."""
     return (sentinel_transposed_table(nbr, deg),)
+
+
+def live_slots(nbr_t) -> torch.Tensor:
+    """Each row's live slots, ``int32[n_rows]``: the slots below the
+    sentinel, which is ``min(deg, width)`` for the row's degree."""
+    return (nbr_t < nbr_t.shape[1]).sum(dim=0, dtype=torch.int32)
 
 
 def gather_bits(front, nbr_t, n_rows: int):
@@ -75,77 +106,133 @@ def _check_table(nbr_t):
         raise ValueError("nbr_t must be a 2-D int32 table")
 
 
-def pull_single_plain(nbr_t, frontier, visited):
+def _live_vals(front, nbr_t, deg, n_rows: int):
+    """Plain lookup of a uint8 frontier row over each row's first
+    ``min(deg, width)`` slots (0 past them), as the kernels bound a row."""
+    width = nbr_t.shape[0]
+    live = torch.arange(width, device=nbr_t.device)[:, None] < deg[None, :n_rows]
+    return torch.where(live, gather_bits(front, nbr_t, n_rows), 0)
+
+
+def pull_single_plain(nbr_t, deg, bits, visited):
     """Plain twin of :func:`pull_single`."""
     n_rows = visited.shape[0]
-    hit = gather_bits(frontier, nbr_t, n_rows) > 0
-    return claim_plain(hit, nbr_t[:, :n_rows], ~visited)
+    front = unpack_bits(bits, bits.shape[0] * 32)
+    hit = _live_vals(front, nbr_t, deg, n_rows) > 0
+    nf, pc = claim_plain(hit, nbr_t[:, :n_rows], ~visited)
+    return nf, pc, pack_bits(nf, frontier_words(n_rows))
 
 
-def pull_single(nbr_t, frontier, visited):
-    """One side's ``(next_frontier bool[n_rows], parent int32[n_rows])``
-    for ``n_rows = len(visited)`` table rows; ``frontier bool`` is indexed
-    by the table's ids."""
+def check_pull(nbr_t, deg, n_rows: int) -> None:
+    """Validate the table and degree row of a pull launch over ``n_rows``
+    rows on the card (shapes, dtypes, one device, contiguous). A search
+    checks them once and then launches with ``checked=True``: its visited
+    rows and frontiers are its own, made on the device in the right form."""
     _check_table(nbr_t)
-    if not nbr_t.is_cuda:
-        return pull_single_plain(nbr_t, frontier, visited)
+    if n_rows > nbr_t.shape[1] or deg.shape[0] < n_rows:
+        raise ValueError("visited rows must fit the table and deg")
+    _cuda.check_dtype(torch.int32, deg=deg)
+    _cuda.check_cuda(nbr_t.device, nbr_t=nbr_t, deg=deg)
+
+
+def _check_launch(nbr_t, deg, front, words: int, **rows) -> None:
+    """Validate one launch's inputs (a caller that did not check them)."""
+    n_rows = next(iter(rows.values())).shape[0]
+    check_pull(nbr_t, deg, n_rows)
+    if any(r.shape[0] != n_rows for r in rows.values()):
+        raise ValueError("visited rows must match")
+    if front.dim() != 1 or front.shape[0] < words:
+        raise ValueError("the frontier must cover the table's ids")
+    _cuda.check_dtype(torch.int32, front=front)
+    _cuda.check_cuda(nbr_t.device, front=front, **rows)
+
+
+def _launch_single(nbr_t, deg, bits, visited, checked: bool):
     n_rows = visited.shape[0]
-    if n_rows > nbr_t.shape[1]:
-        raise ValueError("visited has more rows than the table")
-    front = frontier.to(torch.bool).contiguous()
-    vis = visited.to(torch.bool).contiguous()
-    _cuda.check_cuda(nbr_t.device, nbr_t=nbr_t, frontier=front, visited=vis)
-    nf = torch.empty(n_rows, dtype=torch.bool, device=nbr_t.device)
-    pc = torch.empty(n_rows, dtype=torch.int32, device=nbr_t.device)
+    if not checked:
+        visited = visited.to(torch.bool).contiguous()
+        _check_launch(nbr_t, deg, bits, frontier_words(nbr_t.shape[1]),
+                      visited=visited)
+    dev = nbr_t.device
+    nf = torch.empty(n_rows, dtype=torch.bool, device=dev)
+    pc = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    out = torch.empty(frontier_words(n_rows), dtype=torch.int32, device=dev)
     _cuda.launch(
         "pull_expand", "bibfs_pull", nbr_t.data_ptr(), nbr_t.stride(0),
-        nbr_t.shape[0], n_rows, front.data_ptr(), front.shape[0],
-        vis.data_ptr(), nf.data_ptr(), pc.data_ptr(),
+        nbr_t.shape[0], n_rows, deg.data_ptr(), bits.data_ptr(),
+        bits.shape[0], visited.data_ptr(), nf.data_ptr(), pc.data_ptr(),
+        out.data_ptr(), out.shape[0],
     )
+    return nf, pc, out
+
+
+def pull_single(nbr_t, deg, bits, visited, *, checked: bool = False):
+    """One side's ``(next_frontier bool[n_rows], parent int32[n_rows],
+    next_bits int32[frontier_words(n_rows)])`` for ``n_rows =
+    len(visited)`` table rows, from the frontier bitmap ``bits`` over the
+    table's ids. ``checked`` skips the validation (:func:`check_pull`)."""
+    if not nbr_t.is_cuda:
+        return pull_single_plain(nbr_t, deg, bits, visited)
+    out = _launch_single(nbr_t, deg, bits, visited, checked)
     pull_single.launches += 1
-    return nf, pc
+    return out
 
 
 pull_single.launches = 0
 
 
-def pull_dual_plain(nbr_t, dual, vis_s, vis_t):
+def pack_front(fr_s, fr_t, n_ids: int):
+    """Both sides' ``bool`` frontiers as the dual kernel's pair row over
+    ``n_ids`` vertices."""
+    return pack_pairs(fr_s, fr_t, 2 * frontier_words(n_ids))
+
+
+def pull_dual_plain(nbr_t, deg, pair, vis_s, vis_t):
     """Plain twin of :func:`pull_dual`."""
     n_rows = vis_s.shape[0]
-    vals = gather_bits(dual, nbr_t, n_rows)
+    fr_s, fr_t = unpack_pairs(pair, pair.shape[0] * 16)
+    vals = _live_vals(fr_s.to(torch.uint8) | (fr_t.to(torch.uint8) << 1),
+                      nbr_t, deg, n_rows)
     rows = nbr_t[:, :n_rows]
     nf_s, pc_s = claim_plain((vals & 1) > 0, rows, ~vis_s)
     nf_t, pc_t = claim_plain((vals & 2) > 0, rows, ~vis_t)
-    return nf_s, pc_s, nf_t, pc_t
+    return nf_s, pc_s, nf_t, pc_t, pack_front(nf_s, nf_t, n_rows)
 
 
-def pull_dual(nbr_t, dual, vis_s, vis_t):
-    """Both sides' ``(nf_s, pc_s, nf_t, pc_t)`` from one dual-coded uint8
-    frontier row (:func:`bibfs_tpu_torch.ops.expand.pack_dual`)."""
-    _check_table(nbr_t)
-    if not nbr_t.is_cuda:
-        return pull_dual_plain(nbr_t, dual, vis_s, vis_t)
+def _launch_dual(nbr_t, deg, pair, vis_s, vis_t, checked: bool):
     n_rows = vis_s.shape[0]
-    if n_rows > nbr_t.shape[1] or vis_t.shape[0] != n_rows:
-        raise ValueError("visited rows must match and fit the table")
-    if dual.dtype != torch.uint8:
-        raise ValueError("dual must be uint8 (pack_dual)")
-    vs = vis_s.to(torch.bool).contiguous()
-    vt = vis_t.to(torch.bool).contiguous()
-    _cuda.check_cuda(nbr_t.device, nbr_t=nbr_t, dual=dual, vis_s=vs, vis_t=vt)
+    if not checked:
+        vis_s = vis_s.to(torch.bool).contiguous()
+        vis_t = vis_t.to(torch.bool).contiguous()
+        _check_launch(nbr_t, deg, pair, 2 * frontier_words(nbr_t.shape[1]),
+                      vis_s=vis_s, vis_t=vis_t)
     dev = nbr_t.device
     nf_s = torch.empty(n_rows, dtype=torch.bool, device=dev)
     nf_t = torch.empty(n_rows, dtype=torch.bool, device=dev)
     pc_s = torch.empty(n_rows, dtype=torch.int32, device=dev)
     pc_t = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    tiles = frontier_words(n_rows)
+    out = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
     _cuda.launch(
         "pull_expand", "bibfs_pull_dual", nbr_t.data_ptr(), nbr_t.stride(0),
-        nbr_t.shape[0], n_rows, dual.data_ptr(), dual.shape[0],
-        vs.data_ptr(), vt.data_ptr(), nf_s.data_ptr(), pc_s.data_ptr(),
-        nf_t.data_ptr(), pc_t.data_ptr(),
+        nbr_t.shape[0], n_rows, deg.data_ptr(), pair.data_ptr(),
+        pair.shape[0], vis_s.data_ptr(), vis_t.data_ptr(), nf_s.data_ptr(),
+        pc_s.data_ptr(), nf_t.data_ptr(), pc_t.data_ptr(), out.data_ptr(),
+        tiles,
     )
+    return nf_s, pc_s, nf_t, pc_t, out
+
+
+def pull_dual(nbr_t, deg, pair, vis_s, vis_t, *, checked: bool = False):
+    """Both sides' ``(nf_s, pc_s, nf_t, pc_t, next_pair)`` from the pair
+    row of both frontiers (:func:`pack_front`, over the table's ids); the
+    next frontier comes back as the pair row over the ``len(vis_s)``
+    rows. ``checked`` skips the validation (:func:`check_pull`)."""
+    if not nbr_t.is_cuda:
+        return pull_dual_plain(nbr_t, deg, pair, vis_s, vis_t)
+    out = _launch_dual(nbr_t, deg, pair, vis_s, vis_t, checked)
     pull_dual.launches += 1
-    return nf_s, pc_s, nf_t, pc_t
+    return out
 
 
 pull_dual.launches = 0
@@ -153,16 +240,67 @@ pull_dual.launches = 0
 
 def run_pull(tables: tuple, frontier, visited):
     """Single-side raw kernel pass: ``(next_frontier, parent_candidate)``
-    over the table's rows ``[0, len(visited))``."""
+    over the table's rows ``[0, len(visited))`` from a ``bool`` frontier
+    row (packed here). Each row is bounded by its live slots
+    (:func:`live_slots`), which is ``min(deg, width)``."""
     (nbr_t,) = tables
-    return pull_single(nbr_t, frontier, visited)
+    bits = pack_bits(frontier, frontier_words(frontier.shape[0]))
+    nf, pc, _ = pull_single(nbr_t, live_slots(nbr_t), bits, visited)
+    return nf, pc
 
 
 def run_pull_dual(tables: tuple, fr_s, fr_t, vis_s, vis_t):
-    """Both sides' raw kernel pass: ``(nf_s, pc_s, nf_t, pc_t)``; one
-    dual-coded frontier row serves both sides."""
+    """Both sides' raw kernel pass: ``(nf_s, pc_s, nf_t, pc_t)`` from two
+    ``bool`` frontier rows (packed here into the pair row)."""
     (nbr_t,) = tables
-    return pull_dual(nbr_t, pack_dual(fr_s, fr_t).contiguous(), vis_s, vis_t)
+    nf_s, pc_s, nf_t, pc_t, _ = pull_dual(
+        nbr_t, live_slots(nbr_t), pack_front(fr_s, fr_t, fr_s.shape[0]),
+        vis_s, vis_t)
+    return nf_s, pc_s, nf_t, pc_t
+
+
+def pull_round(frontier, bits, par, dist, nbr_t, deg, tiers, lvl_next, *,
+               inf: int, checked: bool = False):
+    """One side's pull level through the single kernel, with the frontier
+    in two forms: ``frontier`` (``bool``, for the hub tiers) and ``bits``
+    (the kernel's input). Returns ``(next_frontier, next_bits, par, dist,
+    max_deg_of_new_frontier)``: the kernel's next bitmap, or on a tiered
+    graph the bitmap rebuilt after the tier pass set hub rows."""
+    n_pad = par.shape[0]
+    visited = dist < inf
+    nf, pcand, nbits = pull_single(nbr_t, deg, bits, visited, checked=checked)
+    par = torch.where(nf, pcand, par)
+    if tiers:
+        nf, par = apply_tiers(nf, par, frontier, visited, deg, tiers, n_pad)
+        nbits = pack_bits(nf, nbits.shape[0])
+    dist = torch.where(nf & ~visited, lvl_next, dist)
+    return nf, nbits, par, dist, max_new_degree(nf, deg)
+
+
+def pull_round_dual(fr_s, fr_t, front, par_s, dist_s, par_t, dist_t, nbr_t,
+                    deg, tiers, lvl_s, lvl_t, *, inf: int,
+                    checked: bool = False):
+    """Both sides of a lock-step round through the dual kernel, the
+    frontier both as ``bool`` rows and in the kernel's layout. Returns
+    ``(nf_s, par_s, dist_s, md_s, nf_t, par_t, dist_t, md_t, next_front)``,
+    rebuilding ``next_front`` after the tier pass on a tiered graph."""
+    n_pad = par_s.shape[0]
+    vis_s = dist_s < inf
+    vis_t = dist_t < inf
+    nf_s, pc_s, nf_t, pc_t, nfront = pull_dual(nbr_t, deg, front, vis_s,
+                                               vis_t, checked=checked)
+    par_s = torch.where(nf_s, pc_s, par_s)
+    par_t = torch.where(nf_t, pc_t, par_t)
+    if tiers:
+        nf_s, par_s, nf_t, par_t = apply_tiers_dual(
+            nf_s, par_s, nf_t, par_t, pack_dual(fr_s, fr_t),
+            vis_s, vis_t, deg, tiers, n_pad,
+        )
+        nfront = pack_front(nf_s, nf_t, n_pad)
+    dist_s = torch.where(nf_s & ~vis_s, lvl_s, dist_s)
+    dist_t = torch.where(nf_t & ~vis_t, lvl_t, dist_t)
+    return (nf_s, par_s, dist_s, max_new_degree(nf_s, deg),
+            nf_t, par_t, dist_t, max_new_degree(nf_t, deg), nfront)
 
 
 def pallas_pull_level_dual(
@@ -173,31 +311,33 @@ def pallas_pull_level_dual(
     return contract of ``expand_pull_dual_tiered``: ``(nf_s, par_s, dist_s,
     md_s, nf_t, par_t, dist_t, md_t)``. Hub tiers run as torch ops around
     the kernel through the same ``apply_tiers_dual``."""
-    n_pad = par_s.shape[0]
-    vis_s = dist_s < inf
-    vis_t = dist_t < inf
-    nf_s, pc_s, nf_t, pc_t = run_pull_dual(tables, fr_s, fr_t, vis_s, vis_t)
-    par_s = torch.where(nf_s, pc_s, par_s)
-    par_t = torch.where(nf_t, pc_t, par_t)
-    if tiers:
-        nf_s, par_s, nf_t, par_t = apply_tiers_dual(
-            nf_s, par_s, nf_t, par_t, pack_dual(fr_s, fr_t),
-            vis_s, vis_t, deg, tiers, n_pad,
-        )
-    dist_s = torch.where(nf_s & ~vis_s, lvl_s, dist_s)
-    dist_t = torch.where(nf_t & ~vis_t, lvl_t, dist_t)
-    return (nf_s, par_s, dist_s, max_new_degree(nf_s, deg),
-            nf_t, par_t, dist_t, max_new_degree(nf_t, deg))
+    return pull_round_dual(
+        fr_s, fr_t, pack_front(fr_s, fr_t, fr_s.shape[0]), par_s, dist_s,
+        par_t, dist_t, tables[0], deg, tiers, lvl_s, lvl_t, inf=inf)[:8]
 
 
 def pallas_pull_level(frontier, par, dist, tables, deg, tiers, lvl_next, *, inf: int):
     """One side's pull level through the single kernel, with the return
     contract of ``expand_pull_tiered``: ``(next_frontier, par, dist,
     max_deg_of_new_frontier)``."""
-    n_pad = par.shape[0]
-    visited = dist < inf
-    nf, pcand = run_pull(tables, frontier, visited)
-    par = torch.where(nf, pcand, par)
-    nf, par = apply_tiers(nf, par, frontier, visited, deg, tiers, n_pad)
-    dist = torch.where(nf & (dist >= inf), lvl_next, dist)
-    return nf, par, dist, max_new_degree(nf, deg)
+    bits = pack_bits(frontier, frontier_words(frontier.shape[0]))
+    nf, _, par, dist, md = pull_round(frontier, bits, par, dist, tables[0],
+                                      deg, tiers, lvl_next, inf=inf)
+    return nf, par, dist, md
+
+
+def new_pull_frontiers(src: int, dst: int, n_rows: int, device, *,
+                       dual: bool) -> dict:
+    """The search's first frontiers in the pull kernels' forms, each side
+    holding one vertex: ``front`` (the dual kernel's pair row) when
+    ``dual``, else ``bits_s`` and ``bits_t`` (a bitmap per side, for the
+    single kernel)."""
+    words = frontier_words(n_rows)
+    if dual:  # the pair row is the bitmap of (source, target) interleaved
+        front = torch.zeros(2 * words, dtype=torch.int32, device=device)
+        set_bits(front, [2 * src, 2 * dst + 1])
+        return dict(front=front)
+    bits = torch.zeros(2, words, dtype=torch.int32, device=device)
+    set_bits(bits[0], [src])
+    set_bits(bits[1], [dst])
+    return dict(bits_s=bits[0], bits_t=bits[1])

@@ -309,7 +309,8 @@ def _side_step(st, sc, side: str, nbr, deg, aux, tier_meta, *, push_cap: int,
     max degree fits the push span goes through the push path, larger ones
     through the pull path. ``use_pallas`` pulls the base table through the
     single pull kernel (hub tiers as torch ops). ``sc`` holds the host's
-    reading of the scalars this round."""
+    reading of the scalars this round. The single kernel reads the side's
+    frontier bitmap ``st["bits_<side>"]`` and writes the next one there."""
     k = st[f"fi_{side}"].shape[0]
     if use_pallas:
         ptables, tier_aux = aux
@@ -323,6 +324,7 @@ def _side_step(st, sc, side: str, nbr, deg, aux, tier_meta, *, push_cap: int,
     fr, fi = st[f"fr_{side}"], st[f"fi_{side}"]
     par, dist = st[f"par_{side}"], st[f"dist_{side}"]
     lvl = st[f"lvl_{side}"] + 1
+    extra = {}
     if (push_cap > 0 and sc[f"cnt_{side}"] <= push_cap
             and sc[f"md_{side}"] <= span):
         if not sc[f"ok_{side}"]:
@@ -335,11 +337,13 @@ def _side_step(st, sc, side: str, nbr, deg, aux, tier_meta, *, push_cap: int,
     else:
         scanned = frontier_degree_sum(fr, deg)
         if use_pallas:
-            from bibfs_tpu_torch.ops.pull_expand import pallas_pull_level
+            from bibfs_tpu_torch.ops.pull_expand import pull_round
 
-            nf, par, dist, md = pallas_pull_level(
-                fr, par, dist, ptables, deg, full_tiers, lvl, inf=INF32
+            nf, bits, par, dist, md = pull_round(
+                fr, st[f"bits_{side}"], par, dist, ptables[0], deg,
+                full_tiers, lvl, inf=INF32, checked=True,
             )
+            extra[f"bits_{side}"] = bits
         else:
             nf, par, dist, md = expand_pull_tiered(
                 fr, par, dist, nbr, deg, full_tiers, lvl, inf=INF32
@@ -358,19 +362,18 @@ def _side_step(st, sc, side: str, nbr, deg, aux, tier_meta, *, push_cap: int,
         f"cnt_{side}": cnt,
         f"md_{side}": md,
         "edges": st["edges"] + scanned,
+        **extra,
     }
 
 
-def _dual_round(st, level_fn, table, deg, tiers):
-    """A lock-step round through one dual expansion (``level_fn`` is
-    ``expand_pull_dual_tiered`` or ``pallas_pull_level_dual``)."""
+def _dual_round(st, outs, deg, **extra):
+    """A lock-step round from one dual expansion's outputs ``outs``
+    (``expand_pull_dual_tiered``'s contract, computed from ``st``);
+    ``extra`` entries (the dual kernel's next frontier) go into the
+    state as they are."""
     scanned = (frontier_degree_sum(st["fr_s"], deg)
                + frontier_degree_sum(st["fr_t"], deg))
-    nf_s, par_s, dist_s, md_s, nf_t, par_t, dist_t, md_t = level_fn(
-        st["fr_s"], st["fr_t"], st["par_s"], st["dist_s"], st["par_t"],
-        st["dist_t"], table, deg, tiers, st["lvl_s"] + 1, st["lvl_t"] + 1,
-        inf=INF32,
-    )
+    nf_s, par_s, dist_s, md_s, nf_t, par_t, dist_t, md_t = outs
     no = torch.tensor(False, device=deg.device)
     st = {
         **st,
@@ -379,6 +382,7 @@ def _dual_round(st, level_fn, table, deg, tiers):
         "fr_t": nf_t, "par_t": par_t, "dist_t": dist_t, "md_t": md_t,
         "cnt_t": frontier_count(nf_t), "lvl_t": st["lvl_t"] + 1, "ok_t": no,
         "edges": st["edges"] + scanned,
+        **extra,
     }
     return _meet_vote(st, 2)
 
@@ -393,14 +397,21 @@ def _make_body(mode: str, cap: int, tier_meta, nbr, deg, aux):
 
     if schedule == "sync" and use_pallas:
         # lock-step pull kernel: the dual kernel reads the table once per
-        # round for both sides
-        from bibfs_tpu_torch.ops.pull_expand import pallas_pull_level_dual
+        # round for both sides, and hands its next frontier to the next
+        # round in its own layout
+        from bibfs_tpu_torch.ops.pull_expand import pull_round_dual
 
         ptables, tier_aux = aux
         ktiers = _full_tiers(tier_aux, tier_meta)
 
         def body(st, sc):
-            return _dual_round(st, pallas_pull_level_dual, ptables, deg, ktiers)
+            *outs, front = pull_round_dual(
+                st["fr_s"], st["fr_t"], st["front"], st["par_s"],
+                st["dist_s"], st["par_t"], st["dist_t"], ptables[0], deg,
+                ktiers, st["lvl_s"] + 1, st["lvl_t"] + 1, inf=INF32,
+                checked=True,
+            )
+            return _dual_round(st, outs, deg, front=front)
 
     elif (schedule == "sync" and not hybrid and not use_pallas
           and mode != "sync_unfused"):
@@ -408,7 +419,12 @@ def _make_body(mode: str, cap: int, tier_meta, nbr, deg, aux):
         full_tiers = _full_tiers(aux, tier_meta)
 
         def body(st, sc):
-            return _dual_round(st, expand_pull_dual_tiered, nbr, deg, full_tiers)
+            outs = expand_pull_dual_tiered(
+                st["fr_s"], st["fr_t"], st["par_s"], st["dist_s"],
+                st["par_t"], st["dist_t"], nbr, deg, full_tiers,
+                st["lvl_s"] + 1, st["lvl_t"] + 1, inf=INF32,
+            )
+            return _dual_round(st, outs, deg)
 
     elif schedule == "sync":
 
@@ -510,10 +526,21 @@ def _build_kernel(mode: str, push_cap: int, tier_meta: tuple = (),
     k = max(cap, 1)
 
     def dense_kernel(nbr, deg, aux, src, dst, *, cache=None, stats=None):
-        if DENSE_MODES[mode][2]:
-            # kernel modes: aux becomes ((kernel table,), tier aux)
-            aux = ((_kernel_table(cache, nbr, deg),), aux)
         st = _init_state(nbr.shape[0], k, src, dst, deg)
+        if DENSE_MODES[mode][2]:
+            # kernel modes: aux becomes ((kernel table,), tier aux), and the
+            # state carries the frontier in the pull kernels' form
+            from bibfs_tpu_torch.ops.pull_expand import (
+                check_pull,
+                new_pull_frontiers,
+            )
+
+            table = _kernel_table(cache, nbr, deg)
+            if nbr.device.type == "cuda":  # once; the rounds launch checked
+                check_pull(table, deg, nbr.shape[0])
+            aux = ((table,), aux)
+            st.update(new_pull_frontiers(src, dst, nbr.shape[0], nbr.device,
+                                         dual=DENSE_MODES[mode][0] == "sync"))
         body = _make_body(mode, cap, tier_meta, nbr, deg, aux)
         while True:
             sc = _read_scalars(st, stats)

@@ -14,9 +14,13 @@ is unavailable. Phases:
    3.35 TB/s) and the least time any launch takes (an empty kernel,
    ``launch_floor_ms``), which is the real floor of the one-thread fold.
    Both instantiations of kernel 2, staged (the wrapper) and unstaged
-   (:data:`UNSTAGED`), are held against the plain twin and timed, one
-   ``step`` line each (kernel 1 has one), with an estimate of the table
-   sectors the claim touches (``est_sector_mb``, from the inputs).
+   (:data:`UNSTAGED`), are held against the plain twin and timed. One
+   ``step`` line per kernel instantiation and geometry carries its time,
+   its bound and an estimate of the table sectors the claim touches
+   (``est_sector_mb``, from the inputs); the pull kernels' lines also
+   carry the bound with a byte frontier row (``bound_ms_byte_row``), and
+   two more lines time the tiered route's rebuild of the next frontier
+   after the tier pass (``rebuild_bits``, ``rebuild_pair``).
 3. Main path: G(2^20, 8/2^20) (1,048,576 vertices, about 4.19M edges),
    plain ELL, 8 seeded pairs plus one src == dst pair, modes sync, alt,
    beamer, pallas, pallas_alt, fused and fused_alt. Every answer matches
@@ -25,7 +29,8 @@ is unavailable. Phases:
    par_t, levels, edges); fused gives the same result with unroll 1 and 8;
    every kernel's launch count rises.
 4. Tiered: RMAT scale 20, edge factor 16 (about 15.7M edges); the
-   kernels against their plain versions at its base table, then modes
+   kernels against their plain versions at its base table (kernels 3 and
+   4 timed there too), then modes
    sync, pallas, pallas_alt and fused (which runs as pallas); oracle hops
    and pallas == sync exactly.
 
@@ -47,6 +52,7 @@ import torch
 from bibfs_tpu_torch.graph.csr import build_csr, canonical_pairs
 from bibfs_tpu_torch.graph.generate import gnp_random_graph, rmat_graph
 from bibfs_tpu_torch.ops import _cuda
+from bibfs_tpu_torch.ops import bitmap as bm
 from bibfs_tpu_torch.ops import fused_level as fl
 from bibfs_tpu_torch.ops import pull_expand as pe
 from bibfs_tpu_torch.ops.expand import pack_dual
@@ -194,9 +200,76 @@ def mid_search(rng, n: int, rows: int, level: int):
     return dist, dist == level, par
 
 
-def kernel_phase(g, seed: int, results: dict | None) -> None:
+def step_line(kernel: str, geometry: str, step: str, ms: float, **extra) -> None:
+    print(json.dumps({"phase": "step", "kernel": kernel, "geometry": geometry,
+                      "step": step, "ms": ms, **extra}), flush=True)
+
+
+def pull_phase(nbr_t, deg, n: int, rng, geometry: str, timed: bool,
+               results: dict | None) -> None:
+    """Kernels 3 and 4 against their plain versions on one seeded
+    mid-search state; with ``timed``, one ``step`` line per kernel, and
+    the times into ``results`` when given."""
+    dev = nbr_t.device
+    n_pad = nbr_t.shape[1]
+    cu = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    ds, frs, _ = mid_search(rng, n, n_pad, 2)
+    dt, frt, _ = mid_search(rng, n, n_pad, 2)
+    fr_s, fr_t = cu(frs), cu(frt)
+    vis_s, vis_t = cu(ds < INF32), cu(dt < INF32)
+    dual = pack_dual(fr_s, fr_t).contiguous()
+    words = bm.frontier_words(n_pad)
+    bits_s = bm.pack_bits(fr_s, words)
+    pair = pe.pack_front(fr_s, fr_t, n_pad)
+    unvisited_s = (~vis_s).to(torch.uint8)
+    cases = {  # arguments, the sides each row wants, sides
+        "pull_single": ((nbr_t, deg, bits_s, vis_s), unvisited_s, 1),
+        "pull_dual": ((nbr_t, deg, pair, vis_s, vis_t),
+                      unvisited_s | ((~vis_t).to(torch.uint8) << 1), 2),
+    }
+    for name, (args, want, k) in cases.items():
+        wrapper, plain = KERNELS[name][:2]
+        ref = plain(*args)
+        got = wrapper(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        check(err == 0, f"{name} differs from its plain version (max {err})")
+        if not timed:
+            continue
+        sl = slots_needed(nbr_t, n_pad, dual, want)
+        # the function's bytes: per side the frontier bitmap read and the
+        # next one written, the visited byte and 5 B of output per row;
+        # 4 B per table slot needed; beside it, the bound with a byte
+        # frontier row (one byte per vertex) in place of the bitmaps
+        bits_row = 4 * ((n_pad + 31) // 32)
+        nbytes = k * (2 * bits_row + 6 * n_pad) + 4 * sl
+        b, by = bound_ms(nbytes, 4 * sl)
+        b1, _ = bound_ms((1 + k) * n_pad + 5 * k * n_pad + 4 * sl, 4 * sl)
+        # an estimate from this state, not measured: the table's sectors a
+        # claim in chunks touches, plus the row entries read and written
+        est = sector_bytes(nbr_t, n_pad, dual, want, pe.CHUNK) + n_pad * (4 + 6 * k)
+        ms = time_launch(lambda: wrapper(*args))
+        step_line(name, geometry, "bitmap" if k == 1 else "pair", ms,
+                  bound_ms=b, bound_ms_byte_row=b1,
+                  est_sector_mb=est / 1e6, est_sector_tb_per_s=est / ms / 1e9)
+        if results is not None:
+            results[name] = dict(max_abs_err=err, ms=ms,
+                                 plain_ms=time_launch(lambda: plain(*args)),
+                                 bound_ms=b, bound_by=by)
+    if timed:
+        # the tiered route rebuilds the next frontier after the tier pass
+        nf_s, _, nf_t = pe.pull_dual(*cases["pull_dual"][0])[:3]
+        step_line("pull_single", geometry, "rebuild_bits",
+                  time_launch(lambda: bm.pack_bits(nf_s, words)))
+        step_line("pull_dual", geometry, "rebuild_pair",
+                  time_launch(lambda: pe.pack_front(nf_s, nf_t, n_pad)))
+
+
+def kernel_phase(g, seed: int, results: dict | None, geometry: str,
+                 time_pull: bool) -> None:
     """Each kernel against its plain version on one seeded state of
-    graph ``g``; times and bounds go into ``results`` when given."""
+    graph ``g``; times and bounds go into ``results`` when given, and the
+    pull kernels are timed when ``time_pull``."""
     dev = g.device
     rng = np.random.default_rng(seed)
     n, n_pad = g.n, g.n_pad
@@ -206,34 +279,7 @@ def kernel_phase(g, seed: int, results: dict | None) -> None:
     nbr_t, deg2 = fl.prepare_fused_tables(g.nbr, g.deg)
     rows = nbr_t.shape[1]
 
-    # kernels 3 and 4
-    ds, frs, _ = mid_search(rng, n, n_pad, 2)
-    dt, frt, _ = mid_search(rng, n, n_pad, 2)
-    fr_s, fr_t = cu(frs), cu(frt)
-    vis_s, vis_t = cu(ds < INF32), cu(dt < INF32)
-    dual = pack_dual(fr_s, fr_t).contiguous()
-    row_bytes = n_pad
-
-    def cmp(name, args, nbytes, ops):
-        wrapper, plain = KERNELS[name][:2]
-        got, want = wrapper(*args), plain(*args)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        check(err == 0, f"{name} differs from its plain version (max {err})")
-        if results is not None:
-            b, by = bound_ms(nbytes, ops)
-            results[name] = dict(
-                max_abs_err=err, ms=time_launch(lambda: wrapper(*args)),
-                plain_ms=time_launch(lambda: plain(*args)),
-                bound_ms=b, bound_by=by,
-            )
-
-    sl = slots_needed(nbr_t, n_pad, dual, (~vis_s).to(torch.uint8) | ((~vis_t).to(torch.uint8) << 1))
-    cmp("pull_dual", (nbr_t, dual, vis_s, vis_t),
-        3 * row_bytes + 4 * sl + 10 * row_bytes, 4 * sl)
-    sl = slots_needed(nbr_t, n_pad, fr_s, ~vis_s)
-    cmp("pull_single", (nbr_t, fr_s, vis_s),
-        2 * row_bytes + 4 * sl + 5 * row_bytes, 4 * sl)
+    pull_phase(nbr_t, deg2, n, rng, geometry, time_pull, results)
 
     # kernels 1 and 2 and the fold; the frontiers are bitmaps at the
     # parity of each side's level (source side at level 2, target at 3)
@@ -314,14 +360,12 @@ def kernel_phase(g, seed: int, results: dict | None) -> None:
         # a claim touches in chunks of CHUNK slots and in a row-at-a-time
         # chain, plus the dist rows of both sides and the degree row
         est = {c: sector_bytes(nbr_t, rows, dual, want, c) + 12 * rows
-               for c in (1, fl.CHUNK)}
+               for c in (1, pe.CHUNK)}
         for step, ms in steps.items():
-            print(json.dumps({"phase": "step", "kernel": name, "step": step,
-                              "ms": ms, "bound_ms": bms,
-                              "est_sector_mb": est[fl.CHUNK] / 1e6,
-                              "est_sector_mb_chain": est[1] / 1e6,
-                              "est_sector_tb_per_s": est[fl.CHUNK] / ms / 1e9}),
-                  flush=True)
+            step_line(name, geometry, step, ms, bound_ms=bms,
+                      est_sector_mb=est[pe.CHUNK] / 1e6,
+                      est_sector_mb_chain=est[1] / 1e6,
+                      est_sector_tb_per_s=est[pe.CHUNK] / ms / 1e9)
         results[name] = dict(max_abs_err=err, ms=t_k, plain_ms=t_p,
                              bound_ms=bms, bound_by=by, steps_ms=steps)
         if "fold_round" not in results:
@@ -439,11 +483,12 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     results: dict = {}
-    kernel_phase(g, seed=11, results=results)
+    kernel_phase(g, seed=11, results=results, geometry="gnp-deg8-s20",
+                 time_pull=True)
     n_small = 3001  # a row count that is a multiple of no block
     e_small = gnp_random_graph(n_small, 3.0 / n_small, seed=5)
     kernel_phase(dense.DeviceGraph.build(n_small, e_small, device=dev),
-                 seed=12, results=None)
+                 seed=12, results=None, geometry="gnp-3001", time_pull=False)
     # the least time any launch takes: an empty kernel between two events
     floor_ms = time_launch(lambda: torch.cuda._sleep(0))
     print(json.dumps({"phase": "kernels_vs_plain", "ok": True,
@@ -480,7 +525,8 @@ def main() -> int:
                       "tiers": [list(m) for m in g2.tier_meta],
                       "build_s": time.perf_counter() - t0}), flush=True)
     # the kernels against their plain versions at the tiered base table
-    kernel_phase(g2, seed=13, results=None)
+    kernel_phase(g2, seed=13, results=None, geometry="rmat-s20-ef16",
+                 time_pull=True)
     print(json.dumps({"phase": "kernels_vs_plain_tiered", "ok": True}),
           flush=True)
     linked = np.flatnonzero(np.diff(csr2[0]) > 0)

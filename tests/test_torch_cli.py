@@ -98,3 +98,30 @@ def test_cli_defaults_to_the_card(tmp_path, capsys, monkeypatch):
     capsys.readouterr()
     with pytest.raises(SystemExit):
         tcli.main([str(path), "0", "2", "--backend", "serial", "--device", "cuda"])
+
+
+def test_ab_runs_two_checkouts_in_turns(capsys):
+    """``cli/ab.py`` against this very checkout as the parent (tiny graph,
+    CPU): both load side by side, every solve agrees, each mode is timed
+    in each checkout, and the modules it swapped are put back."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from bibfs_tpu_torch.cli import ab
+    from bibfs_tpu_torch.solvers import dense
+
+    root = Path(ab.__file__).resolve().parents[2]
+    before = {m: id(mod) for m, mod in sys.modules.items()
+              if m.startswith("bibfs_tpu_torch")}
+    assert ab.main([str(root), "--scale", "8", "--rounds", "2",
+                    "--modes", "pallas,pallas_alt,sync", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["same_results"] is True and out["card"] == "cpu"
+    for who in ("parent", "change"):
+        for mode in ("pallas", "pallas_alt", "sync"):
+            row = out[f"{who}/{mode}"]
+            assert row["solves"] == 16 and row["median_ms"] > 0
+    after = {m: id(mod) for m, mod in sys.modules.items()
+             if m.startswith("bibfs_tpu_torch")}
+    assert after == before and sys.modules["bibfs_tpu_torch.solvers.dense"] is dense

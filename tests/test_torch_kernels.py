@@ -122,6 +122,154 @@ def test_pull_plain_matches_pallas(case):
         assert not nf_t.any() and not outs_t[0].any() and not outs_t[2].any()
 
 
+def _tiered_setup(scale, ef, seed):
+    """A seeded mid-search state over the port's tiered RMAT build: the
+    base table (width 8 or so) holds hub rows whose degree exceeds it."""
+    from bibfs_tpu_torch.graph.csr import build_tiered
+    from bibfs_tpu_torch.graph.generate import rmat_graph
+
+    rng = np.random.default_rng(seed)
+    n, edges = rmat_graph(scale, edge_factor=ef, seed=seed)
+    h = build_tiered(n, edges)
+    assert h.tiers and (h.deg > h.nbr.shape[1]).any()
+    n_pad = h.n_pad
+    fr = rng.random((2, n_pad)) < 0.05
+    fr[:, n:] = False
+    dist = np.where(rng.random((2, n_pad)) < 0.1, 1, INF32).astype(np.int32)
+    dist[0][fr[0]] = 3
+    dist[1][fr[1]] = 2
+    dist[:, n:] = INF32
+    tiers = [(t.start, t.count, t.nbr, h.hub_ids[: t.nbr.shape[0]])
+             for t in h.tiers]
+    return h, fr[0], fr[1], dist[0], dist[1], tiers
+
+
+TIERED = [(11, 8, 3), (12, 4, 7)]
+TIERED_IDS = [f"rmat{c[0]}-ef{c[1]}-{c[2]}" for c in TIERED]
+
+
+@pytest.mark.parametrize("case", TIERED, ids=TIERED_IDS)
+def test_pull_plain_matches_pallas_tiered(case):
+    """Kernels 3 and 4 (plain versions) at a tiered base table whose hub
+    rows have ``deg > width``: the row bound ``min(deg, width)`` (the true
+    degree, or the table's own live slots by default) reads the whole hub
+    row, as the reference's sentinel walk does."""
+    import jax.numpy as jnp
+    import torch
+
+    from bibfs_tpu.ops import pallas_expand as jpe
+
+    from bibfs_tpu_torch.ops import bitmap as bm
+    from bibfs_tpu_torch.ops import pull_expand as tpe
+
+    h, fr_s, fr_t, dist_s, dist_t, _tiers = _tiered_setup(*case)
+    (jt,) = jpe.prepare_pallas_tables(jnp.asarray(h.nbr), jnp.asarray(h.deg))
+    (tt,) = tpe.prepare_pallas_tables(torch.as_tensor(h.nbr),
+                                      torch.as_tensor(h.deg))
+    _assert_same_live_table(jt, tt, h.n_pad)
+    deg = torch.as_tensor(h.deg)
+    assert torch.equal(tpe.live_slots(tt), deg.clamp(max=tt.shape[0]))
+    vs, vt = dist_s < INF32, dist_t < INF32
+    want1 = [_np(x) for x in jpe.run_pull((jt,), jnp.asarray(fr_s), jnp.asarray(vs))]
+    want2 = [_np(x) for x in jpe.run_pull_dual(
+        (jt,), jnp.asarray(fr_s), jnp.asarray(fr_t), jnp.asarray(vs),
+        jnp.asarray(vt))]
+    # the functional forms (rows bounded by the table's live slots), and
+    # the kernels' plain twins bounded by the true degree as the solver
+    # passes it
+    t_fs, t_ft = torch.as_tensor(fr_s), torch.as_tensor(fr_t)
+    t_vs, t_vt = torch.as_tensor(vs), torch.as_tensor(vt)
+    bits = bm.pack_bits(t_fs, bm.frontier_words(h.n_pad))
+    pair = tpe.pack_front(t_fs, t_ft, h.n_pad)
+    for got1, got2 in (
+            (tpe.run_pull((tt,), t_fs, t_vs),
+             tpe.run_pull_dual((tt,), t_fs, t_ft, t_vs, t_vt)),
+            (tpe.pull_single_plain(tt, deg, bits, t_vs)[:2],
+             tpe.pull_dual_plain(tt, deg, pair, t_vs, t_vt)[:4])):
+        for want, got in ((want1, got1), (want2, got2)):
+            got = [_np(x) for x in got]
+            for i in range(0, len(got), 2):
+                nf = got[i]
+                assert np.array_equal(want[i], nf)
+                assert np.array_equal(want[i + 1][nf], got[i + 1][nf])
+                assert (got[i + 1][~nf] == -1).all()
+    hubs = h.deg > h.nbr.shape[1]
+    assert (want1[0] & hubs[: len(want1[0])]).any() or (want2[0] & hubs).any()
+
+
+HANDOVER = [("ell", 0), ("ell", 5), ("tiered", 0), ("tiered", 1)]
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+@pytest.mark.parametrize("case", HANDOVER, ids=[f"{c[0]}-{c[1]}" for c in HANDOVER])
+def test_pull_rounds_hand_over_the_frontier(case, dual):
+    """Two rounds in a row through the level code the solver runs
+    (``pull_round`` / ``pull_round_dual``), the second taking the
+    frontier the first wrote (the kernel's next bitmap, or on a tiered
+    graph the one rebuilt after the tier pass), against two calls of the
+    reference's ``pallas_pull_level`` / ``pallas_pull_level_dual``; the
+    port's functional forms of those give the same each round."""
+    import jax.numpy as jnp
+    import torch
+
+    from bibfs_tpu.ops import pallas_expand as jpe
+
+    from bibfs_tpu_torch.ops import bitmap as bm
+    from bibfs_tpu_torch.ops import pull_expand as tpe
+
+    layout, k = case
+    if layout == "tiered":
+        h, fr_s, fr_t, dist_s, dist_t, tiers = _tiered_setup(*TIERED[k])
+        nbr, deg = h.nbr, h.deg
+    else:
+        g, fr_s, fr_t, dist_s, dist_t, _par = _setup(*CASES[k])
+        nbr, deg, tiers = g.nbr, g.deg, []
+    n_pad = nbr.shape[0]
+    par = np.full(n_pad, -1, np.int32)
+    (jt,) = jpe.prepare_pallas_tables(jnp.asarray(nbr), jnp.asarray(deg))
+    (tt,) = tpe.prepare_pallas_tables(torch.as_tensor(nbr), torch.as_tensor(deg))
+    jtiers = tuple((s, c, jnp.asarray(a), jnp.asarray(b)) for s, c, a, b in tiers)
+    ttiers = tuple((s, c, torch.as_tensor(a), torch.as_tensor(b))
+                   for s, c, a, b in tiers)
+    tdeg = torch.as_tensor(deg)
+    j = [jnp.asarray(x) for x in (fr_s, fr_t, par, dist_s, par, dist_t)]
+    t = [torch.as_tensor(x) for x in (fr_s, fr_t, par, dist_s, par, dist_t)]
+    words = bm.frontier_words(n_pad)
+    if dual:
+        front = tpe.pack_front(t[0], t[1], n_pad)
+    else:
+        front = bm.pack_bits(t[0], words)
+    for lvl in (4, 5):
+        if dual:
+            a = jpe.pallas_pull_level_dual(*j, (jt,), jnp.asarray(deg), jtiers,
+                                           jnp.int32(lvl), jnp.int32(lvl - 1),
+                                           inf=INF32)
+            *b, front = tpe.pull_round_dual(
+                *t[:2], front, *t[2:], tt, tdeg, ttiers, lvl, lvl - 1, inf=INF32)
+            # the functional form (bool rows in, the JAX contract out)
+            c = tpe.pallas_pull_level_dual(*t, (tt,), tdeg, ttiers, lvl,
+                                           lvl - 1, inf=INF32)
+            j = [a[0], a[4], a[1], a[2], a[5], a[6]]
+            t = [b[0], b[4], b[1], b[2], b[5], b[6]]
+            assert torch.equal(front, tpe.pack_front(b[0], b[4], n_pad))
+        else:
+            a = jpe.pallas_pull_level(j[0], j[2], j[3], (jt,), jnp.asarray(deg),
+                                      jtiers, jnp.int32(lvl), inf=INF32)
+            nf, front, par_t, dist_t2, md = tpe.pull_round(
+                t[0], front, t[2], t[3], tt, tdeg, ttiers, lvl, inf=INF32)
+            c = tpe.pallas_pull_level(t[0], t[2], t[3], (tt,), tdeg, ttiers,
+                                      lvl, inf=INF32)
+            b = [nf, par_t, dist_t2, md]
+            j = [a[0], j[1], a[1], a[2], j[4], j[5]]
+            t = [nf, t[1], par_t, dist_t2, t[4], t[5]]
+            assert torch.equal(front, bm.pack_bits(nf, words))
+        assert len(a) == len(b) == len(c)
+        for x, y, z in zip(a, b, c):
+            assert np.array_equal(_np(x), _np(y))
+            assert np.array_equal(_np(x), _np(z))
+        assert _np(b[0]).any()  # each round reaches new vertices
+
+
 def _state_rows(g, fr_s, fr_t, dist_s, dist_t, par, rows):
     """The state rows as numpy, padded to ``rows`` with unreached rows."""
 
@@ -218,7 +366,7 @@ def test_deep_case_needs_a_second_chunk():
     """In the last case some unvisited row's first frontier hit lies past
     the kernels' first chunk of 8 slots, so the chunked claim must go on
     to a second chunk (and the case is the same for the CUDA test)."""
-    from bibfs_tpu_torch.ops.fused_level import CHUNK
+    from bibfs_tpu_torch.ops.pull_expand import CHUNK
 
     g, fr_s, fr_t, dist_s, dist_t, _par = _setup(*CASES[-1])
     deep = 0
@@ -254,6 +402,32 @@ def test_pack_bits_round_trip(n):
     seed = fl.new_frontier(n - 1, 0, n, "cpu")
     assert seed.shape == (2, 2, words) and int(seed.ne(0).sum()) == 2
     assert fl.unpack_bits(seed[0, 0], n)[n - 1] and fl.unpack_bits(seed[1, 0], n)[0]
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 100, 3_001])
+def test_pack_pairs_round_trip(n):
+    """The dual kernel's pair row (2 bits per vertex, 16 vertices a word)
+    round-trips both sides' rows, agrees bit for bit with the two bitmaps,
+    and leaves the bits past ``n`` zero."""
+    import torch
+
+    from bibfs_tpu_torch.ops import bitmap as bm
+
+    rng = np.random.default_rng(n)
+    fr_s, fr_t = (torch.as_tensor(rng.random(n) < 0.4) for _ in range(2))
+    words = 2 * bm.frontier_words(n)
+    row = bm.pack_pairs(fr_s, fr_t, words)
+    assert row.dtype == torch.int32 and row.shape == (words,)
+    s, t = bm.unpack_pairs(row, n)
+    assert torch.equal(s, fr_s) and torch.equal(t, fr_t)
+    s, t = bm.unpack_pairs(row, words * 16)
+    assert not s[n:].any() and not t[n:].any()
+    for side, fr in ((0, fr_s), (1, fr_t)):
+        bits = bm.pack_bits(fr, bm.frontier_words(n))
+        u = torch.arange(n)
+        via_row = (row.long()[u >> 4] >> (2 * (u & 15) + side)) & 1
+        via_bits = (bits.long()[u >> 5] >> (u & 31)) & 1
+        assert torch.equal(via_row, via_bits)
 
 
 def test_alt_rounds_keep_the_passive_bitmap():
@@ -383,6 +557,7 @@ def test_cuda_kernels_match_plain(case, cuda_device):
     device inputs, exactly, with the launch counters moving."""
     import torch
 
+    from bibfs_tpu_torch.ops import bitmap as bm
     from bibfs_tpu_torch.ops import fused_level as fl
     from bibfs_tpu_torch.ops import pull_expand as pe
 
@@ -390,18 +565,22 @@ def test_cuda_kernels_match_plain(case, cuda_device):
     dev = cuda_device
     (nbr_t,) = pe.prepare_pallas_tables(torch.as_tensor(g.nbr).to(dev),
                                         torch.as_tensor(g.deg).to(dev))
+    deg = torch.as_tensor(g.deg).to(dev)
     f_s = torch.as_tensor(fr_s).to(dev)
+    f_t = torch.as_tensor(fr_t).to(dev)
     v_s = torch.as_tensor(dist_s < INF32).to(dev)
     v_t = torch.as_tensor(dist_t < INF32).to(dev)
-    dual = pe.pack_dual(f_s, torch.as_tensor(fr_t).to(dev)).contiguous()
-    before = pe.pull_single.launches
-    for x, y in zip(pe.pull_single(nbr_t, f_s, v_s),
-                    pe.pull_single_plain(nbr_t, f_s, v_s)):
+    bits = bm.pack_bits(f_s, bm.frontier_words(g.n_pad))
+    pair = pe.pack_front(f_s, f_t, g.n_pad)
+    before = (pe.pull_single.launches, pe.pull_dual.launches)
+    for x, y in zip(pe.pull_single(nbr_t, deg, bits, v_s),
+                    pe.pull_single_plain(nbr_t, deg, bits, v_s)):
         assert torch.equal(x, y)
-    for x, y in zip(pe.pull_dual(nbr_t, dual, v_s, v_t),
-                    pe.pull_dual_plain(nbr_t, dual, v_s, v_t)):
+    for x, y in zip(pe.pull_dual(nbr_t, deg, pair, v_s, v_t),
+                    pe.pull_dual_plain(nbr_t, deg, pair, v_s, v_t)):
         assert torch.equal(x, y)
-    assert pe.pull_single.launches == before + 1
+    assert (pe.pull_single.launches, pe.pull_dual.launches) == (
+        before[0] + 1, before[1] + 1)
     nt, d2, t = _fused_rows(g, fr_s, fr_t, dist_s, dist_t, par)
     t = {k: v.to(dev) for k, v in t.items()}
     nt, d2 = nt.to(dev), d2.to(dev)

@@ -8,7 +8,10 @@ then, from a ``torch.profiler`` run of the same solves, the device's
 kernel time per solve, the idle share of the search (1 - kernel time /
 search time), host reads per solve, each hand-written kernel's launches
 per solve and the five kernels with the most device time. ``--unroll``
-sets the rounds per host read of the fused modes. A card is required.
+sets the rounds per host read of the fused modes. ``--batch B`` profiles
+batches of B seeded pairs instead, in modes minor8 and minor: the same
+numbers per batch (``time_batch_graph``, then a profiled run of 5
+batches). A card is required.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--unroll", type=int, default=1,
                     help="rounds per host read of the fused modes")
+    ap.add_argument("--batch", type=int, default=0, metavar="B",
+                    help="profile batches of B pairs (modes minor8, minor)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: CUDA is not available", file=sys.stderr)
@@ -44,6 +49,7 @@ def main(argv=None) -> int:
 
     from bibfs_tpu_torch.graph.generate import gnp_random_graph
     from bibfs_tpu_torch.ops import fused_level as fl
+    from bibfs_tpu_torch.ops import minor_level as ml
     from bibfs_tpu_torch.ops import pull_expand as pe
     from bibfs_tpu_torch.solvers import dense
 
@@ -59,7 +65,27 @@ def main(argv=None) -> int:
     pairs = [(int(a), int(b)) for a, b in rng.integers(0, n, (PAIRS, 2))]
     print(json.dumps({"card": torch.cuda.get_device_name(0), "n": n,
                       "edges": int(edges.shape[0]), "pairs": len(pairs),
-                      "unroll": args.unroll}))
+                      "unroll": args.unroll, "batch": args.batch}))
+    if args.batch:
+        bpairs = rng.integers(0, n, (args.batch, 2))
+        for mode in ("minor8", "minor"):
+            times, res = dense.time_batch_graph(g, bpairs, repeats=REPEATS,
+                                                mode=mode)
+            _p, dispatch, _f = dense._batch_dispatch(g, bpairs, mode)
+            torch.cuda.synchronize()
+            ml.minor_level.launches[mode] = 0
+            with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA],
+            ) as prof:
+                for _ in range(REPEATS):
+                    dispatch()
+                torch.cuda.synchronize()
+            _report(mode, _kernel_events(prof), REPEATS,
+                    float(np.median(times)) * 1e3, res[0].host_syncs,
+                    {"minor_level": ml.minor_level.launches[mode] / REPEATS},
+                    "batch")
+        return 0
     for mode in MODES:
         search_ms, syncs = [], []
         for s, d in pairs:
@@ -78,26 +104,32 @@ def main(argv=None) -> int:
                 for _ in range(REPEATS):
                     dense._run(g, s, d, mode, args.unroll, None)
             torch.cuda.synchronize()
-        kernels = _kernel_events(prof)
         solves = len(pairs) * REPEATS
-        per_solve_us = sum(us for _n, us in kernels) / solves
-        by_name: dict[str, float] = {}
-        for name, us in kernels:
-            by_name[name] = by_name.get(name, 0.0) + us
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        med = float(np.median(search_ms))
-        print(json.dumps({
-            "mode": mode,
-            "median_search_ms": med,
-            "kernel_ms_per_solve": per_solve_us / 1e3 if kernels else None,
-            "idle_share": 1 - per_solve_us / 1e3 / med if kernels else None,
-            "device_ops_per_solve": len(kernels) / solves,
-            "launches_per_solve": {k: w.launches / solves
-                                   for k, w in wrappers.items() if w.launches},
-            "host_reads_per_solve": float(np.mean(syncs)),
-            "top_kernels_ms": [[name[:60], us / 1e3] for name, us in top],
-        }), flush=True)
+        _report(mode, _kernel_events(prof), solves,
+                float(np.median(search_ms)), float(np.mean(syncs)),
+                {k: w.launches / solves for k, w in wrappers.items()
+                 if w.launches}, "solve")
     return 0
+
+
+def _report(mode, kernels, runs, med_ms, host_reads, launches, unit) -> None:
+    """One JSON line: device time, idle share and device ops per ``unit``
+    (a solve or a batch) over ``runs`` profiled runs."""
+    per_us = sum(us for _n, us in kernels) / runs
+    by_name: dict[str, float] = {}
+    for name, us in kernels:
+        by_name[name] = by_name.get(name, 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(json.dumps({
+        "mode": mode,
+        f"median_{'search' if unit == 'solve' else unit}_ms": med_ms,
+        f"kernel_ms_per_{unit}": per_us / 1e3 if kernels else None,
+        "idle_share": 1 - per_us / 1e3 / med_ms if kernels else None,
+        f"device_ops_per_{unit}": len(kernels) / runs,
+        f"launches_per_{unit}": launches,
+        f"host_reads_per_{unit}": host_reads,
+        "top_kernels_ms": [[name[:60], us / 1e3] for name, us in top],
+    }), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,15 @@
-"""CLI solver: ``bibfs-torch-solve <graph.bin> <src> <dst>``.
+"""CLI solver: ``bibfs-torch-solve <graph.bin> <src> <dst>``, or
+``bibfs-torch-solve <graph.bin> --pairs FILE`` for a batch.
 
 Prints the same lines as ``bibfs-solve``: ``Shortest path length = N``,
-``Path: ...``, the ``[Time]`` line and the ``[TEPS]`` line. The default
-is the dense search on the CUDA card; ``--device cpu`` runs its plain
-torch versions on the host, and ``--backend serial`` the host oracle.
-Without a card and without ``--device cpu`` the dense search raises.
+``Path: ...``, the ``[Time]`` line and the ``[TEPS]`` line; with
+``--pairs`` (a file of ``src dst`` lines, dense backend) one line per
+pair and the ``[Time] dense batch of N searches took ...`` line. The
+batch-only modes ``minor``, ``minor8`` and ``auto`` need ``--pairs``. The
+default is the dense search on the CUDA card; ``--device cpu`` runs its
+plain torch versions on the host, and ``--backend serial`` the host
+oracle. Without a card and without ``--device cpu`` the dense search
+raises.
 """
 
 from __future__ import annotations
@@ -14,22 +19,33 @@ import sys
 
 from bibfs_tpu_torch.solvers.dense import DENSE_MODES
 
+BATCH_ONLY = ("minor", "minor8", "auto")
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Bidirectional BFS (PyTorch / CUDA)"
     )
     ap.add_argument("graph", help="binary graph file (uint32 N,M + edge pairs)")
-    ap.add_argument("src", type=int)
-    ap.add_argument("dst", type=int)
+    ap.add_argument("src", type=int, nargs="?", default=None)
+    ap.add_argument("dst", type=int, nargs="?", default=None)
+    ap.add_argument("--pairs", default=None, metavar="FILE",
+                    help='batch mode (dense backend): a file of "src dst" '
+                    "lines solved as one batch; replaces the positional "
+                    "src/dst")
     ap.add_argument("--backend", default="dense", choices=["serial", "dense"],
                     help="the dense device search (default) or the serial "
                     "host oracle")
-    ap.add_argument("--mode", default="sync", choices=sorted(DENSE_MODES),
+    ap.add_argument("--mode", default="sync",
+                    choices=sorted(DENSE_MODES) + list(BATCH_ONLY),
                     help="dense schedule (default sync): sync/alt/beamer/"
                     "beamer_alt/sync_unfused as torch ops, pallas/pallas_alt "
                     "on the pull kernels, fused/fused_alt as one level "
-                    "kernel per round with the state on the device")
+                    "kernel per round with the state on the device; "
+                    "minor/minor8 are batch-only layouts (--pairs): the "
+                    "queries on the minor axis of [n, B] planes, one level "
+                    "kernel per round, minor8 with int8 planes (plain ELL); "
+                    "auto (batch only) picks the best eligible layout")
     ap.add_argument("--layout", default="ell", choices=["ell", "tiered"],
                     help="dense adjacency layout: one table, or a base table "
                     "plus geometric hub tiers (power-law graphs)")
@@ -45,6 +61,23 @@ def main(argv=None):
                     "silent CPU fallback); the serial oracle runs on the "
                     "host only")
     args = ap.parse_args(argv)
+    if args.mode in BATCH_ONLY:
+        if args.pairs is None or args.backend != "dense":
+            ap.error("--mode minor/minor8/auto are batch-only: use "
+                     "--pairs FILE with --backend dense")
+        if args.layout == "tiered" and args.mode == "minor8":
+            ap.error("--mode minor8 is plain-ELL only (slot-coded "
+                     "parents); tiered graphs batch through --mode "
+                     "minor or sync")
+    if args.pairs is not None:
+        if args.backend != "dense":
+            ap.error("--pairs batch mode is supported by --backend dense")
+        if args.src is not None or args.dst is not None:
+            ap.error("--pairs replaces the positional src/dst arguments")
+    elif args.src is None or args.dst is None:
+        ap.error("src and dst are required (or use --pairs FILE)")
+    if args.unroll > 1 and args.pairs is not None:
+        ap.error("--unroll is single-query only (no --pairs)")
     if args.unroll < 1:
         ap.error("--unroll must be >= 1")
     if args.repeat < 1:
@@ -63,6 +96,8 @@ def main(argv=None):
     except (OSError, ValueError) as e:
         print(f"Error reading graph: {e}", file=sys.stderr)
         return 2
+    if args.pairs is not None:
+        return _batch_main(args, n, edges)
     try:
         res = _solve(args, n, edges)
     except (ValueError, RuntimeError) as e:
@@ -106,6 +141,50 @@ def _solve(args, n, edges):
                            mode=args.mode, unroll=args.unroll)[1]
     return solve_dense_graph(g, args.src, args.dst, mode=args.mode,
                              unroll=args.unroll)
+
+
+def _batch_main(args, n, edges):
+    import numpy as np
+
+    try:
+        pairs = np.loadtxt(args.pairs, dtype=np.int64, ndmin=2)
+    except (OSError, ValueError) as e:
+        print(f"Error reading pairs: {e}", file=sys.stderr)
+        return 2
+    if pairs.shape[1] != 2:
+        print(f"Error: {args.pairs} must have two columns (src dst)",
+              file=sys.stderr)
+        return 2
+    from bibfs_tpu_torch.solvers.dense import (
+        DeviceGraph,
+        solve_batch_graph,
+        time_batch_graph,
+    )
+
+    try:
+        g = DeviceGraph.build(n, edges, layout=args.layout, device=args.device)
+        if args.repeat > 1:
+            _times, results = time_batch_graph(g, pairs, repeats=args.repeat,
+                                               mode=args.mode)
+        else:
+            results = solve_batch_graph(g, pairs, mode=args.mode)
+    except (ValueError, RuntimeError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 2
+    for (src, dst), res in zip(pairs, results):
+        if res.found:
+            line = f"{src} -> {dst}: length = {res.hops}"
+            if res.path and not args.no_path:
+                line += "  path: " + " -> ".join(str(v) for v in res.path)
+        else:
+            line = f"{src} -> {dst}: no path"
+        print(line)
+    batch_s = results[0].time_s if results else 0.0
+    print(
+        f"[Time] {args.backend} batch of {len(results)} searches took "
+        f"{batch_s:.9f} seconds ({batch_s / max(len(results), 1):.9f} s/query)"
+    )
+    return 0
 
 
 def _main():

@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pull_expand", "fused_level")
+SOURCES = ("pull_expand", "fused_level", "batch_minor")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -45,6 +45,10 @@ SIGNATURES = {
         "bibfs_fused_dual": _ROUND + [_P],
         "bibfs_fused_single": _ROUND + [_I, _P],
         "bibfs_fold_round": [_P, _P, _P, _I, _P],
+    },
+    "batch_minor": {
+        "bibfs_minor_level": [_I, _P, _I64, _I, _I64, _P, _I64, _I64, _P, _P,
+                              _P, _P, _P, _P, _I, _P, _P, _P, _P],
     },
 }
 

@@ -595,14 +595,20 @@ def solve_dense_graph(g: DeviceGraph, src: int, dst: int, *, mode: str = "sync",
                         host_syncs=stats["host_syncs"])
 
 
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or array as a host numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _materialize(out, elapsed: float, *, mode: str | None = None,
                  host_syncs: int | None = None) -> BFSResult:
     best, meet, par_s, par_t, levels, edges = out
+    best, meet, levels, edges = int(best), int(meet), int(levels), int(edges)
     extra = dict(mode=mode, host_syncs=host_syncs)
     if best >= INF32:
         return BFSResult(False, None, None, None, elapsed, levels, edges, **extra)
-    path = _reconstruct(par_s.cpu().numpy().astype(np.int64),
-                        par_t.cpu().numpy().astype(np.int64), meet)
+    path = _reconstruct(_host(par_s).astype(np.int64),
+                        _host(par_t).astype(np.int64), meet)
     return BFSResult(True, best, path, meet, elapsed, levels, edges, **extra)
 
 
@@ -620,6 +626,116 @@ def time_search(g: DeviceGraph, src: int, dst: int, *, repeats: int = 30,
         repeats,
         device=g.device,
     )
+
+
+def _stack_outputs(outs, n_pad: int, device):
+    """Per-query kernel outputs as the batch contract's tensors: ``[B]``
+    int32 scalars and ``[B, n_pad]`` parent planes."""
+    def ints(i):
+        return torch.tensor([o[i] for o in outs], dtype=torch.int32,
+                            device=device)
+
+    def plane(i):
+        if not outs:
+            return torch.empty((0, n_pad), dtype=torch.int32, device=device)
+        return torch.stack([o[i] for o in outs])
+
+    return ints(0), ints(1), plane(2), plane(3), ints(4), ints(5)
+
+
+def _batch_dispatch(g: DeviceGraph, pairs, mode: str,
+                    stats: dict | None = None):
+    """``(pairs, thunk, finish)`` of a batch: ``pairs`` normalized to
+    ``int64[B, 2]`` and range-checked before anything runs, ``thunk()``
+    the timed unit (the whole batch on the device), ``finish(out)`` the
+    untimed conversion to the 6-tuple ``(best, meet, par_s [B, *], par_t,
+    levels, edges)``. ``auto`` resolves through ``auto_batch_mode``;
+    ``minor`` / ``minor8`` run the batch-minor layout
+    (:mod:`bibfs_tpu_torch.solvers.batch_minor`). Every other mode runs
+    its single-query search query by query, with ``fused`` / ``fused_alt``
+    routed to ``pallas`` / ``pallas_alt`` as the reference's vmapped batch
+    routes them: each query's result is the single-query one. ``stats``
+    collects ``host_syncs`` (the host reads of every run of the thunk) and
+    the ``mode`` that runs."""
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    if pairs.size and not ((0 <= pairs).all() and (pairs < g.n).all()):
+        raise ValueError(f"src/dst out of range for n={g.n}")
+    stats = {"host_syncs": 0} if stats is None else stats
+    if mode == "auto":
+        from bibfs_tpu_torch.solvers.batch_minor import auto_batch_mode
+
+        mode = auto_batch_mode(g, len(pairs))
+    if mode in ("minor", "minor8"):
+        from bibfs_tpu_torch.solvers.batch_minor import batch_dispatch
+
+        stats["mode"] = mode
+        return batch_dispatch(g, pairs, dt8=(mode == "minor8"), stats=stats)
+    mode = resolve_mode(_LAYOUT_ROUTE.get(mode, mode), g.tier_meta)
+    stats["mode"] = mode
+    kern = _get_kernel(mode, kernel_cap(mode, g.n_pad, g.device.type),
+                       g.tier_meta)
+
+    def dispatch():
+        outs = [kern(g.nbr, g.deg, g.aux, int(s), int(d), cache=g.tables,
+                     stats=stats) for s, d in pairs]
+        return _stack_outputs(outs, g.n_pad, g.device)
+
+    return pairs, dispatch, lambda out: out
+
+
+def _materialize_batch(out, num: int, elapsed: float, *,
+                       mode: str | None = None,
+                       host_syncs: int | None = None) -> list[BFSResult]:
+    # one device->host copy per OUTPUT, not one per (output, query)
+    outs = [_host(o) for o in out]
+    return [_materialize(tuple(o[i] for o in outs), elapsed, mode=mode,
+                         host_syncs=host_syncs) for i in range(num)]
+
+
+def solve_batch_graph(g: DeviceGraph, pairs, *, mode: str = "sync"
+                      ) -> list[BFSResult]:
+    """Solve many (src, dst) queries as one batch (:func:`_batch_dispatch`).
+    One :class:`BFSResult` per pair; every result's ``time_s`` is the
+    WHOLE batch's wall clock (divide by ``len(pairs)`` for the time per
+    query), ``host_syncs`` the batch's host reads and ``mode`` the batch
+    mode that ran."""
+    from bibfs_tpu_torch.solvers.timing import force_scalar
+
+    stats = {"host_syncs": 0}
+    pairs, dispatch, finish = _batch_dispatch(g, pairs, mode, stats)
+    t0 = time.perf_counter()
+    out = dispatch()
+    force_scalar(out)
+    elapsed = time.perf_counter() - t0
+    return _materialize_batch(finish(out), pairs.shape[0], elapsed,
+                              mode=stats["mode"],
+                              host_syncs=stats["host_syncs"])
+
+
+def time_batch_graph(g: DeviceGraph, pairs, *, repeats: int = 5,
+                     mode: str = "sync") -> tuple[list[float], list[BFSResult]]:
+    """A batch under the shared timing protocol (warm-up excluded, forced
+    execution per repeat, CUDA events on a card); the last timed output is
+    materialized with the median stamped into every result's ``time_s``
+    and the host reads of one batch in ``host_syncs``."""
+    from bibfs_tpu_torch.solvers.timing import timed_batch_repeats
+
+    stats = {"host_syncs": 0}
+    pairs, dispatch, finish = _batch_dispatch(g, pairs, mode, stats)
+    times, out = timed_batch_repeats(dispatch, repeats, device=g.device)
+    return times, _materialize_batch(
+        finish(out), pairs.shape[0], float(np.median(times)),
+        mode=stats["mode"], host_syncs=stats["host_syncs"] // (repeats + 1))
+
+
+def time_batch_only(g: DeviceGraph, pairs, *, repeats: int = 10,
+                    mode: str = "sync") -> list[float]:
+    """Forced-execution batch timing without materializing results: the
+    wall time of each of ``repeats`` whole-batch runs."""
+    from bibfs_tpu_torch.solvers.timing import timed_repeats
+
+    _pairs, dispatch, _finish = _batch_dispatch(g, pairs, mode)
+    return timed_repeats(dispatch, None, repeats, device=g.device)[0]
 
 
 def solve_dense(n: int, edges: np.ndarray, src: int, dst: int, *,

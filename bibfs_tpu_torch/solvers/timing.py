@@ -52,6 +52,23 @@ def timed_repeats(
     when None). ``device`` selects CUDA-event timing when it is a CUDA
     device. Returns ``(times_s, result)`` with ``result.time_s`` = median.
     """
+    times, _ = timed_batch_repeats(dispatch, repeats, force, device)
+    if materialize is None:
+        return times, None
+    result = materialize()
+    return times, dataclasses.replace(result, time_s=float(np.median(times)))
+
+
+def timed_batch_repeats(
+    dispatch: Callable[[], object],
+    repeats: int,
+    force: Callable[[object], None] | None = force_scalar,
+    device=None,
+) -> tuple[list[float], object]:
+    """The batch form of :func:`timed_repeats`: warm up once, then time
+    ``repeats`` whole-batch dispatches with execution forced inside every
+    interval, and return ``(times_s, last_out)`` so the caller materializes
+    the last output once."""
     if repeats < 1:
         raise ValueError(f"repeats must be >= 1, got {repeats}")
     cuda = device is not None and torch.device(device).type == "cuda"
@@ -76,7 +93,4 @@ def timed_repeats(
             if force is not None:
                 force(out)
             times.append(time.perf_counter() - t0)
-    if materialize is None:
-        return times, None
-    result = materialize()
-    return times, dataclasses.replace(result, time_s=float(np.median(times)))
+    return times, out

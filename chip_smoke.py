@@ -28,11 +28,36 @@ is unavailable. Phases:
    and fused_alt == pallas_alt == alt exactly on (best, meet, par_s,
    par_t, levels, edges); fused gives the same result with unroll 1 and 8;
    every kernel's launch count rises.
+   Phase 2 also holds the batch-minor level (``minor_level``, both
+   instantiations: int32 planes for ``minor``, int8 for ``minor8``)
+   against its plain twin at the batch geometry of 256 queries on
+   gnp-deg8-s20 and of 128 on the 3001-row graph, from a seeded
+   mid-search state made on the card (planes, counters and meet keys
+   exactly equal), with a ``step`` line per instantiation (kernel ms, the
+   twin's ms, the bound, the bound counting every plane once, the bound
+   with every gathered frontier row from device memory).
 4. Tiered: RMAT scale 20, edge factor 16 (about 15.7M edges); the
    kernels against their plain versions at its base table (kernels 3 and
    4 timed there too), then modes
    sync, pallas, pallas_alt and fused (which runs as pallas); oracle hops
-   and pallas == sync exactly.
+   and pallas == sync exactly. Then batch routing on it: ``auto`` with
+   256 queries takes the per-query ``sync`` path and ``minor`` is refused
+   (a tier's parent key overflows int32); ``auto`` with 8 pairs runs per
+   query and matches the oracle.
+5. Batches (run between phases 3 and 4 on the phase 3 graph): 256 seeded
+   pairs (one ``src == dst``, one to an isolated vertex) through
+   ``time_batch_graph`` in modes minor8, minor and auto (a warm-up, then
+   the median of 5), one ``batch`` line each with the batch ms, the ms per
+   query beside a single ``fused`` solve's and the host reads per batch;
+   minor8 (decoded) == minor == auto on every output, parent rows
+   included; 16 pairs equal the single-query ``fused`` search in (best,
+   meet, levels, edges) and the oracle in hops; every path passes
+   ``validate_path``; both instantiations' launch counts rise.
+6. Tiered batches on RMAT scale 17, edge factor 16 (the largest scale of
+   the family whose tiers ``minor`` admits): 256 pairs in mode minor,
+   checked as in phase 5 against the single-query ``sync`` search; then a
+   600-vertex path graph whose deepest query passes the int8 cap: the
+   minor8 refill equals minor.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
@@ -54,8 +79,10 @@ from bibfs_tpu_torch.graph.generate import gnp_random_graph, rmat_graph
 from bibfs_tpu_torch.ops import _cuda
 from bibfs_tpu_torch.ops import bitmap as bm
 from bibfs_tpu_torch.ops import fused_level as fl
+from bibfs_tpu_torch.ops import minor_level as ml
 from bibfs_tpu_torch.ops import pull_expand as pe
 from bibfs_tpu_torch.ops.expand import pack_dual
+from bibfs_tpu_torch.solvers import batch_minor as bmin
 from bibfs_tpu_torch.solvers import dense
 from bibfs_tpu_torch.solvers.api import validate_path
 from bibfs_tpu_torch.solvers.serial import solve_serial_csr
@@ -84,6 +111,16 @@ KERNELS = {  # wrapper, plain twin, source, the Pallas kernel it replaces
                    "bibfs_tpu_torch/csrc/fused_level.cu",
                    "bibfs_tpu/solvers/dense.py:812"),
 }
+# the batch-minor level, one entry per instantiation (int32 planes for mode
+# "minor", int8 for "minor8"); not a Pallas kernel but the XLA program of
+# the reference's _level_scan. Its wrapper counts per instantiation.
+MINOR = {
+    "minor_level[minor]": ("minor", "bibfs_tpu_torch/csrc/batch_minor.cu",
+                           "bibfs_tpu/solvers/batch_minor.py:133"),
+    "minor_level[minor8]": ("minor8", "bibfs_tpu_torch/csrc/batch_minor.cu",
+                            "bibfs_tpu/solvers/batch_minor.py:133"),
+}
+BATCH = 256  # queries of a batch at full size
 
 
 # the unstaged instantiation of kernel 2, which the wrapper takes only
@@ -104,10 +141,15 @@ def check(cond, msg: str) -> None:
 def reset_counts() -> None:
     for wrapper, *_ in KERNELS.values():
         wrapper.launches = 0
+    for key in ml.minor_level.launches:
+        ml.minor_level.launches[key] = 0
 
 
 def counts() -> dict:
-    return {name: k[0].launches for name, k in KERNELS.items()}
+    out = {name: k[0].launches for name, k in KERNELS.items()}
+    for name, (key, *_r) in MINOR.items():
+        out[name] = ml.minor_level.launches[key]
+    return out
 
 
 def max_abs_err(a, b) -> int:
@@ -123,13 +165,13 @@ def max_abs_err(a, b) -> int:
     return err
 
 
-def time_launch(fn, prep=None) -> float:
-    """Median ms of one call of ``fn`` over REPS calls (after 2 warm-ups),
-    each between two CUDA events; ``prep`` restores the inputs outside the
-    timed interval, and a sleep kernel keeps the card busy while the host
-    enqueues the call."""
+def time_launch(fn, prep=None, reps: int = REPS) -> float:
+    """Median ms of one call of ``fn`` over ``reps`` calls (after 2
+    warm-ups), each between two CUDA events; ``prep`` restores the inputs
+    outside the timed interval, and a sleep kernel keeps the card busy
+    while the host enqueues the call."""
     times = []
-    for i in range(REPS + 2):
+    for i in range(reps + 2):
         if prep is not None:
             prep()
         torch.cuda._sleep(SLEEP_CYCLES)
@@ -447,6 +489,215 @@ def seeded_pairs(rng, candidates, k: int) -> list[tuple[int, int]]:
     return pairs + [(pairs[0][0], pairs[0][0])]
 
 
+def minor_state(g, rows: int, b: int, dt8: bool, seed: int):
+    """A seeded mid-search state of the batch-minor planes ``[rows, b]``,
+    made on the card: about 30% of the vertices visited per side at levels
+    0..2 (the frontier those at 2), about a fifth of the queries inactive,
+    and the last two queries pad queries (``src == dst == 0``)."""
+    dev = g.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pdt = torch.int8 if dt8 else torch.int32
+    inf = ml.plane_inf(pdt)
+    live = torch.arange(rows, device=dev)[:, None] < g.n
+
+    def rand_int(hi):
+        return torch.randint(0, hi, (rows, b), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def side():
+        vis = (torch.rand((rows, b), generator=gen, device=dev) < 0.3) & live
+        return torch.where(vis, rand_int(3), inf).to(pdt)
+
+    ds, dt = side(), side()
+    hi = g.width if dt8 else g.n
+    ps = torch.where(ds < inf, rand_int(hi), -1).to(pdt)
+    pt = torch.where(dt < inf, rand_int(hi), -1).to(pdt)
+    for plane, start in ((ds, inf), (dt, inf), (ps, -1), (pt, -1)):
+        plane[:, -2:] = start
+    ds[0, -2:] = 0
+    dt[0, -2:] = 0
+    dual = (ds == 2).to(pdt) | ((dt == 2).to(pdt) << 1)
+    active = (torch.rand(b, generator=gen, device=dev) < 0.8).to(torch.int32)
+    active[-2:] = 0
+    return dual, [ds, dt, ps, pt], active
+
+
+def minor_kernel_phase(g, geometry: str, seed: int, results: dict | None):
+    """The batch-minor level (both instantiations) against its plain twin
+    on one seeded mid-search state at the batch geometry of ``BATCH``
+    queries (``batch_minor._minor_geometry``): planes, counters and meet
+    keys exactly equal. With ``results``, one ``step`` line per
+    instantiation (kernel ms over 25 launches, the twin's ms over 5, the
+    bound, the bound that counts every plane once, the worst case with
+    every gathered frontier row from device memory, launches per batch)."""
+    nbr_t = dense._kernel_table(g.tables, g.nbr, g.deg)
+    n_tab = nbr_t.shape[1]
+    b = bmin.pad_batch(BATCH if results is not None else BATCH // 2)
+    for name, (mode, *_src) in MINOR.items():
+        dt8 = mode == "minor8"
+        n_pad2, _wp, tc, _b = bmin._minor_geometry(g, b, dt8)
+        dual, base, active = minor_state(g, n_pad2, b, dt8, seed)
+        lvl = 3
+        work_k = [p.clone() for p in base]
+        work_p = [p.clone() for p in base]
+        got = ml.minor_level(nbr_t, g.deg, dual, *work_k, lvl, active)
+        want = ml.minor_level_plain(nbr_t, g.deg, dual, *work_p, lvl, active,
+                                    tc=tc)
+        torch.cuda.synchronize()
+        err = max_abs_err(list(got) + work_k, list(want) + work_p)
+        check(err == 0, f"{name} differs from its plain twin at {geometry}")
+        if results is None:
+            continue
+        e = dual.element_size()
+        inf = ml.plane_inf(dual.dtype)
+        claims = int((work_p[0] != base[0]).sum() + (work_p[1] != base[1]).sum())
+        # rows where some active query is unvisited on a side read their
+        # live table slots, and each slot one frontier row of b entries
+        wants = (((base[0][:n_tab] >= inf) | (base[1][:n_tab] >= inf))
+                 & (active[None, :] > 0)).any(1)
+        slots = int(torch.minimum(g.deg, torch.tensor(g.width, device=g.device))
+                    [wants].sum())
+        plane = n_pad2 * b * e
+        # the function's bytes: dual, dist_s and dist_t read, dual_n
+        # written, a dist and a parent entry per claim, the live slots of
+        # the wanting rows, the degree row; 2 bit tests per gathered entry
+        nbytes = 4 * plane + 2 * e * claims + 4 * slots + 4 * n_tab
+        b_ms, by = bound_ms(nbytes, 2 * slots * b)
+        b_planes, _ = bound_ms(10 * plane + 4 * slots + 4 * n_tab, 0)
+        worst, _ = bound_ms(nbytes + slots * b * e, 0)
+
+        def restore(work):
+            for x, y in zip(work, base):
+                x.copy_(y)
+
+        ms = time_launch(lambda: ml.minor_level(nbr_t, g.deg, dual, *work_k,
+                                                lvl, active, checked=True),
+                         lambda: restore(work_k))
+        plain_ms = time_launch(lambda: ml.minor_level_plain(
+            nbr_t, g.deg, dual, *work_p, lvl, active, tc=tc),
+            lambda: restore(work_p), reps=5)
+        step_line(name, geometry, "simple", ms, plain_ms=plain_ms, bound_ms=b_ms,
+                  bound_ms_planes=b_planes, worst_gather_ms=worst,
+                  gather_gb=slots * b * e / 1e9, n_pad2=n_pad2, b=b, tc=tc,
+                  claims=claims)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=by)
+        del dual, base, work_k, work_p, got, want
+        torch.cuda.empty_cache()
+
+
+def batch_pairs(rng, n: int, csr, k: int) -> np.ndarray:
+    """``k`` seeded pairs over ``[0, n)``; pair 0 is ``src == dst`` and
+    pair 1 ends at an isolated vertex (when the graph has one)."""
+    pairs = rng.integers(0, n, size=(k, 2))
+    pairs[0, 1] = pairs[0, 0]
+    isolated = np.flatnonzero(np.diff(csr[0]) == 0)
+    if isolated.size:
+        pairs[1, 1] = isolated[0]
+    return pairs
+
+
+def batch_raw(g, pairs, mode):
+    """The finished raw outputs of one batch (6 tensors on the card)."""
+    _, thunk, finish = dense._batch_dispatch(g, pairs, mode)
+    out = finish(thunk())
+    torch.cuda.synchronize()
+    return out
+
+
+def same_batch(a, b, n: int) -> bool:
+    """Every output equal, the parent rows on the live columns."""
+    for x, y in zip(a, b):
+        if x.dim() == 2:
+            x, y = x[:, :n], y[:, :n]
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def batch_drive(g, csr, pairs, geometry: str, modes, single: str,
+                k_check: int = 16) -> dict:
+    """Time each batch mode (``time_batch_graph``: a warm-up, then the
+    median of 5), check every found path, and hold the first ``k_check``
+    pairs against the single-query ``single`` search and the serial
+    oracle. Returns each mode's finished raw outputs."""
+    n = g.n
+    raws = {}
+    sub = [(int(s), int(d)) for s, d in pairs[:k_check]]
+    want = oracle(n, csr, sub)
+    ones = [raw(g, s, d, single) for s, d in sub]
+    single_ms = float(np.median([
+        np.median(dense.time_search(g, s, d, repeats=5, mode=single)[0])
+        for s, d in sub])) * 1e3
+    for mode in modes:
+        times, res = dense.time_batch_graph(g, pairs, repeats=5, mode=mode)
+        out = batch_raw(g, pairs, mode)
+        raws[mode] = out
+        best, meet, _ps, _pt, levels, edges = (o.cpu() for o in out)
+        for i, ((s, d), w, one) in enumerate(zip(sub, want, ones)):
+            check((int(best[i]), int(meet[i]), int(levels[i]), int(edges[i]))
+                  == (one[0], one[1], one[4], one[5]),
+                  f"{geometry} {mode} {s}->{d} differs from single {single}")
+            check(res[i].found == w.found and res[i].hops == w.hops,
+                  f"{geometry} {mode} {s}->{d}: hops {res[i].hops} != oracle "
+                  f"{w.hops}")
+        for (s, d), r in zip(pairs, res):
+            if r.found:
+                check(validate_path(csr, r.path, int(s), int(d), hops=r.hops),
+                      f"{geometry} {mode} {s}->{d}: invalid path")
+        ms = float(np.median(times)) * 1e3
+        print(json.dumps({
+            "phase": "batch", "geometry": geometry, "mode": mode,
+            "ran": res[0].mode, "b": len(pairs), "batch_ms": ms,
+            "ms_per_query": ms / len(pairs), "single_mode": single,
+            "single_ms": single_ms, "host_reads_per_batch": res[0].host_syncs,
+            "found": sum(r.found for r in res), "times_ms": [t * 1e3 for t in times],
+        }), flush=True)
+    return raws
+
+
+def refill_phase(dev) -> None:
+    """A path graph with one query deeper than the int8 cap: the capped
+    query comes back through the refill equal to the int32 batch."""
+    n = 600
+    edges = np.array([[i, i + 1] for i in range(n - 1)])
+    g = dense.DeviceGraph.build(n, edges, device=dev)
+    pairs = np.array([[0, n - 1], [0, 10], [5, 5], [100, 480], [7, 300]])
+    _, thunk, finish = dense._batch_dispatch(g, pairs, "minor8")
+    rawk = thunk()
+    check(bool(rawk[-1][0]) and not bool(rawk[-1][1]),
+          "the deep query was not capped under minor8")
+    a = finish(rawk)
+    b = batch_raw(g, pairs, "minor")
+    check(same_batch(a, b, n), "minor8 refill differs from minor")
+    res = dense.solve_batch_graph(g, pairs, mode="minor8")
+    check(res[0].hops == n - 1 and res[0].path == list(range(n)),
+          "the refilled query's path is wrong")
+    print(json.dumps({"phase": "batch_refill", "ok": True,
+                      "hops": [r.hops for r in res]}), flush=True)
+
+
+def routing_phase(g2, csr2, pairs2, want2) -> None:
+    """rmat-s20-ef16: a 256-query batch routes to the per-query path and
+    ``minor`` is refused (a tier's key overflows int32); 8 pairs under
+    ``auto`` go per query and match the oracle."""
+    check(bmin.auto_batch_mode(g2, BATCH) == "sync", "auto did not pick sync")
+    try:
+        dense.solve_batch_graph(g2, np.zeros((BATCH, 2), np.int64), mode="minor")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        fail("minor was not refused on rmat-s20-ef16")
+    res = dense.solve_batch_graph(g2, pairs2[:8], mode="auto")
+    for (s, d), w, r in zip(pairs2[:8], want2[:8], res):
+        check(r.mode == "sync" and r.found == w.found and r.hops == w.hops,
+              f"auto (8 pairs) {s}->{d} differs from the oracle")
+    print(json.dumps({"phase": "batch_routing", "ok": True, "auto_256": "sync",
+                      "minor_refused": refused,
+                      "host_reads_8": res[0].host_syncs}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -487,8 +738,13 @@ def main() -> int:
                  time_pull=True)
     n_small = 3001  # a row count that is a multiple of no block
     e_small = gnp_random_graph(n_small, 3.0 / n_small, seed=5)
-    kernel_phase(dense.DeviceGraph.build(n_small, e_small, device=dev),
-                 seed=12, results=None, geometry="gnp-3001", time_pull=False)
+    g_small = dense.DeviceGraph.build(n_small, e_small, device=dev)
+    kernel_phase(g_small, seed=12, results=None, geometry="gnp-3001",
+                 time_pull=False)
+    # the batch-minor level at the batch geometries, both instantiations
+    minor_kernel_phase(g, "gnp-deg8-s20", 21, results)
+    minor_kernel_phase(g_small, "gnp-3001", 22, None)
+    del g_small
     # the least time any launch takes: an empty kernel between two events
     floor_ms = time_launch(lambda: torch.cuda._sleep(0))
     print(json.dumps({"phase": "kernels_vs_plain", "ok": True,
@@ -508,8 +764,23 @@ def main() -> int:
               f"fused unroll 1 != unroll 8 on {s}->{d}")
     main_counts = counts()
     print(json.dumps({"phase": "main_path_launches", **main_counts}), flush=True)
-    for name, c in main_counts.items():
-        check(c > 0, f"kernel {name} was not launched on the main path")
+    for name in KERNELS:
+        check(main_counts[name] > 0, f"kernel {name} was not launched on the main path")
+
+    # phase 5: the batched search on the main-path graph, 256 queries
+    bpairs = batch_pairs(np.random.default_rng(17), n, csr, BATCH)
+    reset_counts()
+    raws = batch_drive(g, csr, bpairs, "gnp-deg8-s20", ["minor8", "minor", "auto"],
+                       "fused")
+    batch_counts = counts()
+    print(json.dumps({"phase": "batch_launches", **batch_counts}), flush=True)
+    for name in MINOR:
+        check(batch_counts[name] > 0, f"kernel {name} was not launched by the batches")
+    check(same_batch(raws["minor8"], raws["minor"], n),
+          "minor8 (decoded) differs from minor")
+    check(same_batch(raws["auto"], raws["minor8"], n), "auto differs from minor8")
+    del raws
+    torch.cuda.empty_cache()
 
     # phase 4: tiered RMAT scale 20
     del g
@@ -540,11 +811,38 @@ def main() -> int:
     print(json.dumps({"phase": "tiered_launches", **tier_counts}), flush=True)
     for name in ("pull_dual", "pull_single"):
         check(tier_counts[name] > 0, f"kernel {name} not launched on the tiered path")
+    routing_phase(g2, csr2, pairs2, want2)
+
+    # phase 6: tiered batches at RMAT scale 17 (the largest scale of the
+    # family whose tiers the minor layout admits), and the int8 refill
+    del g2
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n3, e3 = rmat_graph(17, edge_factor=16, seed=7)
+    p3 = canonical_pairs(n3, e3)
+    csr3 = build_csr(n3, pairs=p3)
+    g3 = dense.DeviceGraph.build(n3, e3, layout="tiered", device=dev, pairs=p3)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "graph", "name": "rmat-s17-ef16", "n": n3,
+                      "edges": int(e3.shape[0]), "width": g3.width,
+                      "tiers": [list(m) for m in g3.tier_meta],
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    linked3 = np.flatnonzero(np.diff(csr3[0]) > 0)
+    pairs3 = batch_pairs(np.random.default_rng(19), n3, csr3, BATCH)
+    pairs3[2:] = np.random.default_rng(19).choice(linked3, size=(BATCH - 2, 2))
+    batch_drive(g3, csr3, pairs3, "rmat-s17-ef16", ["minor"], "sync")
+    del g3
+    refill_phase(dev)
 
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=main_counts[name],
+                            **results[name], library_ms=None,
+                            launch_floor_ms=floor_ms))
+    for name, (_mode, source, replaces) in MINOR.items():
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=batch_counts[name],
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),

@@ -125,3 +125,65 @@ def test_ab_runs_two_checkouts_in_turns(capsys):
     after = {m: id(mod) for m, mod in sys.modules.items()
              if m.startswith("bibfs_tpu_torch")}
     assert after == before and sys.modules["bibfs_tpu_torch.solvers.dense"] is dense
+
+
+def _batch_lines(out: str) -> list[str]:
+    return [ln for ln in out.splitlines() if " -> " in ln and ": " in ln]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mode", "minor8"],
+    ["--mode", "minor"],
+    ["--mode", "auto"],
+    ["--mode", "sync"],
+    ["--mode", "minor", "--layout", "tiered", "--repeat", "2"],
+])
+def test_cli_pairs_prints_reference_lines(graph_file, tmp_path, extra, capsys):
+    """``--pairs FILE`` prints one line per pair exactly as ``bibfs-solve
+    --pairs`` does, then the batch ``[Time]`` line."""
+    from bibfs_tpu.cli import solve as jcli
+
+    from bibfs_tpu_torch.cli import solve as tcli
+
+    path, n = graph_file
+    pairs = tmp_path / "pairs.txt"
+    np.savetxt(pairs, [[0, n - 1], [3, 3], [5, 200], [1, 2], [7, 8]], fmt="%d")
+    assert jcli.main([path, "--pairs", str(pairs), "--backend", "dense",
+                      *extra]) == 0
+    want = capsys.readouterr().out
+    assert tcli.main([path, "--pairs", str(pairs), *extra,
+                      "--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert _batch_lines(got) == _batch_lines(want) and len(_batch_lines(got)) == 5
+    last = got.strip().splitlines()[-1]
+    assert last.startswith("[Time] dense batch of 5 searches took ")
+    assert last.endswith(" s/query)")
+
+
+@pytest.mark.parametrize("argv", [
+    ["0", "1", "--mode", "minor8"],  # batch-only mode without --pairs
+    ["0", "1", "--mode", "auto", "--layout", "tiered"],
+    ["--pairs", "PAIRS", "--mode", "minor", "--backend", "serial"],
+    ["0", "1", "--pairs", "PAIRS"],  # --pairs with the positional pair
+    ["--pairs", "PAIRS", "--mode", "minor8", "--layout", "tiered"],
+    ["--pairs", "PAIRS", "--unroll", "2"],
+    [],  # neither a pair nor --pairs
+])
+def test_cli_pairs_argument_checks(graph_file, tmp_path, argv, capsys):
+    """The reference's argument checks: each of these is refused before
+    any search runs, as ``bibfs-solve`` refuses it."""
+    from bibfs_tpu.cli import solve as jcli
+
+    from bibfs_tpu_torch.cli import solve as tcli
+
+    path, _n = graph_file
+    pairs = tmp_path / "pairs.txt"
+    np.savetxt(pairs, [[0, 1]], fmt="%d")
+    argv = [str(pairs) if a == "PAIRS" else a for a in argv]
+    with pytest.raises(SystemExit) as want:
+        jcli.main([path, *argv, "--backend", "dense"]
+                  if "--backend" not in argv else [path, *argv])
+    with pytest.raises(SystemExit) as got:
+        tcli.main([path, *argv])
+    assert got.value.code == want.value.code == 2
+    capsys.readouterr()

@@ -1,8 +1,8 @@
 """The four level kernels of the PyTorch port: their plain torch versions
 (what a CPU tensor runs) against the Pallas kernels of bibfs_tpu in
 interpret mode, exactly, on seeded random mid-search states; the fold;
-the no-fallback build; and, on a CUDA card only, each CUDA kernel against
-its plain version."""
+the no-fallback build; and, on a CUDA card only, each CUDA kernel (the
+batch-minor level included) against its plain version."""
 
 import numpy as np
 import pytest
@@ -632,6 +632,89 @@ def test_cuda_solve_matches_cpu(layout, cuda_device):
             b = td._run(gg, s, d, mode, 3, None)
             assert a[0] == b[0] and a[1] == b[1] and a[4:] == b[4:], (mode, s, d)
             assert torch.equal(a[2], b[2].cpu()) and torch.equal(a[3], b[3].cpu())
+
+
+def _minor_state(g, b, dt8, seed, device):
+    """A seeded mid-search state of the batch-minor planes (``[rows, b]``,
+    a few pad rows past the table), as tensors on ``device``."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    inf = 127 if dt8 else INF32
+    rows = g.n_pad + 37
+
+    def side():
+        d = np.full((rows, b), inf, np.int64)
+        vis = rng.random((g.n, b)) < 0.3
+        d[: g.n][vis] = rng.integers(0, 3, int(vis.sum()))
+        return d
+
+    ds, dt = side(), side()
+    dual = (ds == 2).astype(np.int64) | ((dt == 2).astype(np.int64) << 1)
+    hi = g.nbr.shape[1] if dt8 else g.n
+    ps = np.where(ds < inf, rng.integers(0, hi, ds.shape), -1)
+    pt = np.where(dt < inf, rng.integers(0, hi, dt.shape), -1)
+    pdt = np.int8 if dt8 else np.int32
+    planes = [torch.from_numpy(x.astype(pdt)).to(device)
+              for x in (dual, ds, dt, ps, pt)]
+    active = torch.from_numpy((rng.random(b) < 0.8).astype(np.int32)).to(device)
+    return planes, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt8", [False, True], ids=["minor", "minor8"])
+def test_cuda_minor_level_matches_plain(dt8, cuda_device):
+    """On a card: the batch-minor level kernel (both instantiations)
+    against its plain twin on the same device state, exactly, with the
+    instantiation's launch counter moving."""
+    import torch
+
+    from bibfs_tpu_torch.graph.generate import gnp_random_graph
+    from bibfs_tpu_torch.ops import minor_level as ml
+    from bibfs_tpu_torch.solvers import dense as td
+
+    n = 3001
+    g = td.DeviceGraph.build(n, gnp_random_graph(n, 3.0 / n, seed=5),
+                             device=cuda_device)
+    nbr_t = td._kernel_table(g.tables, g.nbr, g.deg)
+    (dual, *planes), active = _minor_state(g, 256, dt8, 4, cuda_device)
+    kp = [p.clone() for p in planes]
+    name = "minor8" if dt8 else "minor"
+    before = ml.minor_level.launches[name]
+    got = ml.minor_level(nbr_t, g.deg, dual, *kp, 3, active)
+    want = ml.minor_level_plain(nbr_t, g.deg, dual, *planes, 3, active, tc=64)
+    for x, y in zip(list(got) + kp, list(want) + planes):
+        assert torch.equal(x, y)
+    assert ml.minor_level.launches[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["minor8", "minor"])
+def test_cuda_minor_batch_matches_cpu(mode, cuda_device):
+    """On a card: a batch through the level kernel equals the same batch
+    on the CPU (the plain twin), answers and raw outputs."""
+    import torch
+
+    from bibfs_tpu_torch.graph.generate import gnp_random_graph
+    from bibfs_tpu_torch.solvers import dense as td
+
+    n = 3001
+    edges = gnp_random_graph(n, 3.0 / n, seed=2)
+    gc = td.DeviceGraph.build(n, edges, device="cpu")
+    gg = td.DeviceGraph.build(n, edges, device=cuda_device)
+    pairs = np.random.default_rng(1).integers(0, n, (200, 2))
+    pairs[7] = (4, 4)
+    outs = []
+    for g in (gc, gg):
+        _, thunk, finish = td._batch_dispatch(g, pairs, mode)
+        outs.append([o.cpu() for o in finish(thunk())])
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    a = td.solve_batch_graph(gc, pairs, mode=mode)
+    b = td.solve_batch_graph(gg, pairs, mode=mode)
+    for x, y in zip(a, b):
+        assert (x.found, x.hops, x.path, x.meet, x.levels, x.edges_scanned) == (
+            y.found, y.hops, y.path, y.meet, y.levels, y.edges_scanned)
 
 
 def test_cuda_marker_is_registered(pytestconfig):

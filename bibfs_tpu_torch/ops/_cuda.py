@@ -48,7 +48,7 @@ SIGNATURES = {
     },
     "batch_minor": {
         "bibfs_minor_level": [_I, _P, _I64, _I, _I64, _P, _I64, _I64, _P, _P,
-                              _P, _P, _P, _P, _I, _P, _P, _P, _P],
+                              _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     },
 }
 

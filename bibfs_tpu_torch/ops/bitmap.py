@@ -79,3 +79,20 @@ def set_bits(row, bits) -> None:
         words[b >> 5] = words.get(b >> 5, 0) | 1 << (b & 31)
     for i, w in words.items():
         row[i] = w - (1 << 32) if w >= 1 << 31 else w
+
+
+def pack_lanes(bits) -> torch.Tensor:
+    """``bool[n, B]`` (``B`` a multiple of 32) as ``int32[n, B / 32]``:
+    one bitmap row per row of ``bits``, bit ``q & 31`` of word ``q >> 5``
+    for column ``q`` (the batch-minor search's per-query bits)."""
+    n, b = bits.shape
+    if b % 32:
+        raise ValueError(f"{b} columns are not whole 32-bit words")
+    x = bits.to(torch.int32).view(n, b // 32, 32) << _shifts(bits.device)
+    return x.sum(dim=2, dtype=torch.int32)
+
+
+def unpack_lanes(words) -> torch.Tensor:
+    """The ``bool[n, 32 * w]`` of ``int32[n, w]`` words (:func:`pack_lanes`)."""
+    n, w = words.shape
+    return (((words[:, :, None] >> _shifts(words.device)) & 1) > 0).view(n, 32 * w)

@@ -2,13 +2,19 @@
 ``bibfs_tpu/solvers/batch_minor.py`` (its single-device part).
 
 B queries advance lock-step (both sides every round) over ``[n_pad2, B]``
-planes, the queries on the minor axis, so every neighbour index of the
-shared table gathers one contiguous B-wide frontier row. Each round is one
-level launch (:func:`bibfs_tpu_torch.ops.minor_level.minor_level`, a
-hand-written CUDA kernel on the card, its plain torch twin on the CPU),
-then on a tiered graph the hub-tier passes (:func:`_tier_pass`, torch),
-then the per-query fold on ``[B]`` vectors. The host reads one bool a
-round (does any query go on?), counted in ``stats["host_syncs"]``.
+distance and parent planes, the queries on the minor axis, with the
+frontier and visited sets packed to one bit per (row, query, side)
+(``front`` and ``vis``, ``[n_pad2, B / 16]`` int32 pair rows), so every
+neighbour index of the shared table gathers one contiguous run of B
+frontier bits per side. Each round is one level launch
+(:func:`bibfs_tpu_torch.ops.minor_level.minor_level`, a hand-written CUDA
+kernel on the card, its plain torch twin on the CPU), then on a tiered
+graph the hub-tier passes (:func:`_tier_pass`, torch), then the per-query
+fold on ``[B]`` vectors. The meet vote is carried from round to round:
+the level folds the votes of its claims into the previous round's key
+(the seed's vote first: ``src`` where ``src == dst``). The host reads one
+bool a round (does any query go on?), counted in
+``stats["host_syncs"]``.
 
 Semantics are the reference's: finished queries freeze through
 ``active``, termination is the per-query vote ``2 * rnd >= best`` or an
@@ -39,9 +45,13 @@ from bibfs_tpu_torch.ops.minor_level import (
     INF8,
     INF32,
     LANES,
+    NO_MEET,
     check_minor,
     decode_meet,
+    meet_vote,
     minor_level,
+    pack_sides,
+    unpack_front,
 )
 
 _BIG = 2147483647  # int32 max: never wins a min
@@ -185,9 +195,8 @@ def _build_minor_kernel(n_pad2: int, wp: int, tc: int, b: int,
         tiers = _tier_tables(tier_meta, aux, deg, n_pad2, b)
         qi = torch.arange(b, device=dev)
         si, di = srcs.long(), dsts.long()
-        dual = torch.zeros(n_pad2, b, dtype=pdt, device=dev)
-        dual[si, qi] = 1
-        dual[di, qi] = dual[di, qi] | 2
+        front = _seed_bits(si, di, n_pad2, b)
+        vis = front.clone()
         dist_s = torch.full((n_pad2, b), inf_d, dtype=pdt, device=dev)
         dist_t = dist_s.clone()
         dist_s[si, qi] = 0
@@ -197,6 +206,8 @@ def _build_minor_kernel(n_pad2: int, wp: int, tc: int, b: int,
         same = srcs == dsts
         best = torch.where(same, 0, INF32).to(torch.int32)
         meet = torch.where(same, srcs, -1).to(torch.int32)
+        # the seed's meet vote: (0 << 32) | src where both sides hold src
+        key = torch.where(same, srcs.long(), NO_MEET)
         cnt_s = torch.ones(b, dtype=torch.int32, device=dev)
         cnt_t = cnt_s.clone()
         levels = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -208,8 +219,8 @@ def _build_minor_kernel(n_pad2: int, wp: int, tc: int, b: int,
 
         if dev.type == "cuda":  # the planes of every round, checked once
             # (``levels`` has the shape and type of every round's active)
-            check_minor(nbr_t, deg, dual, dist_s, dist_t, par_s, par_t,
-                        levels, 1)
+            check_minor(nbr_t, deg, front, vis, dist_s, dist_t, par_s, par_t,
+                        levels, key, 1)
         while not (dt8 and rnd >= MAX_RND8):
             act = wants_to_run()
             if stats is not None:
@@ -218,35 +229,35 @@ def _build_minor_kernel(n_pad2: int, wp: int, tc: int, b: int,
                 break
             active_i = act.to(torch.int32)
             lvl = rnd + 1
-            dual_n, counts, key = minor_level(
-                nbr_t, deg, dual, dist_s, dist_t, par_s, par_t, lvl, active_i,
-                tc=tc, checked=True)
+            front_n, counts, key = minor_level(
+                nbr_t, deg, front, vis, dist_s, dist_t, par_s, par_t, lvl,
+                active_i, key, tc=tc, checked=True)
             cs, ct, sc = counts
-            mval, midx = decode_meet(key)
             if tiers:
+                dual_old = unpack_front(front, torch.int32)
                 zp = torch.zeros(n_pad2, b, dtype=torch.int32, device=dev)
                 planes = (zp, zp.clone(), dist_s, dist_t, par_s, par_t)
                 for tnbr_m, ids_p, tw, cc in tiers:
-                    _tier_pass(dual, planes, tnbr_m, ids_p, tw, cc,
+                    _tier_pass(dual_old, planes, tnbr_m, ids_p, tw, cc,
                                ks=n_pad2 + 1, lvl=lvl, active_i=active_i)
-                dual_n = dual_n | planes[0] | (planes[1] << 1)
+                hubs = pack_sides(planes[0] > 0, planes[1] > 0)
+                front_n |= hubs
+                vis |= hubs
                 # the kernel's reductions cannot see the hub scatters:
-                # recompute the counts and the meet vote plane-wide
+                # recompute the counts and the meet vote plane-wide, and
+                # carry that vote to the next level
+                dual_n = unpack_front(front_n, torch.int32)
                 cs = (dual_n & 1).sum(0, dtype=torch.int32)
                 ct = ((dual_n >> 1) & 1).sum(0, dtype=torch.int32)
-                both = (dist_s < INF32) & (dist_t < INF32)
-                sums = torch.where(both, dist_s + dist_t, INF32)
-                mval = sums.amin(dim=0)
-                rowid = torch.arange(n_pad2, dtype=torch.int32, device=dev)
-                midx = torch.where(sums == mval[None, :], rowid[:, None],
-                                   _BIG).amin(dim=0)
+                key = meet_vote(dist_s, dist_t)
+            mval, midx = decode_meet(key)
             take = mval < best
             best = torch.minimum(best, mval)
             meet = torch.where(take, midx, meet)
             cnt_s, cnt_t = cs, ct
             levels = levels + 2 * active_i
             edges = edges + sc
-            dual = dual_n
+            front = front_n
             rnd = lvl
         res = (best, meet, _transpose(par_s), _transpose(par_t), levels,
                edges)
@@ -256,6 +267,19 @@ def _build_minor_kernel(n_pad2: int, wp: int, tc: int, b: int,
         return res
 
     return minor_kernel
+
+
+def _seed_bits(si, di, n_rows: int, b: int):
+    """The pair rows (``[n_rows, b / 16]``) with each query's source bit
+    on side 0 and its target bit on side 1, made on the device: the bits
+    of one word are distinct, so adding them sets them."""
+    q = torch.arange(b, device=si.device)
+    one = torch.ones(b, dtype=torch.int32, device=si.device)
+    words = torch.zeros(n_rows * (b // 16), dtype=torch.int32, device=si.device)
+    for side, v in ((0, si), (1, di)):
+        bit = one << (2 * (q & 15) + side).to(torch.int32)
+        words.index_add_(0, v * (b // 16) + (q >> 4), bit)
+    return words.view(n_rows, b // 16)
 
 
 def _transpose(plane, block: int = 8):

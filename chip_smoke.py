@@ -30,12 +30,16 @@ is unavailable. Phases:
    every kernel's launch count rises.
    Phase 2 also holds the batch-minor level (``minor_level``, both
    instantiations: int32 planes for ``minor``, int8 for ``minor8``)
-   against its plain twin at the batch geometry of 256 queries on
-   gnp-deg8-s20 and of 128 on the 3001-row graph, from a seeded
-   mid-search state made on the card (planes, counters and meet keys
-   exactly equal), with a ``step`` line per instantiation (kernel ms, the
-   twin's ms, the bound, the bound counting every plane once, the bound
-   with every gathered frontier row from device memory).
+   against its packed plain twin at the batch geometry of 256 queries on
+   gnp-deg8-s20 and of 128 on the 3001-row graph and on one with five
+   hubs of about 90 neighbours (rows wider than the slots the kernel
+   stages), from a seeded mid-search state made on the card (the packed
+   frontier and visited words, the planes, counters and meet keys
+   exactly equal; the input key is the state's full vote), with a
+   ``step`` line per instantiation
+   (kernel ms, the twin's ms, the bound on the packed state, the bound of
+   the int planes the kernel read before, an estimate of the dist and
+   parent sectors the claims touch, the level launches of one batch).
 4. Tiered: RMAT scale 20, edge factor 16 (about 15.7M edges); the
    kernels against their plain versions at its base table (kernels 3 and
    4 timed there too), then modes
@@ -489,6 +493,15 @@ def seeded_pairs(rng, candidates, k: int) -> list[tuple[int, int]]:
     return pairs + [(pairs[0][0], pairs[0][0])]
 
 
+def hub_edges(n: int, seed: int) -> np.ndarray:
+    """G(n, 3/n) plus five hubs of about 90 neighbours each."""
+    rng = np.random.default_rng(seed)
+    hubs = [(h, int(v)) for h in range(5)
+            for v in rng.choice(np.arange(5, n), 90, replace=False)]
+    return np.concatenate([gnp_random_graph(n, 3.0 / n, seed=seed),
+                           np.array(hubs)])
+
+
 def minor_state(g, rows: int, b: int, dt8: bool, seed: int):
     """A seeded mid-search state of the batch-minor planes ``[rows, b]``,
     made on the card: about 30% of the vertices visited per side at levels
@@ -523,67 +536,98 @@ def minor_state(g, rows: int, b: int, dt8: bool, seed: int):
     return dual, [ds, dt, ps, pt], active
 
 
-def minor_kernel_phase(g, geometry: str, seed: int, results: dict | None):
-    """The batch-minor level (both instantiations) against its plain twin
-    on one seeded mid-search state at the batch geometry of ``BATCH``
-    queries (``batch_minor._minor_geometry``): planes, counters and meet
-    keys exactly equal. With ``results``, one ``step`` line per
-    instantiation (kernel ms over 25 launches, the twin's ms over 5, the
-    bound, the bound that counts every plane once, the worst case with
-    every gathered frontier row from device memory, launches per batch)."""
+def minor_kernel_phase(g, geometry: str, seed: int, results: dict | None,
+                       bpairs=None):
+    """The batch-minor level (both instantiations) against its packed plain
+    twin on one seeded mid-search state at the batch geometry of ``BATCH``
+    queries (``batch_minor._minor_geometry``): the packed frontier and
+    visited words, the distance and parent planes, counters and meet keys
+    exactly equal. The input key is the full vote of the state's planes
+    (the state is random and has no earlier level). With ``results``, one
+    ``step`` line per instantiation: kernel ms over 25 launches, the
+    twin's ms over 5, the bound on the packed state, the bound of the
+    int planes the kernel read before (``bound_ms_int_planes``), an
+    estimate of the dist and parent sectors the claims touch, and the
+    level launches of one batch of ``bpairs``."""
     nbr_t = dense._kernel_table(g.tables, g.nbr, g.deg)
     n_tab = nbr_t.shape[1]
     b = bmin.pad_batch(BATCH if results is not None else BATCH // 2)
     for name, (mode, *_src) in MINOR.items():
         dt8 = mode == "minor8"
         n_pad2, _wp, tc, _b = bmin._minor_geometry(g, b, dt8)
-        dual, base, active = minor_state(g, n_pad2, b, dt8, seed)
+        dual, (ds, dt, ps, pt), active = minor_state(g, n_pad2, b, dt8, seed)
+        front = ml.pack_front(dual)
+        key = ml.meet_vote(ds, dt)
+        base = [ml.pack_vis(ds, dt), ds, dt, ps, pt]
+        del dual
         lvl = 3
         work_k = [p.clone() for p in base]
         work_p = [p.clone() for p in base]
-        got = ml.minor_level(nbr_t, g.deg, dual, *work_k, lvl, active)
-        want = ml.minor_level_plain(nbr_t, g.deg, dual, *work_p, lvl, active,
-                                    tc=tc)
+        got = ml.minor_level(nbr_t, g.deg, front, *work_k, lvl, active, key)
+        want = ml.minor_level_packed_plain(nbr_t, g.deg, front, *work_p, lvl,
+                                           active, key, tc=tc)
         torch.cuda.synchronize()
         err = max_abs_err(list(got) + work_k, list(want) + work_p)
         check(err == 0, f"{name} differs from its plain twin at {geometry}")
         if results is None:
             continue
-        e = dual.element_size()
-        inf = ml.plane_inf(dual.dtype)
-        claims = int((work_p[0] != base[0]).sum() + (work_p[1] != base[1]).sum())
+        e = ds.element_size()
+        inf = ml.plane_inf(ds.dtype)
+        new_s, new_t = work_p[1] != ds, work_p[2] != dt
+        claims = int(new_s.sum() + new_t.sum())
+        # votes that read the other side's dist: a claim on one side only,
+        # where the other side was visited before
+        vote_reads = int((new_s & ~new_t & (dt < inf)).sum()
+                         + (new_t & ~new_s & (ds < inf)).sum())
         # rows where some active query is unvisited on a side read their
-        # live table slots, and each slot one frontier row of b entries
-        wants = (((base[0][:n_tab] >= inf) | (base[1][:n_tab] >= inf))
+        # live table slots, and each slot one neighbour's front words
+        wants = (((ds[:n_tab] >= inf) | (dt[:n_tab] >= inf))
                  & (active[None, :] > 0)).any(1)
         slots = int(torch.minimum(g.deg, torch.tensor(g.width, device=g.device))
                     [wants].sum())
-        plane = n_pad2 * b * e
-        # the function's bytes: dual, dist_s and dist_t read, dual_n
-        # written, a dist and a parent entry per claim, the live slots of
-        # the wanting rows, the degree row; 2 bit tests per gathered entry
-        nbytes = 4 * plane + 2 * e * claims + 4 * slots + 4 * n_tab
+        row = b // 4  # bytes of a pair row: 2 bits per query
+        vis_words = int((work_p[0] != base[0]).sum())
+        # the function's bytes on the packed state: front and vis read and
+        # front_n written once, the vis words that change, a dist and a
+        # parent entry per claim, the dist entries the votes read, the live
+        # slots of the wanting rows, the degree row; 2 bit tests per slot
+        # and query
+        nbytes = (3 * n_pad2 * row + 4 * vis_words
+                  + (2 * claims + vote_reads) * e + 4 * slots + 4 * n_tab)
         b_ms, by = bound_ms(nbytes, 2 * slots * b)
-        b_planes, _ = bound_ms(10 * plane + 4 * slots + 4 * n_tab, 0)
-        worst, _ = bound_ms(nbytes + slots * b * e, 0)
+        # the int-plane count: dual, dist_s and dist_t read and dual_n
+        # written once, a dist and a parent entry per claim, the slots
+        plane = n_pad2 * b * e
+        b_int, _ = bound_ms(4 * plane + 2 * e * claims + 4 * slots + 4 * n_tab,
+                            2 * slots * b)
+        # 32-byte sectors of the dist and parent planes holding a claim
+        per = 32 // e
+        sectors = sum(int(c.view(n_pad2, b // per, per).any(2).sum())
+                      for c in (new_s, new_t))
+        del new_s, new_t, wants
 
         def restore(work):
             for x, y in zip(work, base):
                 x.copy_(y)
 
-        ms = time_launch(lambda: ml.minor_level(nbr_t, g.deg, dual, *work_k,
-                                                lvl, active, checked=True),
+        ms = time_launch(lambda: ml.minor_level(nbr_t, g.deg, front, *work_k,
+                                                lvl, active, key, checked=True),
                          lambda: restore(work_k))
-        plain_ms = time_launch(lambda: ml.minor_level_plain(
-            nbr_t, g.deg, dual, *work_p, lvl, active, tc=tc),
+        plain_ms = time_launch(lambda: ml.minor_level_packed_plain(
+            nbr_t, g.deg, front, *work_p, lvl, active, key, tc=tc),
             lambda: restore(work_p), reps=5)
-        step_line(name, geometry, "simple", ms, plain_ms=plain_ms, bound_ms=b_ms,
-                  bound_ms_planes=b_planes, worst_gather_ms=worst,
-                  gather_gb=slots * b * e / 1e9, n_pad2=n_pad2, b=b, tc=tc,
-                  claims=claims)
+        before = ml.minor_level.launches[mode]
+        batch_raw(g, bpairs, mode)
+        per_batch = ml.minor_level.launches[mode] - before
+        step_line(name, geometry, "packed", ms, plain_ms=plain_ms, bound_ms=b_ms,
+                  bound_ms_int_planes=b_int,
+                  est_claim_sector_mb=2 * sectors * 32 / 1e6,
+                  gather_gb=slots * row / 1e9, launches_per_batch=per_batch,
+                  n_pad2=n_pad2, b=b, tc=tc, claims=claims,
+                  vote_reads=vote_reads)
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=by)
-        del dual, base, work_k, work_p, got, want
+        del front, base, work_k, work_p, got, want, ds, dt, ps, pt
         torch.cuda.empty_cache()
 
 
@@ -742,9 +786,15 @@ def main() -> int:
     kernel_phase(g_small, seed=12, results=None, geometry="gnp-3001",
                  time_pull=False)
     # the batch-minor level at the batch geometries, both instantiations
-    minor_kernel_phase(g, "gnp-deg8-s20", 21, results)
+    bpairs = batch_pairs(np.random.default_rng(17), n, csr, BATCH)
+    minor_kernel_phase(g, "gnp-deg8-s20", 21, results, bpairs)
     minor_kernel_phase(g_small, "gnp-3001", 22, None)
     del g_small
+    # ELL rows wider than the 32 table slots the level kernel stages
+    g_hubs = dense.DeviceGraph.build(n_small, hub_edges(n_small, 6), device=dev)
+    check(g_hubs.width > 32, "the hub graph has no wide rows")
+    minor_kernel_phase(g_hubs, "hubs-3001", 23, None)
+    del g_hubs
     # the least time any launch takes: an empty kernel between two events
     floor_ms = time_launch(lambda: torch.cuda._sleep(0))
     print(json.dumps({"phase": "kernels_vs_plain", "ok": True,
@@ -768,7 +818,6 @@ def main() -> int:
         check(main_counts[name] > 0, f"kernel {name} was not launched on the main path")
 
     # phase 5: the batched search on the main-path graph, 256 queries
-    bpairs = batch_pairs(np.random.default_rng(17), n, csr, BATCH)
     reset_counts()
     raws = batch_drive(g, csr, bpairs, "gnp-deg8-s20", ["minor8", "minor", "auto"],
                        "fused")

@@ -171,7 +171,7 @@ def test_level_plain_matches_level_scan(dt8, tc):
     from bibfs_tpu.ops.pallas_expand import _slot_pad, sentinel_transposed_table
     from bibfs_tpu.solvers.batch_minor import _level_scan
 
-    from bibfs_tpu_torch.ops.minor_level import decode_meet, minor_level
+    from bibfs_tpu_torch.ops.minor_level import decode_meet, minor_level_plain
     from bibfs_tpu_torch.ops.pull_expand import sentinel_transposed_table as stt
 
     g, (dual, ds, dt, ps, pt), active = _level_state(3, 300, 128, dt8)
@@ -197,8 +197,8 @@ def test_level_plain_matches_level_scan(dt8, tc):
     planes = [t(x) for x in (ds, dt, ps, pt)]
     nbr = t(g.nbr)
     deg = t(g.deg)
-    dual_n, counts, key = minor_level(stt(nbr, deg), deg, t(dual), *planes, 3,
-                                      t(active), tc=tc)
+    dual_n, counts, key = minor_level_plain(stt(nbr, deg), deg, t(dual),
+                                            *planes, 3, t(active), tc=tc)
     mval, midx = decode_meet(key)
     got = [dual_n, *planes, counts[0], counts[1], counts[2], mval, midx]
     for w, x in zip(want, got):
@@ -206,6 +206,128 @@ def test_level_plain_matches_level_scan(dt8, tc):
             w = w[:n_pad2]
         assert np.array_equal(w, x.numpy())
     assert (mval < INF32).any() and counts[0].sum() > 0
+
+
+@pytest.mark.parametrize("b", [128, 256])
+@pytest.mark.parametrize("dt8", [False, True], ids=["int32", "int8"])
+def test_packed_state_round_trip(dt8, b):
+    """The packed frontier and visited words round-trip their planes, pad
+    rows past the table included, in the pair-row bit order of
+    ``ops/bitmap.py``: bit ``2 (q & 15)`` (source) and ``2 (q & 15) + 1``
+    (target) of word ``q >> 4``."""
+    import torch
+
+    from bibfs_tpu_torch.ops import bitmap
+    from bibfs_tpu_torch.ops import minor_level as ml
+
+    g, (dual, ds, dt, _ps, _pt), _active = _level_state(7, 200, b, dt8)
+    assert dual.shape[0] > g.n_pad  # pad rows past the table
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    front = ml.pack_front(t(dual))
+    assert front.shape == (dual.shape[0], b // 16) and front.dtype == torch.int32
+    assert torch.equal(ml.unpack_front(front, t(dual).dtype), t(dual))
+    vis = ml.pack_vis(t(ds), t(dt))
+    inf = 127 if dt8 else INF32
+    got_s, got_t = ml.unpack_sides(vis)
+    assert np.array_equal(got_s.numpy(), ds < inf)
+    assert np.array_equal(got_t.numpy(), dt < inf)
+    for v in (0, 3, g.n - 1, dual.shape[0] - 1):
+        row = bitmap.pack_pairs(t(ds[v] < inf), t(dt[v] < inf), b // 16)
+        assert torch.equal(vis[v], row)
+    assert (vis[g.n:] == 0).all() and (front[g.n:] == 0).all()
+
+
+@pytest.mark.parametrize("tc", [8, 64, None], ids=["tc8", "tc64", "whole"])
+@pytest.mark.parametrize("dt8", [False, True], ids=["int32", "int8"])
+def test_packed_twin_matches_plain(dt8, tc):
+    """The packed level (the twin the CPU runs) against ``minor_level_plain``
+    on the same seeded state: the packed next frontier, the visited words
+    rebuilt from the updated planes, the planes, the counts and the key;
+    the input key is the full vote of the input state, so the output key
+    is the full vote of the output state."""
+    import torch
+
+    from bibfs_tpu_torch.ops import minor_level as ml
+    from bibfs_tpu_torch.ops.pull_expand import sentinel_transposed_table as stt
+
+    g, (dual, ds, dt, ps, pt), active = _level_state(5, 300, 128, dt8)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    nbr_t = stt(t(g.nbr), t(g.deg))
+    deg = t(g.deg)
+    plain = [t(x) for x in (ds, dt, ps, pt)]
+    dual_n, counts, key = ml.minor_level_plain(nbr_t, deg, t(dual), *plain, 3,
+                                               t(active), tc=tc)
+    packed = [t(x) for x in (ds, dt, ps, pt)]
+    vis = ml.pack_vis(packed[0], packed[1])
+    key_in = ml.meet_vote(packed[0], packed[1])
+    front_n, counts_p, key_p = ml.minor_level(nbr_t, deg, ml.pack_front(t(dual)),
+                                              vis, *packed, 3, t(active), key_in,
+                                              tc=tc)
+    for x, y in zip(plain, packed):
+        assert torch.equal(x, y)
+    assert torch.equal(front_n, ml.pack_front(dual_n))
+    assert torch.equal(vis, ml.pack_vis(plain[0], plain[1]))
+    assert torch.equal(counts_p, counts)
+    assert torch.equal(key_p, key) and torch.equal(key_p, ml.meet_vote(*plain[:2]))
+    assert (key != ml.NO_MEET).any() and counts[0].sum() > 0
+
+
+def _level_checks(monkeypatch):
+    """Wrap the loop's level call: at every level the key going in is the
+    full vote of the planes going in, and the key coming out the full vote
+    of the planes coming out. Returns the list of levels seen."""
+    from bibfs_tpu_torch.ops import minor_level as ml
+    from bibfs_tpu_torch.solvers import batch_minor as bm
+
+    real = bm.minor_level
+    seen = []
+
+    def checked(nbr_t, deg, front, vis, ds, dt, ps, pt, lvl, active, key,
+                **kw):
+        import torch
+
+        assert torch.equal(key, ml.meet_vote(ds, dt))
+        assert torch.equal(vis, ml.pack_vis(ds, dt))
+        out = real(nbr_t, deg, front, vis, ds, dt, ps, pt, lvl, active, key,
+                   **kw)
+        assert torch.equal(out[2], ml.meet_vote(ds, dt))
+        seen.append(lvl)
+        return out
+
+    monkeypatch.setattr(bm, "minor_level", checked)
+    return seen
+
+
+@pytest.mark.parametrize("mode", ["minor", "minor8"])
+@pytest.mark.parametrize("case", [0, 3, 6, 9])
+def test_carried_key_is_the_full_vote(case, mode, monkeypatch):
+    """A real search, level by level, on the reference's random cases: the
+    key the loop carries equals the full-plane vote at every level, and
+    the batch still equals the reference's."""
+    seen = _level_checks(monkeypatch)
+    n, edges, _, _ = CASES[case]
+    rng = np.random.default_rng(11)
+    pairs = rng.integers(0, n, size=(7, 2))
+    pairs[2] = (1, 1)
+    assert_same_batch(n, edges, pairs, mode)
+    assert seen and seen[0] == 1
+
+
+@pytest.mark.parametrize("graph", ["rmat-8", "star-600"])
+def test_carried_key_is_the_full_vote_tiered(graph, monkeypatch):
+    """The same on tiered graphs, where the hub claims after each level
+    enter the visited words and the vote carried to the next level."""
+    from bibfs_tpu.graph.generate import rmat_graph
+
+    seen = _level_checks(monkeypatch)
+    if graph == "rmat-8":
+        n, edges = rmat_graph(8, edge_factor=6, seed=1)
+        pairs = np.random.default_rng(4).integers(0, n, size=(9, 2))
+    else:
+        n, edges = _star()
+        pairs = [(1, n - 2), (0, n - 1), (4, 4), (2, 3)]
+    assert_same_batch(n, edges, pairs, "minor", "tiered")
+    assert len(seen) >= 2
 
 
 def test_refill_capped_geometry_fallback(monkeypatch):

@@ -661,12 +661,28 @@ def _minor_state(g, b, dt8, seed, device):
     return planes, active
 
 
+def _hub_edges(n, seed):
+    """G(n, 3/n) plus five hubs of about 90 neighbours each: ELL rows past
+    the 32 slots the level kernel stages."""
+    from bibfs_tpu_torch.graph.generate import gnp_random_graph
+
+    rng = np.random.default_rng(seed)
+    hubs = [(h, int(v)) for h in range(5)
+            for v in rng.choice(np.arange(5, n), 90, replace=False)]
+    return np.concatenate([gnp_random_graph(n, 3.0 / n, seed=seed),
+                           np.array(hubs)])
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("graph", ["gnp", "hubs"])
 @pytest.mark.parametrize("dt8", [False, True], ids=["minor", "minor8"])
-def test_cuda_minor_level_matches_plain(dt8, cuda_device):
+def test_cuda_minor_level_matches_plain(dt8, graph, cuda_device):
     """On a card: the batch-minor level kernel (both instantiations)
-    against its plain twin on the same device state, exactly, with the
-    instantiation's launch counter moving."""
+    against its packed plain twin on the same device state, exactly (the
+    frontier and visited words, the planes, the counters and the key),
+    with the instantiation's launch counter moving. The input key is the
+    full vote of the input state. ``hubs`` has rows wider than the
+    kernel's staged slots."""
     import torch
 
     from bibfs_tpu_torch.graph.generate import gnp_random_graph
@@ -674,15 +690,21 @@ def test_cuda_minor_level_matches_plain(dt8, cuda_device):
     from bibfs_tpu_torch.solvers import dense as td
 
     n = 3001
-    g = td.DeviceGraph.build(n, gnp_random_graph(n, 3.0 / n, seed=5),
-                             device=cuda_device)
+    edges = (gnp_random_graph(n, 3.0 / n, seed=5) if graph == "gnp"
+             else _hub_edges(n, 5))
+    g = td.DeviceGraph.build(n, edges, device=cuda_device)
+    assert graph == "gnp" or g.width > 32
     nbr_t = td._kernel_table(g.tables, g.nbr, g.deg)
     (dual, *planes), active = _minor_state(g, 256, dt8, 4, cuda_device)
+    front = ml.pack_front(dual)
+    key = ml.meet_vote(planes[0], planes[1])
+    planes = [ml.pack_vis(planes[0], planes[1])] + planes
     kp = [p.clone() for p in planes]
     name = "minor8" if dt8 else "minor"
     before = ml.minor_level.launches[name]
-    got = ml.minor_level(nbr_t, g.deg, dual, *kp, 3, active)
-    want = ml.minor_level_plain(nbr_t, g.deg, dual, *planes, 3, active, tc=64)
+    got = ml.minor_level(nbr_t, g.deg, front, *kp, 3, active, key)
+    want = ml.minor_level_packed_plain(nbr_t, g.deg, front, *planes, 3, active,
+                                       key, tc=64)
     for x, y in zip(list(got) + kp, list(want) + planes):
         assert torch.equal(x, y)
     assert ml.minor_level.launches[name] == before + 1

@@ -3,13 +3,15 @@
 
 Prints the same lines as ``bibfs-solve``: ``Shortest path length = N``,
 ``Path: ...``, the ``[Time]`` line and the ``[TEPS]`` line; with
-``--pairs`` (a file of ``src dst`` lines, dense backend) one line per
-pair and the ``[Time] dense batch of N searches took ...`` line. The
-batch-only modes ``minor``, ``minor8`` and ``auto`` need ``--pairs``. The
-default is the dense search on the CUDA card; ``--device cpu`` runs its
-plain torch versions on the host, and ``--backend serial`` the host
-oracle. Without a card and without ``--device cpu`` the dense search
-raises.
+``--pairs`` (a file of ``src dst`` lines, dense or native backend) one
+line per pair and the ``[Time] <backend> batch of N searches took ...``
+line. The batch-only modes ``minor``, ``minor8`` and ``auto`` need
+``--pairs``. The default is the dense search on the CUDA card;
+``--device cpu`` runs its plain torch versions on the host,
+``--backend serial`` the host oracle and ``--backend native`` the C++
+host runtime (built with ``g++`` at first use; ``--pairs`` runs its
+threaded batch). Without a card and without ``--device cpu`` the dense
+search raises.
 """
 
 from __future__ import annotations
@@ -30,12 +32,13 @@ def main(argv=None):
     ap.add_argument("src", type=int, nargs="?", default=None)
     ap.add_argument("dst", type=int, nargs="?", default=None)
     ap.add_argument("--pairs", default=None, metavar="FILE",
-                    help='batch mode (dense backend): a file of "src dst" '
-                    "lines solved as one batch; replaces the positional "
-                    "src/dst")
-    ap.add_argument("--backend", default="dense", choices=["serial", "dense"],
-                    help="the dense device search (default) or the serial "
-                    "host oracle")
+                    help='batch mode (dense/native backends): a file of '
+                    '"src dst" lines solved as one batch (native: the '
+                    "threaded host batch); replaces the positional src/dst")
+    ap.add_argument("--backend", default="dense",
+                    choices=["serial", "dense", "native"],
+                    help="the dense device search (default), the serial "
+                    "host oracle or the native C++ host runtime")
     ap.add_argument("--mode", default="sync",
                     choices=sorted(DENSE_MODES) + list(BATCH_ONLY),
                     help="dense schedule (default sync): sync/alt/beamer/"
@@ -70,8 +73,9 @@ def main(argv=None):
                      "parents); tiered graphs batch through --mode "
                      "minor or sync")
     if args.pairs is not None:
-        if args.backend != "dense":
-            ap.error("--pairs batch mode is supported by --backend dense")
+        if args.backend == "serial":
+            ap.error("--pairs batch mode is supported by --backend dense "
+                     "and native")
         if args.src is not None or args.dst is not None:
             ap.error("--pairs replaces the positional src/dst arguments")
     elif args.src is None or args.dst is None:
@@ -82,12 +86,14 @@ def main(argv=None):
         ap.error("--unroll must be >= 1")
     if args.repeat < 1:
         ap.error("--repeat must be >= 1")
-    if args.backend == "serial" and (
+    host = args.backend in ("serial", "native")
+    if host and (
         args.layout != "ell" or args.mode != "sync" or args.unroll != 1
     ):
         ap.error("--mode/--layout/--unroll apply to --backend dense only")
-    if args.backend == "serial" and args.device == "cuda":
-        ap.error("--backend serial is the host oracle and cannot run on cuda")
+    if host and args.device == "cuda":
+        ap.error(f"--backend {args.backend} runs on the host and cannot "
+                 "run on cuda")
 
     from bibfs_tpu_torch.graph.io import read_graph_bin
 
@@ -100,7 +106,7 @@ def main(argv=None):
         return _batch_main(args, n, edges)
     try:
         res = _solve(args, n, edges)
-    except (ValueError, RuntimeError) as e:
+    except (ValueError, RuntimeError, OSError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 2
 
@@ -116,15 +122,27 @@ def main(argv=None):
 
 
 def _solve(args, n, edges):
-    if args.backend == "serial":
-        from bibfs_tpu_torch.graph.csr import build_csr
-        from bibfs_tpu_torch.solvers.serial import solve_serial_csr
+    if args.backend in ("serial", "native"):
         from bibfs_tpu_torch.solvers.timing import timed_repeats
 
-        row_ptr, col_ind = build_csr(n, edges)
+        if args.backend == "serial":
+            from bibfs_tpu_torch.graph.csr import build_csr
+            from bibfs_tpu_torch.solvers.serial import solve_serial_csr
 
-        def run():
-            return solve_serial_csr(n, row_ptr, col_ind, args.src, args.dst)
+            row_ptr, col_ind = build_csr(n, edges)
+
+            def run():
+                return solve_serial_csr(n, row_ptr, col_ind, args.src, args.dst)
+        else:
+            from bibfs_tpu_torch.solvers.native import (
+                NativeGraph,
+                solve_native_graph,
+            )
+
+            g = NativeGraph.build(n, edges)
+
+            def run():
+                return solve_native_graph(g, args.src, args.dst)
 
         if args.repeat > 1:
             return timed_repeats(run, run, args.repeat, force=None)[1]
@@ -155,20 +173,36 @@ def _batch_main(args, n, edges):
         print(f"Error: {args.pairs} must have two columns (src dst)",
               file=sys.stderr)
         return 2
-    from bibfs_tpu_torch.solvers.dense import (
-        DeviceGraph,
-        solve_batch_graph,
-        time_batch_graph,
-    )
-
     try:
-        g = DeviceGraph.build(n, edges, layout=args.layout, device=args.device)
-        if args.repeat > 1:
-            _times, results = time_batch_graph(g, pairs, repeats=args.repeat,
-                                               mode=args.mode)
+        if args.backend == "native":
+            from bibfs_tpu_torch.solvers.native import (
+                NativeGraph,
+                solve_batch_native_graph,
+                time_batch_native,
+            )
+
+            g = NativeGraph.build(n, edges)
+            if args.repeat > 1:
+                _times, results = time_batch_native(g, pairs,
+                                                    repeats=args.repeat)
+            else:
+                results = solve_batch_native_graph(g, pairs)
         else:
-            results = solve_batch_graph(g, pairs, mode=args.mode)
-    except (ValueError, RuntimeError) as e:
+            from bibfs_tpu_torch.solvers.dense import (
+                DeviceGraph,
+                solve_batch_graph,
+                time_batch_graph,
+            )
+
+            g = DeviceGraph.build(n, edges, layout=args.layout,
+                                  device=args.device)
+            if args.repeat > 1:
+                _times, results = time_batch_graph(g, pairs,
+                                                   repeats=args.repeat,
+                                                   mode=args.mode)
+            else:
+                results = solve_batch_graph(g, pairs, mode=args.mode)
+    except (ValueError, RuntimeError, OSError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 2
     for (src, dst), res in zip(pairs, results):

@@ -72,6 +72,7 @@ SOLVERS: dict[str, Callable] = {}
 BACKEND_MODULES = {
     "serial": "bibfs_tpu_torch.solvers.serial",
     "dense": "bibfs_tpu_torch.solvers.dense",
+    "native": "bibfs_tpu_torch.solvers.native",
 }
 
 
@@ -98,3 +99,38 @@ def solve(
 
         importlib.import_module(BACKEND_MODULES[backend])
     return SOLVERS[backend](n, edges, src, dst, **kwargs)
+
+
+def solve_many(
+    n: int, edges: np.ndarray, pairs, *, pipelined: bool = False,
+    return_errors: bool = False, **engine_kwargs,
+) -> list:
+    """Serve a query list through the micro-batching engine
+    (:class:`bibfs_tpu_torch.serve.QueryEngine`): one call builds the
+    engine (shape-bucketed device graph, distance/result cache), routes
+    the queries through its batch crossover (the batched device search at
+    or above it, the host runtime below) and returns one
+    :class:`BFSResult` per pair. The engine runs on ``cuda`` unless
+    ``device="cpu"`` is passed; ``engine_kwargs`` go to its constructor.
+
+    A query that is invalid on its own (an out-of-range id, a bad arity)
+    never fails its batch-mates: its slot holds a ``kind='invalid'``
+    :class:`bibfs_tpu_torch.serve.resilience.QueryError`.
+    ``return_errors=True`` extends that to every failure kind; the
+    default re-raises the first failure that is not ``invalid``.
+    ``pipelined=True`` (the pipelined engine) is not ported yet."""
+    if pipelined:
+        raise NotImplementedError(
+            "pipelined=True needs the pipelined engine, which is not "
+            "ported yet (ROADMAP Queue 1, item 1)"
+        )
+    from bibfs_tpu_torch.serve import QueryEngine
+    from bibfs_tpu_torch.serve.resilience import QueryError
+
+    with QueryEngine(n, edges, **engine_kwargs) as eng:
+        results = eng.query_many(pairs, return_errors=True)
+    if not return_errors:
+        for r in results:
+            if isinstance(r, QueryError) and r.kind != "invalid":
+                raise r
+    return results

@@ -53,8 +53,16 @@ def solve_serial(n: int, edges: np.ndarray, src: int, dst: int) -> BFSResult:
 
 
 def solve_serial_csr(
-    n: int, row_ptr: np.ndarray, col_ind: np.ndarray, src: int, dst: int
+    n: int, row_ptr: np.ndarray, col_ind: np.ndarray, src: int, dst: int,
+    *, cutoff: int | None = None,
 ) -> BFSResult:
+    """``cutoff`` is a proven upper bound on the true distance: it seeds
+    the meet bound at ``cutoff + 1``, so the stop rule ``level_s +
+    level_t >= best`` ends the search past it. Any path of length ``d <=
+    cutoff`` is recorded as a meet candidate before the seeded bound can
+    trigger, so found answers stay exact; a bound that is too small can
+    only turn a reachable pair into "not found" (callers re-solve such a
+    pair without the seed)."""
     if not (0 <= src < n and 0 <= dst < n):
         raise ValueError(f"src/dst out of range for n={n}")
     t0 = time.perf_counter()
@@ -70,7 +78,7 @@ def solve_serial_csr(
     frontier_s = np.array([src], dtype=np.int64)
     frontier_t = np.array([dst], dtype=np.int64)
     level_s = level_t = 0
-    best = _INF
+    best = _INF if cutoff is None else min(_INF, int(cutoff) + 1)
     meet = -1
     levels = 0
     edges_scanned = 0
@@ -99,7 +107,7 @@ def solve_serial_csr(
                 meet = int(hit[k])
     elapsed = time.perf_counter() - t0
 
-    if meet < 0:
+    if meet < 0:  # no meet recorded (best may hold the cutoff seed)
         return BFSResult(False, None, None, None, elapsed, levels, edges_scanned)
     path = _reconstruct(parent_s, parent_t, meet)
     return BFSResult(True, best, path, meet, elapsed, levels, edges_scanned)

@@ -62,6 +62,24 @@ is unavailable. Phases:
    checked as in phase 5 against the single-query ``sync`` search; then a
    600-vertex path graph whose deepest query passes the int8 cap: the
    minor8 refill equals minor.
+7. The serving engine (run after phase 5 on the phase 3 graph):
+   ``QueryEngine(n, edges, max_batch=256, cache_entries=512)`` on the
+   default device (``cuda``). Wave A, 256 distinct seeded pairs (one
+   ``src == dst``, one to an isolated vertex) under ``mode="auto"``: one
+   ``minor8`` device flush of 255 queries, equal to
+   ``solve_batch_graph(g, pairs, mode="minor8")`` on every field but the
+   time, hops equal to the serial oracle, paths valid. Wave B, 256 pairs
+   whose sources are wave A's (exact repeats, reverse twins, meet
+   vertices): all from the distance cache, no new device batch. Wave C,
+   16 fresh pairs below the crossover: the native host route. Wave D,
+   64 pairs through a second engine in ``mode="pallas"`` (kernel 3) and a
+   third in ``mode="pallas_alt"`` (kernel 4), each equal to
+   ``solve_batch_graph`` in that mode. Every wave fails on any fallback,
+   retry, injected fault, error or breaker that is not closed; each
+   prints one ``{"phase": "engine", ...}`` line (queries and routes,
+   flush ms, queries/s from submit to result, the launches of each
+   kernel, the summed ms of the engine's trace spans, and the build
+   seconds of the snapshot, the bucketed table and the native runtime).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
@@ -87,6 +105,8 @@ from bibfs_tpu_torch.ops import minor_level as ml
 from bibfs_tpu_torch.ops import pull_expand as pe
 from bibfs_tpu_torch.ops.expand import pack_dual
 from bibfs_tpu_torch.solvers import batch_minor as bmin
+from bibfs_tpu_torch.obs.trace import Tracer, set_tracer
+from bibfs_tpu_torch.serve import QueryEngine
 from bibfs_tpu_torch.solvers import dense
 from bibfs_tpu_torch.solvers.api import validate_path
 from bibfs_tpu_torch.solvers.serial import solve_serial_csr
@@ -742,6 +762,178 @@ def routing_phase(g2, csr2, pairs2, want2) -> None:
                       "host_reads_8": res[0].host_syncs}), flush=True)
 
 
+FIELDS = ("found", "hops", "path", "meet", "levels", "edges_scanned")
+
+
+def fields(r) -> tuple:
+    return tuple(getattr(r, f) for f in FIELDS)
+
+
+def engine_clean(eng, wave: str) -> dict:
+    """Fail unless the engine never degraded: no fallback, retry, error,
+    bisection or injected fault, and a closed breaker."""
+    st = eng.stats()
+    res = st["resilience"]
+    check(not any(res["fallbacks"].values()), f"wave {wave}: fallbacks {res['fallbacks']}")
+    check(res["retries"] == 0, f"wave {wave}: {res['retries']} retries")
+    check(not any(res["errors"].values()), f"wave {wave}: errors {res['errors']}")
+    check(res["bisections"] == 0, f"wave {wave}: host batch bisected")
+    check(res["faults"] is None, f"wave {wave}: a fault plan is set")
+    check(res["breaker"]["state"] == "closed", f"wave {wave}: breaker {res['breaker']}")
+    return st
+
+
+def against_oracle(n, csr, pairs, results, wave: str) -> None:
+    for (s, d), r, w in zip(pairs, results, oracle(n, csr, pairs)):
+        check(r.found == w.found and r.hops == w.hops,
+              f"engine wave {wave} {s}->{d}: hops {r.hops} != oracle {w.hops}")
+        if r.found:
+            check(validate_path(csr, r.path, s, d, hops=r.hops),
+                  f"engine wave {wave} {s}->{d}: invalid path")
+
+
+def engine_wave(eng, pairs, wave: str, **extra) -> tuple[list, dict]:
+    """Serve ``pairs`` through ``eng`` with every kernel count set to 0
+    just before; returns the results and the line it prints."""
+    before = dict(eng.counters)
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = eng.query_many(pairs)
+    finally:
+        wall = time.perf_counter() - t0
+        set_tracer(prev)
+    launches = counts()
+    spans: dict = {}
+    for ev in tracer.events():
+        if ev.get("ph") == "X":
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    st = engine_clean(eng, wave)
+    routed = {k: st[k] - before[k] for k in (
+        "trivial", "cache_served", "device_queries", "host_queries",
+        "device_batches")}
+    ran = sorted({r.mode for r in res if r.mode is not None})
+    line = {"phase": "engine", "wave": wave, "queries": len(pairs), **routed,
+            "modes": ran,
+            # the batch's own clock (device or native batch); 0 from the cache
+            "flush_ms": max(r.time_s for r in res) * 1e3,
+            "wall_ms": wall * 1e3, "queries_per_s": len(pairs) / wall,
+            "launches": {k: v for k, v in launches.items() if v},
+            "spans_ms": spans,
+            "host_backend": st["host_backend"], "bucket": st["bucket"], **extra}
+    print(json.dumps(line), flush=True)
+    return res, line
+
+
+def engine_phase(g, n, edges, pairs_all, csr) -> None:
+    """Phase 7: the serving engine on the main-path graph (module
+    docstring). ``g`` is the phase 3 graph the waves are held against."""
+    from bibfs_tpu_torch.native.build import ensure_built
+
+    t0 = time.perf_counter()
+    eng = QueryEngine(n, edges, max_batch=BATCH, cache_entries=512)
+    snapshot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.graph  # the bucketed table, built and uploaded
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ensure_built()
+    native_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng._rt.get_host_solver()  # the native CSR and scratch
+    native_graph_s = time.perf_counter() - t0
+    builds = dict(snapshot_s=snapshot_s, table_s=table_s,
+                  native_build_s=native_build_s, native_graph_s=native_graph_s)
+
+    # wave A: one minor8 flush of 255 queries, equal to solve_batch_graph.
+    # Every endpoint is distinct, so each banked forest is its root's
+    # only one and wave B's meet vertices are in it
+    rng = np.random.default_rng(29)
+    isolated = np.flatnonzero(np.diff(csr[0]) == 0)
+    check(isolated.size > 0, "the main-path graph has no isolated vertex")
+    ends = rng.choice(np.setdiff1d(np.arange(n), isolated[:1]), 2 * BATCH,
+                      replace=False).reshape(BATCH, 2)
+    ends[0, 1] = ends[0, 0]  # src == dst: resolved at submit
+    ends[1, 1] = isolated[0]
+    pairs_a = [(int(s), int(d)) for s, d in ends]
+    res_a, line = engine_wave(eng, pairs_a, "A", **builds)
+    check(line["device_batches"] == 1 and line["device_queries"] == BATCH - 1
+          and line["trivial"] == 1 and line["host_queries"] == 0,
+          f"wave A routes: {line}")
+    check(line["modes"] == ["minor8"], f"wave A ran {line['modes']}")
+    check(line["launches"].get("minor_level[minor8]", 0) > 0,
+          "wave A did not launch minor_level_kernel<int8_t>")
+    want = dense.solve_batch_graph(g, pairs_a, mode="minor8")
+    for (s, d), r, w in zip(pairs_a, res_a, want):
+        if s == d:
+            check((r.found, r.hops, r.path) == (w.found, w.hops, w.path),
+                  f"wave A trivial {s}: {r}")
+        else:
+            check(fields(r) == fields(w),
+                  f"wave A {s}->{d}: engine {fields(r)} != batch {fields(w)}")
+    against_oracle(n, csr, pairs_a, res_a, "A")
+
+    # wave B: sources of wave A, all answered from the distance cache
+    pairs_b = []
+    for k, ((s, d), r) in enumerate(zip(pairs_a[1:], res_a[1:])):
+        if len(pairs_b) == BATCH:
+            break
+        if k % 3 == 0 or not r.found:
+            pairs_b.append((s, d))
+        elif k % 3 == 1:
+            pairs_b.append((d, s))
+        else:
+            j = r.path.index(r.meet)
+            pairs_b.append((s, r.path[j]) if j else (d, s))
+    pairs_b += pairs_a[1: 1 + BATCH - len(pairs_b)]
+    res_b, line = engine_wave(eng, pairs_b, "B")
+    check(line["cache_served"] == BATCH and line["device_batches"] == 0
+          and line["host_queries"] == 0 and not line["launches"],
+          f"wave B was not served from the cache: {line}")
+    against_oracle(n, csr, pairs_b, res_b, "B")
+
+    # wave C: 16 fresh pairs below the crossover, on the native host route
+    used = {v for p in pairs_a for v in p}
+    fresh = np.setdiff1d(np.random.default_rng(31).choice(n, 64, replace=False),
+                         np.array(sorted(used)))
+    pairs_c = [(int(s), int(d)) for s, d in fresh[:32].reshape(16, 2)]
+    res_c, line = engine_wave(eng, pairs_c, "C")
+    check(line["host_queries"] == 16 and line["device_batches"] == 0,
+          f"wave C routes: {line}")
+    check(eng.host_backend_resolved == "native",
+          f"wave C host backend {eng.host_backend_resolved}")
+    against_oracle(n, csr, pairs_c, res_c, "C")
+    del eng, res_a, res_b, want
+    torch.cuda.empty_cache()
+
+    # wave D: the pull kernels through the engine (kernel 3 under pallas,
+    # kernel 4 under pallas_alt), each engine over the same graph
+    pairs_d = [(int(s), int(d)) for s, d in np.random.default_rng(37).choice(
+        n, 128, replace=False).reshape(64, 2)]
+    for mode, kernel in (("pallas", "pull_dual"), ("pallas_alt", "pull_single")):
+        t0 = time.perf_counter()
+        eng_d = QueryEngine(n, edges, pairs=pairs_all, mode=mode,
+                            max_batch=BATCH, cache_entries=512)
+        eng_d.graph
+        res_d, line = engine_wave(eng_d, pairs_d, f"D[{mode}]",
+                                  setup_s=time.perf_counter() - t0)
+        check(line["device_batches"] == 1
+              and line["device_queries"] == len(pairs_d)
+              and line["modes"] == [mode], f"wave D[{mode}] routes: {line}")
+        check(line["launches"].get(kernel, 0) > 0,
+              f"wave D[{mode}] did not launch {kernel}")
+        want = dense.solve_batch_graph(g, pairs_d, mode=mode)
+        for (s, d), r, w in zip(pairs_d, res_d, want):
+            check(fields(r) == fields(w),
+                  f"wave D[{mode}] {s}->{d}: engine {fields(r)} != batch {fields(w)}")
+        against_oracle(n, csr, pairs_d, res_d, f"D[{mode}]")
+        del eng_d
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -830,6 +1022,9 @@ def main() -> int:
     check(same_batch(raws["auto"], raws["minor8"], n), "auto differs from minor8")
     del raws
     torch.cuda.empty_cache()
+
+    # phase 7: the serving engine on the main-path graph
+    engine_phase(g, n, edges, pairs_all, csr)
 
     # phase 4: tiered RMAT scale 20
     del g

@@ -29,7 +29,12 @@ batches for the card:
   degrade is counted in ``bibfs_route_fallbacks_total`` and
   ``bibfs_retries_total`` and shows in ``stats()["resilience"]``. No
   degrade hides a kernel: on a CUDA device the constructor builds the
-  kernels its ``mode`` launches and a build failure raises from it.
+  kernels its ``mode`` launches (a build failure raises from it), and a
+  device flush that fails for any reason but an injected fault
+  (:class:`~bibfs_tpu_torch.serve.faults.InjectedFault`, the chaos seam)
+  fails its tickets with a ``kind='internal'`` :class:`QueryError`
+  instead of being re-solved on the host. An engine on the CPU keeps the
+  JAX package's ladder, which degrades on any failure.
 
 Every result is a :class:`~bibfs_tpu_torch.solvers.api.BFSResult` whose
 fields equal the JAX package's engine on the same queries; device
@@ -62,7 +67,7 @@ from bibfs_tpu_torch.serve.buckets import (
     ell_bucket_key,
 )
 from bibfs_tpu_torch.serve.cache import DistanceCache
-from bibfs_tpu_torch.serve.faults import FaultPlan
+from bibfs_tpu_torch.serve.faults import FaultPlan, InjectedFault
 from bibfs_tpu_torch.serve.resilience import (
     BREAKER_STATE_CODES,
     ERROR_KINDS,
@@ -225,34 +230,19 @@ class _ResilienceCells:
         }
 
 
-def _solve_serial_cutoff_checked(n, row_ptr, col_ind, s, d, cutoff):
-    """A cutoff-seeded serial solve that trusts found results and retries
-    a not-found one without the seed: a found answer is exact whatever the
-    cutoff, and a cutoff that was too small can only show as not found."""
-    from bibfs_tpu_torch.solvers.serial import solve_serial_csr
-
-    res = solve_serial_csr(n, row_ptr, col_ind, s, d, cutoff=cutoff)
-    if cutoff is not None and not res.found:
-        res = solve_serial_csr(n, row_ptr, col_ind, s, d)
-    return res
-
-
 class _Pending:
     """A submitted query's handle; exactly one of ``result`` / ``error``
     lands at flush time (a poisoned query gets a structured
     :class:`~bibfs_tpu_torch.serve.resilience.QueryError` instead of
-    sinking its batch). ``cutoff`` is a proven distance upper bound the
-    serial rung seeds its meet bound with (set by the oracle tier, which
-    comes with the store slice)."""
+    sinking its batch)."""
 
-    __slots__ = ("src", "dst", "result", "error", "cutoff")
+    __slots__ = ("src", "dst", "result", "error")
 
     def __init__(self, src: int, dst: int):
         self.src = src
         self.dst = dst
         self.result: BFSResult | None = None
         self.error: BaseException | None = None
-        self.cutoff: int | None = None
 
 
 @guarded_by("_lock", "_graph", "bucket_key", "_host_solver",
@@ -308,9 +298,7 @@ class _GraphRuntime:
     def get_host_solver(self):
         """The per-query host solver: the native C++ runtime when it
         builds and loads, else the NumPy serial oracle over the snapshot's
-        CSR (``host_backend="native"`` makes a native failure raise). Every
-        solver takes an optional ``cutoff``; the serial oracle seeds its
-        meet bound with it, the native runtime ignores it."""
+        CSR (``host_backend="native"`` makes a native failure raise)."""
         if self._host_solver is not None:
             return self._host_solver
         with self._lock:
@@ -338,23 +326,23 @@ class _GraphRuntime:
                     self.host_native_graph = ng
                     self.host_backend_resolved = "native"
                     self._host_solver = (
-                        lambda s, d, cutoff=None: solve_native_graph(ng, s, d)
+                        lambda s, d: solve_native_graph(ng, s, d)
                     )
                     return self._host_solver
                 except OSError:
                     if backend == "native":
                         raise
-            row_ptr, col_ind = self.snapshot.csr()
-            self._host_solver = (
-                lambda s, d, cutoff=None: _solve_serial_cutoff_checked(
-                    self.n, row_ptr, col_ind, s, d, cutoff
-                )
-            )
+            self._host_solver = self._serial_csr_solver()
             self.host_backend_resolved = "serial"
             return self._host_solver
 
-    def solve_serial_one(self, src: int, dst: int,
-                         cutoff: int | None = None) -> BFSResult:
+    def _serial_csr_solver(self):
+        from bibfs_tpu_torch.solvers.serial import solve_serial_csr
+
+        row_ptr, col_ind = self.snapshot.csr()
+        return lambda s, d: solve_serial_csr(self.n, row_ptr, col_ind, s, d)
+
+    def solve_serial_one(self, src: int, dst: int) -> BFSResult:
         """The bottom of the fallback ladder: the NumPy serial oracle over
         the snapshot's CSR."""
         if self._serial_solver is None:
@@ -365,14 +353,8 @@ class _GraphRuntime:
                         # the host route already IS the serial oracle
                         self._serial_solver = self._host_solver
                     else:
-                        row_ptr, col_ind = self.snapshot.csr()
-                        self._serial_solver = (
-                            lambda s, d, cutoff=None:
-                            _solve_serial_cutoff_checked(
-                                self.n, row_ptr, col_ind, s, d, cutoff
-                            )
-                        )
-        return self._serial_solver(int(src), int(dst), cutoff=cutoff)
+                        self._serial_solver = self._serial_csr_solver()
+        return self._serial_solver(int(src), int(dst))
 
 
 @guarded_by("_rt_lock", "_rts_released")
@@ -388,12 +370,16 @@ class QueryEngine:
     mode : batch mode of device flushes (default ``"auto"``: ``minor8``
         where the graph and batch fit, else ``minor``, else per-query
         ``sync``); any mode of :func:`~bibfs_tpu_torch.solvers.dense.
-        solve_batch_graph`. Unknown modes raise ``ValueError`` here.
+        solve_batch_graph`. Unknown modes raise ``ValueError`` here, and
+        so does ``minor8`` with ``layout="tiered"`` on a CUDA engine.
     layout : ``"ell"`` (shape-bucketed; the serving default) or
         ``"tiered"`` (power-law graphs; exact shapes, no bucketing).
     flush_threshold : queue depth at which a flush goes to the device;
         below it queries dispatch per query through the host runtime.
-        Default: ``small_batch_threshold`` of the engine's device type.
+        Default: ``small_batch_threshold`` of the engine's device type
+        (on the card, with no ``cuda`` calibration block, 32; below it
+        ``python -m bibfs_tpu_torch.cli.crossover`` measures the host
+        route ahead of a device flush of the same pairs, PERF.md §6).
     max_batch : largest single device flush (rounded up to a batch rung);
         longer queues solve in chunks.
     cache_entries : distance-cache forest capacity (2 forests bank per
@@ -491,6 +477,14 @@ class QueryEngine:
         if n is None:
             raise ValueError("n (and edges/pairs) required")
         self._device = resolve_device(device)
+        if self._device.type == "cuda" and mode == "minor8" and (
+                layout == "tiered"):
+            # every flush would fail on the card (minor8 refuses hub
+            # tiers) and a CUDA engine does not degrade such a failure
+            raise ValueError(
+                "mode='minor8' takes the plain ELL layout only; use "
+                "layout='ell' or mode='minor'/'auto' with layout='tiered'"
+            )
         if self._device.type == "cuda":
             # build (or load) the kernels this mode launches now: a kernel
             # that does not build must fail the engine, not degrade its
@@ -792,7 +786,9 @@ class QueryEngine:
         degrades to the next, counted in ``bibfs_route_fallbacks_total``,
         and the terminal host rung absorbs whatever is left behind its
         bisection isolator. A sub-crossover chunk skips the device rung
-        (a routing decision, not a degrade)."""
+        (a routing decision, not a degrade). A rung failure the engine may
+        not degrade (:meth:`_may_degrade`) fails the chunk's tickets
+        instead."""
         rt = self._rt
         for i, name in enumerate(self._ladder):
             if name == "host":
@@ -800,9 +796,14 @@ class QueryEngine:
             route = self.routes[name]
             if not route.eligible(rt, pairs):
                 continue
-            results = route.attempt(
-                rt, pairs, self._cutoffs_for(pairs, unique)
-            )
+            try:
+                results = route.attempt(rt, pairs)
+            except Exception as exc:
+                # a failure the engine may not degrade (_may_degrade): the
+                # chunk's tickets fail, none is re-solved on the host
+                for key in pairs:
+                    self._resolve_error(unique[key], to_query_error(exc, key))
+                return
             if results is not None:
                 for j, (src, dst) in enumerate(pairs):
                     self._resolve(unique[(src, dst)], src, dst, results[j])
@@ -810,21 +811,30 @@ class QueryEngine:
             self._note_fallback(name, self._next_rung(i, rt, pairs))
         self._flush_host(pairs, unique)
 
-    def _device_launch(self, pairs):
-        """Stage 1 of a device flush: pad the flush to its batch rung
-        with inert ``(0, 0)`` queries, resolve the batch mode, note the
-        program identity and run the batch. Returns ``(out, fin, t0)``
-        for :meth:`_device_finish`."""
+    def _device_solve(self, pairs) -> list[BFSResult]:
+        """One device flush: pad the flush to its batch rung with inert
+        ``(0, 0)`` queries, resolve the batch mode, note the program
+        identity and run the batch (``device_launch``); then run the
+        finish hook (minor8 slot decode, capped-query refill), copy the
+        outputs of the real queries to the host ONCE, materialize the
+        results and bank the parent forests from those same host copies
+        (``device_finish``)."""
         from bibfs_tpu_torch.solvers.batch_minor import auto_batch_mode
-        from bibfs_tpu_torch.solvers.dense import _batch_dispatch
+        from bibfs_tpu_torch.solvers.dense import (
+            _batch_dispatch,
+            _host,
+            _materialize_batch,
+        )
+        from bibfs_tpu_torch.solvers.timing import force_scalar
 
-        with span("device_launch", batch=len(pairs)):
+        b = len(pairs)
+        with span("device_launch", batch=b):
             if self._faults is not None:
                 self._faults.fire("device", pairs)
             graph = self.graph  # lazy build; also sets the bucket key
-            rung = min(bucket_batch(len(pairs)), self.max_batch)
+            rung = min(bucket_batch(b), self.max_batch)
             padded = np.zeros((rung, 2), dtype=np.int64)
-            padded[: len(pairs)] = pairs
+            padded[:b] = pairs
             mode = self.mode
             if mode == "auto":
                 mode = auto_batch_mode(graph, rung)
@@ -833,23 +843,11 @@ class QueryEngine:
             _p, dispatch, finish = _batch_dispatch(graph, padded, mode, stats)
             t0 = time.perf_counter()
             out = dispatch()
-            return out, (finish, stats), t0
-
-    def _device_finish(self, out, fin, t0, pairs) -> list[BFSResult]:
-        """Stage 2 of a device flush: force execution, run the finish hook
-        (minor8 slot decode, capped-query refill), copy the outputs of
-        the real queries to the host ONCE, materialize the results and
-        bank the parent forests from those same host copies."""
-        from bibfs_tpu_torch.solvers.dense import _host, _materialize_batch
-        from bibfs_tpu_torch.solvers.timing import force_scalar
-
-        finish, stats = fin
-        with span("device_finish", batch=len(pairs)):
+        with span("device_finish", batch=b):
             if self._faults is not None:
                 self._faults.fire("device_finish", pairs)
             force_scalar(out)
             elapsed = time.perf_counter() - t0
-            b = len(pairs)
             outs = [_host(o[:b]) for o in finish(out)]
             results = _materialize_batch(outs, b, elapsed, mode=stats["mode"],
                                          host_syncs=stats["host_syncs"])
@@ -883,6 +881,14 @@ class QueryEngine:
                 self.dist_cache.put_forest(self.graph_id, root, plane[i],
                                            self.n)
 
+    def _may_degrade(self, exc: BaseException) -> bool:
+        """Whether a device-route failure may degrade down the ladder. On
+        the CPU, any (the JAX package's ladder); on a CUDA engine only an
+        :class:`InjectedFault`, the chaos seam: any other failure is the
+        kernel's or the card's (a launch that failed, memory that ran
+        out), and answering it on the host would hide it."""
+        return self._device.type != "cuda" or isinstance(exc, InjectedFault)
+
     def _use_device(self) -> bool:
         """Whether above-crossover flushes go to the device route: by the
         engine's device type (``cuda`` yes, ``cpu`` no), unless
@@ -891,25 +897,12 @@ class QueryEngine:
             return self._device_batches
         return self._device.type == "cuda"
 
-    @staticmethod
-    def _cutoffs_for(pairs, unique):
-        """Per-pair cutoffs for a host flush (None when no ticket carries
-        one); duplicate tickets of one pair share the tightest bound."""
-        cutoffs = [
-            min((t.cutoff for t in unique[key] if t.cutoff is not None),
-                default=None)
-            for key in pairs
-        ]
-        return cutoffs if any(c is not None for c in cutoffs) else None
-
     def _flush_host(self, pairs, unique) -> None:
         """Solve and deliver one host batch. No parent planes exist on the
         host route, but each found shortest path is a valid forest
         fragment for both endpoints, so the newest ``dist_cache.entries``
         found paths are banked."""
-        results = self._solve_host_isolated(
-            pairs, self._cutoffs_for(pairs, unique)
-        )
+        results = self._solve_host_isolated(pairs)
         ok_idx = [i for i, r in enumerate(results)
                   if not isinstance(r, QueryError)]
         bank = self._paths_to_bank([results[i] for i in ok_idx])
@@ -923,7 +916,7 @@ class QueryEngine:
             self._resolve(unique[(src, dst)], src, dst, res)
         self._c_host_queries.inc(len(ok_idx))
 
-    def _solve_host_isolated(self, pairs, cutoffs=None):
+    def _solve_host_isolated(self, pairs):
         """The host route with failure isolation: the whole batch first;
         on failure, BISECT — halves re-solve independently, so a poison
         batch converges in O(log B) extra solves to exactly the queries
@@ -931,31 +924,26 @@ class QueryEngine:
         oracle) and only then a structured :class:`QueryError`. Returns one
         ``BFSResult | QueryError`` per pair; never raises."""
         try:
-            return self._solve_host(pairs, cutoffs)
+            return self._solve_host(pairs)
         except Exception as exc:
             if len(pairs) == 1:
                 self._note_fallback("host", "serial")
                 try:
                     src, dst = pairs[0]
-                    return [self._solve_serial_one(
-                        src, dst, cutoffs[0] if cutoffs else None
-                    )]
+                    return [self._solve_serial_one(src, dst)]
                 except Exception as exc2:
                     return [to_query_error(exc2, pairs[0])]
             self._res_cells.bisections.inc()
             mid = len(pairs) // 2
             del exc  # halves re-derive their own failure (or succeed)
-            c_lo = cutoffs[:mid] if cutoffs else None
-            c_hi = cutoffs[mid:] if cutoffs else None
-            return (self._solve_host_isolated(pairs[:mid], c_lo)
-                    + self._solve_host_isolated(pairs[mid:], c_hi))
+            return (self._solve_host_isolated(pairs[:mid])
+                    + self._solve_host_isolated(pairs[mid:]))
 
-    def _solve_serial_one(self, src: int, dst: int,
-                          cutoff: int | None = None) -> BFSResult:
+    def _solve_serial_one(self, src: int, dst: int) -> BFSResult:
         """The bottom of the fallback ladder
         (:class:`~bibfs_tpu_torch.serve.routes.SerialRoute`); a thin seam
         so chaos tests can break this rung per engine."""
-        return self.routes["serial"].solve_one(self._rt, src, dst, cutoff)
+        return self.routes["serial"].solve_one(self._rt, src, dst)
 
     def _resolve_error(self, tickets, err: QueryError) -> None:
         """Fail exactly these tickets with a structured error (their batch
@@ -988,7 +976,7 @@ class QueryEngine:
         self.counters["inserts_skipped"] += len(found) - len(bank)
         return bank
 
-    def _solve_host(self, pairs, cutoffs=None) -> list[BFSResult]:
+    def _solve_host(self, pairs) -> list[BFSResult]:
         """Solve ``pairs`` on the host route: the threaded native C batch
         when the native runtime carries the route and the flush has at
         least :attr:`HOST_BATCH_MIN` queries, else the per-query solver.
@@ -1011,10 +999,7 @@ class QueryEngine:
                     solver(src, dst) if (r.found and r.path is None) else r
                     for (src, dst), r in zip(pairs, results)
                 ]
-            if cutoffs is None:
-                return [solver(src, dst) for src, dst in pairs]
-            return [solver(src, dst, cutoff=c)
-                    for (src, dst), c in zip(pairs, cutoffs)]
+            return [solver(src, dst) for src, dst in pairs]
 
     def _resolve(self, tickets, src, dst, res: BFSResult) -> None:
         self.dist_cache.put_result(

@@ -4,11 +4,11 @@ engine: the counterpart of ``bibfs_tpu/serve/faults.py``.
 A :class:`FaultPlan` is a set of rules that fire at the engine's named
 seams. This package's synchronous engine fires three of them:
 
-- ``device`` — the batched device dispatch
-  (:meth:`~bibfs_tpu_torch.serve.engine.QueryEngine._device_launch`),
+- ``device`` — the batched device dispatch (the first half of
+  :meth:`~bibfs_tpu_torch.serve.engine.QueryEngine._device_solve`),
   the seam a dead or flaky card route fails at;
-- ``device_finish`` — the forced value read and host-side decode
-  (:meth:`~bibfs_tpu_torch.serve.engine.QueryEngine._device_finish`);
+- ``device_finish`` — the forced value read and host-side decode (its
+  second half);
 - ``host_batch`` — the host batch
   (:meth:`~bibfs_tpu_torch.serve.engine.QueryEngine._solve_host`), the
   native-solver failure seam.
@@ -86,7 +86,9 @@ KINDS = ("error", "latency")
 
 
 class InjectedFault(RuntimeError):
-    """The exception a ``kind=error`` rule raises at its seam."""
+    """The exception a ``kind=error`` rule raises at its seam. On a CUDA
+    engine it is the only device-route failure the ladder degrades to the
+    host; any other fails its tickets."""
 
     def __init__(self, site: str, detail: str = ""):
         self.site = site

@@ -1,7 +1,8 @@
 """Failure handling for the serving stack: error taxonomy, retry with
 backoff, circuit breaking, and the health state machine — the
 counterpart of ``bibfs_tpu/serve/resilience.py``, unchanged in
-behaviour.
+behaviour; the breaker adds :meth:`CircuitBreaker.release`, for the
+failures a CUDA engine does not degrade.
 
 A failing route degrades THROUGHPUT, never availability:
 
@@ -147,7 +148,8 @@ class CircuitBreaker:
 
     ``allow()`` is the route gate: True means "try the route" (and, in
     half-open, claims the single probe slot — every True MUST be
-    followed by ``record_success`` or ``record_failure``). Thread-safe;
+    followed by ``record_success``, ``record_failure`` or ``release``).
+    Thread-safe;
     transition listeners (``on_transition`` at construction, more via
     :meth:`add_listener` — a breaker SHARED by several engines keeps
     every engine's gauge exact) fire under the lock on every state
@@ -233,6 +235,13 @@ class CircuitBreaker:
                 self._opened_at = self._clock()
                 self._opens += 1
                 self._transition("open")
+
+    def release(self) -> None:
+        """Give back an ``allow()`` without an outcome: a failure that is
+        not the route's to absorb (the engine fails its tickets instead)
+        moves no state, but a claimed half-open probe slot is freed."""
+        with self._lock:
+            self._probe_in_flight = False
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -8,19 +8,21 @@ failure policy that wraps it:
 
 - ``eligible(rt, pairs)`` — the routing predicate (the batch crossover,
   the device check);
-- ``launch(rt, pairs)`` / ``finish(out, fin, t0, pairs)`` — the
-  two-stage solve seam. Dispatch-shaped routes (device) return a handle
-  from ``launch`` that ``finish`` forces, decodes and banks; host-shaped
-  routes solve in ``solve`` directly.
-- ``attempt(rt, pairs, cutoffs)`` — the resilient synchronous wrapper:
-  bounded retries with backoff behind the route's own
+- ``solve(rt, pairs)`` — one synchronous solve of the batch;
+- ``attempt(rt, pairs)`` — the resilient wrapper: bounded retries with
+  backoff behind the route's own
   :class:`~bibfs_tpu_torch.serve.resilience.CircuitBreaker`. Returns the
   batch results, or None when the route is unavailable (breaker open /
   retries exhausted) — the caller degrades down the fallback ladder and
-  counts the degrade in ``bibfs_route_fallbacks_total``.
+  counts the degrade in ``bibfs_route_fallbacks_total``. A failure the
+  engine may not degrade (``engine._may_degrade``: on a CUDA engine
+  anything but an injected fault) is neither retried nor fed to the
+  breaker: it raises to the engine, which fails the batch's tickets.
 
-The engine keeps the orchestration (ticket resolution, banking); routes
-own *how a batch solves* and *when that way is worth trying*.
+The JAX package's two-stage ``launch``/``finish`` seam serves its
+pipelined engine and comes with that slice of the port. The engine keeps
+the orchestration (ticket resolution, banking); routes own *how a batch
+solves* and *when that way is worth trying*.
 """
 
 from __future__ import annotations
@@ -36,8 +38,7 @@ class Route:
     ``engine`` is the owning engine (routes live and die with it);
     ``retry``/``breaker`` are the route's failure policy (None = the
     route is not retried / not breaker-gated). ``is_dispatch`` marks
-    routes whose ``launch`` returns a handle for ``finish`` to force
-    (device).
+    routes that dispatch to the device.
     """
 
     name: str = "route"
@@ -56,28 +57,17 @@ class Route:
         decision, not a failure."""
         return True
 
-    # ---- the two-stage solve seam ------------------------------------
-    def launch(self, rt, pairs):
-        """Stage 1: start solving ``pairs``. Returns ``(out, fin, t0)``
-        for :meth:`finish`. Dispatch routes only enqueue here."""
+    def solve(self, rt, pairs) -> list[BFSResult]:
+        """One synchronous solve of ``pairs`` (no retry policy)."""
         raise NotImplementedError
-
-    def finish(self, out, fin, t0, pairs) -> list[BFSResult]:
-        """Stage 2: force execution and materialize per-query results
-        (host-side work)."""
-        raise NotImplementedError
-
-    def solve(self, rt, pairs, cutoffs=None) -> list[BFSResult]:
-        """One synchronous launch+finish (no retry policy applied)."""
-        out, fin, t0 = self.launch(rt, pairs)
-        return self.finish(out, fin, t0, pairs)
 
     # ---- the resilient synchronous wrapper ---------------------------
-    def attempt(self, rt, pairs, cutoffs=None) -> list[BFSResult] | None:
+    def attempt(self, rt, pairs) -> list[BFSResult] | None:
         """Bounded retries with backoff behind the route breaker.
         Returns the batch results, or None when the route is
         unavailable (breaker open / retries exhausted) and the caller
-        should degrade down the ladder. The fault-free fast path is one
+        should degrade down the ladder; raises a failure the engine may
+        not degrade. The fault-free fast path is one
         ``allow()``/``record_success()`` pair per batch."""
         breaker = self.breaker
         retry = self.retry
@@ -87,8 +77,11 @@ class Route:
         try:
             while True:
                 try:
-                    results = self.solve(rt, pairs, cutoffs)
-                except Exception:
+                    results = self.solve(rt, pairs)
+                except Exception as exc:
+                    if not self.engine._may_degrade(exc):
+                        hard = exc
+                        break
                     if breaker is not None:
                         breaker.record_failure()
                     n_try += 1
@@ -115,6 +108,11 @@ class Route:
             if breaker is not None:
                 breaker.record_failure()
             raise
+        # a failure of the kernel or the card: the breaker only ever opens
+        # on degradable faults, so its claim is released uncounted
+        if breaker is not None:
+            breaker.release()
+        raise hard
 
     def _note_retry(self) -> None:
         self.engine._res_cells.retry_cell(self.name).inc()

@@ -1,11 +1,10 @@
 """``route="device"`` — the single-device batched search as a Route: the
 counterpart of ``bibfs_tpu/serve/routes/device.py``.
 
-``launch`` delegates to the engine's ``_device_launch`` (pads the flush
-to a batch rung, resolves the batch mode, notes the program identity and
-runs the batch on the engine's device) and ``finish`` to
-``_device_finish`` (forced value read, minor8 decode, one host copy of
-the outputs, result materialization, forest banking).
+``solve`` is the engine's ``_device_solve``: pad the flush to a batch
+rung, resolve the batch mode, note the program identity, run the batch
+on the engine's device, then copy the real queries' outputs to the host
+once, materialize the results and bank the forests.
 
 Eligibility is the batch crossover plus the device check: batching
 amortizes the per-dispatch cost of the card, so an engine on the CPU
@@ -28,8 +27,5 @@ class DeviceRoute(Route):
         return (len(pairs) >= self.engine.flush_threshold
                 and self.engine._use_device())
 
-    def launch(self, rt, pairs):
-        return self.engine._device_launch(pairs)
-
-    def finish(self, out, fin, t0, pairs):
-        return self.engine._device_finish(out, fin, t0, pairs)
+    def solve(self, rt, pairs):
+        return self.engine._device_solve(pairs)

@@ -1,14 +1,15 @@
 """``route="host"`` and ``route="serial"`` — the host rungs as Routes: the
 counterpart of ``bibfs_tpu/serve/routes/host.py``.
 
-The host route is the ladder's terminal batch rung: it solves through
-the threaded native C batch when the native runtime carries it,
-per query otherwise, and it never returns unavailable — failure
-isolation happens inside it (the engine's bisection isolator),
-converging a poison batch to per-query ``QueryError`` s with the serial
-rung as each singleton's last chance. ``serial`` is that bottom rung:
-the NumPy oracle over the bound snapshot's CSR — no native runtime, no
-device, nothing left to be broken but the graph itself.
+The host route is the ladder's terminal batch rung: the engine solves it
+(``QueryEngine._flush_host``) through the threaded native C batch when
+the native runtime carries it, per query otherwise, and it never returns
+unavailable — failure isolation happens inside it (the engine's
+bisection isolator), converging a poison batch to per-query
+``QueryError`` s with the serial rung as each singleton's last chance.
+``serial`` is that bottom rung: the NumPy oracle over the bound
+snapshot's CSR — no native runtime, no device, nothing left to be broken
+but the graph itself.
 """
 
 from __future__ import annotations
@@ -17,15 +18,10 @@ from bibfs_tpu_torch.serve.routes.base import Route
 
 
 class HostRoute(Route):
-    """The terminal batch rung: native C batch / per-query host solve
-    with bisection failure isolation (never unavailable)."""
+    """The terminal batch rung (named in the ladder and ``stats()``; the
+    engine's ``_flush_host`` solves it, never unavailable)."""
 
     name = "host"
-
-    def solve(self, rt, pairs, cutoffs=None):
-        # the isolator returns BFSResult | QueryError per pair and
-        # never raises; the engine's delivery partitions them
-        return self.engine._solve_host_isolated(pairs, cutoffs)
 
 
 class SerialRoute(Route):
@@ -33,5 +29,5 @@ class SerialRoute(Route):
 
     name = "serial"
 
-    def solve_one(self, rt, src: int, dst: int, cutoff: int | None = None):
-        return rt.solve_serial_one(src, dst, cutoff)
+    def solve_one(self, rt, src: int, dst: int):
+        return rt.solve_serial_one(src, dst)

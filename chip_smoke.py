@@ -71,7 +71,9 @@ is unavailable. Phases:
    time, hops equal to the serial oracle, paths valid. Wave B, 256 pairs
    whose sources are wave A's (exact repeats, reverse twins, meet
    vertices): all from the distance cache, no new device batch. Wave C,
-   16 fresh pairs below the crossover: the native host route. Wave D,
+   16 fresh pairs below the crossover: the native host route; then the
+   same 16 pairs as one device flush (``C[device]``, ``flush_threshold=1``
+   on a second engine), the card's side of the crossover. Wave D,
    64 pairs through a second engine in ``mode="pallas"`` (kernel 3) and a
    third in ``mode="pallas_alt"`` (kernel 4), each equal to
    ``solve_batch_graph`` in that mode. Every wave fails on any fallback,
@@ -907,6 +909,23 @@ def engine_phase(g, n, edges, pairs_all, csr) -> None:
           f"wave C host backend {eng.host_backend_resolved}")
     against_oracle(n, csr, pairs_c, res_c, "C")
     del eng, res_a, res_b, want
+    torch.cuda.empty_cache()
+
+    # wave C[device]: the same 16 pairs as one device flush, the reading
+    # the host route is held against below the crossover
+    t0 = time.perf_counter()
+    eng_c = QueryEngine(n, edges, pairs=pairs_all, flush_threshold=1,
+                        max_batch=BATCH, cache_entries=512)
+    eng_c.graph
+    res_cd, line = engine_wave(eng_c, pairs_c, "C[device]",
+                               setup_s=time.perf_counter() - t0)
+    check(line["device_batches"] == 1 and line["device_queries"] == 16
+          and line["host_queries"] == 0, f"wave C[device] routes: {line}")
+    for (s, d), r, w in zip(pairs_c, res_cd, res_c):
+        check((r.found, r.hops) == (w.found, w.hops),
+              f"wave C[device] {s}->{d}: hops {r.hops} != host {w.hops}")
+    against_oracle(n, csr, pairs_c, res_cd, "C[device]")
+    del eng_c
     torch.cuda.empty_cache()
 
     # wave D: the pull kernels through the engine (kernel 3 under pallas,

@@ -366,10 +366,10 @@ def test_poison_query_fails_alone_with_structured_error():
     for eng in (port, ref):
         real = eng._solve_serial_one
 
-        def broken(src, dst, cutoff=None, _real=real):
+        def broken(src, dst, *rest, _real=real):
             if (src, dst) == poison:
                 raise RuntimeError("serial rung poisoned too")
-            return _real(src, dst, cutoff)
+            return _real(src, dst, *rest)
 
         eng._solve_serial_one = broken
     pairs = _fresh(8, 0)
@@ -487,3 +487,114 @@ def test_breaker_metrics_track_state():
     assert trans.value == 1
     text = REGISTRY.render()
     assert f'bibfs_route_fallbacks_total{{engine="{eng.obs_label}",from="device",to="host"}} 1' in text
+
+
+# ---- a CUDA engine degrades injected faults only ----------------------
+def _cuda_typed_engine(monkeypatch, n, edges, **kw):
+    """A port engine whose device reads as ``cuda`` (no card needed:
+    ``mode="sync"`` builds no kernel and no flush here reaches a tensor
+    on the card)."""
+    import torch
+
+    from bibfs_tpu_torch.serve import ExecutableCache, QueryEngine
+    from bibfs_tpu_torch.serve import engine as engine_mod
+
+    monkeypatch.setattr(engine_mod, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    return QueryEngine(n, edges, mode="sync", host_backend="serial",
+                       exec_cache=ExecutableCache(), **kw)
+
+
+def _card_fault(pairs):
+    raise RuntimeError("bibfs_minor_level: CUDA launch failed (719)")
+
+
+@pytest.mark.parametrize("failure", ["launch", "out_of_memory"])
+def test_cuda_engine_fails_tickets_instead_of_host(monkeypatch, failure):
+    """A device flush that fails on the card fails its tickets with a
+    ``kind='internal'`` QueryError: no retry, no fallback, nothing
+    answered on the host, and the breaker never opens however often it
+    happens."""
+    from bibfs_tpu_torch.serve import QueryError
+
+    n = 220
+    eng = _cuda_typed_engine(monkeypatch, n, _skiplink_graph(n),
+                             flush_threshold=4)
+    exc = (RuntimeError("bibfs_minor_level: CUDA launch failed (719)")
+           if failure == "launch" else MemoryError("CUDA out of memory"))
+
+    def broken(pairs):
+        raise exc
+
+    eng._device_solve = broken
+    for wave in range(4):
+        out = eng.query_many(_fresh(6, 10 * wave), return_errors=True)
+        assert all(isinstance(r, QueryError) and r.kind == "internal"
+                   and r.cause is exc for r in out)
+    with pytest.raises(QueryError, match="internal"):
+        eng.query_many(_fresh(6, 100))
+    st = eng.stats()
+    res = st["resilience"]
+    assert not any(res["fallbacks"].values()) and res["retries"] == 0
+    assert res["errors"]["internal"] == 30
+    assert res["breaker"]["state"] == "closed" and res["breaker"]["opens"] == 0
+    assert st["host_queries"] == st["device_queries"] == 0
+    # below the crossover the host route is a routing decision, not a degrade
+    assert eng.query_many(_fresh(3, 150))[0].found
+    assert eng.counters["host_queries"] == 3
+
+
+def test_cuda_engine_degrades_injected_faults_only(monkeypatch):
+    """On a CUDA engine the chaos seam still drives the ladder: an
+    injected fault retries, opens the breaker and degrades to the host,
+    counted. A card failure during the half-open probe that follows
+    fails its tickets and frees the probe without a recorded outcome."""
+    from bibfs_tpu_torch.serve import (
+        CircuitBreaker,
+        FaultPlan,
+        QueryError,
+        RetryPolicy,
+    )
+
+    n = 220
+    edges = _skiplink_graph(n)
+    eng = _cuda_typed_engine(
+        monkeypatch, n, edges, flush_threshold=4,
+        faults=FaultPlan.parse("device:times=2"),
+        retry=RetryPolicy(2, base_ms=0.0),
+        breaker=CircuitBreaker(fail_threshold=2, reset_s=0.0),
+    )
+    pairs = _fresh(6, 0)
+    _check_oracle(n, edges, pairs, eng.query_many(pairs))
+    res = eng.stats()["resilience"]
+    assert res["fallbacks"]["device->host"] == 1 and res["retries"] == 1
+    assert res["breaker"]["opens"] == 1
+    assert eng.counters["host_queries"] == 6
+    eng._device_solve = _card_fault
+    for lo in (20, 40):  # the probe is freed each time: allow() admits again
+        out = eng.query_many(_fresh(6, lo), return_errors=True)
+        assert all(isinstance(r, QueryError) and r.kind == "internal"
+                   for r in out)
+    res = eng.stats()["resilience"]
+    assert res["fallbacks"]["device->host"] == 1
+    assert res["breaker"]["state"] == "half_open"
+    assert res["breaker"]["opens"] == 1
+    assert eng.counters["host_queries"] == 6
+
+
+def test_breaker_release_frees_the_probe_without_an_outcome():
+    from bibfs_tpu_torch.serve import CircuitBreaker
+
+    now = [0.0]
+    br = CircuitBreaker(fail_threshold=1, reset_s=1.0, clock=lambda: now[0])
+    assert br.allow()
+    br.release()  # closed: nothing claimed, nothing moves
+    assert br.snapshot()["consecutive_failures"] == 0
+    br.record_failure()
+    assert br.state == "open" and not br.allow()
+    now[0] = 2.0
+    assert br.allow() and not br.allow()  # the probe is claimed
+    br.release()
+    assert br.state == "half_open" and br.allow()
+    br.record_success()
+    assert br.state == "closed"

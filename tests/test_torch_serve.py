@@ -778,6 +778,29 @@ def test_cuda_engine_build_failure_raises(monkeypatch, tmp_path, mode, source):
     assert engine_mod._mode_sources("sync") == ()
 
 
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_minor8_on_tiered_layout(monkeypatch, device):
+    """``minor8`` refuses hub tiers. A CUDA engine, which does not degrade
+    a device failure to the host, refuses the pair at construction; on
+    the CPU the engine keeps the JAX package's ladder (the tiered
+    ``minor8`` case of ``test_engine_equals_reference``)."""
+    import torch
+
+    from bibfs_tpu_torch.serve import ExecutableCache, QueryEngine
+    from bibfs_tpu_torch.serve import engine as engine_mod
+
+    monkeypatch.setattr(engine_mod, "resolve_device",
+                        lambda d=None: torch.device(device))
+    n, edges = GRAPHS["rmat7"]
+    make = lambda layout: QueryEngine(  # noqa: E731
+        n, edges, mode="minor8", layout=layout, exec_cache=ExecutableCache())
+    if device == "cuda":
+        with pytest.raises(ValueError, match="minor8"):
+            make("tiered")
+    else:
+        assert make("tiered").layout == "tiered"
+
+
 def test_cuda_default_device_without_card_raises():
     import torch
 

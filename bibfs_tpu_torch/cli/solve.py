@@ -11,7 +11,8 @@ line. The batch-only modes ``minor``, ``minor8`` and ``auto`` need
 ``--backend serial`` the host oracle and ``--backend native`` the C++
 host runtime (built with ``g++`` at first use; ``--pairs`` runs its
 threaded batch). Without a card and without ``--device cpu`` the dense
-search raises.
+search raises. ``--level-stats`` (one query, any backend) prints one
+``[Level]`` line per level after the answer, then the meet level.
 """
 
 from __future__ import annotations
@@ -58,6 +59,12 @@ def main(argv=None):
     ap.add_argument("--repeat", type=int, default=1,
                     help="report the median of K timed repeats after a "
                     "warm-up run")
+    ap.add_argument("--level-stats", action="store_true",
+                    help="record per-level telemetry (frontier sizes, edges "
+                    "scanned, push/pull direction, meet level) during the "
+                    "solve and print it after the answer; single query "
+                    "only (the dense backend steps its search level by "
+                    "level from the host)")
     ap.add_argument("--no-path", action="store_true", help="skip path printing")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="device of the dense backend (default cuda; no "
@@ -86,6 +93,9 @@ def main(argv=None):
         ap.error("--unroll must be >= 1")
     if args.repeat < 1:
         ap.error("--repeat must be >= 1")
+    if args.level_stats and (args.pairs is not None or args.repeat > 1):
+        ap.error("--level-stats is single-query only (no --pairs / "
+                 "--repeat)")
     host = args.backend in ("serial", "native")
     if host and (
         args.layout != "ell" or args.mode != "sync" or args.unroll != 1
@@ -118,10 +128,18 @@ def main(argv=None):
         print("No path found.")
     print(f"[Time] {args.backend} bidirectional BFS took {res.time_s:.9f} seconds")
     print(f"[TEPS] {res.teps:.3e} traversed edges/second ({res.edges_scanned} edges)")
+    if args.level_stats and res.level_stats is not None:
+        for lv in res.level_stats["levels"]:
+            print(
+                "[Level] {level:>3} side={side} dir={dir:<4} "
+                "frontier={frontier:>8} edges={edges}".format(**lv)
+            )
+        print(f"[Level] meet_level={res.level_stats['meet_level']}")
     return 0
 
 
 def _solve(args, n, edges):
+    tel = {"telemetry": True} if args.level_stats else {}
     if args.backend in ("serial", "native"):
         from bibfs_tpu_torch.solvers.timing import timed_repeats
 
@@ -132,7 +150,8 @@ def _solve(args, n, edges):
             row_ptr, col_ind = build_csr(n, edges)
 
             def run():
-                return solve_serial_csr(n, row_ptr, col_ind, args.src, args.dst)
+                return solve_serial_csr(n, row_ptr, col_ind, args.src,
+                                        args.dst, **tel)
         else:
             from bibfs_tpu_torch.solvers.native import (
                 NativeGraph,
@@ -142,7 +161,7 @@ def _solve(args, n, edges):
             g = NativeGraph.build(n, edges)
 
             def run():
-                return solve_native_graph(g, args.src, args.dst)
+                return solve_native_graph(g, args.src, args.dst, **tel)
 
         if args.repeat > 1:
             return timed_repeats(run, run, args.repeat, force=None)[1]
@@ -158,7 +177,7 @@ def _solve(args, n, edges):
         return time_search(g, args.src, args.dst, repeats=args.repeat,
                            mode=args.mode, unroll=args.unroll)[1]
     return solve_dense_graph(g, args.src, args.dst, mode=args.mode,
-                             unroll=args.unroll)
+                             unroll=args.unroll, **tel)
 
 
 def _batch_main(args, n, edges):

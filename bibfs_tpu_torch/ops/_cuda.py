@@ -147,6 +147,20 @@ def launch(name: str, fn: str, *args) -> None:
         raise RuntimeError(f"{fn}: CUDA launch failed ({rc}: {msg})")
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, key: str | None = None) -> None:
+    """Add one to a wrapper's launch count (``wrapper.launches``, or its
+    ``key`` entry), under a lock: launches from two threads (the
+    pipelined engine's flusher beside a caller's own) all count."""
+    with _count_lock:
+        if key is None:
+            wrapper.launches += 1
+        else:
+            wrapper.launches[key] += 1
+
+
 def check_cuda(device: torch.device, **tensors) -> None:
     """Raise unless every tensor lies on ``device`` and is contiguous."""
     for key, t in tensors.items():

@@ -225,7 +225,7 @@ def fused_dual_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t, state,
                                       par_s, par_t, state, acc, key)
     _launch_round("bibfs_fused_dual", checked, nbr_t, deg2, bits, dist_s,
                   dist_t, par_s, par_t, state, acc, key)
-    fused_dual_round.launches += 1
+    _cuda.count_launch(fused_dual_round)
 
 
 fused_dual_round.launches = 0
@@ -262,7 +262,7 @@ def fused_single_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
     _launch_round("bibfs_fused_single", checked, nbr_t, deg2, bits, dist_s,
                   dist_t, par_s, par_t, state, acc, key,
                   int(stage_fits(bits.shape[2])))
-    fused_single_round.launches += 1
+    _cuda.count_launch(fused_single_round)
 
 
 fused_single_round.launches = 0
@@ -302,7 +302,7 @@ def fold_round(state, acc, key, *, alt: bool, checked: bool = False) -> None:
         _cuda.check_cuda(state.device, state=state, acc=acc, key=key)
     _cuda.launch("fused_level", "bibfs_fold_round", state.data_ptr(),
                  acc.data_ptr(), key.data_ptr(), int(alt))
-    fold_round.launches += 1
+    _cuda.count_launch(fold_round)
 
 
 fold_round.launches = 0

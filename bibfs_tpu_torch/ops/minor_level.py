@@ -259,7 +259,7 @@ def minor_level(nbr_t, deg, front, vis, dist_s, dist_t, par_s, par_t,
                     active, key, lvl)
     out = _launch(nbr_t, deg, front, vis, dist_s, dist_t, par_s, par_t, lvl,
                   active, key)
-    minor_level.launches[_PLANES[dist_s.dtype][0]] += 1
+    _cuda.count_launch(minor_level, _PLANES[dist_s.dtype][0])
     return out
 
 

@@ -174,7 +174,7 @@ def pull_single(nbr_t, deg, bits, visited, *, checked: bool = False):
     if not nbr_t.is_cuda:
         return pull_single_plain(nbr_t, deg, bits, visited)
     out = _launch_single(nbr_t, deg, bits, visited, checked)
-    pull_single.launches += 1
+    _cuda.count_launch(pull_single)
     return out
 
 
@@ -231,7 +231,7 @@ def pull_dual(nbr_t, deg, pair, vis_s, vis_t, *, checked: bool = False):
     if not nbr_t.is_cuda:
         return pull_dual_plain(nbr_t, deg, pair, vis_s, vis_t)
     out = _launch_dual(nbr_t, deg, pair, vis_s, vis_t, checked)
-    pull_dual.launches += 1
+    _cuda.count_launch(pull_dual)
     return out
 
 

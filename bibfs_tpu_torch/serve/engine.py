@@ -42,10 +42,16 @@ results carry the whole batch's wall clock in ``time_s`` (the
 ``solve_batch_graph`` convention), the batch mode that ran in ``mode``
 and the batch's host reads in ``host_syncs``; cache hits carry ~0.
 
+A flush reaches the card through the device route's two stages
+(``DeviceRoute.launch`` / ``finish``: :meth:`QueryEngine._device_launch`
+and :meth:`QueryEngine._device_finish`), which the synchronous engine
+runs in turn and the pipelined engine
+(:mod:`bibfs_tpu_torch.serve.pipeline`) overlaps across batches.
+
 The graph store, the distance oracle, the mesh and blocked routes,
-adaptive routing, the query kinds other than point-to-point and the
-pipelined engine come with later slices of the port (ROADMAP Queue 1);
-their constructor options raise ``NotImplementedError``.
+adaptive routing and the query kinds other than point-to-point come
+with later slices of the port (ROADMAP Queue 1); their constructor
+options raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -541,6 +547,7 @@ class QueryEngine:
         self._res_cells.breaker_gauge.set(
             BREAKER_STATE_CODES[self._breaker.state]
         )
+        self._health_window_s = health_window_s
         self.health = HealthMonitor(
             breaker=self._breaker,
             window_s=health_window_s,
@@ -576,10 +583,28 @@ class QueryEngine:
         self._c_trivial = self.counters.cell("trivial")
         self._c_cache_served = self.counters.cell("cache_served")
         self._c_host_queries = self.counters.cell("host_queries")
-        # the per-query stage histogram, minted so it renders at zero as
-        # in the JAX package (whose pipelined engine records into it; the
-        # synchronous engine has no stages of its own)
+        # the per-query stage histogram, minted so it renders at zero; the
+        # pipelined engine records into it (the synchronous engine has no
+        # stages of its own)
         self._stage_cells = stage_histogram()
+        self._stage_acc: dict = {}
+
+    def _note_stage(self, route: str, stage: str, dur_s: float,
+                    n: int = 1, record: bool = True) -> None:
+        """Record ``dur_s`` against one serving stage: the per-route,
+        per-stage sums ``stats()["stages"]`` reports, plus one
+        ``bibfs_stage_seconds{stage}`` sample unless ``record=False`` (a
+        multi-query sum histogrammed per query elsewhere). Callers on
+        concurrent threads hold the engine lock."""
+        if record:
+            self._stage_cells[stage].record(dur_s)
+        acc = self._stage_acc.setdefault(route, {})
+        cell = acc.get(stage)
+        if cell is None:
+            acc[stage] = [n, dur_s]
+        else:
+            cell[0] += n
+            cell[1] += dur_s
 
     # ---- the graph ---------------------------------------------------
     def _resolve_graph(self, graph) -> _GraphRuntime:
@@ -812,19 +837,27 @@ class QueryEngine:
         self._flush_host(pairs, unique)
 
     def _device_solve(self, pairs) -> list[BFSResult]:
-        """One device flush: pad the flush to its batch rung with inert
-        ``(0, 0)`` queries, resolve the batch mode, note the program
-        identity and run the batch (``device_launch``); then run the
-        finish hook (minor8 slot decode, capped-query refill), copy the
-        outputs of the real queries to the host ONCE, materialize the
-        results and bank the parent forests from those same host copies
-        (``device_finish``)."""
+        """One synchronous device flush: the device route's ``launch``
+        (:meth:`_device_launch`), then its ``finish``
+        (:meth:`_device_finish`). ``DeviceRoute.solve`` calls this seam,
+        so the synchronous ladder runs both stages in turn."""
+        route = self.routes["device"]
+        out, fin, t0 = route.launch(self._rt, pairs)
+        return route.finish(out, fin, t0, pairs)
+
+    def _device_launch(self, pairs):
+        """Stage 1 of a device flush (``device_launch``): pad the flush to
+        its batch rung with inert ``(0, 0)`` queries, resolve the batch
+        mode, note the program identity, run the batch and its finish hook
+        (minor8 slot decode, capped-query refill), and copy the outputs of
+        the real queries to the host ONCE. Returns ``(outs, meta, t0)``:
+        the host arrays, ``(elapsed, mode, host_syncs)`` and the dispatch
+        start. Every tensor on the card is used here, on the calling
+        thread and the engine device's current stream, so the finish stage
+        needs none (the pipelined engine's finish worker never touches
+        the card)."""
         from bibfs_tpu_torch.solvers.batch_minor import auto_batch_mode
-        from bibfs_tpu_torch.solvers.dense import (
-            _batch_dispatch,
-            _host,
-            _materialize_batch,
-        )
+        from bibfs_tpu_torch.solvers.dense import _batch_dispatch, _host
         from bibfs_tpu_torch.solvers.timing import force_scalar
 
         b = len(pairs)
@@ -840,21 +873,45 @@ class QueryEngine:
                 mode = auto_batch_mode(graph, rung)
             self.exec_cache.note((self._bucket_key, mode, rung))
             stats = {"host_syncs": 0}
-            _p, dispatch, finish = _batch_dispatch(graph, padded, mode, stats)
-            t0 = time.perf_counter()
-            out = dispatch()
+            with self._on_device():
+                _p, dispatch, finish = _batch_dispatch(graph, padded, mode,
+                                                       stats)
+                t0 = time.perf_counter()
+                out = dispatch()
+                force_scalar(out)
+                elapsed = time.perf_counter() - t0
+                outs = [_host(o[:b]) for o in finish(out)]
+            return outs, (elapsed, stats["mode"], stats["host_syncs"]), t0
+
+    def _device_finish(self, outs, meta, t0, pairs) -> list[BFSResult]:
+        """Stage 2 of a device flush (``device_finish``): materialize the
+        per-query results and bank the parent forests, all from the host
+        copies :meth:`_device_launch` made."""
+        from bibfs_tpu_torch.solvers.dense import _materialize_batch
+
+        b = len(pairs)
         with span("device_finish", batch=b):
             if self._faults is not None:
                 self._faults.fire("device_finish", pairs)
-            force_scalar(out)
-            elapsed = time.perf_counter() - t0
-            outs = [_host(o[:b]) for o in finish(out)]
-            results = _materialize_batch(outs, b, elapsed, mode=stats["mode"],
-                                         host_syncs=stats["host_syncs"])
+            elapsed, mode, host_syncs = meta
+            results = _materialize_batch(outs, b, elapsed, mode=mode,
+                                         host_syncs=host_syncs)
             self.counters["device_batches"] += 1
             self.counters["device_queries"] += b
             self._bank_forests(pairs, outs[2], outs[3])
             return results
+
+    def _on_device(self):
+        """The engine's card as the calling thread's current device (a
+        thread starts on device 0 and the launchers use the current
+        device's stream); a no-op context on the CPU."""
+        import contextlib
+
+        if self._device.type != "cuda":
+            return contextlib.nullcontext()
+        import torch
+
+        return torch.cuda.device(self._device)
 
     def _bank_forests(self, pairs, par_s, par_t) -> None:
         """Bank both sides' parent forests: level-synchronous searches
@@ -898,23 +955,36 @@ class QueryEngine:
         return self._device.type == "cuda"
 
     def _flush_host(self, pairs, unique) -> None:
-        """Solve and deliver one host batch. No parent planes exist on the
-        host route, but each found shortest path is a valid forest
-        fragment for both endpoints, so the newest ``dist_cache.entries``
-        found paths are banked."""
+        """Solve and deliver one host batch."""
         results = self._solve_host_isolated(pairs)
+        n_ok = self._deliver_host_results(
+            pairs, results,
+            lambda key, res: self._resolve(unique[key], *key, res),
+            lambda key, err: self._resolve_error(unique[key], err),
+        )
+        self._c_host_queries.inc(n_ok)
+
+    def _deliver_host_results(self, pairs, results, resolve_ok,
+                              resolve_err) -> int:
+        """One host batch's delivery, shared by the synchronous flush and
+        the pipelined finish worker (which differ only in how a ticket
+        resolves or fails): bank the newest ``dist_cache.entries`` found
+        paths and hand each entry of the isolator's ``BFSResult |
+        QueryError`` list to its callback. Returns the successes. No
+        parent planes exist on the host route, but each found shortest
+        path is a valid forest fragment for both endpoints."""
         ok_idx = [i for i, r in enumerate(results)
                   if not isinstance(r, QueryError)]
         bank = self._paths_to_bank([results[i] for i in ok_idx])
         bank_idx = {ok_idx[j] for j in bank}
         for i, ((src, dst), res) in enumerate(zip(pairs, results)):
             if isinstance(res, QueryError):
-                self._resolve_error(unique[(src, dst)], res)
+                resolve_err((src, dst), res)
                 continue
             if i in bank_idx:
                 self.dist_cache.put_path(self.graph_id, res.path, self.n)
-            self._resolve(unique[(src, dst)], src, dst, res)
-        self._c_host_queries.inc(len(ok_idx))
+            resolve_ok((src, dst), res)
+        return len(ok_idx)
 
     def _solve_host_isolated(self, pairs):
         """The host route with failure isolation: the whole batch first;
@@ -1077,6 +1147,13 @@ class QueryEngine:
         return {
             **c,
             "solver_dispatch_free": c["queries"] - solved,
+            "stages": {
+                route: {
+                    stage: {"n": cell[0], "s": round(cell[1], 6)}
+                    for stage, cell in sorted(acc.items())
+                }
+                for route, acc in sorted(self._stage_acc.items())
+            },
             "ladder": list(self._ladder),
             "routes": {
                 name: route.stats() for name, route in self.routes.items()

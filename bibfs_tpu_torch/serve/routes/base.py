@@ -8,7 +8,11 @@ failure policy that wraps it:
 
 - ``eligible(rt, pairs)`` — the routing predicate (the batch crossover,
   the device check);
-- ``solve(rt, pairs)`` — one synchronous solve of the batch;
+- ``launch(rt, pairs)`` / ``finish(out, fin, t0, pairs)`` — the
+  two-stage solve seam. The pipelined engine runs a dispatch route's
+  ``launch`` on its flusher and its ``finish`` on its finish worker, so
+  batch k's finish overlaps batch k+1's launch; ``solve`` is the two in
+  turn, which is how the synchronous engine calls them;
 - ``attempt(rt, pairs)`` — the resilient wrapper: bounded retries with
   backoff behind the route's own
   :class:`~bibfs_tpu_torch.serve.resilience.CircuitBreaker`. Returns the
@@ -19,10 +23,9 @@ failure policy that wraps it:
   anything but an injected fault) is neither retried nor fed to the
   breaker: it raises to the engine, which fails the batch's tickets.
 
-The JAX package's two-stage ``launch``/``finish`` seam serves its
-pipelined engine and comes with that slice of the port. The engine keeps
-the orchestration (ticket resolution, banking); routes own *how a batch
-solves* and *when that way is worth trying*.
+The engines keep the orchestration (ticket resolution, banking, the
+pipelined finish worker); routes own *how a batch solves* and *when
+that way is worth trying*.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ class Route:
     ``engine`` is the owning engine (routes live and die with it);
     ``retry``/``breaker`` are the route's failure policy (None = the
     route is not retried / not breaker-gated). ``is_dispatch`` marks
-    routes that dispatch to the device.
+    routes whose ``launch`` dispatches to the device; the pipelined
+    engine runs their ``finish`` on its worker thread.
     """
 
     name: str = "route"
@@ -57,9 +61,22 @@ class Route:
         decision, not a failure."""
         return True
 
-    def solve(self, rt, pairs) -> list[BFSResult]:
-        """One synchronous solve of ``pairs`` (no retry policy)."""
+    # ---- the two-stage solve seam ------------------------------------
+    def launch(self, rt, pairs):
+        """Stage 1: start solving ``pairs``. Returns ``(out, fin, t0)``
+        for :meth:`finish`."""
         raise NotImplementedError
+
+    def finish(self, out, fin, t0, pairs) -> list[BFSResult]:
+        """Stage 2: materialize per-query results from what
+        :meth:`launch` returned (host work: the pipelined engine runs it
+        on a worker thread)."""
+        raise NotImplementedError
+
+    def solve(self, rt, pairs) -> list[BFSResult]:
+        """One synchronous launch and finish (no retry policy)."""
+        out, fin, t0 = self.launch(rt, pairs)
+        return self.finish(out, fin, t0, pairs)
 
     # ---- the resilient synchronous wrapper ---------------------------
     def attempt(self, rt, pairs) -> list[BFSResult] | None:

@@ -24,6 +24,11 @@ class BFSResult:
     mode: Optional[str] = None
     # device->host reads the search loop made (its termination checks)
     host_syncs: Optional[int] = None
+    # per-level telemetry (bibfs_tpu_torch/obs/telemetry.py): None unless
+    # the solve was passed the opt-in ``telemetry=`` hook, else
+    # {"levels": [{level, side, dir, frontier, edges}, ...],
+    #  "meet_level": int|None, "meet": int|None}
+    level_stats: Optional[dict] = None
 
     @property
     def teps(self) -> float:
@@ -89,7 +94,8 @@ def solve(
 ) -> BFSResult:
     """Uniform entry: build whatever representation the backend needs and
     run. Use the backend modules directly to time graph build and search
-    separately."""
+    separately. ``telemetry=`` (serial, native and dense backends) records
+    per-level statistics onto the result's ``level_stats``."""
     if backend not in SOLVERS:
         if backend not in BACKEND_MODULES:
             raise KeyError(
@@ -118,16 +124,15 @@ def solve_many(
     :class:`bibfs_tpu_torch.serve.resilience.QueryError`.
     ``return_errors=True`` extends that to every failure kind; the
     default re-raises the first failure that is not ``invalid``.
-    ``pipelined=True`` (the pipelined engine) is not ported yet."""
-    if pipelined:
-        raise NotImplementedError(
-            "pipelined=True needs the pipelined engine, which is not "
-            "ported yet (ROADMAP Queue 1, item 1)"
-        )
-    from bibfs_tpu_torch.serve import QueryEngine
+    ``pipelined=True`` serves through the asynchronous
+    :class:`bibfs_tpu_torch.serve.PipelinedQueryEngine` instead (its
+    background deadline flusher and overlapped launch and finish; knobs
+    such as ``max_wait_ms`` pass through), torn down before returning."""
+    from bibfs_tpu_torch.serve import PipelinedQueryEngine, QueryEngine
     from bibfs_tpu_torch.serve.resilience import QueryError
 
-    with QueryEngine(n, edges, **engine_kwargs) as eng:
+    cls = PipelinedQueryEngine if pipelined else QueryEngine
+    with cls(n, edges, **engine_kwargs) as eng:
         results = eng.query_many(pairs, return_errors=True)
     if not return_errors:
         for r in results:

@@ -578,13 +578,18 @@ def _run(g: DeviceGraph, src: int, dst: int, mode: str, unroll: int, stats):
 
 
 def solve_dense_graph(g: DeviceGraph, src: int, dst: int, *, mode: str = "sync",
-                      unroll: int = 1) -> BFSResult:
+                      unroll: int = 1, telemetry=None) -> BFSResult:
     """Search an already device-resident graph; ``time_s`` covers the
     search only. ``unroll`` is the number of fused rounds per host read
-    (exact for every mode)."""
+    (exact for every mode). ``telemetry`` (opt-in) swaps in the level by
+    level drive :func:`_solve_dense_traced`, which records each level's
+    frontier, edges and push/pull choice onto ``level_stats``; None runs
+    the search untouched."""
     from bibfs_tpu_torch.solvers.timing import force_scalar
 
     _check_pair(g, src, dst)
+    if telemetry:  # any falsy value (None/False/0) is off
+        return _solve_dense_traced(g, src, dst, mode, telemetry)
     ran = resolve_mode(mode, g.tier_meta)
     stats = {"host_syncs": 0}
     t0 = time.perf_counter()
@@ -593,6 +598,75 @@ def solve_dense_graph(g: DeviceGraph, src: int, dst: int, *, mode: str = "sync",
     elapsed = time.perf_counter() - t0
     return _materialize(out, elapsed, mode=ran,
                         host_syncs=stats["host_syncs"])
+
+
+# the torch-composed schedule a kernel mode's telemetry drive steps
+_TRACED_BASE = {"pallas": "sync", "pallas_alt": "alt", "fused": "sync",
+                "fused_alt": "alt"}
+
+
+def _solve_dense_traced(g: DeviceGraph, src: int, dst: int, mode: str,
+                        telemetry) -> BFSResult:
+    """The per-level telemetry drive of the dense search, as the JAX
+    package's: the same state, side steps, meet vote and stop rule as the
+    search, stepped one side at a time from the host so each step's
+    frontier, edges scanned and push/pull choice can be read and recorded.
+    Kernel modes step their torch-composed schedule (the kernels fuse work
+    within a level, not across levels, so the per-level numbers are the
+    same), and the lock-step schedules step their two sides in turn (the
+    ``sync_unfused`` body: the same state as the dual expansion). Every
+    step pays host reads, and ``mode`` of the result names the schedule
+    that ran; the ``telemetry=None`` default never comes here."""
+    from bibfs_tpu_torch.obs.telemetry import coerce
+
+    if mode not in DENSE_MODES:
+        raise ValueError(f"unknown dense mode {mode!r}; have {sorted(DENSE_MODES)}")
+    tel = coerce(telemetry)
+    if tel.n != 0:
+        tel.n = g.n  # re-stamp per solve (n=0 opts out)
+    schedule, hybrid, _kernel = DENSE_MODES[mode]
+    base = _TRACED_BASE.get(mode, mode)
+    cap = kernel_cap(base, g.n_pad, g.device.type)
+    span, _ncov = push_span(g.nbr.shape[1], g.tier_meta)
+    stats = {"host_syncs": 0}
+    t0 = time.perf_counter()
+    st = _init_state(g.n_pad, max(cap, 1), src, dst, g.deg)
+
+    def advance(st, side):
+        """Expand one side; record its routing and its frontier and edges
+        after the step."""
+        pre = _read_scalars(st, stats)
+        st = _side_step(st, pre, side, g.nbr, g.deg, g.aux, g.tier_meta,
+                        push_cap=cap)
+        post = _read_scalars(st, stats)
+        pushed = (hybrid and cap > 0 and pre[f"cnt_{side}"] <= cap
+                  and pre[f"md_{side}"] <= span)
+        tel.record_level(post["lvl_s"] + post["lvl_t"], side,
+                         "push" if pushed else "pull",
+                         post[f"cnt_{side}"], post["edges"] - pre["edges"])
+        return st
+
+    while True:
+        sc = _read_scalars(st, stats)
+        if not _cond(sc):
+            break
+        if schedule == "sync":
+            st = advance(advance(st, "s"), "t")
+        else:  # alt: the smaller frontier first
+            st = advance(st, "s" if sc["cnt_s"] <= sc["cnt_t"] else "t")
+        st = _meet_vote(st, 2 if schedule == "sync" else 1)
+        best, meet, levels = (int(v) for v in torch.stack(
+            [st["best"], st["meet"], st["levels"]]).tolist())
+        stats["host_syncs"] += 1
+        if best < sc["best"]:
+            tel.note_meet(levels, meet)
+    elapsed = time.perf_counter() - t0
+    out = (sc["best"], sc["meet"], st["par_s"], st["par_t"], sc["levels"],
+           sc["edges"])
+    res = _materialize(out, elapsed, mode=base,
+                       host_syncs=stats["host_syncs"])
+    res.level_stats = tel.as_dict()
+    return res
 
 
 def _host(x) -> np.ndarray:
@@ -740,15 +814,15 @@ def time_batch_only(g: DeviceGraph, pairs, *, repeats: int = 10,
 
 def solve_dense(n: int, edges: np.ndarray, src: int, dst: int, *,
                 mode: str = "sync", layout: str = "ell", unroll: int = 1,
-                device=None) -> BFSResult:
+                device=None, telemetry=None) -> BFSResult:
     return solve_dense_graph(
         DeviceGraph.build(n, edges, layout=layout, device=device), src, dst,
-        mode=mode, unroll=unroll,
+        mode=mode, unroll=unroll, telemetry=telemetry,
     )
 
 
 @register("dense")
 def _dense_backend(n, edges, src, dst, mode="sync", layout="ell", unroll=1,
-                   device=None, **_):
+                   device=None, telemetry=None, **_):
     return solve_dense(n, edges, src, dst, mode=mode, layout=layout,
-                       unroll=unroll, device=device)
+                       unroll=unroll, device=device, telemetry=telemetry)

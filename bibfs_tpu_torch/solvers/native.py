@@ -5,8 +5,9 @@ The library is the port's own copy of ``bibfs_native.cpp``, built by
 ``g++`` at first use (:mod:`bibfs_tpu_torch.native.build`). It gives the
 ``native`` backend (one search per call, over a CSR it builds itself),
 the scratch-reusing :class:`NativeGraph` the serving engine's host route
-solves on, the threaded batch, and the native graph loader. Per-level
-telemetry (``bibfs_solve_levels``) waits for the adaptive-policy slice.
+solves on, the threaded batch, the native graph loader, and per-level
+telemetry (``solve_native_graph(telemetry=...)``, through
+``bibfs_solve_levels``).
 """
 
 from __future__ import annotations
@@ -60,13 +61,18 @@ def _lib() -> ctypes.CDLL:
             u32, p(i64), p(i32), i32, p(u32), p(u32), i32,
             p(i32), p(i32), i32, p(i32), p(f64), p(i64), p(i32),
         ]
+        lib.bibfs_solve_levels.argtypes = [
+            u32, p(i64), p(i32), ctypes.c_void_p, u32, u32,
+            p(i32), p(i32), i32, p(i32), p(f64), p(i64), p(i32),
+            i32, p(ctypes.c_uint8), p(i32), p(i64), p(i32),
+        ]
         lib.bibfs_scratch_create.argtypes = [u32]
         lib.bibfs_scratch_create.restype = ctypes.c_void_p
         lib.bibfs_scratch_free.argtypes = [ctypes.c_void_p]
         lib.bibfs_scratch_free.restype = None
         for fn in (lib.bibfs_read_header, lib.bibfs_read_edges,
                    lib.bibfs_build_csr, lib.bibfs_solve_s,
-                   lib.bibfs_solve_batch):
+                   lib.bibfs_solve_batch, lib.bibfs_solve_levels):
             fn.restype = i32
         _LIB = lib
         return lib
@@ -143,10 +149,15 @@ class NativeGraph:
         return cls(n=n, row_ptr=row_ptr, col_ind=col_ind[: nnz.value].copy())
 
 
-def solve_native_graph(g: NativeGraph, src: int, dst: int) -> BFSResult:
+def solve_native_graph(g: NativeGraph, src: int, dst: int, *,
+                       telemetry=None) -> BFSResult:
     """One search on a prebuilt :class:`NativeGraph`, reusing its scratch.
     The C runtime does not report the meet vertex (``meet`` is None); the
-    path carries it."""
+    path carries it. ``telemetry`` (opt-in; a
+    :class:`bibfs_tpu_torch.obs.telemetry.LevelTelemetry` or True) runs
+    the same search through ``bibfs_solve_levels``, which also fills each
+    level's side, frontier and edges and the meet level; None takes the
+    plain call."""
     if not (0 <= src < g.n and 0 <= dst < g.n):
         raise ValueError(f"src/dst out of range for n={g.n}")
     lib = _lib()
@@ -156,22 +167,58 @@ def solve_native_graph(g: NativeGraph, src: int, dst: int) -> BFSResult:
     secs = ctypes.c_double()
     scanned = ctypes.c_int64()
     levels = ctypes.c_int32()
-    _check(lib.bibfs_solve_s(
+    common = (
         g.n, _ptr(g.row_ptr, ctypes.c_int64), _ptr(g.col_ind, ctypes.c_int32),
-        g._scratch, src, dst, ctypes.byref(hops), _ptr(path_buf, ctypes.c_int32),
-        path_buf.size, ctypes.byref(path_len), ctypes.byref(secs),
-        ctypes.byref(scanned), ctypes.byref(levels),
-    ), "solve")
+        g._scratch, src, dst, ctypes.byref(hops),
+        _ptr(path_buf, ctypes.c_int32), path_buf.size,
+        ctypes.byref(path_len), ctypes.byref(secs), ctypes.byref(scanned),
+        ctypes.byref(levels),
+    )
+    tel = None
+    if telemetry:  # any falsy value (None/False/0) is off
+        from bibfs_tpu_torch.obs.telemetry import coerce
+
+        tel = coerce(telemetry)
+        if tel.n != 0:
+            tel.n = int(g.n)  # re-stamp per solve (n=0 opts out)
+    if tel is None:
+        _check(lib.bibfs_solve_s(*common), "solve")
+    else:
+        # a bidirectional search runs at most best + 1 <= n rounds, so
+        # n + 1 level slots never truncate
+        cap = g.n + 1
+        lvl_side = np.zeros(cap, dtype=np.uint8)
+        lvl_frontier = np.zeros(cap, dtype=np.int32)
+        lvl_edges = np.zeros(cap, dtype=np.int64)
+        meet_level = ctypes.c_int32()
+        _check(lib.bibfs_solve_levels(
+            *common, cap, _ptr(lvl_side, ctypes.c_uint8),
+            _ptr(lvl_frontier, ctypes.c_int32),
+            _ptr(lvl_edges, ctypes.c_int64), ctypes.byref(meet_level),
+        ), "solve_levels")
+        for i in range(min(levels.value, cap)):
+            tel.record_level(
+                i + 1, "s" if lvl_side[i] == 0 else "t", "push",
+                int(lvl_frontier[i]), int(lvl_edges[i]),
+            )
+        if meet_level.value >= 0:
+            tel.note_meet(meet_level.value)
     if hops.value < 0:
-        return BFSResult(False, None, None, None, secs.value, levels.value,
-                         int(scanned.value))
-    path = path_buf[: path_len.value].tolist() if path_len.value else None
-    return BFSResult(True, hops.value, path, None, secs.value, levels.value,
-                     int(scanned.value))
+        res = BFSResult(False, None, None, None, secs.value, levels.value,
+                        int(scanned.value))
+    else:
+        path = path_buf[: path_len.value].tolist() if path_len.value else None
+        res = BFSResult(True, hops.value, path, None, secs.value,
+                        levels.value, int(scanned.value))
+    if tel is not None:
+        res.level_stats = tel.as_dict()
+    return res
 
 
-def solve_native(n: int, edges: np.ndarray, src: int, dst: int) -> BFSResult:
-    return solve_native_graph(NativeGraph.build(n, edges), src, dst)
+def solve_native(n: int, edges: np.ndarray, src: int, dst: int, *,
+                 telemetry=None) -> BFSResult:
+    return solve_native_graph(NativeGraph.build(n, edges), src, dst,
+                              telemetry=telemetry)
 
 
 # default per-query path capacity of the threaded batch, bounded by the
@@ -267,5 +314,5 @@ def time_batch_native(
 
 
 @register("native")
-def _native_backend(n, edges, src, dst, **_):
-    return solve_native(n, edges, src, dst)
+def _native_backend(n, edges, src, dst, telemetry=None, **_):
+    return solve_native(n, edges, src, dst, telemetry=telemetry)

@@ -2,7 +2,8 @@
 
 Level-synchronous, smaller-frontier-first, numpy-vectorized over the
 whole frontier, with the provably-correct stop: keep the best meet
-candidate and stop once ``level_s + level_t >= best``.
+candidate and stop once ``level_s + level_t >= best``. ``telemetry=``
+records per-level statistics (:mod:`bibfs_tpu_torch.obs.telemetry`).
 """
 
 from __future__ import annotations
@@ -47,16 +48,24 @@ def _expand(
     return uniq, total
 
 
-def solve_serial(n: int, edges: np.ndarray, src: int, dst: int) -> BFSResult:
+def solve_serial(n: int, edges: np.ndarray, src: int, dst: int, *,
+                 telemetry=None) -> BFSResult:
     row_ptr, col_ind = build_csr(n, edges)
-    return solve_serial_csr(n, row_ptr, col_ind, src, dst)
+    return solve_serial_csr(n, row_ptr, col_ind, src, dst,
+                            telemetry=telemetry)
 
 
 def solve_serial_csr(
     n: int, row_ptr: np.ndarray, col_ind: np.ndarray, src: int, dst: int,
-    *, cutoff: int | None = None,
+    *, telemetry=None, cutoff: int | None = None,
 ) -> BFSResult:
-    """``cutoff`` is a proven upper bound on the true distance: it seeds
+    """``telemetry`` (opt-in; None runs the plain loop): a
+    :class:`bibfs_tpu_torch.obs.telemetry.LevelTelemetry` (or True)
+    recording each level's side, frontier and edges onto the result's
+    ``level_stats``; serial expansion is frontier-driven, so every level's
+    direction is "push".
+
+    ``cutoff`` is a proven upper bound on the true distance: it seeds
     the meet bound at ``cutoff + 1``, so the stop rule ``level_s +
     level_t >= best`` ends the search past it. Any path of length ``d <=
     cutoff`` is recorded as a meet candidate before the seeded bound can
@@ -65,9 +74,20 @@ def solve_serial_csr(
     pair without the seed)."""
     if not (0 <= src < n and 0 <= dst < n):
         raise ValueError(f"src/dst out of range for n={n}")
+    if telemetry is not None:
+        from bibfs_tpu_torch.obs.telemetry import coerce
+
+        telemetry = coerce(telemetry)
+        if telemetry is not None and telemetry.n != 0:
+            # re-stamp per solve: a collector reused across graphs records
+            # THIS graph's fractions (n=0 opts out)
+            telemetry.n = int(n)
     t0 = time.perf_counter()
     if src == dst:
-        return BFSResult(True, 0, [src], src, time.perf_counter() - t0, 0, 0)
+        res = BFSResult(True, 0, [src], src, time.perf_counter() - t0, 0, 0)
+        if telemetry is not None:
+            res.level_stats = telemetry.as_dict()
+        return res
 
     dist_s = np.full(n, _INF, dtype=np.int64)
     dist_t = np.full(n, _INF, dtype=np.int64)
@@ -89,15 +109,17 @@ def solve_serial_csr(
             frontier_s, scanned = _expand(
                 frontier_s, row_ptr, col_ind, dist_s, parent_s, level_s
             )
-            newly, mine, other = frontier_s, dist_s, dist_t
+            newly, mine, other, side = frontier_s, dist_s, dist_t, "s"
         else:
             level_t += 1
             frontier_t, scanned = _expand(
                 frontier_t, row_ptr, col_ind, dist_t, parent_t, level_t
             )
-            newly, mine, other = frontier_t, dist_t, dist_s
+            newly, mine, other, side = frontier_t, dist_t, dist_s, "t"
         levels += 1
         edges_scanned += scanned
+        if telemetry is not None:
+            telemetry.record_level(levels, side, "push", newly.size, scanned)
         hit = newly[other[newly] != _INF]
         if hit.size:
             sums = mine[hit] + other[hit]
@@ -105,12 +127,20 @@ def solve_serial_csr(
             if int(sums[k]) < best:
                 best = int(sums[k])
                 meet = int(hit[k])
+                if telemetry is not None:
+                    telemetry.note_meet(levels, meet)
     elapsed = time.perf_counter() - t0
 
     if meet < 0:  # no meet recorded (best may hold the cutoff seed)
-        return BFSResult(False, None, None, None, elapsed, levels, edges_scanned)
-    path = _reconstruct(parent_s, parent_t, meet)
-    return BFSResult(True, best, path, meet, elapsed, levels, edges_scanned)
+        res = BFSResult(False, None, None, None, elapsed, levels,
+                        edges_scanned)
+    else:
+        path = _reconstruct(parent_s, parent_t, meet)
+        res = BFSResult(True, best, path, meet, elapsed, levels,
+                        edges_scanned)
+    if telemetry is not None:
+        res.level_stats = telemetry.as_dict()
+    return res
 
 
 def _reconstruct(
@@ -129,5 +159,5 @@ def _reconstruct(
 
 
 @register("serial")
-def _serial_backend(n, edges, src, dst, **_):
-    return solve_serial(n, edges, src, dst)
+def _serial_backend(n, edges, src, dst, telemetry=None, **_):
+    return solve_serial(n, edges, src, dst, telemetry=telemetry)

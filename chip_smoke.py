@@ -83,6 +83,32 @@ is unavailable. Phases:
    kernel, the summed ms of the engine's trace spans, and the build
    seconds of the snapshot, the bucketed table and the native runtime).
 
+8. The pipelined engine (run after phase 7 on the phase 3 graph):
+   ``PipelinedQueryEngine(n, edges, max_batch=256, cache_entries=512,
+   max_wait_ms=5.0)`` on the card. Wave P, 1024 seeded pairs with 2048
+   distinct endpoints (so no answer comes from another's banked forest)
+   submitted from 4 threads, ``flush_threshold=1`` so that every flush
+   rides the card, run in turns with a synchronous ``QueryEngine`` on the
+   same pairs (pipelined, sync, sync, pipelined; fresh engines): every
+   answer equals the synchronous engine's field for field but the time,
+   64 seeded ones the oracle's hops, and at least 4 device flushes launch
+   ``minor_level<int8_t>``. Wave P-pallas, 64 pairs each through a
+   pipelined engine in ``pallas`` (kernel 3) and ``pallas_alt`` (kernel
+   4), in turns with the synchronous engine in that mode and equal to it.
+   Wave S, a trickle of 8 fresh queries 20 ms apart from one thread at
+   the default crossover: host routed deadline flushes, with per-query
+   latency percentiles. Then the
+   CLI as subprocesses over a ``.bin`` of the graph:
+   ``python3 -m bibfs_tpu_torch.serve.cli g.bin --pipeline --pairs``
+   (256 pairs whose hops equal the oracle's), and a stdin stream that
+   answers ``health`` and ``stats`` and exits 0 on SIGTERM with every
+   queued result printed. Each wave prints one ``{"phase":
+   "engine_pipelined", ...}`` line (wall and queries/s beside the
+   synchronous engine's, flushes by cause, the worst queue wait and
+   batch service, the stage clock's overlap, the span ms, the peak
+   device memory) and fails on any fallback, retry or error, a ticket
+   still pending after ``close()`` or an engine thread still alive.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
 JSON line.
@@ -91,8 +117,13 @@ JSON line.
 from __future__ import annotations
 
 import json
+import os
+import queue
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -108,7 +139,7 @@ from bibfs_tpu_torch.ops import pull_expand as pe
 from bibfs_tpu_torch.ops.expand import pack_dual
 from bibfs_tpu_torch.solvers import batch_minor as bmin
 from bibfs_tpu_torch.obs.trace import Tracer, set_tracer
-from bibfs_tpu_torch.serve import QueryEngine
+from bibfs_tpu_torch.serve import PipelinedQueryEngine, QueryEngine
 from bibfs_tpu_torch.solvers import dense
 from bibfs_tpu_torch.solvers.api import validate_path
 from bibfs_tpu_torch.solvers.serial import solve_serial_csr
@@ -953,6 +984,307 @@ def engine_phase(g, n, edges, pairs_all, csr) -> None:
         torch.cuda.empty_cache()
 
 
+def span_ms(tracer) -> dict:
+    """The summed ms of each span name a tracer recorded."""
+    spans: dict = {}
+    for ev in tracer.events():
+        if ev.get("ph") == "X":
+            spans[ev["name"]] = spans.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    return spans
+
+
+def pipe_close(eng, tickets, wave: str) -> dict:
+    """Check the engine never degraded and its pipeline holds no error,
+    then close it: no ticket may stay pending and no engine thread
+    alive. Returns the stats read before the close."""
+    st = engine_clean(eng, wave)
+    pipe = st["pipeline"]
+    check(not pipe["errors"], f"wave {wave}: pipeline errors {pipe['errors']}")
+    check(pipe["outstanding"] == 0, f"wave {wave}: {pipe['outstanding']} outstanding")
+    eng.close()
+    check(all(t.done() for t in tickets), f"wave {wave}: a ticket pending after close()")
+    live = [th.name for th in threading.enumerate() if th.name.startswith("bibfs-")]
+    check(not live, f"wave {wave}: engine threads alive after close(): {live}")
+    return st
+
+
+def submit_from_threads(eng, pairs, k: int) -> tuple[list, list, float]:
+    """Submit ``pairs`` from ``k`` threads (striped), then wait for every
+    ticket; returns the tickets and results in pair order and the wall
+    from the threads' common start to the last result."""
+    tickets: list = [None] * len(pairs)
+    errors: list = []
+    start = threading.Barrier(k + 1)
+
+    def worker(j):
+        try:
+            start.wait(timeout=60)
+            for i in range(j, len(pairs), k):
+                tickets[i] = eng.submit(*pairs[i])
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(j,)) for j in range(k)]
+    for th in threads:
+        th.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=300)
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"submitter threads failed: {errors}")
+    results = [t.wait(timeout=300) for t in tickets]
+    return tickets, results, time.perf_counter() - t0
+
+
+def pipelined_wave(eng, pairs, threads: int):
+    """Serve ``pairs`` through a pipelined engine with every kernel count
+    set to 0 just before; returns the tickets, the results and a dict of
+    the wave's readings."""
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        tickets, res, wall = submit_from_threads(eng, pairs, threads)
+    finally:
+        set_tracer(prev)
+    launches = counts()
+    st = eng.stats()
+    pipe = st["pipeline"]
+    return tickets, res, dict(
+        wall_ms=wall * 1e3, queries_per_s=len(pairs) / wall,
+        device_batches=st["device_batches"], device_queries=st["device_queries"],
+        host_queries=st["host_queries"], cache_served=st["cache_served"],
+        flushes={k: pipe[k] for k in ("flushes", "depth_flushes",
+                                      "deadline_flushes", "drain_flushes")},
+        submit_blocked=pipe["submit_blocked"],
+        queue_wait_max_ms=pipe["queue_wait_max_ms"],
+        batch_service_max_ms=pipe["batch_service_max_ms"],
+        overlap=st["overlap"], stages=st["stages"], latency_ms=st["latency_ms"],
+        spans_ms=span_ms(tracer),
+        launches={k: v for k, v in launches.items() if v},
+        base_mem_gb=base_mem / 2**30,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def sync_wave(n, edges, pairs_all, pairs, **kw) -> tuple[list, float]:
+    """The same pairs through a synchronous engine: results and wall."""
+    eng = QueryEngine(n, edges, pairs=pairs_all, max_batch=BATCH,
+                      cache_entries=512, **kw)
+    eng.graph
+    t0 = time.perf_counter()
+    res = eng.query_many(pairs)
+    wall = time.perf_counter() - t0
+    engine_clean(eng, "sync")
+    eng.close()
+    return res, wall
+
+
+def cli_phase(n, edges, csr, pairs) -> dict:
+    """``bibfs-torch-serve`` as subprocesses over a ``.bin`` of the graph:
+    ``--pipeline --pairs`` (hops held against the oracle), then a stdin
+    stream answering ``health`` and ``stats`` and drained by SIGTERM."""
+    from bibfs_tpu_torch.graph.io import write_graph_bin
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, "-m", "bibfs_tpu_torch.serve.cli"]
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gpath = os.path.join(tmp, "g.bin")
+        write_graph_bin(gpath, n, edges)
+        ppath = os.path.join(tmp, "pairs.txt")
+        np.savetxt(ppath, np.asarray(pairs), fmt="%d")
+        spath = os.path.join(tmp, "stats.json")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            cmd + [gpath, "--pipeline", "--pairs", ppath, "--no-path",
+                   "--max-batch", str(BATCH), "--stats-json", spath],
+            capture_output=True, text=True, env=env, cwd=root, timeout=600)
+        out["pairs_wall_s"] = time.perf_counter() - t0
+        check(run.returncode == 0, f"CLI --pipeline --pairs exited {run.returncode}: {run.stderr[-2000:]}")
+        lines = run.stdout.splitlines()
+        check(len(lines) == len(pairs), f"CLI printed {len(lines)} lines for {len(pairs)} pairs")
+        for (s, d), line, w in zip(pairs, lines, oracle(n, csr, pairs)):
+            want = (f"{s} -> {d}: length = {w.hops}" if w.found
+                    else f"{s} -> {d}: no path")
+            check(line == want, f"CLI line {line!r} != oracle {want!r}")
+        with open(spath) as f:
+            st = json.load(f)
+        res = st["resilience"]
+        check(not any(res["fallbacks"].values()) and res["retries"] == 0
+              and not any(res["errors"].values()), f"CLI --pairs degraded: {res}")
+        out.update(pairs_routes={k: st[k] for k in (
+            "device_batches", "device_queries", "host_queries", "cache_served")},
+            pairs_flushes=st["pipeline"]["flushes"])
+
+        # the stdin stream: queued (no flush below max_batch until EOF or
+        # SIGTERM), two control replies, then SIGTERM drains
+        stream = pairs[:8]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd + [gpath, "--no-path"], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, env=env, cwd=root)
+        lines_q: queue.Queue = queue.Queue()
+
+        def reader():
+            for ln in proc.stdout:
+                lines_q.put(ln.rstrip("\n"))
+            lines_q.put(None)
+
+        th = threading.Thread(target=reader, daemon=True)
+        th.start()
+        try:
+            for s, d in stream:
+                proc.stdin.write(f"{s} {d}\n")
+            proc.stdin.write("health\nstats\n")
+            proc.stdin.flush()
+            replies = [lines_q.get(timeout=300) for _ in range(2)]
+            check(replies[0] is not None and replies[0].startswith("health ")
+                  and replies[1] is not None and replies[1].startswith("stats "),
+                  f"CLI stdin control replies: {[r and r[:80] for r in replies]}")
+            health = json.loads(replies[0].split(" ", 1)[1])
+            stats = json.loads(replies[1].split(" ", 1)[1])
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+            err = proc.stderr.read()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        th.join(timeout=60)
+        got = []
+        while True:
+            ln = lines_q.get(timeout=60)
+            if ln is None:
+                break
+            got.append(ln)
+        out["stdin_wall_s"] = time.perf_counter() - t0
+        check(rc == 0, f"CLI stdin run exited {rc} on SIGTERM: {err[-2000:]}")
+        check("SIGTERM: draining" in err, "CLI stdin run did not drain on SIGTERM")
+        want = [f"{s} -> {d}: length = {w.hops}" if w.found else f"{s} -> {d}: no path"
+                for (s, d), w in zip(stream, oracle(n, csr, stream))]
+        check(got == want, f"CLI stdin results {got} != oracle {want}")
+        check(health["state"] == "ready", f"CLI health {health['state']}")
+        check(stats["device"].startswith("cuda"), f"CLI engine device {stats['device']}")
+        out.update(stdin_queries=len(stream), health=health["state"],
+                   stats_device=stats["device"])
+    return out
+
+
+def pipelined_run(n, edges, pairs_all, pairs, wave: str, threads: int, **kw):
+    """A fresh pipelined engine with ``flush_threshold=1`` (every flush
+    rides the card) serving ``pairs`` from ``threads`` threads, closed
+    and checked clean; returns the results and the wave's readings."""
+    t0 = time.perf_counter()
+    eng = PipelinedQueryEngine(n, edges, pairs=pairs_all, max_batch=BATCH,
+                               cache_entries=512, max_wait_ms=5.0,
+                               flush_threshold=1, **kw)
+    eng.graph
+    setup_s = time.perf_counter() - t0
+    tickets, res, line = pipelined_wave(eng, pairs, threads)
+    pipe_close(eng, tickets, wave)
+    check(line["host_queries"] == 0 and line["device_queries"] == len(pairs),
+          f"wave {wave} routes: {line}")
+    del eng
+    torch.cuda.empty_cache()
+    return res, dict(line, setup_s=setup_s)
+
+
+def in_turns(n, edges, pairs_all, pairs, wave: str, threads: int, **kw):
+    """The pipelined and the synchronous engine in turns on the same
+    pairs (pipelined, sync, sync, pipelined; fresh engines): every answer
+    equals the first synchronous run's field for field. Returns the
+    first pipelined run's results and readings, with the four walls."""
+    res_a, line_a = pipelined_run(n, edges, pairs_all, pairs, wave, threads, **kw)
+    want, sync_a = sync_wave(n, edges, pairs_all, pairs, flush_threshold=1, **kw)
+    res_s, sync_b = sync_wave(n, edges, pairs_all, pairs, flush_threshold=1, **kw)
+    res_b, line_b = pipelined_run(n, edges, pairs_all, pairs, wave, threads, **kw)
+    for got, name in ((res_a, "pipelined"), (res_s, "sync"), (res_b, "pipelined")):
+        for (s, d), r, w in zip(pairs, got, want):
+            check(fields(r) == fields(w) and r.mode == w.mode,
+                  f"wave {wave} {s}->{d}: {name} {fields(r)} != sync {fields(w)}")
+    line_a.update(
+        sync_wall_ms=sync_a * 1e3, sync_queries_per_s=len(pairs) / sync_a,
+        turns_wall_ms={"pipelined": [line_a["wall_ms"], line_b["wall_ms"]],
+                       "sync": [sync_a * 1e3, sync_b * 1e3]},
+        second_pipelined={k: line_b[k] for k in (
+            "flushes", "overlap", "stages", "queue_wait_max_ms",
+            "batch_service_max_ms", "spans_ms", "peak_mem_gb")})
+    return res_a, line_a
+
+
+def pipeline_phase(n, edges, pairs_all, csr) -> None:
+    """Phase 8: the pipelined engine on the main-path graph (module
+    docstring)."""
+    # wave P: 1024 pairs, 2048 distinct endpoints, 4 submitter threads
+    rng = np.random.default_rng(41)
+    ends = rng.choice(n, 2 * 4 * BATCH, replace=False).reshape(4 * BATCH, 2)
+    pairs_p = [(int(s), int(d)) for s, d in ends]
+    res_p, line = in_turns(n, edges, pairs_all, pairs_p, "P", threads=4)
+    check(line["device_batches"] >= 4, f"wave P ran {line['device_batches']} device flushes")
+    check(line["launches"].get("minor_level[minor8]", 0) > 0,
+          "wave P did not launch minor_level_kernel<int8_t>")
+    sample = [pairs_p[i] for i in np.random.default_rng(43).choice(len(pairs_p), 64, replace=False)]
+    by_pair = dict(zip(pairs_p, res_p))
+    against_oracle(n, csr, sample, [by_pair[p] for p in sample], "P")
+    print(json.dumps({"phase": "engine_pipelined", "wave": "P", "queries": len(pairs_p),
+                      "threads": 4, **line,
+                      "modes": sorted({r.mode for r in res_p if r.mode})}), flush=True)
+    del res_p
+
+    # wave P-pallas: the pull kernels through the pipelined engine
+    pairs_k = [(int(s), int(d)) for s, d in np.random.default_rng(47).choice(
+        n, 128, replace=False).reshape(64, 2)]
+    for mode, kernel in (("pallas", "pull_dual"), ("pallas_alt", "pull_single")):
+        res_k, line = in_turns(n, edges, pairs_all, pairs_k, f"P[{mode}]",
+                               threads=1, mode=mode)
+        check(all(r.mode == mode for r in res_k), f"wave P[{mode}] ran another mode")
+        check(line["launches"].get(kernel, 0) > 0, f"wave P[{mode}] did not launch {kernel}")
+        against_oracle(n, csr, pairs_k[:16], res_k[:16], f"P[{mode}]")
+        print(json.dumps({"phase": "engine_pipelined", "wave": f"P[{mode}]",
+                          "queries": len(pairs_k), "threads": 1, **line}), flush=True)
+
+    # wave S: a trickle below the crossover, 20 ms apart: deadline flushes
+    # on the host route
+    eng = PipelinedQueryEngine(n, edges, pairs=pairs_all, max_batch=BATCH,
+                               cache_entries=512, max_wait_ms=5.0)
+    eng._rt.get_host_solver()
+    pairs_s = [(int(s), int(d)) for s, d in np.random.default_rng(53).choice(
+        n, 16, replace=False).reshape(8, 2)]
+    reset_counts()
+    tickets = []
+    t0 = time.perf_counter()
+    for s, d in pairs_s:
+        tickets.append(eng.submit(s, d))
+        time.sleep(0.02)
+    res_s = [t.wait(timeout=120) for t in tickets]
+    wall = time.perf_counter() - t0
+    launches = counts()
+    st = pipe_close(eng, tickets, "S")
+    against_oracle(n, csr, pairs_s, res_s, "S")
+    pipe = st["pipeline"]
+    check(st["host_queries"] == len(pairs_s) and st["device_batches"] == 0
+          and not any(launches.values()), f"wave S routes: {st['host_queries']} host")
+    check(pipe["deadline_flushes"] >= 1, f"wave S: no deadline flush ({pipe})")
+    print(json.dumps({"phase": "engine_pipelined", "wave": "S", "queries": len(pairs_s),
+                      "interval_ms": 20, "wall_ms": wall * 1e3,
+                      "flushes": {k: pipe[k] for k in ("flushes", "depth_flushes",
+                                                       "deadline_flushes", "drain_flushes")},
+                      "queue_wait_max_ms": pipe["queue_wait_max_ms"],
+                      "batch_service_max_ms": pipe["batch_service_max_ms"],
+                      "latency_ms": st["latency_ms"], "stages": st["stages"],
+                      "host_backend": st["host_backend"]}), flush=True)
+    del eng
+
+    # the CLI, as a user runs it
+    cli = cli_phase(n, edges, csr, pairs_p[:BATCH])
+    print(json.dumps({"phase": "engine_pipelined", "wave": "CLI", **cli}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1044,6 +1376,9 @@ def main() -> int:
 
     # phase 7: the serving engine on the main-path graph
     engine_phase(g, n, edges, pairs_all, csr)
+
+    # phase 8: the pipelined engine on the main-path graph
+    pipeline_phase(n, edges, pairs_all, csr)
 
     # phase 4: tiered RMAT scale 20
     del g

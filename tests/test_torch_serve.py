@@ -738,8 +738,17 @@ def test_unported_query_kinds_and_pipelined_raise():
         with pytest.raises(NotImplementedError):
             eng.query_many([q], return_errors=True)
     assert eng.counters["queries"] == 0
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        solve_many(n, edges, [(0, 1)], pipelined=True, device="cpu")
+    # the pipelined engine is ported: it refuses the same query kinds, and
+    # solve_many(pipelined=True) serves through it
+    from bibfs_tpu_torch.serve import PipelinedQueryEngine
+
+    with PipelinedQueryEngine(n, edges, device="cpu") as pipe:
+        for q in (MultiSource((0, 1), 5), Weighted(0, 5)):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                pipe.submit_query(q)
+        assert pipe.counters["queries"] == 0
+    got = solve_many(n, edges, [(0, 1)], pipelined=True, device="cpu")
+    assert _fields(got[0]) == _fields(eng.query(0, 1))
 
 
 @pytest.mark.parametrize("mode,source", [

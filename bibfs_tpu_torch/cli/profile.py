@@ -9,9 +9,13 @@ kernel time per solve, the idle share of the search (1 - kernel time /
 search time), host reads per solve, each hand-written kernel's launches
 per solve and the five kernels with the most device time. ``--unroll``
 sets the rounds per host read of the fused modes. ``--batch B`` profiles
-batches of B seeded pairs instead, in modes minor8 and minor: the same
-numbers per batch (``time_batch_graph``, then a profiled run of 5
-batches). A card is required.
+batches of B seeded pairs instead, in modes minor8 and minor or in the
+batch modes ``--batch-modes`` names (the lock-step modes ``sync``,
+``sync_unfused``, ``alt``, ``beamer``, ``beamer_alt``, ``pallas``,
+``pallas_alt``, ``fused`` and ``fused_alt`` among them): the same numbers
+per batch (``time_batch_graph``, then a profiled run of 5 batches), with
+the launches per batch of the batch-minor level and of the batched pull
+kernels. A card is required.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ def main(argv=None) -> int:
     ap.add_argument("--unroll", type=int, default=1,
                     help="rounds per host read of the fused modes")
     ap.add_argument("--batch", type=int, default=0, metavar="B",
-                    help="profile batches of B pairs (modes minor8, minor)")
+                    help="profile batches of B pairs")
+    ap.add_argument("--batch-modes", default="minor8,minor",
+                    help="comma-separated batch modes of --batch")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile: CUDA is not available", file=sys.stderr)
@@ -68,12 +74,17 @@ def main(argv=None) -> int:
                       "unroll": args.unroll, "batch": args.batch}))
     if args.batch:
         bpairs = rng.integers(0, n, (args.batch, 2))
-        for mode in ("minor8", "minor"):
+        batch_wrappers = {"pull_dual_batch": pe.pull_dual_batch,
+                          "pull_single_batch": pe.pull_single_batch}
+        for mode in args.batch_modes.split(","):
             times, res = dense.time_batch_graph(g, bpairs, repeats=REPEATS,
                                                 mode=mode)
             _p, dispatch, _f = dense._batch_dispatch(g, bpairs, mode)
             torch.cuda.synchronize()
-            ml.minor_level.launches[mode] = 0
+            for key in ml.minor_level.launches:
+                ml.minor_level.launches[key] = 0
+            for w in batch_wrappers.values():
+                w.launches = 0
             with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU,
                             torch.profiler.ProfilerActivity.CUDA],
@@ -81,10 +92,13 @@ def main(argv=None) -> int:
                 for _ in range(REPEATS):
                     dispatch()
                 torch.cuda.synchronize()
+            launches = {f"minor_level[{k}]": v / REPEATS
+                        for k, v in ml.minor_level.launches.items() if v}
+            launches.update({k: w.launches / REPEATS
+                             for k, w in batch_wrappers.items() if w.launches})
             _report(mode, _kernel_events(prof), REPEATS,
                     float(np.median(times)) * 1e3, res[0].host_syncs,
-                    {"minor_level": ml.minor_level.launches[mode] / REPEATS},
-                    "batch")
+                    launches, "batch")
         return 0
     for mode in MODES:
         search_ms, syncs = [], []

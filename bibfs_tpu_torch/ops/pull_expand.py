@@ -24,6 +24,16 @@ slot per wanted side giving the parent, a warp per tile of 32 rows. The
 single-side kernel reads one bitmap, the dual kernel the pair row of
 both sides (:func:`pack_front`), so one load per slot answers both.
 
+:func:`pull_dual_batch` and :func:`pull_single_batch` (CUDA
+``pull_dual_batch_kernel`` and ``pull_batch_kernel``) are the two kernels
+with a query axis, as ``pallas_call``'s batching rule gives them one under
+the reference's vmapped search: B queries over the one table, each with
+its own frontier row, visited rows and outputs, and a per-query
+``active`` mask (kernel 4 also a per-query ``side``). An active query's
+rows are the single-query kernel's; an inactive query's are not written
+and keep the wrapper's fill, no discovery (``nf`` 0, parent -1, next
+frontier empty).
+
 The functional forms :func:`run_pull`, :func:`run_pull_dual`,
 :func:`pallas_pull_level` and :func:`pallas_pull_level_dual` keep the
 JAX contract (``bool`` frontier rows) and pack around the kernels.
@@ -43,7 +53,9 @@ from bibfs_tpu_torch.ops import _cuda
 from bibfs_tpu_torch.ops.bitmap import (
     frontier_words,
     pack_bits,
+    pack_pair_rows,
     pack_pairs,
+    pack_rows,
     set_bits,
     unpack_bits,
     unpack_pairs,
@@ -236,6 +248,142 @@ def pull_dual(nbr_t, deg, pair, vis_s, vis_t, *, checked: bool = False):
 
 
 pull_dual.launches = 0
+
+
+def _no_discovery(b: int, n_rows: int, words: int, device):
+    """Batched outputs before a launch: ``nf`` 0, parent -1, next
+    frontier empty, which an inactive query's rows keep."""
+    return (torch.zeros(b, n_rows, dtype=torch.bool, device=device),
+            torch.full((b, n_rows), -1, dtype=torch.int32, device=device),
+            torch.zeros(b, words, dtype=torch.int32, device=device))
+
+
+def _active_queries(active) -> list[int]:
+    return torch.nonzero(active).flatten().tolist()
+
+
+def pull_single_batch_plain(nbr_t, deg, bits_s, bits_t, vis_s, vis_t, active,
+                            side):
+    """Plain twin of :func:`pull_single_batch`: :func:`pull_single_plain`
+    of each active query's chosen side."""
+    b, n_rows = vis_s.shape
+    nf, pc, out = _no_discovery(b, n_rows, frontier_words(n_rows),
+                                nbr_t.device)
+    for q in _active_queries(active):
+        t = bool(side[q])
+        nf[q], pc[q], out[q] = pull_single_plain(
+            nbr_t, deg, (bits_t if t else bits_s)[q], (vis_t if t else vis_s)[q])
+    return nf, pc, out
+
+
+def pull_dual_batch_plain(nbr_t, deg, pair, vis_s, vis_t, active):
+    """Plain twin of :func:`pull_dual_batch`: :func:`pull_dual_plain` of
+    each active query."""
+    b, n_rows = vis_s.shape
+    nf_s, pc_s, out = _no_discovery(b, n_rows, 2 * frontier_words(n_rows),
+                                    nbr_t.device)
+    nf_t, pc_t, _ = _no_discovery(b, n_rows, 0, nbr_t.device)
+    for q in _active_queries(active):
+        nf_s[q], pc_s[q], nf_t[q], pc_t[q], out[q] = pull_dual_plain(
+            nbr_t, deg, pair[q], vis_s[q], vis_t[q])
+    return nf_s, pc_s, nf_t, pc_t, out
+
+
+def _check_batch(nbr_t, deg, words: int, active, fronts, rows) -> None:
+    """Validate one batched launch's inputs: ``fronts`` the frontier rows
+    (``[B, >= words]`` int32, one stride), ``rows`` the ``[B, n_rows]``
+    visited rows."""
+    b, n_rows = next(iter(rows.values())).shape
+    check_pull(nbr_t, deg, n_rows)
+    if any(r.shape != (b, n_rows) for r in rows.values()):
+        raise ValueError("visited rows must match")
+    if active.shape != (b,):
+        raise ValueError("active must hold one flag per query")
+    f0 = next(iter(fronts.values()))
+    if any(f.dim() != 2 or f.shape != f0.shape or f.shape[0] != b
+           or f.shape[1] < words for f in fronts.values()):
+        raise ValueError("the frontier rows must cover the table's ids")
+    _cuda.check_dtype(torch.int32, **fronts)
+    _cuda.check_cuda(nbr_t.device, active=active, **fronts, **rows)
+
+
+def _want(active, side=None):
+    """One byte per query: 0 inactive, else the sides it expands (1
+    source, 2 target; kernel 3 reads any non-zero byte as both)."""
+    want = active.to(torch.uint8)
+    if side is not None:
+        want = want * (1 + side.to(torch.uint8))
+    return want.contiguous()
+
+
+def pull_single_batch(nbr_t, deg, bits_s, bits_t, vis_s, vis_t, active, side,
+                      *, checked: bool = False):
+    """Kernel 4 with a query axis: ``(nf bool[B, n_rows], parent int32[B,
+    n_rows], next_bits int32[B, frontier_words(n_rows)])``, row ``q`` the
+    expansion of query ``q``'s side ``side[q]`` (False: source, from
+    ``bits_s[q]`` and ``vis_s[q]``; True: target) where ``active[q]``.
+    ``bits_*`` are ``[B, words]`` bitmap rows over the table's ids,
+    ``vis_*`` ``[B, n_rows]``. ``checked`` skips the validation."""
+    if not nbr_t.is_cuda:
+        return pull_single_batch_plain(nbr_t, deg, bits_s, bits_t, vis_s,
+                                       vis_t, active, side)
+    b, n_rows = vis_s.shape
+    if not checked:
+        vis_s = vis_s.to(torch.bool).contiguous()
+        vis_t = vis_t.to(torch.bool).contiguous()
+        _check_batch(nbr_t, deg, frontier_words(nbr_t.shape[1]), active,
+                     dict(bits_s=bits_s, bits_t=bits_t),
+                     dict(vis_s=vis_s, vis_t=vis_t))
+        if side.shape != (b,):
+            raise ValueError("side must hold one flag per query")
+    nf, pc, out = _no_discovery(b, n_rows, frontier_words(n_rows),
+                                nbr_t.device)
+    want = _want(active, side)
+    _cuda.launch(
+        "pull_expand", "bibfs_pull_batch", nbr_t.data_ptr(), nbr_t.stride(0),
+        nbr_t.shape[0], n_rows, deg.data_ptr(), bits_s.data_ptr(),
+        bits_t.data_ptr(), bits_s.shape[1], vis_s.data_ptr(),
+        vis_t.data_ptr(), want.data_ptr(), b, nf.data_ptr(),
+        pc.data_ptr(), out.data_ptr(), out.shape[1],
+    )
+    _cuda.count_launch(pull_single_batch)
+    return nf, pc, out
+
+
+pull_single_batch.launches = 0
+
+
+def pull_dual_batch(nbr_t, deg, pair, vis_s, vis_t, active, *,
+                    checked: bool = False):
+    """Kernel 3 with a query axis: ``(nf_s, pc_s, nf_t, pc_t, next_pair)``,
+    ``[B, n_rows]`` each and ``next_pair`` ``[B, 2 frontier_words(n_rows)]``,
+    row ``q`` both sides of query ``q`` where ``active[q]``, from its pair
+    row ``pair[q]`` (over the table's ids) and visited rows.
+    ``checked`` skips the validation."""
+    if not nbr_t.is_cuda:
+        return pull_dual_batch_plain(nbr_t, deg, pair, vis_s, vis_t, active)
+    b, n_rows = vis_s.shape
+    if not checked:
+        vis_s = vis_s.to(torch.bool).contiguous()
+        vis_t = vis_t.to(torch.bool).contiguous()
+        _check_batch(nbr_t, deg, 2 * frontier_words(nbr_t.shape[1]), active,
+                     dict(pair=pair), dict(vis_s=vis_s, vis_t=vis_t))
+    tiles = frontier_words(n_rows)
+    nf_s, pc_s, out = _no_discovery(b, n_rows, 2 * tiles, nbr_t.device)
+    nf_t, pc_t, _ = _no_discovery(b, n_rows, 0, nbr_t.device)
+    want = _want(active)
+    _cuda.launch(
+        "pull_expand", "bibfs_pull_dual_batch", nbr_t.data_ptr(),
+        nbr_t.stride(0), nbr_t.shape[0], n_rows, deg.data_ptr(),
+        pair.data_ptr(), pair.shape[1], vis_s.data_ptr(), vis_t.data_ptr(),
+        want.data_ptr(), b, nf_s.data_ptr(), pc_s.data_ptr(),
+        nf_t.data_ptr(), pc_t.data_ptr(), out.data_ptr(), tiles,
+    )
+    _cuda.count_launch(pull_dual_batch)
+    return nf_s, pc_s, nf_t, pc_t, out
+
+
+pull_dual_batch.launches = 0
 
 
 def run_pull(tables: tuple, frontier, visited):

@@ -84,7 +84,7 @@ def main(argv=None):
                     choices=list(BATCH_LAYOUT_MODES) + sorted(DENSE_MODES),
                     help="batch mode of device flushes (default auto: "
                     "minor8 where the graph and batch fit, else minor, "
-                    "else per-query sync)")
+                    "else lock-step sync)")
     ap.add_argument("--layout", default="ell", choices=["ell", "tiered"],
                     help="adjacency layout (ell is shape-bucketed; tiered "
                     "for power-law graphs)")

@@ -374,8 +374,8 @@ class QueryEngine:
         Internally the graph becomes an immutable
         :class:`~bibfs_tpu_torch.store.snapshot.GraphSnapshot`.
     mode : batch mode of device flushes (default ``"auto"``: ``minor8``
-        where the graph and batch fit, else ``minor``, else per-query
-        ``sync``); any mode of :func:`~bibfs_tpu_torch.solvers.dense.
+        where the graph and batch fit, else ``minor``, else the lock-step
+        ``sync`` batch); any mode of :func:`~bibfs_tpu_torch.solvers.dense.
         solve_batch_graph`. Unknown modes raise ``ValueError`` here, and
         so does ``minor8`` with ``layout="tiered"`` on a CUDA engine.
     layout : ``"ell"`` (shape-bucketed; the serving default) or

@@ -24,7 +24,7 @@ expects. Mode ``minor8`` keeps int8 planes: parents are ELL slots, decoded
 to vertex ids in the untimed finish hook (:func:`_decode_slot_parents`),
 and the loop also stops at round :data:`MAX_RND8`, returning a per-query
 ``capped`` flag; :func:`_refill_capped` re-solves those queries through
-the int32 planes (or the per-query ``sync`` path where those do not fit),
+the int32 planes (or the lock-step ``sync`` batch where those do not fit),
 so the mode is exact on any graph.
 
 The geometry rules (:func:`_minor_geometry`, :func:`minor_fits`,
@@ -62,12 +62,14 @@ MAX_RND8 = 126
 
 # working-set budget of one reference chunk: the gathered [Wp, tc, B] block
 # plus its int32 key-select and meet intermediates, at (itemsize + 4) bytes
-# per element. It shapes the geometry rules (and the twin's chunks).
+# per element. It shapes the geometry rules (and the twin's chunks). The
+# lock-step batch's gathers take their own budget,
+# ``ops/expand_batch.py`` ``LOCKSTEP_BUDGET_BYTES``.
 CHUNK_BUDGET_BYTES = 384 * 2**20
 
-# below this many queries 'auto' keeps the per-query path: the minor planes
-# pad every batch to 128 lanes (the reference's measured default, used
-# where calibration.json has no block for the platform)
+# below this many queries 'auto' takes the lock-step sync batch: the minor
+# planes pad every batch to 128 lanes (the reference's measured default,
+# used where calibration.json has no block for the platform)
 SMALL_BATCH_SYNC = 32
 
 def _slot_pad(width: int) -> int:
@@ -311,9 +313,10 @@ def small_batch_threshold(platform: str = "cuda") -> int:
 
 def auto_batch_mode(g, num_pairs: int) -> str:
     """The reference's preference order: ``minor8`` where the graph is
-    plain ELL and the geometry fits, else ``minor``, else the per-query
-    ``sync`` path; batches under :func:`small_batch_threshold` queries
-    (for the platform of the graph's tensors) stay per query."""
+    plain ELL and the geometry fits, else ``minor``, else the lock-step
+    ``sync`` batch (:mod:`bibfs_tpu_torch.solvers.dense_batch`), which
+    batches under :func:`small_batch_threshold` queries (for the platform
+    of the graph's tensors) take too."""
     if num_pairs < small_batch_threshold(g.device.type):
         return "sync"
     for mode, dt8 in (("minor8", True), ("minor", False)):
@@ -367,7 +370,7 @@ def _minor_geometry(g, num_pairs: int, dt8: bool = False
 
 def _refill_capped(g, pairs, out):
     """Re-solve the int8 search's depth-capped queries (``out[-1]``)
-    through the int32 planes, or the per-query ``sync`` path where those
+    through the int32 planes, or the lock-step ``sync`` batch where those
     do not fit, and splice their rows into the outputs. The sub-dispatch's
     own finish hook always runs."""
     capped = out[-1].cpu().numpy()

@@ -702,21 +702,6 @@ def time_search(g: DeviceGraph, src: int, dst: int, *, repeats: int = 30,
     )
 
 
-def _stack_outputs(outs, n_pad: int, device):
-    """Per-query kernel outputs as the batch contract's tensors: ``[B]``
-    int32 scalars and ``[B, n_pad]`` parent planes."""
-    def ints(i):
-        return torch.tensor([o[i] for o in outs], dtype=torch.int32,
-                            device=device)
-
-    def plane(i):
-        if not outs:
-            return torch.empty((0, n_pad), dtype=torch.int32, device=device)
-        return torch.stack([o[i] for o in outs])
-
-    return ints(0), ints(1), plane(2), plane(3), ints(4), ints(5)
-
-
 def _batch_dispatch(g: DeviceGraph, pairs, mode: str,
                     stats: dict | None = None):
     """``(pairs, thunk, finish)`` of a batch: ``pairs`` normalized to
@@ -726,11 +711,12 @@ def _batch_dispatch(g: DeviceGraph, pairs, mode: str,
     levels, edges)``. ``auto`` resolves through ``auto_batch_mode``;
     ``minor`` / ``minor8`` run the batch-minor layout
     (:mod:`bibfs_tpu_torch.solvers.batch_minor`). Every other mode runs
-    its single-query search query by query, with ``fused`` / ``fused_alt``
-    routed to ``pallas`` / ``pallas_alt`` as the reference's vmapped batch
-    routes them: each query's result is the single-query one. ``stats``
-    collects ``host_syncs`` (the host reads of every run of the thunk) and
-    the ``mode`` that runs."""
+    the lock-step batch of its single-query search
+    (:mod:`bibfs_tpu_torch.solvers.dense_batch`), with ``fused`` /
+    ``fused_alt`` routed to ``pallas`` / ``pallas_alt`` as the reference's
+    vmapped batch routes them: each query's result is the single-query
+    one. ``stats`` collects ``host_syncs`` (the host reads of every run
+    of the thunk: a batch's rounds plus one) and the ``mode`` that runs."""
     pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
     if pairs.size and not ((0 <= pairs).all() and (pairs < g.n).all()):
         raise ValueError(f"src/dst out of range for n={g.n}")
@@ -744,15 +730,16 @@ def _batch_dispatch(g: DeviceGraph, pairs, mode: str,
 
         stats["mode"] = mode
         return batch_dispatch(g, pairs, dt8=(mode == "minor8"), stats=stats)
+    from bibfs_tpu_torch.solvers.dense_batch import lockstep_search
+
     mode = resolve_mode(_LAYOUT_ROUTE.get(mode, mode), g.tier_meta)
     stats["mode"] = mode
-    kern = _get_kernel(mode, kernel_cap(mode, g.n_pad, g.device.type),
-                       g.tier_meta)
+    cap = kernel_cap(mode, g.n_pad, g.device.type)
+    srcs = torch.from_numpy(pairs[:, 0].copy()).to(g.device)
+    dsts = torch.from_numpy(pairs[:, 1].copy()).to(g.device)
 
     def dispatch():
-        outs = [kern(g.nbr, g.deg, g.aux, int(s), int(d), cache=g.tables,
-                     stats=stats) for s, d in pairs]
-        return _stack_outputs(outs, g.n_pad, g.device)
+        return lockstep_search(g, srcs, dsts, mode, cap, stats)
 
     return pairs, dispatch, lambda out: out
 

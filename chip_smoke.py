@@ -45,9 +45,10 @@ is unavailable. Phases:
    4 timed there too), then modes
    sync, pallas, pallas_alt and fused (which runs as pallas); oracle hops
    and pallas == sync exactly. Then batch routing on it: ``auto`` with
-   256 queries takes the per-query ``sync`` path and ``minor`` is refused
-   (a tier's parent key overflows int32); ``auto`` with 8 pairs runs per
-   query and matches the oracle.
+   256 queries takes the lock-step ``sync`` batch and ``minor`` is
+   refused (a tier's parent key overflows int32); ``auto`` with 8 pairs
+   matches the oracle; then 256 seeded pairs under ``auto``, checked
+   and timed as in phase 9 (16 against the single-query search).
 5. Batches (run between phases 3 and 4 on the phase 3 graph): 256 seeded
    pairs (one ``src == dst``, one to an isolated vertex) through
    ``time_batch_graph`` in modes minor8, minor and auto (a warm-up, then
@@ -74,8 +75,9 @@ is unavailable. Phases:
    16 fresh pairs below the crossover: the native host route; then the
    same 16 pairs as one device flush (``C[device]``, ``flush_threshold=1``
    on a second engine), the card's side of the crossover. Wave D,
-   64 pairs through a second engine in ``mode="pallas"`` (kernel 3) and a
-   third in ``mode="pallas_alt"`` (kernel 4), each equal to
+   64 pairs through a second engine in ``mode="pallas"`` (kernel 3 with a
+   query axis, the flush a lock-step batch) and a third in
+   ``mode="pallas_alt"`` (kernel 4 with a query axis), each equal to
    ``solve_batch_graph`` in that mode. Every wave fails on any fallback,
    retry, injected fault, error or breaker that is not closed; each
    prints one ``{"phase": "engine", ...}`` line (queries and routes,
@@ -94,7 +96,8 @@ is unavailable. Phases:
    64 seeded ones the oracle's hops, and at least 4 device flushes launch
    ``minor_level<int8_t>``. Wave P-pallas, 64 pairs each through a
    pipelined engine in ``pallas`` (kernel 3) and ``pallas_alt`` (kernel
-   4), in turns with the synchronous engine in that mode and equal to it.
+   4), in turns with the synchronous engine in that mode and equal to it
+   (each flush a lock-step batch on the batched kernel).
    Wave S, a trickle of 8 fresh queries 20 ms apart from one thread at
    the default crossover: host routed deadline flushes, with per-query
    latency percentiles. Then the
@@ -108,6 +111,24 @@ is unavailable. Phases:
    batch service, the stage clock's overlap, the span ms, the peak
    device memory) and fails on any fallback, retry or error, a ticket
    still pending after ``close()`` or an engine thread still alive.
+
+9. The lock-step batch of the per-query modes (run after phase 5 on the
+   phase 3 graph): kernels 3 and 4 with a query axis
+   (``pull_dual_batch``, ``pull_single_batch``) against their plain twins
+   on a seeded mid-search batch of 256 queries (about a fifth inactive,
+   a random side per query for kernel 4), exactly, with a ``step`` line
+   each (kernel ms, the twin's ms, the bound); then phase 5's 256 pairs
+   through ``time_batch_graph`` in modes sync, sync_unfused, alt, beamer,
+   beamer_alt, pallas, pallas_alt and fused, every count set to 0 just
+   before and read after (both batched kernels must launch): 32 pairs
+   equal the single-query search on (best, meet, levels, edges, both
+   parent rows), all 256 the oracle's hops, every path valid; one
+   ``batch`` line per mode with the peak device memory. Then the sizes
+   for the crossover: lock-step sync and pallas and minor8 at 8, 16, 32,
+   64 and 128 queries, one ``batch_sweep`` line each. Last, a deep tail:
+   the deepest of the pairs alone (B = 1) and beside 255 pad lanes that
+   finish at round 0, against its single-query search, in modes sync,
+   alt, beamer, pallas and pallas_alt, one ``batch_tail`` line each.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
@@ -178,6 +199,21 @@ MINOR = {
                             "bibfs_tpu/solvers/batch_minor.py:133"),
 }
 BATCH = 256  # queries of a batch at full size
+# kernels 3 and 4 with a query axis (phase 9): what pallas_call's batching
+# rule makes of the Pallas kernels under the reference's vmapped search
+LOCKSTEP = {
+    "pull_dual_batch": (pe.pull_dual_batch, pe.pull_dual_batch_plain,
+                        "bibfs_tpu_torch/csrc/pull_expand.cu",
+                        "bibfs_tpu/ops/pallas_expand.py:195"),
+    "pull_single_batch": (pe.pull_single_batch, pe.pull_single_batch_plain,
+                          "bibfs_tpu_torch/csrc/pull_expand.cu",
+                          "bibfs_tpu/ops/pallas_expand.py:186"),
+}
+# the per-query modes a batch runs lock-step (fused runs as pallas)
+LOCKSTEP_MODES = ("sync", "sync_unfused", "alt", "beamer", "beamer_alt",
+                  "pallas", "pallas_alt", "fused")
+SWEEP = (8, 16, 32, 64, 128)  # batch sizes of the crossover sweep
+TAIL_MODES = ("sync", "alt", "beamer", "pallas", "pallas_alt")
 
 
 # the unstaged instantiation of kernel 2, which the wrapper takes only
@@ -196,14 +232,15 @@ def check(cond, msg: str) -> None:
 
 
 def reset_counts() -> None:
-    for wrapper, *_ in KERNELS.values():
+    for wrapper, *_ in (*KERNELS.values(), *LOCKSTEP.values()):
         wrapper.launches = 0
     for key in ml.minor_level.launches:
         ml.minor_level.launches[key] = 0
 
 
 def counts() -> dict:
-    out = {name: k[0].launches for name, k in KERNELS.items()}
+    out = {name: k[0].launches
+           for name, k in (*KERNELS.items(), *LOCKSTEP.items())}
     for name, (key, *_r) in MINOR.items():
         out[name] = ml.minor_level.launches[key]
     return out
@@ -252,6 +289,11 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
 def slots_needed(nbr_t, n_rows: int, front, want) -> int:
     """Table slots a row-at-a-time claim must read for this state: live
     slots of each row, in order, until every wanted side has a hit."""
+    return int(slots_read(nbr_t, n_rows, front, want).sum())
+
+
+def slots_read(nbr_t, n_rows: int, front, want):
+    """Each row's table slots in :func:`slots_needed`, int64 ``[n_rows]``."""
     vals = pe.gather_bits(front, nbr_t, n_rows)
     live = nbr_t[:, :n_rows] < front.shape[0]
     want = want.to(torch.uint8)
@@ -261,7 +303,7 @@ def slots_needed(nbr_t, n_rows: int, front, want) -> int:
         going = (found != want) & live[j]
         read += going.long()
         found |= torch.where(going, vals[j] & want, 0).to(torch.uint8)
-    return int(read.sum())
+    return read
 
 
 def sector_bytes(nbr_t, n_rows: int, front, want, chunk: int) -> int:
@@ -775,10 +817,189 @@ def refill_phase(dev) -> None:
                       "hops": [r.hops for r in res]}), flush=True)
 
 
+def lockstep_state(g, b: int, seed: int):
+    """A seeded mid-search batch made on the card: per side ``[b, n_pad]``
+    visited rows (about 30% of the vertices) and frontier rows (a third
+    of those), about a fifth of the queries inactive, and a random side
+    per query for kernel 4."""
+    dev = g.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    live = torch.arange(g.n_pad, device=dev) < g.n
+    vis = (torch.rand((2, b, g.n_pad), generator=gen, device=dev) < 0.3) & live
+    fr = vis & (torch.rand((2, b, g.n_pad), generator=gen, device=dev) < 1 / 3)
+    active = torch.rand(b, generator=gen, device=dev) < 0.8
+    side = torch.rand(b, generator=gen, device=dev) < 0.5
+    return fr, vis, active, side
+
+
+def lockstep_kernel_phase(g, geometry: str, results: dict) -> None:
+    """Kernels 3 and 4 with a query axis against their plain twins on a
+    seeded mid-search batch of ``BATCH`` queries (:func:`lockstep_state`),
+    every output exactly equal (an inactive query's rows stay no
+    discovery), and one ``step`` line each: kernel ms over 25 launches
+    (the wrapper: its output fill and the launch), the twin's ms over 5,
+    and the bound. The bound's bytes: each active query's frontier and
+    visited rows read once, every query's output rows written once, and
+    4 B for each table slot some active query's claim needs (the table
+    is read once for all of them); its operations, 4 per slot per query."""
+    nbr_t = dense._kernel_table(g.tables, g.nbr, g.deg)
+    n_pad, b = g.n_pad, BATCH
+    words = bm.frontier_words(n_pad)
+    fr, vis, active, side = lockstep_state(g, b, seed=25)
+    cases = {
+        "pull_dual_batch": (nbr_t, g.deg, bm.pack_pair_rows(fr[0], fr[1], 2 * words),
+                            vis[0], vis[1], active),
+        "pull_single_batch": (nbr_t, g.deg, bm.pack_rows(fr[0], words),
+                              bm.pack_rows(fr[1], words), vis[0], vis[1],
+                              active, side),
+    }
+    act_q = torch.nonzero(active).flatten().tolist()
+    for name, args in cases.items():
+        wrapper, plain = LOCKSTEP[name][:2]
+        got = wrapper(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        check(err == 0, f"{name} differs from its plain twin at {geometry}")
+        del got, want
+        dual = name == "pull_dual_batch"
+        k = 2 if dual else 1
+        union = torch.zeros(n_pad, dtype=torch.int64, device=g.device)
+        slots = 0
+        for q in act_q:
+            if dual:
+                front = pack_dual(fr[0, q], fr[1, q])
+                want_q = ((~vis[0, q]).to(torch.uint8)
+                          | ((~vis[1, q]).to(torch.uint8) << 1))
+            else:
+                t = int(side[q])
+                front = fr[t, q].to(torch.uint8)
+                want_q = (~vis[t, q]).to(torch.uint8)
+            read = slots_read(nbr_t, n_pad, front, want_q)
+            union = torch.maximum(union, read)
+            slots += int(read.sum())
+        bits_row = 4 * words
+        nbytes = (len(act_q) * k * (bits_row + n_pad)
+                  + b * k * (5 * n_pad + bits_row) + 4 * int(union.sum()))
+        b_ms, by = bound_ms(nbytes, 4 * slots)
+        ms = time_launch(lambda: wrapper(*args, checked=True))
+        plain_ms = time_launch(lambda: plain(*args), reps=5)
+        step_line(name, geometry, "query_axis", ms, plain_ms=plain_ms,
+                  bound_ms=b_ms, b=b, active=len(act_q),
+                  ms_per_active_query=ms / len(act_q),
+                  table_mb_needed=4 * int(union.sum()) / 1e6,
+                  slots_per_query=slots / len(act_q))
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=by)
+    del fr, vis, cases
+    torch.cuda.empty_cache()
+
+
+def lockstep_drive(g, csr, pairs, geometry: str, modes, k_check: int,
+                   repeats: int = 3) -> None:
+    """Each per-query mode as one lock-step batch of ``pairs``
+    (``time_batch_graph``: a warm-up, then the median of ``repeats``):
+    the first ``k_check`` queries' raw outputs (best, meet, levels, edges,
+    both parent rows) equal their single-query search's, every query's
+    hops equal the serial oracle's and every found path is valid. One
+    ``batch`` line per mode with the batch ms, ms per query, host reads
+    per batch and the peak device memory above the resident graph."""
+    pairs_l = [(int(s), int(d)) for s, d in pairs]
+    want = oracle(g.n, csr, pairs_l)
+    for mode in modes:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times, res = dense.time_batch_graph(g, pairs, repeats=repeats, mode=mode)
+        peak = torch.cuda.max_memory_allocated() - base
+        ran = res[0].mode
+        out = batch_raw(g, pairs, mode)
+        for i, (s, d) in enumerate(pairs_l[:k_check]):
+            one = raw(g, s, d, ran)
+            check((int(out[0][i]), int(out[1][i]), int(out[4][i]), int(out[5][i]))
+                  == (one[0], one[1], one[4], one[5])
+                  and torch.equal(out[2][i], one[2])
+                  and torch.equal(out[3][i], one[3]),
+                  f"{geometry} lock-step {mode} {s}->{d} differs from its "
+                  f"single {ran} search")
+        del out
+        for (s, d), r, w in zip(pairs_l, res, want):
+            check(r.found == w.found and r.hops == w.hops,
+                  f"{geometry} lock-step {mode} {s}->{d}: hops {r.hops} != "
+                  f"oracle {w.hops}")
+            if r.found:
+                check(validate_path(csr, r.path, s, d, hops=r.hops),
+                      f"{geometry} lock-step {mode} {s}->{d}: invalid path")
+        ms = float(np.median(times)) * 1e3
+        print(json.dumps({
+            "phase": "batch", "geometry": geometry, "mode": mode, "ran": ran,
+            "b": len(pairs_l), "batch_ms": ms, "ms_per_query": ms / len(pairs_l),
+            "host_reads_per_batch": res[0].host_syncs,
+            "peak_mem_gb": peak / 2**30, "found": sum(r.found for r in res),
+            "times_ms": [t * 1e3 for t in times],
+        }), flush=True)
+        torch.cuda.empty_cache()
+
+
+def sweep_phase(g, pairs, geometry: str) -> None:
+    """The sizes for the crossover: lock-step ``sync`` and ``pallas`` and
+    ``minor8`` on the first B pairs for each B of :data:`SWEEP`, one
+    ``batch_sweep`` line per size (a warm-up, then the median of 3 each);
+    the three modes agree on every query's hops."""
+    for b in SWEEP:
+        sub = pairs[:b]
+        line = {"phase": "batch_sweep", "geometry": geometry, "b": b}
+        hops = {}
+        for mode in ("sync", "pallas", "minor8"):
+            times, res = dense.time_batch_graph(g, sub, repeats=3, mode=mode)
+            ms = float(np.median(times)) * 1e3
+            line[mode] = dict(batch_ms=ms, ms_per_query=ms / b,
+                              host_reads=res[0].host_syncs)
+            hops[mode] = [(r.found, r.hops) for r in res]
+        check(hops["sync"] == hops["pallas"] == hops["minor8"],
+              f"sweep B={b}: the modes disagree on hops")
+        print(json.dumps(line), flush=True)
+
+
+def tail_phase(g, pairs, geometry: str) -> None:
+    """A lock-step batch whose queries finish rounds apart: the deepest of
+    ``pairs`` (by ``minor8``'s hops, which phase 5 held to the oracle)
+    alone (B = 1) and beside ``BATCH - 1`` pad lanes ``(0, 0)`` that
+    finish at round 0 (an engine's rung padding: one active query of 256
+    every round), against its single-query search (``time_search``), in
+    the modes of :data:`TAIL_MODES`. One ``batch_tail`` line per mode
+    (ms: medians of 5 after a warm-up); the three agree on the hops and
+    every pad lane has hops 0."""
+    deep = dense.solve_batch_graph(g, pairs, mode="minor8")
+    i = max(range(len(deep)),
+            key=lambda j: deep[j].hops if deep[j].found else -1)
+    s, d = int(pairs[i][0]), int(pairs[i][1])
+    padded = np.array([(s, d)] + [(0, 0)] * (BATCH - 1), np.int64)
+    for mode in TAIL_MODES:
+        single_t, one = dense.time_search(g, s, d, repeats=5, mode=mode)
+        b1_t, r1 = dense.time_batch_graph(g, padded[:1], repeats=5, mode=mode)
+        pad_t, rp = dense.time_batch_graph(g, padded, repeats=5, mode=mode)
+        check(one.hops == r1[0].hops == rp[0].hops == deep[i].hops
+              and all(r.found and r.hops == 0 for r in rp[1:]),
+              f"{geometry} tail {mode} {s}->{d}: the batches disagree")
+        print(json.dumps({
+            "phase": "batch_tail", "geometry": geometry, "mode": mode,
+            "pair": [s, d], "hops": deep[i].hops,
+            "single_ms": float(np.median(single_t)) * 1e3,
+            "b1_ms": float(np.median(b1_t)) * 1e3,
+            "pad256_ms": float(np.median(pad_t)) * 1e3,
+            "host_reads": [one.host_syncs, r1[0].host_syncs, rp[0].host_syncs],
+        }), flush=True)
+    torch.cuda.empty_cache()
+
+
 def routing_phase(g2, csr2, pairs2, want2) -> None:
-    """rmat-s20-ef16: a 256-query batch routes to the per-query path and
-    ``minor`` is refused (a tier's key overflows int32); 8 pairs under
-    ``auto`` go per query and match the oracle."""
+    """rmat-s20-ef16: a 256-query batch routes to the lock-step ``sync``
+    batch and ``minor`` is refused (a tier's key overflows int32); 8
+    pairs under ``auto`` run lock-step and match the oracle; then 256
+    seeded pairs under ``auto`` (:func:`lockstep_drive`, 16 held against
+    the single-query search)."""
     check(bmin.auto_batch_mode(g2, BATCH) == "sync", "auto did not pick sync")
     try:
         dense.solve_batch_graph(g2, np.zeros((BATCH, 2), np.int64), mode="minor")
@@ -793,6 +1014,8 @@ def routing_phase(g2, csr2, pairs2, want2) -> None:
     print(json.dumps({"phase": "batch_routing", "ok": True, "auto_256": "sync",
                       "minor_refused": refused,
                       "host_reads_8": res[0].host_syncs}), flush=True)
+    pairs256 = batch_pairs(np.random.default_rng(59), g2.n, csr2, BATCH)
+    lockstep_drive(g2, csr2, pairs256, "rmat-s20-ef16", ["auto"], k_check=16)
 
 
 FIELDS = ("found", "hops", "path", "meet", "levels", "edges_scanned")
@@ -963,7 +1186,8 @@ def engine_phase(g, n, edges, pairs_all, csr) -> None:
     # kernel 4 under pallas_alt), each engine over the same graph
     pairs_d = [(int(s), int(d)) for s, d in np.random.default_rng(37).choice(
         n, 128, replace=False).reshape(64, 2)]
-    for mode, kernel in (("pallas", "pull_dual"), ("pallas_alt", "pull_single")):
+    for mode, kernel in (("pallas", "pull_dual_batch"),
+                         ("pallas_alt", "pull_single_batch")):
         t0 = time.perf_counter()
         eng_d = QueryEngine(n, edges, pairs=pairs_all, mode=mode,
                             max_batch=BATCH, cache_entries=512)
@@ -1239,7 +1463,8 @@ def pipeline_phase(n, edges, pairs_all, csr) -> None:
     # wave P-pallas: the pull kernels through the pipelined engine
     pairs_k = [(int(s), int(d)) for s, d in np.random.default_rng(47).choice(
         n, 128, replace=False).reshape(64, 2)]
-    for mode, kernel in (("pallas", "pull_dual"), ("pallas_alt", "pull_single")):
+    for mode, kernel in (("pallas", "pull_dual_batch"),
+                         ("pallas_alt", "pull_single_batch")):
         res_k, line = in_turns(n, edges, pairs_all, pairs_k, f"P[{mode}]",
                                threads=1, mode=mode)
         check(all(r.mode == mode for r in res_k), f"wave P[{mode}] ran another mode")
@@ -1374,6 +1599,18 @@ def main() -> int:
     del raws
     torch.cuda.empty_cache()
 
+    # phase 9: the lock-step batch of the per-query modes, 256 queries
+    lockstep_kernel_phase(g, "gnp-deg8-s20", results)
+    reset_counts()
+    lockstep_drive(g, csr, bpairs, "gnp-deg8-s20", LOCKSTEP_MODES, k_check=32)
+    lockstep_counts = counts()
+    print(json.dumps({"phase": "lockstep_launches", **lockstep_counts}), flush=True)
+    for name in LOCKSTEP:
+        check(lockstep_counts[name] > 0,
+              f"kernel {name} was not launched by the lock-step batches")
+    sweep_phase(g, bpairs, "gnp-deg8-s20")
+    tail_phase(g, bpairs, "gnp-deg8-s20")
+
     # phase 7: the serving engine on the main-path graph
     engine_phase(g, n, edges, pairs_all, csr)
 
@@ -1441,6 +1678,11 @@ def main() -> int:
     for name, (_mode, source, replaces) in MINOR.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=batch_counts[name],
+                            **results[name], library_ms=None,
+                            launch_floor_ms=floor_ms))
+    for name, (_w, _p, source, replaces) in LOCKSTEP.items():
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=lockstep_counts[name],
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),

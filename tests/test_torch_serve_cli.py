@@ -57,6 +57,14 @@ def _result_lines(out: str) -> list[str]:
             if not ln.startswith(("health ", "stats "))]
 
 
+def _error_lines(out: str) -> list[str]:
+    return [ln for ln in _result_lines(out) if ln.startswith("error ")]
+
+
+def _answer_lines(out: str) -> list[str]:
+    return [ln for ln in _result_lines(out) if not ln.startswith("error ")]
+
+
 def _run_both(capsys, monkeypatch, argv, stdin=None):
     from bibfs_tpu.serve.cli import main as ref_main
 
@@ -105,15 +113,20 @@ def test_pairs_lines_match_the_oracle(graph_file, capsys):
 def test_stdin_stream_prints_reference_lines(graph_file, capsys, monkeypatch,
                                              pipeline):
     """A stream with queries, control commands and bad lines: the same
-    result and error lines in the same order; ``health`` and ``stats``
-    answer one-line JSON."""
+    result lines in the same order and the same error lines in the same
+    order; ``health`` and ``stats`` answer one-line JSON. The two are
+    compared as separate sequences: an error line prints when its input
+    is read, a result line when its ticket resolves, and under
+    ``--pipeline`` the deadline flusher resolves tickets on its own
+    thread, so neither CLI orders errors against results."""
     gpath, *_ = graph_file
     stdin = ("0 50\nhealth\n\nbad line x\n3 40\nstats\nhealth now\n"
              "7 7\nx 4\n1 999\n2 120\n9 100\n")
     argv = [gpath] + (["--pipeline"] if pipeline else [])
     (rc_r, ref), (rc_p, port) = _run_both(capsys, monkeypatch, argv, stdin)
     assert rc_r == rc_p == 0
-    assert _result_lines(port.out) == _result_lines(ref.out)
+    assert _answer_lines(port.out) == _answer_lines(ref.out)
+    assert _error_lines(port.out) == _error_lines(ref.out)
     assert any(ln.startswith("error invalid") for ln in port.out.splitlines())
     replies = [ln for ln in port.out.splitlines()
                if ln.startswith(("health ", "stats "))]

@@ -10,6 +10,10 @@ the solve and a synchronize), the first checkout alternating from round
 to round. It prints one JSON line: the card, and per checkout and mode
 the median and quartiles of those times, and whether the two checkouts
 gave the same ``(best, meet, par_s, par_t, levels, edges)`` everywhere.
+With ``--batch N`` it times lock-step batches in place of single solves
+(``time_batch_only``, median of 3 a turn): N seeded pairs, or with
+``--pad`` the deepest of the 8 pairs beside N - 1 pad lanes ``(0, 0)``
+that finish at round 0 (a serving rung's pad).
 
 The host-bound modes' times drift by tens of percent from process to
 process and over minutes; run in turns within one process, both
@@ -60,6 +64,19 @@ def _same(a, b) -> bool:
             and torch.equal(a[2], b[2]) and torch.equal(a[3], b[3]))
 
 
+def _batch_pairs(dense, g, pairs, rng, b: int, pad: bool) -> np.ndarray:
+    """``b`` seeded pairs, or the deepest of ``pairs`` (by its single
+    search) followed by ``b - 1`` pad lanes ``(0, 0)``."""
+    if not pad:
+        return rng.integers(0, g.n, (b, 2))
+    def hops(p):
+        best = int(dense._run(g, *p, "sync", 1, None)[0])
+        return best if best < 1 << 30 else -1
+
+    deep = max(pairs, key=hops)
+    return np.array([deep] + [(0, 0)] * (b - 1), np.int64)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path, help="root of the other checkout")
@@ -67,6 +84,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=8)
     ap.add_argument("--scale", type=int, default=20)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="time lock-step batches of this many queries")
+    ap.add_argument("--pad", action="store_true",
+                    help="a batch of the deepest pair and pad lanes (0, 0)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -96,9 +117,27 @@ def main(argv=None) -> int:
         modes = args.modes.split(",")
         times = {(w, m): [] for w in snaps for m in modes}
         same = True
+        if args.batch:
+            sys.modules.update(snaps["change"])
+            bpairs = _batch_pairs(dense["change"], graphs["change"], pairs,
+                                  rng, args.batch, args.pad)
         for rnd in range(args.rounds):
             order = ("parent", "change") if rnd % 2 == 0 else ("change", "parent")
             for mode in modes:
+                if args.batch:
+                    outs = {}
+                    for who in order:
+                        sys.modules.update(snaps[who])
+                        g = graphs[who]
+                        _p, dispatch, finish = dense[who]._batch_dispatch(
+                            g, bpairs, mode)
+                        outs[who] = finish(dispatch())
+                        ts = dense[who].time_batch_only(g, bpairs, repeats=3,
+                                                        mode=mode)
+                        times[(who, mode)].append(float(np.median(ts)) * 1e3)
+                    same &= all(torch.equal(x, y) for x, y in
+                                zip(outs["parent"], outs["change"]))
+                    continue
                 for s, d in pairs:
                     outs = {}
                     for who in order:
@@ -121,6 +160,7 @@ def main(argv=None) -> int:
     card = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
     print(json.dumps({
         "card": card, "n": n, "pairs": len(pairs), "rounds": args.rounds,
+        "batch": args.batch, "pad": args.pad,
         "same_results": bool(same),
         **{f"{w}/{m}": {"median_ms": float(np.median(v)),
                         "p25_ms": float(np.percentile(v, 25)),

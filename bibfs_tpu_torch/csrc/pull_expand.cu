@@ -30,22 +30,43 @@
 // kernels a query axis: what pallas_call's batching rule does to
 // _pull_kernel_dual / _pull_kernel under the reference's vmapped search
 // (bibfs_tpu/solvers/dense.py:1068-1093). B searches share the table and
-// degree row; each has its own frontier row, visited rows and outputs, at
-// a fixed stride per query. A per-query byte `want` says what a query
-// does this round: 0 nothing (its rows are not written: a finished
-// search stays frozen), else the sides it expands (kernel 3: both;
-// kernel 4: 1 for the source side, 2 for the target side, read from that
-// side's frontier and visited rows and written to the query's one output
-// row). Each query's rows get exactly the single-query kernel's values.
-// Bound: per active query the single kernel's bytes, less the table,
-// which the queries could share. The grid is one dimension over (query,
-// tile block), query-outer, with a loop past its size: each query walks
-// the whole table as the single kernel does, and its random frontier
-// lookups find its frontier row in L2. Queries-inner order (the blocks of
-// one table tile issued for all queries together, the tile read once)
-// measured 1.3-2.4x slower on the H100: 256 frontier rows (a pair row is
-// 256 KB at 2^20 rows) overflow the 50 MB L2, and the frontier's L2 hits
-// are worth more than the table's.
+// degree row. Their frontiers are one query-packed plane of n_rows rows of
+// ceil(B / 16) words: bits 2 (q & 15) and 2 (q & 15) + 1 of word q >> 4 of
+// row v hold vertex v in query q's source and target frontier (the order
+// of ops/minor_level.py). A launch expands the listed queries (`slot[q]`
+// is query q's row among them, or -1), kernel 3 both sides of each, kernel
+// 4 the side `side[row]` of each; each listed query has visited rows and
+// outputs of n_rows at row `slot[q]`, and gets exactly the single-query
+// kernel's values there. The next plane holds the new frontier bits of
+// every expanded (query, side) and every other bit copied from the input
+// plane, so it always holds the whole batch's state.
+// Bound: the listed queries' visited rows read and output rows written,
+// their frontier bits read and written, and the table slots any of them
+// needs, once.
+// Design: a warp takes a tile of 32 rows (a lane a row) and one listed
+// plane word, the group of 16 queries whose bits it holds. The row's slots
+// are walked in ascending order as in the single kernels (a chunk's slot
+// loads, then its gathers, in flight together), and each gather fetches
+// the neighbour's word of the group: one 4-byte load answers both sides of
+// 16 queries, and the table is walked once per group, not once per query.
+// A slot's hits are the gathered bits the row still wants (expanded, not
+// visited, not yet claimed), so a (query, side)'s first hit is its lowest
+// slot with no atomics; a hit's neighbour goes to the lane's column of the
+// warp's parent tile in shared memory, indexed by the bit. The row stops
+// gathering when every wanted bit of the group is hit. Every store of the
+// flush covers the 32 consecutive rows of one listed query (128 B of
+// parents, 32 B of nf), and the next plane's word is written once per
+// (row, word).
+// The grid covers the listed words only (the caller lists them), so a
+// word with no listed query costs no warp: where there is one, the next
+// plane starts as a copy of the plane (one cudaMemcpyAsync), which the
+// kernel overwrites at the listed words. A warp per (tile, word) over
+// every word, copying the unlisted ones, cost 0.43 ms more a launch on the
+// H100 with one listed query among 256 (block waves of trivial warps).
+// A block's 8 warps take 8 consecutive (tile, listed word) items, 8 words
+// of one tile where 8 or more are listed, so the groups' gathers fetch the
+// same neighbour sectors together. A warp walking every word of its tile
+// in turn measured 3.0x slower on the H100 at B = 256.
 #include "level_common.cuh"
 
 using namespace bibfs;
@@ -83,13 +104,12 @@ __device__ __forceinline__ uint32_t spread_even(uint32_t x) {
   return x;
 }
 
-// The warp's tile in block `block` of the tiles: claim its rows, write nf
-// and the parent, then the next frontier's word(s) of the tile.
+// The warp's tile: claim its rows, write nf and the parent, then the next
+// frontier's word(s) of the tile.
 template <bool kDual, class Front>
-__device__ __forceinline__ void pull_tile(const PullArgs& a, const Front& front,
-                                          int64_t block) {
+__device__ __forceinline__ void pull_tile(const PullArgs& a, const Front& front) {
   const int lane = threadIdx.x & 31;
-  const int64_t tile = block * (kBlock / 32) + (threadIdx.x >> 5);
+  const int64_t tile = (int64_t)blockIdx.x * (kBlock / 32) + (threadIdx.x >> 5);
   if (tile >= a.tiles) return;  // the same answer for the whole warp
   const int64_t v = (tile << 5) + lane;
   unsigned got = 0u;
@@ -126,79 +146,150 @@ __device__ __forceinline__ void pull_tile(const PullArgs& a, const Front& front,
 
 // Kernel 4: one side, from its bitmap.
 __global__ void __launch_bounds__(kBlock) pull_kernel(PullArgs a) {
-  pull_tile<false>(a, BitsFront{a.front, nullptr, a.n_ids}, blockIdx.x);
+  pull_tile<false>(a, BitsFront{a.front, nullptr, a.n_ids});
 }
 
 // Kernel 3: both sides, from the pair row.
 __global__ void __launch_bounds__(kBlock) pull_dual_kernel(PullArgs a) {
-  pull_tile<true>(a, PairFront{a.front, a.n_ids}, blockIdx.x);
+  pull_tile<true>(a, PairFront{a.front, a.n_ids});
 }
 
-// A batched launch: B queries over one table. Query q's frontier row
-// starts at word q * front_stride of front0 (and front1: kernel 4's target
-// side), its visited and output rows at q * n_rows, its next frontier at
-// q * out_stride.
-struct PullBatchArgs {
-  PullArgs a;  // the table, the geometry, and query 0's rows
-  const uint32_t* front1;
-  const uint8_t* want;
-  int64_t front_stride;
-  int64_t out_stride;
-  int64_t tile_blocks;
-  int64_t queries;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = kBlock / 32;
+
+// What a batched launch reads and writes (see the header). `listed`
+// holds the n_listed plane words with a listed query, ascending. Kernel 3
+// has side null and its two sides' outputs in nf / pc [0] and [1]; kernel
+// 4 has one output, in both.
+struct PlaneArgs {
+  const int32_t* nbr_t;
+  int64_t stride;
+  int wp;
+  int64_t n_rows;
+  const int32_t* deg;
+  const uint32_t* plane;
+  uint32_t* plane_n;
+  int64_t words;
+  const int32_t* slot;
+  const int32_t* listed;
+  int64_t n_listed;
+  const int32_t* side;
+  const uint8_t* vis[2];
+  uint8_t* nf[2];
+  int32_t* pc[2];
 };
 
-// Query q's rows as a single-query launch's arguments; `side` 1 reads
-// the target side's frontier and visited rows (kernel 4).
-__device__ __forceinline__ PullArgs query_args(const PullBatchArgs& b,
-                                               int64_t q, bool side) {
-  PullArgs a = b.a;
-  const int64_t r = q * a.n_rows;
-  a.front = (side ? b.front1 : a.front) + q * b.front_stride;
-  a.vis_s = (side ? a.vis_t : a.vis_s) + r;
-  a.vis_t += r;
-  a.nf_s += r;
-  a.pc_s += r;
-  if (a.nf_t) {  // kernel 3's target-side outputs (kernel 4 has none)
-    a.nf_t += r;
-    a.pc_t += r;
+// The warp's item: rows 32 tile .. 32 tile + 31 of plane word w. `par` is
+// the warp's parent tile, par[bit][lane].
+template <bool kDual>
+__device__ __forceinline__ void plane_item(const PlaneArgs& a,
+                                           int32_t (*par)[32], int64_t tile,
+                                           int64_t w) {
+  const int lane = threadIdx.x & 31;
+  const int64_t v = (tile << 5) + lane;
+  const bool in = v < a.n_rows;
+  // lane k < 16 holds the row of query 16 w + k (-1: not listed)
+  const int32_t mine = lane < 16 ? __ldg(a.slot + 16 * w + lane) : -1;
+  const unsigned listed = __ballot_sync(kFull, mine >= 0);
+  unsigned tgt = listed, src = listed;  // the queries expanding each side
+  if constexpr (!kDual) {
+    tgt = __ballot_sync(kFull, mine >= 0 && __ldg(a.side + mine) != 0);
+    src = listed & ~tgt;
   }
-  a.out += q * b.out_stride;
-  return a;
+  const unsigned expd = spread_even(src) | (spread_even(tgt) << 1);
+  const uint32_t old = in ? __ldg(a.plane + v * a.words + w) : 0u;
+  // the wanted bits: expanded and not visited (all the loads in flight)
+  unsigned want = 0u;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    if (!((listed >> k) & 1u)) continue;
+    const int64_t r = (int64_t)__shfl_sync(kFull, mine, k) * a.n_rows + v;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int b = 2 * k + s;
+      if (in && ((expd >> b) & 1u) && !__ldg(a.vis[s] + r)) want |= 1u << b;
+    }
+  }
+  const int live = want ? min(__ldg(a.deg + v), a.wp) : 0;
+  unsigned got = 0u;
+  for (int c = 0; __any_sync(kFull, c < live && got != want); c += kChunk) {
+    const bool going = got != want;
+    int32_t u[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      u[k] = going && c + k < live
+                 ? __ldg(a.nbr_t + (int64_t)(c + k) * a.stride + v) : -1;
+    }
+    uint32_t x[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      x[k] = u[k] >= 0 && u[k] < a.n_rows
+                 ? __ldg(a.plane + (int64_t)u[k] * a.words + w) : 0u;
+    }
+    // ascending, so a bit's first hit is its lowest slot
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      unsigned h = x[k] & want & ~got;
+      got |= h;
+      while (h) {
+        par[__ffs(h) - 1][lane] = u[k];
+        h &= h - 1;
+      }
+    }
+  }
+  if (in) a.plane_n[v * a.words + w] = (old & ~expd) | got;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    if (!((listed >> k) & 1u)) continue;
+    const int64_t r = (int64_t)__shfl_sync(kFull, mine, k) * a.n_rows + v;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int b = 2 * k + s;
+      if (!in || !((expd >> b) & 1u)) continue;
+      const bool g = (got >> b) & 1u;
+      a.nf[s][r] = (uint8_t)g;
+      a.pc[s][r] = g ? par[b][lane] : -1;
+    }
+  }
 }
 
-// Kernel 4 with a query axis: each active query's chosen side.
-__global__ void __launch_bounds__(kBlock) pull_batch_kernel(PullBatchArgs b) {
-  const int64_t total = b.queries * b.tile_blocks;
-  for (int64_t lin = blockIdx.x; lin < total; lin += gridDim.x) {
-    const int64_t q = lin / b.tile_blocks;
-    const int64_t blk = lin - q * b.tile_blocks;
-    const uint8_t w = __ldg(b.want + q);  // the same for the whole block
-    if (!w) continue;
-    const PullArgs a = query_args(b, q, w == 2);
-    pull_tile<false>(a, BitsFront{a.front, nullptr, a.n_ids}, blk);
-  }
+// A block's warps take consecutive (tile, listed word) items, word-minor.
+template <bool kDual>
+__device__ __forceinline__ void plane_block(const PlaneArgs& a) {
+  __shared__ int32_t s_par[kWarps][32][32];
+  const int warp = threadIdx.x >> 5;
+  // the launcher keeps the items below 2^32
+  const uint32_t item = blockIdx.x * kWarps + warp;
+  const uint32_t tile = item / (uint32_t)a.n_listed;
+  if (tile >= (a.n_rows + 31) / 32) return;  // the same for the whole warp
+  plane_item<kDual>(a, s_par[warp], tile,
+                    __ldg(a.listed + (item - tile * (uint32_t)a.n_listed)));
 }
 
-// Kernel 3 with a query axis: both sides of each active query.
-__global__ void __launch_bounds__(kBlock) pull_dual_batch_kernel(PullBatchArgs b) {
-  const int64_t total = b.queries * b.tile_blocks;
-  for (int64_t lin = blockIdx.x; lin < total; lin += gridDim.x) {
-    const int64_t q = lin / b.tile_blocks;
-    const int64_t blk = lin - q * b.tile_blocks;
-    if (!__ldg(b.want + q)) continue;
-    const PullArgs a = query_args(b, q, false);
-    pull_tile<true>(a, PairFront{a.front, a.n_ids}, blk);
-  }
+// Kernel 4 with a query axis: each listed query's side.
+__global__ void __launch_bounds__(kBlock) pull_batch_kernel(PlaneArgs a) {
+  plane_block<false>(a);
 }
 
-int launch_pull_batch(void (*kernel)(PullBatchArgs), PullBatchArgs b,
-                      void* stream) {
-  if (b.a.n_rows > 0 && b.queries > 0) {
-    b.tile_blocks = (b.a.tiles + kBlock / 32 - 1) / (kBlock / 32);
-    const int64_t total = b.queries * b.tile_blocks;
-    const unsigned grid = (unsigned)(total < 0x7fffffff ? total : 0x7fffffff);
-    kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(b);
+// Kernel 3 with a query axis: both sides of each listed query.
+__global__ void __launch_bounds__(kBlock) pull_dual_batch_kernel(PlaneArgs a) {
+  plane_block<true>(a);
+}
+
+// The words with no listed query go to the next plane as one copy of the
+// plane, which the kernel then overwrites at the listed words.
+int launch_plane(void (*kernel)(PlaneArgs), const PlaneArgs& a, void* stream) {
+  if (a.n_rows > 0 && a.n_listed < a.words) {
+    const cudaError_t e = cudaMemcpyAsync(
+        a.plane_n, a.plane, (size_t)(a.n_rows * a.words) * sizeof(uint32_t),
+        cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (a.n_rows > 0 && a.n_listed > 0) {
+    const int64_t items = (a.n_rows + 31) / 32 * a.n_listed;
+    if (items >= (int64_t)1 << 32) return (int)cudaErrorInvalidValue;
+    const int64_t grid = (items + kWarps - 1) / kWarps;
+    kernel<<<(unsigned)grid, kBlock, 0, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -243,45 +334,44 @@ extern "C" int bibfs_pull_dual(const void* nbr_t, int64_t stride, int wp,
   return launch_pull(&pull_dual_kernel, a, stream);
 }
 
-// Kernel 4 with a query axis. `bits_s` / `bits_t` hold `queries` rows of
-// words_in words (32 vertices each), `vis_s` / `vis_t`, `nf` and `pc`
-// `queries` rows of n_rows, `out` `queries` rows of `tiles` words; `want`
-// one byte per query (0 inactive, 1 source side, 2 target side).
+// Kernel 4 with a query axis. `plane` and `plane_n` hold n_rows rows of
+// `words` words; `meta` the int32 slot map (16 * words entries), the
+// n_listed listed words and one side per listed query (1: the target
+// side); `vis_s`, `vis_t`, `nf` and `pc` one row of n_rows per listed
+// query.
 extern "C" int bibfs_pull_batch(const void* nbr_t, int64_t stride, int wp,
                                 int64_t n_rows, const void* deg,
-                                const void* bits_s, const void* bits_t,
-                                int64_t words_in, const void* vis_s,
-                                const void* vis_t, const void* want,
-                                int64_t queries, void* nf,
-                                void* pc, void* out, int64_t tiles,
+                                const void* plane, void* plane_n,
+                                int64_t words, const void* meta,
+                                int64_t n_listed, const void* vis_s,
+                                const void* vis_t, void* nf, void* pc,
                                 void* stream) {
-  const PullArgs a{(const int32_t*)nbr_t, stride, wp, n_rows,
-                   (const int32_t*)deg, (const uint32_t*)bits_s,
-                   (uint32_t)(words_in * 32), (const uint8_t*)vis_s,
-                   (const uint8_t*)vis_t, (uint8_t*)nf, (int32_t*)pc,
-                   nullptr, nullptr, (uint32_t*)out, tiles};
-  const PullBatchArgs b{a, (const uint32_t*)bits_t, (const uint8_t*)want,
-                        words_in, tiles, 0, queries};
-  return launch_pull_batch(&pull_batch_kernel, b, stream);
+  const int32_t* m = (const int32_t*)meta;
+  const PlaneArgs a{(const int32_t*)nbr_t, stride, wp, n_rows,
+                    (const int32_t*)deg, (const uint32_t*)plane,
+                    (uint32_t*)plane_n, words, m, m + 16 * words, n_listed,
+                    m + 16 * words + n_listed,
+                    {(const uint8_t*)vis_s, (const uint8_t*)vis_t},
+                    {(uint8_t*)nf, (uint8_t*)nf}, {(int32_t*)pc, (int32_t*)pc}};
+  return launch_plane(&pull_batch_kernel, a, stream);
 }
 
-// Kernel 3 with a query axis. `pair` holds `queries` rows of words_in
-// words (16 vertices each), `out` `queries` rows of 2 * tiles words;
-// `want` one byte per query (0 inactive, else both sides).
+// Kernel 3 with a query axis: as bibfs_pull_batch, both sides of each
+// listed query (`meta` holds no sides), the source side's outputs in
+// nf_s / pc_s.
 extern "C" int bibfs_pull_dual_batch(const void* nbr_t, int64_t stride, int wp,
                                      int64_t n_rows, const void* deg,
-                                     const void* pair, int64_t words_in,
-                                     const void* vis_s, const void* vis_t,
-                                     const void* want, int64_t queries,
-                                     void* nf_s, void* pc_s, void* nf_t,
-                                     void* pc_t, void* out, int64_t tiles,
-                                     void* stream) {
-  const PullArgs a{(const int32_t*)nbr_t, stride, wp, n_rows,
-                   (const int32_t*)deg, (const uint32_t*)pair,
-                   (uint32_t)(words_in * 16), (const uint8_t*)vis_s,
-                   (const uint8_t*)vis_t, (uint8_t*)nf_s, (int32_t*)pc_s,
-                   (uint8_t*)nf_t, (int32_t*)pc_t, (uint32_t*)out, tiles};
-  const PullBatchArgs b{a, nullptr, (const uint8_t*)want, words_in,
-                        2 * tiles, 0, queries};
-  return launch_pull_batch(&pull_dual_batch_kernel, b, stream);
+                                     const void* plane, void* plane_n,
+                                     int64_t words, const void* meta,
+                                     int64_t n_listed, const void* vis_s,
+                                     const void* vis_t, void* nf_s, void* pc_s,
+                                     void* nf_t, void* pc_t, void* stream) {
+  const int32_t* m = (const int32_t*)meta;
+  const PlaneArgs a{(const int32_t*)nbr_t, stride, wp, n_rows,
+                    (const int32_t*)deg, (const uint32_t*)plane,
+                    (uint32_t*)plane_n, words, m, m + 16 * words, n_listed,
+                    nullptr, {(const uint8_t*)vis_s, (const uint8_t*)vis_t},
+                    {(uint8_t*)nf_s, (uint8_t*)nf_t},
+                    {(int32_t*)pc_s, (int32_t*)pc_t}};
+  return launch_plane(&pull_dual_batch_kernel, a, stream);
 }

@@ -40,10 +40,10 @@ SIGNATURES = {
                        _I64, _P],
         "bibfs_pull_dual": [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P,
                             _P, _P, _P, _P, _I64, _P],
-        "bibfs_pull_batch": [_P, _I64, _I, _I64, _P, _P, _P, _I64, _P, _P,
-                             _P, _I64, _P, _P, _P, _I64, _P],
-        "bibfs_pull_dual_batch": [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P,
-                                  _P, _I64, _P, _P, _P, _P, _P, _I64, _P],
+        "bibfs_pull_batch": [_P, _I64, _I, _I64, _P, _P, _P, _I64, _P, _I64,
+                             _P, _P, _P, _P, _P],
+        "bibfs_pull_dual_batch": [_P, _I64, _I, _I64, _P, _P, _P, _I64, _P,
+                                  _I64, _P, _P, _P, _P, _P, _P, _P],
     },
     "fused_level": {
         "bibfs_fused_dual": _ROUND + [_P],

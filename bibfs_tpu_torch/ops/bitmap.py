@@ -70,22 +70,6 @@ def unpack_pairs(words, n: int) -> tuple[torch.Tensor, torch.Tensor]:
     return both[:, 0], both[:, 1]
 
 
-def pack_rows(fr, words: int) -> torch.Tensor:
-    """``bool[B, n]`` as ``B`` bitmap rows of ``words`` words
-    (:func:`pack_bits` of each row)."""
-    n = fr.shape[1]
-    if words * 32 < n:
-        raise ValueError(f"{words} words cannot hold {n} bits")
-    return pack_lanes(F.pad(fr.to(torch.bool), (0, words * 32 - n)))
-
-
-def pack_pair_rows(fr_s, fr_t, words: int) -> torch.Tensor:
-    """Both sides' ``bool[B, n]`` frontiers as ``B`` pair rows of
-    ``words`` words (:func:`pack_pairs` of each row)."""
-    b, n = fr_s.shape
-    return pack_rows(torch.stack([fr_s, fr_t], dim=2).view(b, 2 * n), words)
-
-
 def set_bits(row, bits) -> None:
     """Set the bits ``bits`` (indices into the row) of a zeroed bitmap row
     on the device: one write per word they touch, the words made on the

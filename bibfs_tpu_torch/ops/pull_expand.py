@@ -27,12 +27,19 @@ both sides (:func:`pack_front`), so one load per slot answers both.
 :func:`pull_dual_batch` and :func:`pull_single_batch` (CUDA
 ``pull_dual_batch_kernel`` and ``pull_batch_kernel``) are the two kernels
 with a query axis, as ``pallas_call``'s batching rule gives them one under
-the reference's vmapped search: B queries over the one table, each with
-its own frontier row, visited rows and outputs, and a per-query
-``active`` mask (kernel 4 also a per-query ``side``). An active query's
-rows are the single-query kernel's; an inactive query's are not written
-and keep the wrapper's fill, no discovery (``nf`` 0, parent -1, next
-frontier empty).
+the reference's vmapped search: B queries over the one table, their
+frontiers one query-packed plane ``int32[n_rows, plane_words(B)]`` (bits
+``2 (q & 15)`` and ``2 (q & 15) + 1`` of word ``q >> 4`` hold query
+``q``'s source and target side, the order of
+:func:`bibfs_tpu_torch.ops.minor_level.pack_sides`; :func:`pack_plane`,
+:func:`seed_plane`). A launch expands the listed queries ``qids``
+(kernel 4 one side of each, ``side``), takes their ``[A, n_rows]``
+visited rows and returns their ``[A, n_rows]`` outputs, each the
+single-query kernel's, and the next plane: the expanded bits replaced by
+the new frontier, every other bit copied (:func:`plane_set` rebuilds
+listed columns, as a tiered round needs after its tier pass). ``qids``
+and ``side`` are host tensors: the grid covers only the plane words that
+hold a listed query, and :func:`launch_meta` lists them on the host.
 
 The functional forms :func:`run_pull`, :func:`run_pull_dual`,
 :func:`pallas_pull_level` and :func:`pallas_pull_level_dual` keep the
@@ -47,15 +54,15 @@ everywhere else. Each wrapper counts its kernel launches in
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bibfs_tpu_torch.ops import _cuda
 from bibfs_tpu_torch.ops.bitmap import (
     frontier_words,
     pack_bits,
-    pack_pair_rows,
     pack_pairs,
-    pack_rows,
     set_bits,
     unpack_bits,
     unpack_pairs,
@@ -66,6 +73,8 @@ from bibfs_tpu_torch.ops.expand import (
     max_new_degree,
     pack_dual,
 )
+from bibfs_tpu_torch.ops.expand_batch import LOCKSTEP_BUDGET_BYTES
+from bibfs_tpu_torch.ops.minor_level import pack_sides
 
 CHUNK = 8  # table slots per chunk of independent loads (kChunk in the kernels)
 
@@ -250,137 +259,211 @@ def pull_dual(nbr_t, deg, pair, vis_s, vis_t, *, checked: bool = False):
 pull_dual.launches = 0
 
 
-def _no_discovery(b: int, n_rows: int, words: int, device):
-    """Batched outputs before a launch: ``nf`` 0, parent -1, next
-    frontier empty, which an inactive query's rows keep."""
-    return (torch.zeros(b, n_rows, dtype=torch.bool, device=device),
-            torch.full((b, n_rows), -1, dtype=torch.int32, device=device),
-            torch.zeros(b, words, dtype=torch.int32, device=device))
+def plane_words(b: int) -> int:
+    """Words per row of the query-packed plane of ``b`` queries (16 a
+    word, both sides)."""
+    return -(-b // 16)
 
 
-def _active_queries(active) -> list[int]:
-    return torch.nonzero(active).flatten().tolist()
+def pack_plane(fr_s, fr_t):
+    """Both sides' ``bool[B, n]`` frontier rows as the query-packed plane
+    ``int32[n, plane_words(B)]``, the spare bits of the last word zero."""
+    b, n = fr_s.shape
+    pad = 16 * plane_words(b) - b
+    return pack_sides(F.pad(fr_s.T, (0, pad)), F.pad(fr_t.T, (0, pad)))
 
 
-def pull_single_batch_plain(nbr_t, deg, bits_s, bits_t, vis_s, vis_t, active,
-                            side):
+def _bit_values(qids, side: int):
+    """Each listed query's word and its side's bit in it as an int32 value
+    (bit 31 as ``-2 ** 31``)."""
+    q = qids.long()
+    bit = 2 * (q & 15) + side
+    val = torch.where(bit == 31, -2**31, torch.ones_like(bit) << bit)
+    return q >> 4, val.to(torch.int32)
+
+
+def seed_plane(srcs, dsts, n_rows: int):
+    """The starting plane of queries ``(srcs[q], dsts[q])``: each side's
+    bit set at its one vertex, without a pass over ``[B, n_rows]``."""
+    b = srcs.shape[0]
+    words = plane_words(b)
+    plane = torch.zeros(n_rows, words, dtype=torch.int32, device=srcs.device)
+    q = torch.arange(b, device=srcs.device)
+    for side, ids in enumerate((srcs, dsts)):
+        word, val = _bit_values(q, side)
+        # distinct bits of one word add up to their OR
+        plane.view(-1).scatter_add_(0, ids.long() * words + word, val)
+    return plane
+
+
+def plane_set(plane, qids, rows, side: int):
+    """Write ``rows`` (``bool[A, n]``) as the side-``side`` bits of the
+    listed queries ``qids`` into ``plane``, in place, every other bit kept.
+    Row chunks bound the ``[rows, A]`` int32 temporary to
+    :data:`LOCKSTEP_BUDGET_BYTES`."""
+    word, val = _bit_values(qids.to(plane.device), side)
+    mask = torch.zeros(plane.shape[1], dtype=torch.int32, device=plane.device)
+    plane &= ~mask.index_add_(0, word, val)
+    step = max(1, LOCKSTEP_BUDGET_BYTES // (4 * max(rows.shape[0], 1)))
+    for r0 in range(0, rows.shape[1], step):
+        part = rows[:, r0:r0 + step].T.to(torch.int32) * val
+        plane[r0:r0 + step].index_add_(1, word, part)
+    return plane
+
+
+def _plane_column(plane, q: int):
+    """Query ``q``'s ``bool[n]`` source and target frontier of a plane."""
+    col = plane[:, q >> 4] >> 2 * (q & 15)
+    return (col & 1) > 0, (col & 2) > 0
+
+
+def pull_single_batch_plain(nbr_t, deg, plane, vis_s, vis_t, qids, side):
     """Plain twin of :func:`pull_single_batch`: :func:`pull_single_plain`
-    of each active query's chosen side."""
-    b, n_rows = vis_s.shape
-    nf, pc, out = _no_discovery(b, n_rows, frontier_words(n_rows),
-                                nbr_t.device)
-    for q in _active_queries(active):
-        t = bool(side[q])
-        nf[q], pc[q], out[q] = pull_single_plain(
-            nbr_t, deg, (bits_t if t else bits_s)[q], (vis_t if t else vis_s)[q])
-    return nf, pc, out
+    of each listed query's side, then :func:`plane_set`."""
+    a, n_rows = vis_s.shape
+    nf = torch.empty(a, n_rows, dtype=torch.bool, device=nbr_t.device)
+    pc = torch.empty(a, n_rows, dtype=torch.int32, device=nbr_t.device)
+    for i, (q, t) in enumerate(zip(qids.tolist(), side.tolist())):
+        front = _plane_column(plane, q)[int(t)]
+        nf[i], pc[i], _ = pull_single_plain(
+            nbr_t, deg, pack_bits(front, frontier_words(front.shape[0])),
+            (vis_t if t else vis_s)[i])
+    nxt = plane.clone()
+    for t in (False, True):
+        pick = side.to(torch.bool) == t
+        plane_set(nxt, qids[pick], nf[pick], int(t))
+    return nf, pc, nxt
 
 
-def pull_dual_batch_plain(nbr_t, deg, pair, vis_s, vis_t, active):
+def pull_dual_batch_plain(nbr_t, deg, plane, vis_s, vis_t, qids):
     """Plain twin of :func:`pull_dual_batch`: :func:`pull_dual_plain` of
-    each active query."""
-    b, n_rows = vis_s.shape
-    nf_s, pc_s, out = _no_discovery(b, n_rows, 2 * frontier_words(n_rows),
-                                    nbr_t.device)
-    nf_t, pc_t, _ = _no_discovery(b, n_rows, 0, nbr_t.device)
-    for q in _active_queries(active):
-        nf_s[q], pc_s[q], nf_t[q], pc_t[q], out[q] = pull_dual_plain(
-            nbr_t, deg, pair[q], vis_s[q], vis_t[q])
-    return nf_s, pc_s, nf_t, pc_t, out
+    each listed query, then :func:`plane_set` of both sides."""
+    a, n_rows = vis_s.shape
+    dev = nbr_t.device
+    nf_s, nf_t = (torch.empty(a, n_rows, dtype=torch.bool, device=dev)
+                  for _ in range(2))
+    pc_s, pc_t = (torch.empty(a, n_rows, dtype=torch.int32, device=dev)
+                  for _ in range(2))
+    for i, q in enumerate(qids.tolist()):
+        fr_s, fr_t = _plane_column(plane, q)
+        nf_s[i], pc_s[i], nf_t[i], pc_t[i], _ = pull_dual_plain(
+            nbr_t, deg, pack_front(fr_s, fr_t, fr_s.shape[0]), vis_s[i],
+            vis_t[i])
+    nxt = plane_set(plane_set(plane.clone(), qids, nf_s, 0), qids, nf_t, 1)
+    return nf_s, pc_s, nf_t, pc_t, nxt
 
 
-def _check_batch(nbr_t, deg, words: int, active, fronts, rows) -> None:
-    """Validate one batched launch's inputs: ``fronts`` the frontier rows
-    (``[B, >= words]`` int32, one stride), ``rows`` the ``[B, n_rows]``
-    visited rows."""
-    b, n_rows = next(iter(rows.values())).shape
+def _check_batch(nbr_t, deg, plane, qids, side, **rows) -> None:
+    """Validate one batched launch's inputs: the plane over the table's
+    rows, ``qids`` distinct queries of the plane on the host, the ``[A,
+    n_rows]`` visited rows and (kernel 4) one ``side`` per listed query."""
+    a, n_rows = next(iter(rows.values())).shape
     check_pull(nbr_t, deg, n_rows)
-    if any(r.shape != (b, n_rows) for r in rows.values()):
+    if any(r.shape != (a, n_rows) for r in rows.values()):
         raise ValueError("visited rows must match")
-    if active.shape != (b,):
-        raise ValueError("active must hold one flag per query")
-    f0 = next(iter(fronts.values()))
-    if any(f.dim() != 2 or f.shape != f0.shape or f.shape[0] != b
-           or f.shape[1] < words for f in fronts.values()):
-        raise ValueError("the frontier rows must cover the table's ids")
-    _cuda.check_dtype(torch.int32, **fronts)
-    _cuda.check_cuda(nbr_t.device, active=active, **fronts, **rows)
+    if plane.dim() != 2 or plane.shape[0] != n_rows or n_rows != nbr_t.shape[1]:
+        raise ValueError("the plane and the visited rows must cover the "
+                         "table's rows")
+    if qids.device.type != "cpu" or (side is not None and side.device.type != "cpu"):
+        raise ValueError("qids and side must lie on the host")
+    if qids.shape != (a,) or (side is not None and side.shape != (a,)):
+        raise ValueError("qids (and side) must hold one entry per visited row")
+    if a and (int(qids.min()) < 0 or int(qids.max()) >= 16 * plane.shape[1]
+              or qids.unique().numel() != a):
+        raise ValueError("qids must be distinct queries of the plane")
+    _cuda.check_dtype(torch.int32, plane=plane)
+    _cuda.check_cuda(nbr_t.device, plane=plane, **rows)
 
 
-def _want(active, side=None):
-    """One byte per query: 0 inactive, else the sides it expands (1
-    source, 2 target; kernel 3 reads any non-zero byte as both)."""
-    want = active.to(torch.uint8)
+def launch_meta(qids, words: int, side=None, *, pin: bool = False):
+    """What a batched launch reads besides its rows, made on the host from
+    the listed queries ``qids`` (and, for kernel 4, their ``side``), as one
+    int32 tensor: the slot map (``16 words`` entries, each listed query's
+    row, -1 for the others), the listed plane words (ascending), then the
+    sides. Returns it (in pinned memory with ``pin``, for an upload that
+    does not wait for the stream) and the number of listed words, the
+    grid's width. Made in numpy: torch's CPU ops cost ~0.1 ms a launch."""
+    q = np.asarray(qids, dtype=np.int64)
+    listed = np.unique(q >> 4)
+    size = 16 * words + listed.size + (0 if side is None else q.size)
+    meta = torch.empty(size, dtype=torch.int32, pin_memory=pin)
+    m = meta.numpy()
+    m[:16 * words] = -1
+    m[q] = np.arange(q.size)
+    m[16 * words:16 * words + listed.size] = listed
     if side is not None:
-        want = want * (1 + side.to(torch.uint8))
-    return want.contiguous()
+        m[16 * words + listed.size:] = np.asarray(side)
+    return meta, listed.size
 
 
-def pull_single_batch(nbr_t, deg, bits_s, bits_t, vis_s, vis_t, active, side,
-                      *, checked: bool = False):
-    """Kernel 4 with a query axis: ``(nf bool[B, n_rows], parent int32[B,
-    n_rows], next_bits int32[B, frontier_words(n_rows)])``, row ``q`` the
-    expansion of query ``q``'s side ``side[q]`` (False: source, from
-    ``bits_s[q]`` and ``vis_s[q]``; True: target) where ``active[q]``.
-    ``bits_*`` are ``[B, words]`` bitmap rows over the table's ids,
-    ``vis_*`` ``[B, n_rows]``. ``checked`` skips the validation."""
+def _batch_outputs(a: int, n_rows: int, sides: int, device):
+    return [t for _ in range(sides) for t in (
+        torch.empty(a, n_rows, dtype=torch.bool, device=device),
+        torch.empty(a, n_rows, dtype=torch.int32, device=device))]
+
+
+def pull_single_batch(nbr_t, deg, plane, vis_s, vis_t, qids, side, *,
+                      checked: bool = False):
+    """Kernel 4 with a query axis: ``(nf bool[A, n_rows], parent int32[A,
+    n_rows], next_plane)``, row ``a`` the expansion of query ``qids[a]``'s
+    side ``side[a]`` (False: source, from its plane bits and ``vis_s[a]``;
+    True: target, ``vis_t[a]``). ``plane`` is ``int32[n_rows, words]``
+    over the table's rows; the next plane has the expanded bits replaced
+    by ``nf`` and the rest copied. ``qids`` and ``side`` are host tensors
+    (the grid's width, the listed words, is made from them on the host).
+    ``checked`` skips the validation."""
     if not nbr_t.is_cuda:
-        return pull_single_batch_plain(nbr_t, deg, bits_s, bits_t, vis_s,
-                                       vis_t, active, side)
-    b, n_rows = vis_s.shape
+        return pull_single_batch_plain(nbr_t, deg, plane, vis_s, vis_t, qids,
+                                       side)
+    a, n_rows = vis_s.shape
     if not checked:
         vis_s = vis_s.to(torch.bool).contiguous()
         vis_t = vis_t.to(torch.bool).contiguous()
-        _check_batch(nbr_t, deg, frontier_words(nbr_t.shape[1]), active,
-                     dict(bits_s=bits_s, bits_t=bits_t),
-                     dict(vis_s=vis_s, vis_t=vis_t))
-        if side.shape != (b,):
-            raise ValueError("side must hold one flag per query")
-    nf, pc, out = _no_discovery(b, n_rows, frontier_words(n_rows),
-                                nbr_t.device)
-    want = _want(active, side)
+        _check_batch(nbr_t, deg, plane, qids, side, vis_s=vis_s, vis_t=vis_t)
+    nf, pc = _batch_outputs(a, n_rows, 1, nbr_t.device)
+    nxt = torch.empty_like(plane)
+    meta, n_listed = launch_meta(qids, plane.shape[1], side, pin=True)
+    meta = meta.to(nbr_t.device, non_blocking=True)
     _cuda.launch(
         "pull_expand", "bibfs_pull_batch", nbr_t.data_ptr(), nbr_t.stride(0),
-        nbr_t.shape[0], n_rows, deg.data_ptr(), bits_s.data_ptr(),
-        bits_t.data_ptr(), bits_s.shape[1], vis_s.data_ptr(),
-        vis_t.data_ptr(), want.data_ptr(), b, nf.data_ptr(),
-        pc.data_ptr(), out.data_ptr(), out.shape[1],
+        nbr_t.shape[0], n_rows, deg.data_ptr(), plane.data_ptr(),
+        nxt.data_ptr(), plane.shape[1], meta.data_ptr(), n_listed,
+        vis_s.data_ptr(), vis_t.data_ptr(), nf.data_ptr(), pc.data_ptr(),
     )
     _cuda.count_launch(pull_single_batch)
-    return nf, pc, out
+    return nf, pc, nxt
 
 
 pull_single_batch.launches = 0
 
 
-def pull_dual_batch(nbr_t, deg, pair, vis_s, vis_t, active, *,
+def pull_dual_batch(nbr_t, deg, plane, vis_s, vis_t, qids, *,
                     checked: bool = False):
-    """Kernel 3 with a query axis: ``(nf_s, pc_s, nf_t, pc_t, next_pair)``,
-    ``[B, n_rows]`` each and ``next_pair`` ``[B, 2 frontier_words(n_rows)]``,
-    row ``q`` both sides of query ``q`` where ``active[q]``, from its pair
-    row ``pair[q]`` (over the table's ids) and visited rows.
-    ``checked`` skips the validation."""
+    """Kernel 3 with a query axis: ``(nf_s, pc_s, nf_t, pc_t, next_plane)``,
+    ``[A, n_rows]`` each, row ``a`` both sides of query ``qids[a]`` from
+    its plane bits and visited rows ``vis_s[a]``, ``vis_t[a]``; the next
+    plane and ``qids`` as in :func:`pull_single_batch`. ``checked`` skips
+    the validation."""
     if not nbr_t.is_cuda:
-        return pull_dual_batch_plain(nbr_t, deg, pair, vis_s, vis_t, active)
-    b, n_rows = vis_s.shape
+        return pull_dual_batch_plain(nbr_t, deg, plane, vis_s, vis_t, qids)
+    a, n_rows = vis_s.shape
     if not checked:
         vis_s = vis_s.to(torch.bool).contiguous()
         vis_t = vis_t.to(torch.bool).contiguous()
-        _check_batch(nbr_t, deg, 2 * frontier_words(nbr_t.shape[1]), active,
-                     dict(pair=pair), dict(vis_s=vis_s, vis_t=vis_t))
-    tiles = frontier_words(n_rows)
-    nf_s, pc_s, out = _no_discovery(b, n_rows, 2 * tiles, nbr_t.device)
-    nf_t, pc_t, _ = _no_discovery(b, n_rows, 0, nbr_t.device)
-    want = _want(active)
+        _check_batch(nbr_t, deg, plane, qids, None, vis_s=vis_s, vis_t=vis_t)
+    nf_s, pc_s, nf_t, pc_t = _batch_outputs(a, n_rows, 2, nbr_t.device)
+    nxt = torch.empty_like(plane)
+    meta, n_listed = launch_meta(qids, plane.shape[1], pin=True)
+    meta = meta.to(nbr_t.device, non_blocking=True)
     _cuda.launch(
         "pull_expand", "bibfs_pull_dual_batch", nbr_t.data_ptr(),
         nbr_t.stride(0), nbr_t.shape[0], n_rows, deg.data_ptr(),
-        pair.data_ptr(), pair.shape[1], vis_s.data_ptr(), vis_t.data_ptr(),
-        want.data_ptr(), b, nf_s.data_ptr(), pc_s.data_ptr(),
-        nf_t.data_ptr(), pc_t.data_ptr(), out.data_ptr(), tiles,
+        plane.data_ptr(), nxt.data_ptr(), plane.shape[1], meta.data_ptr(),
+        n_listed, vis_s.data_ptr(), vis_t.data_ptr(), nf_s.data_ptr(),
+        pc_s.data_ptr(), nf_t.data_ptr(), pc_t.data_ptr(),
     )
     _cuda.count_launch(pull_dual_batch)
-    return nf_s, pc_s, nf_t, pc_t, out
+    return nf_s, pc_s, nf_t, pc_t, nxt
 
 
 pull_dual_batch.launches = 0

@@ -25,7 +25,10 @@ single-query search ended with: each query's ``(best, meet, par_s,
 par_t, levels, edges)`` is exactly :func:`dense.solve_dense_graph`'s.
 ``stats["host_syncs"]`` counts the reads: the rounds plus the final one.
 On CUDA tensors the pull kernels launch or raise; CPU tensors run their
-plain twins.
+plain twins. The kernel modes also carry every query's frontier as one
+query-packed plane (``st["plane"]``,
+:func:`bibfs_tpu_torch.ops.pull_expand.seed_plane`): each round's kernel
+reads it and writes the next one whole, a frozen query's bits copied.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import numpy as np
 import torch
 
 from bibfs_tpu_torch.ops import expand_batch as xb
-from bibfs_tpu_torch.ops.bitmap import frontier_words, pack_pair_rows, pack_rows
 from bibfs_tpu_torch.solvers.dense import (
     _BIGI,
     _HOST_KEYS,
@@ -84,20 +86,6 @@ class _Rows:
                 st[key] = val
             else:
                 st[key][self.idx] = val
-
-
-def seed_rows(bits, words: int):
-    """``int32[B, words]`` bitmap rows, row ``q`` with bit ``ids[q]`` of
-    each ``ids`` in ``bits`` set: :func:`pack_rows` (or
-    :func:`pack_pair_rows`) of the one-hot starting frontiers, without a
-    pass over ``[B, n]``."""
-    rows = torch.zeros(bits[0].shape[0], words, dtype=torch.int32,
-                       device=bits[0].device)
-    for ids in bits:
-        low = ids & 31  # distinct bits of one word add up to their OR
-        val = torch.where(low == 31, -2**31, torch.ones_like(ids) << low)
-        rows.scatter_add_(1, (ids >> 5)[:, None], val.to(torch.int32)[:, None])
-    return rows
 
 
 def _init_state(n_pad: int, k: int, srcs, dsts, deg) -> dict:
@@ -227,36 +215,38 @@ def _dual_round(st, rows: _Rows, nbr, deg, tiers) -> None:
 
 
 def _put_dual(st, rows, deg, nf_s, par_s, dist_s, md_s, lvl_s, nf_t, par_t,
-              dist_t, md_t, lvl_t, scanned, **extra) -> None:
-    """Write a lock-step round's outputs (and ``extra`` keys) back to the
-    rows of ``rows``."""
+              dist_t, md_t, lvl_t, scanned) -> None:
+    """Write a lock-step round's outputs back to the rows of ``rows``."""
     rows.put(st, fr_s=nf_s, par_s=par_s, dist_s=dist_s, md_s=md_s,
              cnt_s=xb.frontier_count(nf_s), lvl_s=lvl_s,
              ok_s=_no(rows, deg.device),
              fr_t=nf_t, par_t=par_t, dist_t=dist_t, md_t=md_t,
              cnt_t=xb.frontier_count(nf_t), lvl_t=lvl_t,
-             ok_t=_no(rows, deg.device), **extra)
+             ok_t=_no(rows, deg.device))
     _add_edges(st, rows, scanned)
 
 
-def _all(rows: _Rows, device):
-    return torch.ones(int(rows.mask.sum()), dtype=torch.bool, device=device)
+def _qids(rows: _Rows):
+    """The queries of ``rows`` as a plane kernel lists them: ascending, on
+    the host."""
+    return torch.from_numpy(np.flatnonzero(rows.mask))
 
 
 def _kernel_dual_round(st, act: np.ndarray, nbr_t, deg, tiers) -> None:
-    """A ``pallas`` round: kernel 3 on the active rows (gathered when a
-    query is frozen, so a round costs the active queries' rows only),
-    then the hub tiers, distances and counters."""
-    from bibfs_tpu_torch.ops.pull_expand import pull_dual_batch
+    """A ``pallas`` round: kernel 3 on the active queries (their visited
+    rows gathered when a query is frozen, so a round costs the active
+    queries' rows only, and the plane's other bits copied), then the hub
+    tiers, distances and counters."""
+    from bibfs_tpu_torch.ops.pull_expand import plane_set, pull_dual_batch
 
     dev = deg.device
     n_pad = st["par_s"].shape[1]
     rows = _Rows(act, dev)
+    qids = _qids(rows)
     dist_s, dist_t = rows.get(st, "dist_s"), rows.get(st, "dist_t")
     vis_s, vis_t = dist_s < INF32, dist_t < INF32
-    nf_s, pc_s, nf_t, pc_t, front = pull_dual_batch(
-        nbr_t, deg, rows.get(st, "front"), vis_s, vis_t, _all(rows, dev),
-        checked=True)
+    nf_s, pc_s, nf_t, pc_t, plane = pull_dual_batch(
+        nbr_t, deg, st["plane"], vis_s, vis_t, qids, checked=True)
     fr_s, fr_t = rows.get(st, "fr_s"), rows.get(st, "fr_t")
     scanned = xb.frontier_degree_sum(fr_s, deg) + xb.frontier_degree_sum(fr_t, deg)
     par_s = torch.where(nf_s, pc_s, rows.get(st, "par_s"))
@@ -265,53 +255,55 @@ def _kernel_dual_round(st, act: np.ndarray, nbr_t, deg, tiers) -> None:
         nf_s, par_s, nf_t, par_t = xb.apply_tiers_dual(
             nf_s, par_s, nf_t, par_t, fr_s, fr_t, vis_s, vis_t, deg, tiers,
             n_pad)
-        front = pack_pair_rows(nf_s, nf_t, front.shape[1])
+        plane_set(plane_set(plane, qids, nf_s, 0), qids, nf_t, 1)
+    st["plane"] = plane
     lvl_s = rows.get(st, "lvl_s") + 1
     lvl_t = rows.get(st, "lvl_t") + 1
     _put_dual(st, rows, deg,
               nf_s, par_s, xb.stamp(nf_s, dist_s, vis_s, lvl_s),
               xb.max_new_degree(nf_s, deg), lvl_s,
               nf_t, par_t, xb.stamp(nf_t, dist_t, vis_t, lvl_t),
-              xb.max_new_degree(nf_t, deg), lvl_t, scanned, front=front)
+              xb.max_new_degree(nf_t, deg), lvl_t, scanned)
 
 
 def _kernel_single_round(st, act: np.ndarray, on_t: np.ndarray, nbr_t, deg,
                          tiers) -> None:
-    """A ``pallas_alt`` round: kernel 4 on the active rows (as in
-    :func:`_kernel_dual_round`), each query expanding its own side
-    (``on_t``: the target side), then each side's tiers, distances and
-    counters on its rows."""
-    from bibfs_tpu_torch.ops.pull_expand import pull_single_batch
+    """A ``pallas_alt`` round: kernel 4 on the active queries (as in
+    :func:`_kernel_dual_round`), each expanding its own side (``on_t``:
+    the target side), then each side's tiers, distances and counters on
+    its rows."""
+    from bibfs_tpu_torch.ops.pull_expand import plane_set, pull_single_batch
 
     dev = deg.device
     n_pad = st["par_s"].shape[1]
     rows = _Rows(act, dev)
     side_t = on_t[act]
     vis = {s: rows.get(st, f"dist_{s}") < INF32 for s in ("s", "t")}
-    out = dict(zip(("nf", "pc", "bits"), pull_single_batch(
-        nbr_t, deg, rows.get(st, "bits_s"), rows.get(st, "bits_t"), vis["s"],
-        vis["t"], _all(rows, dev), torch.from_numpy(side_t).to(dev),
-        checked=True)))
+    nf_all, pc_all, plane = pull_single_batch(
+        nbr_t, deg, st["plane"], vis["s"], vis["t"],
+        _qids(rows), torch.from_numpy(side_t), checked=True)
+    out = dict(nf=nf_all, pc=pc_all)
     for side, pick in (("s", ~side_t), ("t", side_t)):
         if not pick.any():
             continue
         sub = _Rows(pick, dev)  # the side's rows among the active ones
         mine = _Rows(act & (on_t if side == "t" else ~on_t), dev)
-        nf, pc, bits = (sub.get(out, k) for k in ("nf", "pc", "bits"))
+        nf, pc = sub.get(out, "nf"), sub.get(out, "pc")
         v = sub.get(vis, side)
         fr = mine.get(st, f"fr_{side}")
         scanned = xb.frontier_degree_sum(fr, deg)
         par = torch.where(nf, pc, mine.get(st, f"par_{side}"))
         if tiers:
             nf, par = xb.apply_tiers(nf, par, fr, v, deg, tiers, n_pad)
-            bits = pack_rows(nf, bits.shape[1])
+            plane_set(plane, _qids(mine), nf, int(side == "t"))
         lvl = mine.get(st, f"lvl_{side}") + 1
         mine.put(st, **{
-            f"fr_{side}": nf, f"bits_{side}": bits, f"par_{side}": par,
+            f"fr_{side}": nf, f"par_{side}": par,
             f"dist_{side}": xb.stamp(nf, mine.get(st, f"dist_{side}"), v, lvl),
             f"lvl_{side}": lvl, f"cnt_{side}": xb.frontier_count(nf),
             f"md_{side}": xb.max_new_degree(nf, deg), f"ok_{side}": _no(mine, dev)})
         _add_edges(st, mine, scanned)
+    st["plane"] = plane
 
 
 def _make_body(mode: str, cap: int, tier_meta, nbr, deg, aux):
@@ -379,18 +371,13 @@ def lockstep_search(g, srcs, dsts, mode: str, push_cap: int, stats=None):
     cap = push_cap if DENSE_MODES[mode][1] else 0
     st = _init_state(n_pad, max(cap, 1), srcs, dsts, deg)
     if DENSE_MODES[mode][2]:
-        from bibfs_tpu_torch.ops.pull_expand import check_pull
+        from bibfs_tpu_torch.ops.pull_expand import check_pull, seed_plane
 
         table = _kernel_table(g.tables, nbr, deg)
         if nbr.device.type == "cuda":  # once; the rounds launch checked
             check_pull(table, deg, n_pad)
         aux = ((table,), aux)
-        words = frontier_words(n_pad)
-        if DENSE_MODES[mode][0] == "sync":
-            st["front"] = seed_rows([2 * srcs, 2 * dsts + 1], 2 * words)
-        else:
-            st["bits_s"] = seed_rows([srcs], words)
-            st["bits_t"] = seed_rows([dsts], words)
+        st["plane"] = seed_plane(srcs, dsts, n_pad)
     body = _make_body(mode, cap, g.tier_meta, nbr, deg, aux)
     while True:
         sc = _read(st, stats)

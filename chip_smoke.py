@@ -115,9 +115,13 @@ is unavailable. Phases:
 9. The lock-step batch of the per-query modes (run after phase 5 on the
    phase 3 graph): kernels 3 and 4 with a query axis
    (``pull_dual_batch``, ``pull_single_batch``) against their plain twins
-   on a seeded mid-search batch of 256 queries (about a fifth inactive,
-   a random side per query for kernel 4), exactly, with a ``step`` line
-   each (kernel ms, the twin's ms, the bound); then phase 5's 256 pairs
+   on seeded mid-search batches of 256, 37 and 1 queries (about a fifth
+   not listed, a random side per listed query for kernel 4) and of 256
+   with one listed query (a tail's launch), the
+   query-packed plane made from the state's rows, exactly, with a
+   ``step`` line each (kernel ms, the twin's ms, the bound for the
+   listed rows and PR 9's bound, the listed rows, the table walks per
+   launch); then phase 5's 256 pairs
    through ``time_batch_graph`` in modes sync, sync_unfused, alt, beamer,
    beamer_alt, pallas, pallas_alt and fused, every count set to 0 just
    before and read after (both batched kernels must launch): 32 pairs
@@ -820,8 +824,9 @@ def refill_phase(dev) -> None:
 def lockstep_state(g, b: int, seed: int):
     """A seeded mid-search batch made on the card: per side ``[b, n_pad]``
     visited rows (about 30% of the vertices) and frontier rows (a third
-    of those), about a fifth of the queries inactive, and a random side
-    per query for kernel 4."""
+    of those), the listed queries (about four fifths; query 0 where the
+    draw lists none) and a random side per listed query for kernel 4, both
+    on the host, as the wrappers take them."""
     dev = g.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -830,70 +835,93 @@ def lockstep_state(g, b: int, seed: int):
     fr = vis & (torch.rand((2, b, g.n_pad), generator=gen, device=dev) < 1 / 3)
     active = torch.rand(b, generator=gen, device=dev) < 0.8
     side = torch.rand(b, generator=gen, device=dev) < 0.5
-    return fr, vis, active, side
+    if not active.any():
+        active[0] = True
+    qids = torch.nonzero(active).flatten()
+    return fr, vis, qids.cpu(), side[qids].cpu()
+
+
+def lockstep_bound(nbr_t, n_pad: int, fr, vis, qids, side, dual: bool,
+                   written) -> tuple[list, str, float, float]:
+    """The bounds of one batched launch, one per row count of
+    ``written``: each listed query's frontier bits and visited row read
+    once per expanded side, that many queries' output rows (nf, parent)
+    and next frontier bits written once, and 4 B for each table slot
+    some listed query's claim needs (the table read once for all of
+    them); operations, 4 per slot per query. Returns the bounds (ms),
+    what bounds the first, the table MB needed and the slots per query."""
+    k = 2 if dual else 1
+    union = torch.zeros(n_pad, dtype=torch.int64, device=nbr_t.device)
+    slots = 0
+    for i, q in enumerate(qids.tolist()):
+        if dual:
+            front = pack_dual(fr[0, q], fr[1, q])
+            want_q = ((~vis[0, q]).to(torch.uint8)
+                      | ((~vis[1, q]).to(torch.uint8) << 1))
+        else:
+            t = int(side[i])
+            front = fr[t, q].to(torch.uint8)
+            want_q = (~vis[t, q]).to(torch.uint8)
+        read = slots_read(nbr_t, n_pad, front, want_q)
+        union = torch.maximum(union, read)
+        slots += int(read.sum())
+    bits_row = 4 * bm.frontier_words(n_pad)
+    bounds = [bound_ms(len(qids) * k * (bits_row + n_pad)
+                       + rows * k * (5 * n_pad + bits_row)
+                       + 4 * int(union.sum()), 4 * slots) for rows in written]
+    return ([ms for ms, _ in bounds], bounds[0][1], 4 * int(union.sum()) / 1e6,
+            slots / len(qids))
 
 
 def lockstep_kernel_phase(g, geometry: str, results: dict) -> None:
-    """Kernels 3 and 4 with a query axis against their plain twins on a
-    seeded mid-search batch of ``BATCH`` queries (:func:`lockstep_state`),
-    every output exactly equal (an inactive query's rows stay no
-    discovery), and one ``step`` line each: kernel ms over 25 launches
-    (the wrapper: its output fill and the launch), the twin's ms over 5,
-    and the bound. The bound's bytes: each active query's frontier and
-    visited rows read once, every query's output rows written once, and
-    4 B for each table slot some active query's claim needs (the table
-    is read once for all of them); its operations, 4 per slot per query."""
+    """Kernels 3 and 4 with a query axis against their plain twins on
+    seeded mid-search batches (:func:`lockstep_state`) of ``BATCH``, 37
+    and 1 queries, and of ``BATCH`` with one listed query (a tail's
+    launch), the plane packed from the state's rows, every output exactly
+    equal (the next plane included), and one ``step`` line each: kernel
+    ms over 25 launches (the wrapper: its launch metadata, the plane copy
+    where a word has no listed query, and the launch), the twin's ms over
+    5, the bound for the listed rows and PR 9's (every query's rows
+    written, :func:`lockstep_bound`), the listed rows, the table walks per
+    launch (the plane words with a listed query: the kernels walk the
+    table once per word) and the plane's MB."""
     nbr_t = dense._kernel_table(g.tables, g.nbr, g.deg)
-    n_pad, b = g.n_pad, BATCH
-    words = bm.frontier_words(n_pad)
-    fr, vis, active, side = lockstep_state(g, b, seed=25)
-    cases = {
-        "pull_dual_batch": (nbr_t, g.deg, bm.pack_pair_rows(fr[0], fr[1], 2 * words),
-                            vis[0], vis[1], active),
-        "pull_single_batch": (nbr_t, g.deg, bm.pack_rows(fr[0], words),
-                              bm.pack_rows(fr[1], words), vis[0], vis[1],
-                              active, side),
-    }
-    act_q = torch.nonzero(active).flatten().tolist()
-    for name, args in cases.items():
-        wrapper, plain = LOCKSTEP[name][:2]
-        got = wrapper(*args)
-        want = plain(*args)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        check(err == 0, f"{name} differs from its plain twin at {geometry}")
-        del got, want
-        dual = name == "pull_dual_batch"
-        k = 2 if dual else 1
-        union = torch.zeros(n_pad, dtype=torch.int64, device=g.device)
-        slots = 0
-        for q in act_q:
-            if dual:
-                front = pack_dual(fr[0, q], fr[1, q])
-                want_q = ((~vis[0, q]).to(torch.uint8)
-                          | ((~vis[1, q]).to(torch.uint8) << 1))
-            else:
-                t = int(side[q])
-                front = fr[t, q].to(torch.uint8)
-                want_q = (~vis[t, q]).to(torch.uint8)
-            read = slots_read(nbr_t, n_pad, front, want_q)
-            union = torch.maximum(union, read)
-            slots += int(read.sum())
-        bits_row = 4 * words
-        nbytes = (len(act_q) * k * (bits_row + n_pad)
-                  + b * k * (5 * n_pad + bits_row) + 4 * int(union.sum()))
-        b_ms, by = bound_ms(nbytes, 4 * slots)
-        ms = time_launch(lambda: wrapper(*args, checked=True))
-        plain_ms = time_launch(lambda: plain(*args), reps=5)
-        step_line(name, geometry, "query_axis", ms, plain_ms=plain_ms,
-                  bound_ms=b_ms, b=b, active=len(act_q),
-                  ms_per_active_query=ms / len(act_q),
-                  table_mb_needed=4 * int(union.sum()) / 1e6,
-                  slots_per_query=slots / len(act_q))
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=by)
-    del fr, vis, cases
-    torch.cuda.empty_cache()
+    n_pad = g.n_pad
+    for b, seed, one in ((BATCH, 25, False), (37, 26, False), (1, 27, False),
+                         (BATCH, 28, True)):
+        fr, vis, qids, side = lockstep_state(g, b, seed)
+        if one:  # the tail: one listed query among b
+            qids, side = qids[:1], side[:1]
+        plane = pe.pack_plane(fr[0], fr[1])
+        vis_l = (vis[0][qids.to(g.device)], vis[1][qids.to(g.device)])
+        cases = {"pull_dual_batch": (nbr_t, g.deg, plane, *vis_l, qids),
+                 "pull_single_batch": (nbr_t, g.deg, plane, *vis_l, qids, side)}
+        walks = int(torch.unique(qids >> 4).numel())
+        for name, args in cases.items():
+            wrapper, plain = LOCKSTEP[name][:2]
+            got = wrapper(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            check(err == 0, f"{name} differs from its plain twin at {geometry} "
+                  f"B={b}")
+            del got, want
+            dual = name == "pull_dual_batch"
+            (b_ms, b9_ms), by, table_mb, per_q = lockstep_bound(
+                nbr_t, n_pad, fr, vis, qids, side, dual, (len(qids), b))
+            ms = time_launch(lambda: wrapper(*args, checked=True))
+            plain_ms = time_launch(lambda: plain(*args), reps=5)
+            step_line(name, geometry, "query_axis", ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_ms_pr9=b9_ms, b=b,
+                      active=len(qids), table_walks=walks,
+                      plane_mb=plane.numel() * 4 / 1e6,
+                      ms_per_active_query=ms / len(qids),
+                      table_mb_needed=table_mb, slots_per_query=per_q)
+            if b == BATCH and not one:
+                results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                     bound_ms=b_ms, bound_by=by)
+        del fr, vis, cases, plane, vis_l
+        torch.cuda.empty_cache()
 
 
 def lockstep_drive(g, csr, pairs, geometry: str, modes, k_check: int,

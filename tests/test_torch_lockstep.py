@@ -8,8 +8,10 @@ edges) and the results (found, hops, path), on random and tiered graphs
 with batches that mix a ``src == dst`` query, an unreachable pair, a
 1-hop pair and the graph's deepest pair, so finished queries freeze while
 others run; the batched plain twins of kernels 3 and 4 against
-``jax.vmap`` of the reference's Pallas pull kernels in interpret mode;
-the host reads of a batch; forced multi-chunk gathers. On a CUDA card
+``jax.vmap`` of the reference's Pallas pull kernels in interpret mode,
+on a query-packed plane at ragged batch sizes, and the plane's packer,
+seeder and rebuild; the host reads of a batch; forced multi-chunk
+gathers. On a CUDA card
 only, the batched kernels against their twins."""
 
 import numpy as np
@@ -208,7 +210,8 @@ def test_forced_chunks_match(mode, monkeypatch):
 
 def _pull_state(n, seed, b):
     """A seeded batch of mid-search rows over G(n, 3/n): per side ``[B,
-    n_pad]`` frontier and visited rows, plus the port's table."""
+    n_pad]`` frontier and visited rows, plus the port's table. Query 0's
+    two sides are equal, as a ``src == dst`` query's are."""
     import torch
 
     from bibfs_tpu_torch.graph.csr import build_ell
@@ -219,6 +222,7 @@ def _pull_state(n, seed, b):
     g = build_ell(n, gnp_random_graph(n, 3.0 / n, seed=seed))
     fr = rng.random((2, b, g.n_pad)) < 0.05
     vis = (rng.random((2, b, g.n_pad)) < 0.3) | fr
+    fr[1, 0], vis[1, 0] = fr[0, 0], vis[0, 0]
     fr[:, :, n:] = False
     vis[:, :, n:] = False
     (tt,) = tpe.prepare_pallas_tables(torch.as_tensor(g.nbr),
@@ -226,98 +230,176 @@ def _pull_state(n, seed, b):
     return g, fr, vis, tt
 
 
-@pytest.mark.parametrize("n,seed", [(300, 1), (1_001, 2)])
-def test_batched_twins_match_vmapped_pallas(n, seed):
-    """Kernels 3 and 4 with a query axis (plain twins): each active
-    query's next frontier exactly and its parent where that is set, as
-    ``jax.vmap`` of the reference's ``run_pull`` / ``run_pull_dual``
-    (interpret mode) gives them, kernel 4 on each query's chosen side;
-    an inactive query's rows hold no discovery."""
+def _listed(rng, b):
+    """A seeded ascending set of listed queries (query 0 always, some
+    others left out) and a side per listed query."""
+    qids = np.flatnonzero((rng.random(b) < 0.7) | (np.arange(b) == 0))
+    return qids, rng.random(qids.size) < 0.5
+
+
+@pytest.mark.parametrize("n,seed,b", [
+    pytest.param(300, 1, 5, id="300-1"),
+    pytest.param(1_001, 2, 5, id="1001-2"),
+    pytest.param(300, 3, 1, id="300-3-b1"),
+    pytest.param(1_001, 4, 17, id="1001-4-b17"),
+    pytest.param(300, 5, 37, id="300-5-b37"),
+])
+def test_batched_twins_match_vmapped_pallas(n, seed, b):
+    """Kernels 3 and 4 with a query axis (plain twins) on a query-packed
+    plane: each listed query's next frontier exactly and its parent where
+    that is set, as ``jax.vmap`` of the reference's ``run_pull`` /
+    ``run_pull_dual`` (interpret mode) gives them, kernel 4 on each listed
+    query's side; the next plane is the packed rows with the expanded
+    (query, side) rows replaced by ``nf`` and every other bit copied."""
     import jax
     import jax.numpy as jnp
     import torch
 
     from bibfs_tpu.ops import pallas_expand as jpe
 
-    from bibfs_tpu_torch.ops import bitmap as bm
     from bibfs_tpu_torch.ops import pull_expand as tpe
 
-    b = 5
     g, fr, vis, tt = _pull_state(n, seed, b)
     (jt,) = jpe.prepare_pallas_tables(jnp.asarray(g.nbr), jnp.asarray(g.deg))
-    active = np.array([True, False, True, True, True])
-    side = np.array([False, True, True, False, True])
-    words = bm.frontier_words(g.n_pad)
-    f, v = torch.as_tensor(fr), torch.as_tensor(vis)
+    qids, side = _listed(np.random.default_rng(seed + 100), b)
+    plane = tpe.pack_plane(torch.as_tensor(fr[0]), torch.as_tensor(fr[1]))
+    assert plane.shape == (g.n_pad, -(-b // 16))
+    q_t = torch.as_tensor(qids)
     deg = tpe.live_slots(tt)
 
     def check(nf_j, pc_j, nf_t, pc_t):
         nf_j, pc_j, nf_t, pc_t = (_np(x) for x in (nf_j, pc_j, nf_t, pc_t))
-        for q in range(b):
-            if active[q]:
-                assert np.array_equal(nf_j[q], nf_t[q])
-                assert np.array_equal(pc_j[q][nf_t[q]], pc_t[q][nf_t[q]])
-                assert (pc_t[q][~nf_t[q]] == -1).all()
-            else:
-                assert not nf_t[q].any() and (pc_t[q] == -1).all()
+        assert nf_t.shape == pc_t.shape == (qids.size, g.n_pad)
+        for i in range(qids.size):
+            assert np.array_equal(nf_j[i], nf_t[i])
+            assert np.array_equal(pc_j[i][nf_t[i]], pc_t[i][nf_t[i]])
+            assert (pc_t[i][~nf_t[i]] == -1).all()
 
-    chosen = np.where(side[None, :, None], fr[1], fr[0]), np.where(
-        side[None, :, None], vis[1], vis[0])
+    def next_plane(rows, nfs):
+        want = rows.copy()
+        for sd, i, nf in nfs:
+            want[sd, qids[i]] = _np(nf)
+        return tpe.pack_plane(torch.as_tensor(want[0]), torch.as_tensor(want[1]))
+
+    sel = (np.where(side[:, None], fr[1, qids], fr[0, qids]),
+           np.where(side[:, None], vis[1, qids], vis[0, qids]))
     nf_j, pc_j = jax.vmap(lambda a, c: jpe.run_pull((jt,), a, c))(
-        jnp.asarray(chosen[0][0]), jnp.asarray(chosen[1][0]))
-    nf, pc, nbits = tpe.pull_single_batch(
-        tt, deg, bm.pack_rows(f[0], words), bm.pack_rows(f[1], words), v[0],
-        v[1], torch.as_tensor(active), torch.as_tensor(side))
+        jnp.asarray(sel[0]), jnp.asarray(sel[1]))
+    nf, pc, nxt = tpe.pull_single_batch(
+        tt, deg, plane, torch.as_tensor(vis[0, qids]),
+        torch.as_tensor(vis[1, qids]), q_t, torch.as_tensor(side))
     check(nf_j, pc_j, nf, pc)
-    assert torch.equal(nbits, bm.pack_rows(nf, words))
+    assert torch.equal(nxt, next_plane(
+        fr, [(int(sd), i, nf[i]) for i, sd in enumerate(side)]))
 
     outs_j = jax.vmap(lambda a, c, d, e: jpe.run_pull_dual((jt,), a, c, d, e))(
-        *(jnp.asarray(x) for x in (fr[0], fr[1], vis[0], vis[1])))
+        *(jnp.asarray(x[qids]) for x in (fr[0], fr[1], vis[0], vis[1])))
     outs_t = tpe.pull_dual_batch(
-        tt, deg, bm.pack_pair_rows(f[0], f[1], 2 * words), v[0], v[1],
-        torch.as_tensor(active))
+        tt, deg, plane, torch.as_tensor(vis[0, qids]),
+        torch.as_tensor(vis[1, qids]), q_t)
     check(outs_j[0], outs_j[1], outs_t[0], outs_t[1])
     check(outs_j[2], outs_j[3], outs_t[2], outs_t[3])
-    assert torch.equal(outs_t[4], bm.pack_pair_rows(outs_t[0], outs_t[2],
-                                                    2 * words))
+    assert torch.equal(outs_t[4], next_plane(
+        fr, [(sd, i, outs_t[2 * sd][i]) for i in range(qids.size)
+             for sd in (0, 1)]))
 
 
-@pytest.mark.parametrize("n", [1, 31, 300, 1_001])
-def test_pack_rows_match_per_row(n):
+@pytest.mark.parametrize("n,b", [(1, 1), (31, 16), (300, 17), (1_001, 37)])
+def test_pack_plane_matches_per_query_columns(n, b):
+    """The plane holds query ``q``'s sides at bits ``2 (q & 15)`` and
+    ``2 (q & 15) + 1`` of word ``q >> 4`` (the batch-minor pair-row order),
+    the spare bits of a ragged last word zero."""
     import torch
 
-    from bibfs_tpu_torch.ops import bitmap as bm
+    from bibfs_tpu_torch.ops import pull_expand as tpe
 
-    rng = np.random.default_rng(n)
-    fr = torch.as_tensor(rng.random((2, 3, n)) < 0.3)
-    words = bm.frontier_words(n)
-    rows = bm.pack_rows(fr[0], words)
-    pairs = bm.pack_pair_rows(fr[0], fr[1], 2 * words)
-    for q in range(3):
-        assert torch.equal(rows[q], bm.pack_bits(fr[0, q], words))
-        assert torch.equal(pairs[q], bm.pack_pairs(fr[0, q], fr[1, q], 2 * words))
+    rng = np.random.default_rng(n + b)
+    fr = torch.as_tensor(rng.random((2, b, n)) < 0.3)
+    plane = tpe.pack_plane(fr[0], fr[1])
+    assert plane.shape == (n, tpe.plane_words(b)) and plane.dtype == torch.int32
+    words = plane.numpy().astype(np.uint32)
+    for q in range(16 * plane.shape[1]):
+        col = words[:, q >> 4] >> np.uint32(2 * (q & 15))
+        for side in (0, 1):
+            bits = ((col >> np.uint32(side)) & 1).astype(bool)
+            assert np.array_equal(bits, fr[side, q].numpy() if q < b
+                                  else np.zeros(n, bool))
 
 
-@pytest.mark.parametrize("n", [1, 31, 64, 1_001])
-def test_seed_rows_pack_the_starting_frontiers(n):
-    """The kernel modes' starting bitmaps equal the packed one-hot rows,
-    with ``src == dst`` and bit 31 of a word among the seeds."""
+@pytest.mark.parametrize("n,b", [(1, 1), (31, 5), (64, 17), (1_001, 37)])
+def test_seed_plane_packs_the_starting_frontiers(n, b):
+    """The kernel modes' starting plane equals the packed one-hot rows,
+    with ``src == dst`` queries and the top bit of a word (query 15) among
+    the seeds."""
     import torch
 
-    from bibfs_tpu_torch.ops import bitmap as bm
-    from bibfs_tpu_torch.solvers.dense_batch import seed_rows
+    from bibfs_tpu_torch.ops import pull_expand as tpe
 
-    rng = np.random.default_rng(n)
-    srcs = torch.as_tensor(np.r_[rng.integers(0, n, 5), n - 1, min(31, n - 1)])
-    dsts = torch.as_tensor(np.r_[rng.integers(0, n, 5), n - 1, min(15, n - 1)])
-    q = torch.arange(len(srcs))
-    fr = torch.zeros(2, len(srcs), n, dtype=torch.bool)
+    rng = np.random.default_rng(n * b)
+    srcs = torch.as_tensor(rng.integers(0, n, b))
+    dsts = torch.as_tensor(rng.integers(0, n, b))
+    dsts[0] = srcs[0]
+    q = torch.arange(b)
+    fr = torch.zeros(2, b, n, dtype=torch.bool)
     fr[0, q, srcs] = True
     fr[1, q, dsts] = True
-    words = bm.frontier_words(n)
-    assert torch.equal(seed_rows([srcs], words), bm.pack_rows(fr[0], words))
-    assert torch.equal(seed_rows([2 * srcs, 2 * dsts + 1], 2 * words),
-                       bm.pack_pair_rows(fr[0], fr[1], 2 * words))
+    assert torch.equal(tpe.seed_plane(srcs, dsts, n), tpe.pack_plane(fr[0], fr[1]))
+
+
+@pytest.mark.parametrize("b,one", [(1, False), (37, False), (256, False),
+                                   (256, True)])
+def test_launch_meta_lists_rows_words_and_sides(b, one):
+    """The host-made launch metadata of the CUDA kernels: the slot map
+    gives each listed query its row and every other query -1, the listed
+    words are the distinct words of the listed queries in order (the
+    grid's width), and the sides follow."""
+    import torch
+
+    from bibfs_tpu_torch.ops import pull_expand as tpe
+
+    qids, side = _listed(np.random.default_rng(b), b)
+    if one:
+        qids, side = qids[-1:], side[-1:]
+    words = tpe.plane_words(b)
+    for sd in (None, torch.as_tensor(side)):
+        meta, n_listed = tpe.launch_meta(torch.as_tensor(qids), words, sd)
+        meta = meta.numpy()
+        assert meta.dtype == np.int32
+        slot = np.full(16 * words, -1)
+        slot[qids] = np.arange(qids.size)
+        listed = np.unique(qids >> 4)
+        assert n_listed == listed.size
+        assert np.array_equal(meta[:16 * words], slot)
+        assert np.array_equal(meta[16 * words:16 * words + n_listed], listed)
+        rest = meta[16 * words + n_listed:]
+        assert np.array_equal(rest, side.astype(np.int32) if sd is not None
+                              else np.zeros(0, np.int32))
+
+
+@pytest.mark.parametrize("budget", [None, 64])
+@pytest.mark.parametrize("b", [1, 17, 37])
+def test_plane_set_rebuilds_listed_columns(b, budget, monkeypatch):
+    """The tiered rounds' rebuild: one side's bits of the listed queries
+    replaced by their rows, every other bit (the other side, unlisted
+    queries, spare bits) kept, in one chunk or in many."""
+    import torch
+
+    from bibfs_tpu_torch.ops import pull_expand as tpe
+
+    if budget is not None:
+        monkeypatch.setattr(tpe, "LOCKSTEP_BUDGET_BYTES", budget)
+    rng = np.random.default_rng(b)
+    n = 203
+    fr = rng.random((2, b, n)) < 0.4
+    qids, _ = _listed(rng, b)
+    rows = rng.random((qids.size, n)) < 0.4
+    for side in (0, 1):
+        plane = tpe.pack_plane(torch.as_tensor(fr[0]), torch.as_tensor(fr[1]))
+        tpe.plane_set(plane, torch.as_tensor(qids), torch.as_tensor(rows), side)
+        want = fr.copy()
+        want[side, qids] = rows
+        assert torch.equal(plane, tpe.pack_plane(torch.as_tensor(want[0]),
+                                                 torch.as_tensor(want[1])))
 
 
 def test_flatnonzero_rows():
@@ -335,29 +417,29 @@ def test_flatnonzero_rows():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [3_001, 20_000])
-def test_cuda_batched_pull_matches_plain(n, cuda_device):
+@pytest.mark.parametrize("n,b,one", [(3_001, 6, False), (20_000, 6, False),
+                                     (3_001, 37, False), (3_001, 40, True)])
+def test_cuda_batched_pull_matches_plain(n, b, one, cuda_device):
     """On a card: kernels 3 and 4 with a query axis against their plain
-    twins, exactly, with the launch counters moving; an inactive query's
-    rows stay as the wrapper filled them."""
+    twins on a plane with unlisted queries (one listed query among 40:
+    the plane copy and a one-word grid), exactly, with the launch
+    counters moving."""
     import torch
 
-    from bibfs_tpu_torch.ops import bitmap as bm
     from bibfs_tpu_torch.ops import pull_expand as pe
 
-    b = 6
     g, fr, vis, tt = _pull_state(n, 3, b)
     dev = cuda_device
     tt = tt.to(dev)
     deg = torch.as_tensor(g.deg).to(dev)
-    f, v = torch.as_tensor(fr).to(dev), torch.as_tensor(vis).to(dev)
-    words = bm.frontier_words(g.n_pad)
-    active = torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.bool, device=dev)
-    side = torch.tensor([0, 1, 1, 0, 0, 1], dtype=torch.bool, device=dev)
-    args1 = (tt, deg, bm.pack_rows(f[0], words), bm.pack_rows(f[1], words),
-             v[0], v[1], active, side)
-    args3 = (tt, deg, bm.pack_pair_rows(f[0], f[1], 2 * words), v[0], v[1],
-             active)
+    qids, side = _listed(np.random.default_rng(b), b)
+    if one:
+        qids, side = qids[-1:], side[-1:]
+    q = torch.as_tensor(qids)
+    plane = pe.pack_plane(torch.as_tensor(fr[0]), torch.as_tensor(fr[1])).to(dev)
+    v = [torch.as_tensor(vis[s, qids]).to(dev) for s in (0, 1)]
+    args1 = (tt, deg, plane, v[0], v[1], q, torch.as_tensor(side))
+    args3 = (tt, deg, plane, v[0], v[1], q)
     before = (pe.pull_single_batch.launches, pe.pull_dual_batch.launches)
     for x, y in zip(pe.pull_single_batch(*args1), pe.pull_single_batch_plain(*args1)):
         assert torch.equal(x, y)

@@ -36,9 +36,8 @@ def frontier_fraction_hist():
     per-level frontier size as a fraction of ``n``, fed by every
     telemetry-enabled solve that knows its graph size (``n`` set on the
     collector). The adaptive routing layer (``serve/policy.py``) mints
-    it at construction so it renders at zero (that layer comes with a
-    later slice of the port); solves that record into it share the same
-    cell."""
+    it at construction so it renders at zero; solves that record into it
+    share the same cell."""
     global _FRACTION_HIST
     if _FRACTION_HIST is None:
         from bibfs_tpu_torch.obs.metrics import REGISTRY

@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pull_expand", "fused_level", "batch_minor")
+SOURCES = ("pull_expand", "fused_level", "batch_minor", "blocked_expand")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +53,10 @@ SIGNATURES = {
     "batch_minor": {
         "bibfs_minor_level": [_I, _P, _I64, _I, _I64, _P, _I64, _I64, _P, _P,
                               _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    },
+    "blocked_expand": {
+        "bibfs_blocked_level": [_P, _P, _I64, _I, _P, _P, _P, _I64, _I64, _P,
+                                _I, _P],
     },
 }
 

@@ -76,6 +76,17 @@ def ell_bucket_key(g) -> tuple:
     return ("ell", g.n_pad, g.width)
 
 
+def placement_bucket_key(base_key: tuple, *, kind: str, shards: int,
+                         extra: tuple = ()) -> tuple:
+    """Extend a shape bucket key with its placement: ``kind`` names the
+    placement family (``"blocked"`` the tile route; the mesh families come
+    with the multi-GPU slice), ``shards`` the device count, ``extra`` any
+    further program discriminators (plane type, batch rung). A blocked
+    program thus never counts as a hit on a device executable of the same
+    padded vertex shape."""
+    return base_key + ((kind, int(shards)) + tuple(extra),)
+
+
 def bucketed_ell(
     n: int,
     edges: np.ndarray | None = None,

@@ -21,10 +21,13 @@ result stream; a malformed line answers an ``error invalid: ...`` line
 and the stream goes on; SIGTERM drains (health reads draining, queued
 queries resolve and print) and exits 0.
 
+``--blocked`` adds the blocked tile rung ahead of the device rung
+(``blocked -> device -> host``), and ``--adaptive`` orders the ladder per
+graph from measured route latencies.
+
 The engine runs on ``cuda`` unless ``--device cpu`` is given. The store,
-mesh, blocked, adaptive, oracle, network, load-harness, metrics and
-trace flags of ``bibfs-serve`` come with later slices of the port
-(ROADMAP Queue 1).
+mesh, oracle, network, load-harness, metrics and trace flags of
+``bibfs-serve`` come with later slices of the port (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -92,6 +95,19 @@ def main(argv=None):
                     help="queue depth at which a flush dispatches as a "
                     "device batch (default: the device's batch crossover); "
                     "below it queries run on the host runtime")
+    ap.add_argument("--blocked", action="store_true",
+                    help='enable route="blocked": above-crossover flushes on '
+                    "tile-compact (dense-ish or grid) graphs advance as int8 "
+                    "block products over the 128x128 tiled adjacency instead "
+                    "of ELL gathers. The rung leads the ladder (blocked -> "
+                    "device -> host) with its own breaker and retry policy; "
+                    "its crossover constants come from calibration.json "
+                    "(the platform's blocked block), else 128 queries and a "
+                    "waste cap of 128")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="adaptive routing: learn a per-graph route order "
+                    "from measured per-route latencies and sampled level "
+                    "telemetry instead of the static ladder (in memory)")
     ap.add_argument("--max-batch", type=int, default=1024,
                     help="largest single device flush (default 1024)")
     ap.add_argument("--cache-entries", type=int, default=64,
@@ -140,6 +156,10 @@ def _build_engine(args, n, edges):
         cache_entries=args.cache_entries,
         device=args.device,
     )
+    if args.blocked:
+        kwargs["blocked"] = True
+    if args.adaptive:
+        kwargs["adaptive"] = True
     if args.inject_faults is not None:
         import os
 

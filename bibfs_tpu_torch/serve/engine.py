@@ -23,9 +23,10 @@ batches for the card:
   :class:`~bibfs_tpu_torch.serve.cache.DistanceCache`; repeated sources
   (and their reverse twins) answer later queries on the host with no
   dispatch.
-- **resilience** — the ladder ``device -> host`` with bounded retries
-  and a circuit breaker on the device rung, and per-query isolation on
-  the host rung (``serial`` as each singleton's last chance). Every
+- **resilience** — the ladder ``device -> host`` (``blocked -> device
+  -> host`` with ``blocked=``) with bounded retries and a circuit breaker
+  on each dispatch rung, and per-query isolation on the host rung
+  (``serial`` as each singleton's last chance). Every
   degrade is counted in ``bibfs_route_fallbacks_total`` and
   ``bibfs_retries_total`` and shows in ``stats()["resilience"]``. No
   degrade hides a kernel: on a CUDA device the constructor builds the
@@ -33,8 +34,17 @@ batches for the card:
   device flush that fails for any reason but an injected fault
   (:class:`~bibfs_tpu_torch.serve.faults.InjectedFault`, the chaos seam)
   fails its tickets with a ``kind='internal'`` :class:`QueryError`
-  instead of being re-solved on the host. An engine on the CPU keeps the
-  JAX package's ladder, which degrades on any failure.
+  instead of being re-solved on the host; the blocked rung follows the
+  same rule. An engine on the CPU keeps the JAX package's ladder, which
+  degrades on any failure.
+- **blocked route** — ``blocked=`` adds the tile rung
+  (:mod:`bibfs_tpu_torch.serve.routes.blocked`): above its crossover, on
+  a graph whose tile structure is compact, a flush advances as int8
+  block products over the tiled adjacency (a hand-written tensor-core
+  kernel on the card).
+- **adaptive routing** — ``adaptive=`` orders the ladder per graph digest
+  from measured per-route latencies
+  (:class:`~bibfs_tpu_torch.serve.policy.AdaptiveRouter`).
 
 Every result is a :class:`~bibfs_tpu_torch.solvers.api.BFSResult` whose
 fields equal the JAX package's engine on the same queries; device
@@ -48,10 +58,9 @@ and :meth:`QueryEngine._device_finish`), which the synchronous engine
 runs in turn and the pipelined engine
 (:mod:`bibfs_tpu_torch.serve.pipeline`) overlaps across batches.
 
-The graph store, the distance oracle, the mesh and blocked routes,
-adaptive routing and the query kinds other than point-to-point come
-with later slices of the port (ROADMAP Queue 1); their constructor
-options raise ``NotImplementedError``.
+The graph store, the distance oracle, the mesh route and the query kinds
+other than point-to-point come with later slices of the port (ROADMAP
+Queue 1); their constructor options raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -93,29 +102,30 @@ from bibfs_tpu_torch.utils.platform import resolve_device
 BATCH_LAYOUT_MODES = ("auto", "minor", "minor8")
 
 #: constructor options of later slices -> the ROADMAP Queue 1 item
-_UNPORTED = {"store": 6, "graph": 6, "oracle_k": 6, "blocked": 5,
-             "adaptive": 5, "mesh": 8}
+_UNPORTED = {"store": 6, "graph": 6, "oracle_k": 6, "mesh": 8}
 
 
-def _mode_sources(mode: str) -> tuple:
+def _mode_sources(mode: str, blocked: bool = False) -> tuple:
     """The CUDA sources (``ops/_cuda.SOURCES``) a flush in ``mode``
     launches kernels from: the batch-minor level for the minor layouts
     (``auto`` included), the pull kernels for the kernel modes (a batch
     runs ``fused``/``fused_alt`` as ``pallas``/``pallas_alt``), none for
-    the torch-composed modes."""
+    the torch-composed modes; plus the blocked kernel with the blocked
+    rung."""
     from bibfs_tpu_torch.solvers.dense import DENSE_MODES
 
+    extra = ("blocked_expand",) if blocked else ()
     if mode in BATCH_LAYOUT_MODES:
-        return ("batch_minor",)
-    return ("pull_expand",) if DENSE_MODES[mode][2] else ()
+        return ("batch_minor",) + extra
+    return (("pull_expand",) if DENSE_MODES[mode][2] else ()) + extra
 
 
 def _engine_counter_bank(label: str) -> MetricBank:
     """The engine's query-accounting cells under the JAX package's family
     names. One bank per engine instance (``engine="sync-3"``), so
     per-engine ``stats()`` stays exact while a scrape sees every engine.
-    The routes of later slices (oracle, overlay, mesh, blocked) are
-    minted too and stay at zero."""
+    The routes of later slices (oracle, overlay, mesh) are minted too and
+    stay at zero."""
     queries = REGISTRY.counter(
         "bibfs_queries_total", "Queries submitted to a serving engine",
         ("engine",),
@@ -154,7 +164,7 @@ class _ResilienceCells:
     """The per-engine resilience registry cells, every one minted at
     construction so a scrape shows the families at zero from the start."""
 
-    def __init__(self, label: str):
+    def __init__(self, label: str, *, blocked: bool = False):
         errors = REGISTRY.counter(
             "bibfs_errors_total",
             "Per-ticket query failures by taxonomy kind",
@@ -193,14 +203,23 @@ class _ResilienceCells:
             k: errors.labels(engine=label, kind=k) for k in ERROR_KINDS
         }
         self._fallback_family = fallbacks
+        pairs = [("device", "host"), ("host", "serial")]
+        if blocked:
+            # the blocked rung's two exits: the device rung, or straight
+            # to the host when device is ineligible
+            pairs = [("blocked", "device"), ("blocked", "host")] + pairs
         self.fallbacks = {
             (a, b): fallbacks.labels(**{"engine": label, "from": a, "to": b})
-            for a, b in (("device", "host"), ("host", "serial"))
+            for a, b in pairs
         }
         self._retry_family = retries
         self._retry_cells = {
             "device": retries.labels(engine=label, route="device"),
         }
+        if blocked:
+            self._retry_cells["blocked"] = retries.labels(
+                engine=label, route="blocked"
+            )
         self.bisections = bisections.labels(engine=label)
         self._label = label
 
@@ -252,13 +271,14 @@ class _Pending:
 
 
 @guarded_by("_lock", "_graph", "bucket_key", "_host_solver",
-            "host_native_graph", "_serial_solver", "host_backend_resolved")
+            "host_native_graph", "_serial_solver", "host_backend_resolved",
+            "_blocked_graph", "blocked_bucket_key", "_blocked_meta")
 class _GraphRuntime:
     """Everything an engine knows about solving one immutable graph
     snapshot: the lazily built and uploaded device graph and its bucket
-    key, the host solvers (native / serial), and the distance-cache
-    namespace ``graph_id`` (the snapshot's content digest unless the
-    caller overrides it)."""
+    key, the blocked tile table and its key, the host solvers (native /
+    serial), and the distance-cache namespace ``graph_id`` (the
+    snapshot's content digest unless the caller overrides it)."""
 
     def __init__(self, snapshot: GraphSnapshot, *, layout: str, device,
                  host_backend: str | None = None, graph_id=None):
@@ -275,6 +295,9 @@ class _GraphRuntime:
         self.host_native_graph = None
         self._serial_solver = None
         self.host_backend_resolved: str | None = None
+        self._blocked_graph = None
+        self.blocked_bucket_key = None
+        self._blocked_meta = None
 
     @property
     def graph(self):
@@ -300,6 +323,43 @@ class _GraphRuntime:
                         )
                         self._graph = g
         return self._graph
+
+    def blocked_meta(self) -> tuple:
+        """``(nblocks, bwidth, nnz_blocks)`` of the snapshot's blocked
+        layout without building the table
+        (:func:`bibfs_tpu_torch.graph.blocked.blocked_meta`, the build's
+        grid math), so the blocked route's ``eligible()`` gates on tile
+        compactness before anything is built."""
+        m = self._blocked_meta
+        if m is None:
+            from bibfs_tpu_torch.graph.blocked import blocked_meta
+
+            with self._lock:
+                m = self._blocked_meta
+                if m is None:
+                    m = blocked_meta(self.n, self.snapshot.pairs)
+                    self._blocked_meta = m
+        return m
+
+    def blocked_graph(self):
+        """The blocked tile table on the engine's device, built from the
+        snapshot's memoized :meth:`~bibfs_tpu_torch.store.snapshot.
+        GraphSnapshot.blocked` layout and uploaded at the first
+        blocked-routed flush (a runtime that never routes blocked never
+        pays the tile build)."""
+        g = self._blocked_graph
+        if g is None:
+            from bibfs_tpu_torch.graph.blocked import blocked_bucket_key
+            from bibfs_tpu_torch.solvers.dense import BlockedDeviceGraph
+
+            with self._lock:
+                g = self._blocked_graph
+                if g is None:
+                    bg = self.snapshot.blocked()
+                    g = BlockedDeviceGraph.from_host(bg, device=self._device)
+                    self.blocked_bucket_key = blocked_bucket_key(bg)
+                    self._blocked_graph = g
+        return g
 
     def get_host_solver(self):
         """The per-query host solver: the native C++ runtime when it
@@ -415,8 +475,24 @@ class QueryEngine:
         half-open probe after 5 s).
     health_window_s : sliding window of the health monitor's recent-error
         input.
-    store, graph, oracle_k, mesh, blocked, adaptive : options of later
-        slices of the port; passing any raises ``NotImplementedError``.
+    blocked : enable ``route="blocked"``, the blocked tile expansion
+        (:mod:`bibfs_tpu_torch.serve.routes.blocked`): ``True`` or a
+        :class:`~bibfs_tpu_torch.serve.routes.BlockedConfig`. The rung
+        sits ahead of device (``blocked -> device -> host``) with its own
+        circuit breaker, retry policy and chaos sites; eligibility is the
+        batch crossover and the tile-compactness gate (the platform's
+        ``blocked`` calibration block, else 128 queries and a waste cap of
+        128). On a CUDA engine the constructor builds the blocked kernel.
+        Default None: no blocked rung.
+    adaptive : per-digest adaptive routing
+        (:class:`~bibfs_tpu_torch.serve.policy.AdaptiveRouter`): ``True``
+        learns the ladder's order from measured per-route latencies and
+        sampled level telemetry, in memory (the sidecar next to a durable
+        store comes with the store slice); pass a ready ``AdaptiveRouter``
+        to share one across engines or to persist it at a ``path``.
+        Default None: the static ladder.
+    store, graph, oracle_k, mesh : options of later slices of the port;
+        passing any raises ``NotImplementedError``.
     """
 
     _OBS_PREFIX = "sync"
@@ -482,6 +558,19 @@ class QueryEngine:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if n is None:
             raise ValueError("n (and edges/pairs) required")
+        from bibfs_tpu_torch.serve.routes import BlockedConfig
+
+        self._blocked_cfg = (
+            None if not blocked else BlockedConfig.coerce(blocked)
+        )
+        if adaptive is not None and not isinstance(adaptive, bool):
+            from bibfs_tpu_torch.serve.policy import AdaptiveRouter
+
+            if not isinstance(adaptive, AdaptiveRouter):
+                raise ValueError(
+                    "adaptive= takes True/None or an AdaptiveRouter; "
+                    f"got {adaptive!r}"
+                )
         self._device = resolve_device(device)
         if self._device.type == "cuda" and mode == "minor8" and (
                 layout == "tiered"):
@@ -497,7 +586,7 @@ class QueryEngine:
             # flushes to the host route
             from bibfs_tpu_torch.ops import _cuda
 
-            for source in _mode_sources(mode):
+            for source in _mode_sources(mode, self._blocked_cfg is not None):
                 _cuda.lib(source)
         snap = GraphSnapshot.build(n, edges, pairs=pairs)
         self.mode = mode
@@ -529,7 +618,9 @@ class QueryEngine:
         # device-route circuit breaker, health state machine
         self._faults = FaultPlan.from_env() if faults is None else faults
         self._retry = RetryPolicy() if retry is None else retry
-        self._res_cells = _ResilienceCells(self.obs_label)
+        self._res_cells = _ResilienceCells(
+            self.obs_label, blocked=self._blocked_cfg is not None
+        )
         self._breaker = CircuitBreaker() if breaker is None else breaker
         # a weakly bound listener: a breaker shared across engines keeps
         # every live engine's gauge exact without pinning dead engines
@@ -577,7 +668,17 @@ class QueryEngine:
         self.counters = _engine_counter_bank(self.obs_label)
         from bibfs_tpu_torch.serve.routes import build_routes
 
-        self.routes, self._ladder = build_routes(self)
+        self.routes, self._ladder = build_routes(self, self._blocked_cfg)
+        # adaptive routing (serve/policy.py): the ladder's order learned
+        # per graph digest
+        self._policy = None
+        if adaptive:
+            from bibfs_tpu_torch.serve.policy import AdaptiveRouter
+
+            self._policy = (
+                AdaptiveRouter(label=self.obs_label, routes=self._ladder)
+                if isinstance(adaptive, bool) else adaptive
+            )
         # direct cell handles for the per-query submit path
         self._c_queries = self.counters.cell("queries")
         self._c_trivial = self.counters.cell("trivial")
@@ -796,13 +897,71 @@ class QueryEngine:
         finally:
             rt.snapshot.release()
 
-    def _next_rung(self, i: int, rt, pairs) -> str:
+    def _next_rung(self, i: int, rt, pairs, ladder=None) -> str:
         """The rung a failed ladder step actually degrades TO (the ``to``
-        label of the fallback counter)."""
-        for name in self._ladder[i + 1:]:
+        label of the fallback counter): the next rung of ``ladder`` (the
+        static one by default) that is terminal or eligible."""
+        ladder = self._ladder if ladder is None else ladder
+        for name in ladder[i + 1:]:
             if name == "host" or self.routes[name].eligible(rt, pairs):
                 return name
         return "host"
+
+    def _ladder_for(self, rt, pairs):
+        """The ladder this flush walks: the adaptive policy's per-digest
+        order (:meth:`~bibfs_tpu_torch.serve.policy.AdaptiveRouter.order`,
+        counted in ``bibfs_routes_adaptive_total``) when the engine runs
+        adaptive, else the static ladder."""
+        if self._policy is None:
+            return self._ladder
+        order, _reason = self._policy.order(
+            rt.snapshot.digest, len(pairs), self._ladder
+        )
+        return order
+
+    def _note_route_time(self, rt, route: str, pairs, seconds) -> None:
+        """Feed the adaptive policy one resolved batch's measurement, plus
+        its periodic level-shape sample: one telemetry-enabled serial
+        solve of the batch's first pair, recording push/pull choices and
+        frontier fractions into the per-digest policy and the
+        ``bibfs_level_frontier_fraction`` histogram. The sample runs on a
+        background thread with its own snapshot pin, so a serial search
+        on a large graph never stalls a flush (or the pipelined engine's
+        finish worker)."""
+        if self._policy is None:
+            return
+        digest = rt.snapshot.digest
+        if not self._policy.note(digest, route, len(pairs), seconds):
+            return
+        try:
+            snap = rt.snapshot.retain()
+        except RuntimeError:
+            # racing retirement: skip this sample and release the claimed
+            # slot, or sampling stops for good
+            self._policy.sample_done()
+            return
+        policy = self._policy
+        n = rt.n
+        src, dst = (int(v) for v in pairs[0])
+
+        def _sample():
+            try:
+                from bibfs_tpu_torch.obs.telemetry import LevelTelemetry
+                from bibfs_tpu_torch.solvers.serial import solve_serial_csr
+
+                tel = LevelTelemetry(n=n)
+                row_ptr, col_ind = snap.csr()
+                solve_serial_csr(n, row_ptr, col_ind, src, dst, telemetry=tel)
+                policy.observe_levels(digest, tel.as_dict(), n)
+            except Exception:
+                pass  # a diagnostic sample must never fail anything
+            finally:
+                snap.release()
+                policy.sample_done()  # release the one-in-flight slot
+
+        threading.Thread(
+            target=_sample, name="bibfs-policy-sample", daemon=True
+        ).start()
 
     def _flush_ladder(self, pairs, unique) -> None:
         """Walk the fallback ladder for one chunk: each eligible rung gets
@@ -810,12 +969,14 @@ class QueryEngine:
         attempt` (bounded retries behind its breaker); an unavailable rung
         degrades to the next, counted in ``bibfs_route_fallbacks_total``,
         and the terminal host rung absorbs whatever is left behind its
-        bisection isolator. A sub-crossover chunk skips the device rung
+        bisection isolator. A sub-crossover chunk skips the dispatch rungs
         (a routing decision, not a degrade). A rung failure the engine may
         not degrade (:meth:`_may_degrade`) fails the chunk's tickets
-        instead."""
+        instead. The walk order is the adaptive policy's when the engine
+        runs adaptive, and each resolved chunk feeds it its time."""
         rt = self._rt
-        for i, name in enumerate(self._ladder):
+        ladder = self._ladder_for(rt, pairs)
+        for i, name in enumerate(ladder):
             if name == "host":
                 break
             route = self.routes[name]
@@ -830,11 +991,17 @@ class QueryEngine:
                     self._resolve_error(unique[key], to_query_error(exc, key))
                 return
             if results is not None:
+                # the batch's own clock (launch to finish), not the
+                # attempt's wall time: retry backoff would bias the route
+                self._note_route_time(rt, name, pairs, results[0].time_s)
                 for j, (src, dst) in enumerate(pairs):
                     self._resolve(unique[(src, dst)], src, dst, results[j])
                 return
-            self._note_fallback(name, self._next_rung(i, rt, pairs))
-        self._flush_host(pairs, unique)
+            self._note_fallback(name, self._next_rung(i, rt, pairs, ladder))
+        # the host rung's SOLVE time (delivery and banking excluded), the
+        # measure comparable to the dispatch rungs' batch clocks
+        self._note_route_time(rt, "host", pairs,
+                              self._flush_host(pairs, unique))
 
     def _device_solve(self, pairs) -> list[BFSResult]:
         """One synchronous device flush: the device route's ``launch``
@@ -954,15 +1121,19 @@ class QueryEngine:
             return self._device_batches
         return self._device.type == "cuda"
 
-    def _flush_host(self, pairs, unique) -> None:
-        """Solve and deliver one host batch."""
+    def _flush_host(self, pairs, unique) -> float:
+        """Solve and deliver one host batch; returns the solve seconds
+        (the adaptive policy's measure of the host rung)."""
+        t0 = time.perf_counter()
         results = self._solve_host_isolated(pairs)
+        solve_s = time.perf_counter() - t0
         n_ok = self._deliver_host_results(
             pairs, results,
             lambda key, res: self._resolve(unique[key], *key, res),
             lambda key, err: self._resolve_error(unique[key], err),
         )
         self._c_host_queries.inc(n_ok)
+        return solve_s
 
     def _deliver_host_results(self, pairs, results, resolve_ok,
                               resolve_err) -> int:
@@ -1122,6 +1293,12 @@ class QueryEngine:
                 return
             self._rts_released = True
         self._rt.snapshot.release()
+        if self._policy is not None:
+            try:
+                self._policy.save()  # best-effort: a full disk must not
+                # turn a clean close into a raise
+            except OSError:
+                pass
 
     def __enter__(self):
         return self
@@ -1182,6 +1359,9 @@ class QueryEngine:
                 ),
             },
             "health": self.health.snapshot(),
+            "adaptive": (
+                None if self._policy is None else self._policy.stats()
+            ),
         }
 
     def health_snapshot(self) -> dict:

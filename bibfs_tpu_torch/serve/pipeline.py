@@ -20,7 +20,8 @@ materialization and forest banking before the next batch can start.
   running unboundedly ahead. The finish worker never touches a tensor
   on the card: every CUDA call of a batch happens on the flusher thread,
   on the engine device's current stream, so no copy queues behind the
-  next batch's kernels on a stream another thread shares.
+  next batch's kernels on a stream another thread shares. The blocked
+  tile rung (``blocked=``) rides the same seam ahead of the device rung.
 - **deadline-based flushing** — ``max_wait_ms`` is a latency SLO: a
   sub-crossover queue flushes when its OLDEST query has waited that
   long, instead of waiting for depth (the synchronous engine's
@@ -583,7 +584,8 @@ class PipelinedQueryEngine(QueryEngine):
 
     def _launch(self, batch: list[QueryTicket]) -> None:
         """Dedupe exact repeats, pin the snapshot, answer cache hits, then
-        walk the ladder: each eligible dispatch rung whose breaker admits
+        walk the ladder (in the adaptive policy's order when the engine
+        runs adaptive): each eligible dispatch rung whose breaker admits
         the batch launches here and finishes on the worker; the terminal
         host rung solves here behind the bisection isolator."""
         unique: OrderedDict[tuple[int, int], list[QueryTicket]] = (
@@ -596,7 +598,8 @@ class PipelinedQueryEngine(QueryEngine):
             pairs = self._serve_cached(unique)
             if not pairs:
                 return
-            for i, rung in enumerate(self._ladder):
+            ladder = self._ladder_for(rt, pairs)
+            for i, rung in enumerate(ladder):
                 if rung == "host":
                     break
                 route = self.routes[rung]
@@ -605,7 +608,8 @@ class PipelinedQueryEngine(QueryEngine):
                 if route.breaker is None or route.breaker.allow():
                     if self._launch_dispatch(route, rt, pairs, unique):
                         return
-                self._note_fallback(rung, self._next_rung(i, rt, pairs))
+                self._note_fallback(rung,
+                                    self._next_rung(i, rt, pairs, ladder))
             self._launch_host(rt, pairs, unique)
         finally:
             rt.snapshot.release()
@@ -735,6 +739,14 @@ class PipelinedQueryEngine(QueryEngine):
                     )
                 return
             route.breaker.record_success()
+            # the adaptive sample: launch_s + the finish wall excludes the
+            # finish pool's queue wait, the batch's own clock excludes the
+            # untimed epilogue; the lesser is the tighter bound on the solve
+            self._note_route_time(
+                rt, route.name, pairs,
+                min(launch_s + time.perf_counter() - t_fin,
+                    results[0].time_s if results else 0.0),
+            )
             t_resv = time.perf_counter()
             lats = []
             qlist = []
@@ -781,6 +793,7 @@ class PipelinedQueryEngine(QueryEngine):
             try:
                 results = self._solve_host_isolated(pairs)
                 launch_s = time.perf_counter() - t_launch
+                self._note_route_time(rt, "host", pairs, launch_s)
             finally:
                 self.stages.exit()
             rt.snapshot.retain()  # the resolve job banks on THIS snapshot

@@ -1,26 +1,33 @@
 """Pluggable serving routes (see :mod:`bibfs_tpu_torch.serve.routes.base`).
 
 ``build_routes`` is the one place the engine assembles its route set
-and fallback ladder: the ladder runs ``device -> host`` with ``serial``
-reached per query through the host isolator. The oracle, overlay, mesh,
-blocked, query-kind and analytics routes of the JAX package come with
-their slices of the port (ROADMAP Queue 1).
+and fallback ladder: the ladder runs ``device -> host``, with the
+blocked tile rung ahead of device when the engine has one
+(``blocked -> device -> host``), and ``serial`` reached per query
+through the host isolator. The oracle, overlay, mesh, query-kind and
+analytics routes of the JAX package come with their slices of the port
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 from bibfs_tpu_torch.serve.routes.base import Route
+from bibfs_tpu_torch.serve.routes.blocked import BlockedConfig, BlockedRoute
 from bibfs_tpu_torch.serve.routes.device import DeviceRoute
 from bibfs_tpu_torch.serve.routes.host import HostRoute, SerialRoute
 
-__all__ = ["Route", "DeviceRoute", "HostRoute", "SerialRoute", "build_routes"]
+__all__ = ["Route", "BlockedConfig", "BlockedRoute", "DeviceRoute",
+           "HostRoute", "SerialRoute", "build_routes"]
 
 
-def build_routes(engine):
+def build_routes(engine, blocked_cfg=None):
     """The engine's route set and fallback ladder: ``(routes, ladder)``,
     ``ladder`` the ordered batch rungs (``host`` terminal); ``serial``
     sits outside it. The device rung carries the engine's retry policy
-    and circuit breaker."""
+    and circuit breaker; ``blocked_cfg`` adds the blocked rung ahead of
+    device, with a retry policy and breaker of its own."""
+    from bibfs_tpu_torch.serve.resilience import CircuitBreaker, RetryPolicy
+
     routes = {
         "device": DeviceRoute(
             engine, retry=engine._retry, breaker=engine._breaker
@@ -28,4 +35,12 @@ def build_routes(engine):
         "host": HostRoute(engine),
         "serial": SerialRoute(engine),
     }
-    return routes, ("device", "host")
+    ladder = ("device", "host")
+    if blocked_cfg is not None:
+        routes["blocked"] = BlockedRoute(
+            engine, blocked_cfg,
+            retry=RetryPolicy(), breaker=CircuitBreaker(),
+            label=engine.obs_label,
+        )
+        ladder = ("blocked",) + ladder
+    return routes, ladder

@@ -429,6 +429,35 @@ def batch_dispatch(g, pairs, dt8: bool = False, stats: dict | None = None):
     return pairs, thunk, lambda out: _finish_dt8(g, pairs, out)
 
 
+def blocked_batch_dispatch(g, pairs, dt=None, stats: dict | None = None):
+    """Dispatch one flush through the blocked kernel: one ``[2B, n_pad]``
+    dual-side frontier plane rides each sweep of the tile table, so the
+    whole flush shares the table. ``g`` is a
+    :class:`~bibfs_tpu_torch.solvers.dense.BlockedDeviceGraph`; returns
+    ``(pairs, thunk)``, the thunk the timed unit; the untimed epilogue
+    (``dense._materialize_blocked_batch``) walks the paths from the dist
+    planes over the host CSR. ``dt`` forces the plane type
+    (:func:`~bibfs_tpu_torch.ops.blocked_expand.resolve_plane_dtype`);
+    ``stats["host_syncs"]`` counts the loop's host reads."""
+    from bibfs_tpu_torch.ops.blocked_expand import (
+        chunk_block_rows,
+        resolve_plane_dtype,
+    )
+    from bibfs_tpu_torch.solvers.dense import _build_blocked_kernel
+
+    dt = resolve_plane_dtype(dt, g.device)
+    b_pad = pad_batch(len(pairs))
+    rc = min(chunk_block_rows(g.bwidth, 2 * b_pad, dt.itemsize, g.tile),
+             g.nblocks)
+    kern = _build_blocked_kernel(g.n_pad, b_pad, dt, rc)
+    srcs, dsts = _padded_queries(pairs, b_pad, g.device)
+
+    def thunk():
+        return kern(g.tab, g.bcol, g.deg, srcs, dsts, stats=stats)
+
+    return pairs, thunk
+
+
 def _finish_dt8(g, pairs, out):
     """The untimed int8 epilogue: slot-parent decode, then the refill."""
     return _refill_capped(g, pairs, _decode_slot_parents(g, out))

@@ -799,6 +799,221 @@ def time_batch_only(g: DeviceGraph, pairs, *, repeats: int = 10,
     return timed_repeats(dispatch, None, repeats, device=g.device)[0]
 
 
+@dataclasses.dataclass
+class BlockedDeviceGraph:
+    """The blocked tile adjacency on one device, uploaded once per graph
+    (the upload of :class:`bibfs_tpu_torch.graph.blocked.BlockedGraph`).
+    ``tab`` stays int8: the CUDA kernel's input type; the CPU twin casts
+    at the product."""
+
+    n: int
+    n_pad: int
+    tile: int
+    nblocks: int
+    bwidth: int
+    num_edges: int
+    tab: torch.Tensor  # int8 [nblocks, bwidth, tile, tile]
+    bcol: torch.Tensor  # int32 [nblocks, bwidth], sentinel nblocks
+    deg: torch.Tensor  # int32 [n_pad]
+
+    @property
+    def device(self) -> torch.device:
+        return self.tab.device
+
+    @classmethod
+    def from_host(cls, bg, device=None) -> "BlockedDeviceGraph":
+        dev = resolve_device(device)
+
+        def put(a):  # a private copy: the graph never aliases caller arrays
+            return torch.from_numpy(np.array(a)).to(dev)
+
+        return cls(
+            n=bg.n, n_pad=bg.n_pad, tile=bg.tile, nblocks=bg.nblocks,
+            bwidth=bg.bwidth, num_edges=bg.num_edges,
+            tab=put(bg.tab), bcol=put(bg.bcol), deg=put(bg.deg),
+        )
+
+
+def _blocked_active(st):
+    """Per-query live mask, the minor kernel's rule: both sides advance
+    lock-step, so a query stops once ``2 * rnd >= best`` or either
+    frontier is empty."""
+    return (2 * st["rnd"] < st["best"]) & (st["cnt_s"] > 0) & (st["cnt_t"] > 0)
+
+
+def _make_blocked_body(tab, bcol, deg, b: int, rc: int):
+    """The blocked level body ``st -> st``: both sides of all ``b`` queries
+    advance one level through one :func:`~bibfs_tpu_torch.ops.
+    blocked_expand.blocked_level` launch over the dual plane. The port
+    keeps the planes query-major (``fr`` and ``dist`` ``[2b, n_pad]``:
+    source rows ``0..b-1``, target rows ``b..2b-1``), the kernel's operand
+    layout; the rules are the JAX package's body: discovery masked by
+    dist, finished queries frozen by ``live``, the meet vote the lowest
+    vertex of the minimum sum, ``levels += 2`` and ``edges +=`` the
+    current frontiers' degree sums per live round. No parents: paths come
+    from the dist planes on the host (:func:`_materialize_blocked_batch`).
+    The counts and the vote are torch ops on the device."""
+    from bibfs_tpu_torch.ops.blocked_expand import blocked_level
+
+    n_pad = deg.shape[0]
+    rowid = torch.arange(n_pad, dtype=torch.int32, device=deg.device)
+
+    def body(st):
+        acti = _blocked_active(st).to(torch.int32)
+        lvl = st["rnd"] + 1
+        fr, dist = st["fr"], st["dist"]
+        # edges scanned this round: the CURRENT frontiers' degree sums
+        scanned = torch.where(fr > 0, deg, 0).sum(1, dtype=torch.int32)
+        new = blocked_level(tab, bcol, fr, dist, acti, lvl, rc=rc,
+                            checked=True)
+        ds, dtp = dist[:b], dist[b:]
+        sums = torch.where((ds < INF32) & (dtp < INF32), ds + dtp, INF32)
+        mval = sums.amin(1)
+        midx = torch.where(sums == mval[:, None], rowid, _BIGI).amin(1)
+        take = mval < st["best"]
+        return dict(
+            fr=new,
+            dist=dist,
+            best=torch.minimum(st["best"], mval),
+            meet=torch.where(take, midx, st["meet"]),
+            cnt_s=(new[:b] > 0).sum(1, dtype=torch.int32),
+            cnt_t=(new[b:] > 0).sum(1, dtype=torch.int32),
+            levels=st["levels"] + 2 * acti,
+            edges=st["edges"] + (scanned[:b] + scanned[b:]) * acti,
+            rnd=lvl,
+        )
+
+    return body
+
+
+def _blocked_state(srcs, dsts, n_pad: int, dt) -> dict:
+    """The blocked search's round-0 state on the queries' device: each
+    query's source in its row of the source half of the plane, its target
+    in the target half, at distance 0; ``src == dst`` queries done (best
+    0, meet src)."""
+    b = srcs.shape[0]
+    dev = srcs.device
+    qi = torch.arange(b, device=dev)
+    si, di = srcs.long(), dsts.long()
+    fr = torch.zeros((2 * b, n_pad), dtype=dt, device=dev)
+    fr[qi, si] = 1
+    fr[b + qi, di] = 1
+    dist = torch.full((2 * b, n_pad), INF32, dtype=torch.int32, device=dev)
+    dist[qi, si] = 0
+    dist[b + qi, di] = 0
+    same = srcs == dsts
+    return dict(
+        fr=fr, dist=dist,
+        best=torch.where(same, 0, INF32).to(torch.int32),
+        meet=torch.where(same, srcs, -1).to(torch.int32),
+        cnt_s=torch.ones(b, dtype=torch.int32, device=dev),
+        cnt_t=torch.ones(b, dtype=torch.int32, device=dev),
+        levels=torch.zeros(b, dtype=torch.int32, device=dev),
+        edges=torch.zeros(b, dtype=torch.int32, device=dev),
+        rnd=0,
+    )
+
+
+def _build_blocked_kernel(n_pad: int, b: int, dt, rc: int):
+    """The whole-batch blocked search of one (table, batch) geometry:
+    ``fn(tab, bcol, deg, srcs, dsts, *, stats=None) -> (best, meet, dist
+    [n_pad, 2b], levels, edges)``, every output on the table's device
+    (``dist`` a transposed view of the query-major plane). The JAX
+    package's ``while_loop`` is a host loop that reads the ``[b]`` live
+    mask once a round (``stats["host_syncs"]``)."""
+
+    def blocked_kernel(tab, bcol, deg, srcs, dsts, *, stats=None):
+        from bibfs_tpu_torch.ops.blocked_expand import check_blocked
+
+        st = _blocked_state(srcs, dsts, n_pad, dt)
+        if tab.is_cuda:  # the planes of every round, checked once
+            check_blocked(tab, bcol, st["fr"], st["dist"], st["levels"])
+        body = _make_blocked_body(tab, bcol, deg, b, rc)
+        while True:
+            if stats is not None:
+                stats["host_syncs"] += 1
+            if not bool(_blocked_active(st).any()):
+                break
+            st = body(st)
+        return st["best"], st["meet"], st["dist"].T, st["levels"], st["edges"]
+
+    return blocked_kernel
+
+
+def _walk_dist_plane(row_ptr, col_ind, dvec, v: int) -> list[int]:
+    """Walk ``v`` back to its side's root along strictly decreasing level
+    stamps. Level-synchronous dists make this exact: every vertex stamped
+    at level l > 0 has a neighbour stamped l - 1 (the one that discovered
+    it)."""
+    path = [v]
+    lvl = int(dvec[v])
+    while lvl > 0:
+        for u in col_ind[row_ptr[v]: row_ptr[v + 1]]:
+            if dvec[u] == lvl - 1:
+                v = int(u)
+                lvl -= 1
+                path.append(v)
+                break
+        else:  # impossible for a level-synchronous stamping
+            raise RuntimeError(f"blocked dist plane inconsistent at vertex {v}")
+    return path
+
+
+def _materialize_blocked_batch(out, pairs, elapsed: float, row_ptr, col_ind,
+                               *, host_syncs: int | None = None
+                               ) -> list[BFSResult]:
+    """The blocked route's untimed epilogue: one host copy per output,
+    then each found query's path from the dist planes (``[n_pad, 2B']``
+    with ``B' >= len(pairs)``) over the host CSR."""
+    best, meet, dist, levels, edges = (_host(o) for o in out)
+    b_pad = dist.shape[1] // 2
+    extra = dict(mode="blocked", host_syncs=host_syncs)
+    results = []
+    for i, (src, dst) in enumerate(pairs):
+        if best[i] >= INF32:
+            results.append(BFSResult(False, None, None, None, elapsed,
+                                     int(levels[i]), int(edges[i]), **extra))
+            continue
+        m = int(meet[i])
+        left = _walk_dist_plane(row_ptr, col_ind, dist[:, i], m)
+        right = _walk_dist_plane(row_ptr, col_ind, dist[:, b_pad + i], m)
+        results.append(BFSResult(True, int(best[i]), left[::-1] + right[1:],
+                                 m, elapsed, int(levels[i]), int(edges[i]),
+                                 **extra))
+    return results
+
+
+def solve_blocked_batch(g: BlockedDeviceGraph, pairs, *, csr, dt=None
+                        ) -> list[BFSResult]:
+    """Solve many (src, dst) queries through the blocked kernel
+    (``solve_batch_graph``'s contract: ``time_s`` is the whole batch's
+    wall clock). ``csr`` is the host ``(row_ptr, col_ind)`` the path walk
+    reads."""
+    from bibfs_tpu_torch.solvers.batch_minor import blocked_batch_dispatch
+    from bibfs_tpu_torch.solvers.timing import force_scalar
+
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    if pairs.size and not ((0 <= pairs).all() and (pairs < g.n).all()):
+        raise ValueError(f"src/dst out of range for n={g.n}")
+    stats = {"host_syncs": 0}
+    pairs, thunk = blocked_batch_dispatch(g, pairs, dt=dt, stats=stats)
+    t0 = time.perf_counter()
+    out = thunk()
+    force_scalar(out)
+    elapsed = time.perf_counter() - t0
+    return _materialize_blocked_batch(out, pairs, elapsed, *csr,
+                                      host_syncs=stats["host_syncs"])
+
+
+def solve_blocked_graph(g: BlockedDeviceGraph, src: int, dst: int, *, csr,
+                        dt=None) -> BFSResult:
+    """One query through the blocked kernel (a B = 1 plane, padded to 128
+    lanes; the batched form is where the layout pays)."""
+    if not (0 <= src < g.n and 0 <= dst < g.n):
+        raise ValueError(f"src/dst out of range for n={g.n}")
+    return solve_blocked_batch(g, [(src, dst)], csr=csr, dt=dt)[0]
+
+
 def solve_dense(n: int, edges: np.ndarray, src: int, dst: int, *,
                 mode: str = "sync", layout: str = "ell", unroll: int = 1,
                 device=None, telemetry=None) -> BFSResult:

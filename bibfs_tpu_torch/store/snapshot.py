@@ -9,17 +9,17 @@ A :class:`GraphSnapshot` gives a graph a content-addressed identity:
   same digest are the same graph whatever order the edges arrived in;
   the serving engine namespaces its distance cache by it.
 - **version** — a process-wide monotonic stamp.
-- **memoized builds** — ``csr()``, ``ell()`` (serving-bucketed) and
-  ``tiered()`` each build once under a lock and are shared by every
-  consumer of the snapshot.
+- **memoized builds** — ``csr()``, ``ell()`` (serving-bucketed),
+  ``tiered()`` and ``blocked()`` each build once under a lock and are
+  shared by every consumer of the snapshot.
 - **refcount retirement** — the creator holds one reference; every
   in-flight flush pins one more (``retain``/``release``). On the last
   release the retire hooks fire and the memoized tables are dropped.
 
-Memory tiers (``demote``/``promote``, arrays sidecars) and the blocked
-tile layout come with the store and blocked slices of the port
-(ROADMAP Queue 1); :meth:`GraphSnapshot.native_csr` therefore always
-returns None and the host route builds its own native CSR.
+Memory tiers (``demote``/``promote``) and arrays sidecars come with the
+store slice of the port (ROADMAP Queue 1);
+:meth:`GraphSnapshot.native_csr` therefore always returns None and the
+host route builds its own native CSR.
 """
 
 from __future__ import annotations
@@ -79,6 +79,7 @@ class GraphSnapshot:
         self._csr = None
         self._ell = None  # serving-bucketed ELL
         self._tiered = None
+        self._blocked = None  # the tile layout (graph/blocked.py)
 
     @classmethod
     def build(cls, n: int, edges: np.ndarray | None = None, *,
@@ -127,6 +128,15 @@ class GraphSnapshot:
         return self._memo("_tiered",
                           lambda: build_tiered(self.n, pairs=self.pairs))
 
+    def blocked(self):
+        """The blocked tile adjacency
+        (:func:`bibfs_tpu_torch.graph.blocked.build_blocked`), built once:
+        the blocked route of every engine over this snapshot shares it."""
+        from bibfs_tpu_torch.graph.blocked import build_blocked
+
+        return self._memo("_blocked",
+                          lambda: build_blocked(self.n, pairs=self.pairs))
+
     def undirected_edges(self) -> np.ndarray:
         """The ``u < v`` half of the canonical pairs (the native builder
         mirrors internally)."""
@@ -161,7 +171,7 @@ class GraphSnapshot:
             hooks, self._retire_hooks = self._retire_hooks, []
             # the canonical pairs stay (the digest and stats() read them);
             # the built tables are the memory owners
-            self._csr = self._ell = self._tiered = None
+            self._csr = self._ell = self._tiered = self._blocked = None
         for hook in hooks:
             try:
                 hook(self)

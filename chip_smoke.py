@@ -48,7 +48,12 @@ is unavailable. Phases:
    256 queries takes the lock-step ``sync`` batch and ``minor`` is
    refused (a tier's parent key overflows int32); ``auto`` with 8 pairs
    matches the oracle; then 256 seeded pairs under ``auto``, checked
-   and timed as in phase 9 (16 against the single-query search).
+   and timed as in phase 9 (16 against the single-query search). Last,
+   64 seeded pairs as lock-step ``pallas`` and ``pallas_alt`` batches
+   (kernels 3 and 4 with a query axis, the tiered rebuild of their
+   frontier plane after each tier pass), every query held to its
+   single-query search on (best, meet, levels, edges, both parent rows)
+   and to the oracle's hops, both batched kernels launched.
 5. Batches (run between phases 3 and 4 on the phase 3 graph): 256 seeded
    pairs (one ``src == dst``, one to an isolated vertex) through
    ``time_batch_graph`` in modes minor8, minor and auto (a warm-up, then
@@ -134,6 +139,31 @@ is unavailable. Phases:
    finish at round 0, against its single-query search, in modes sync,
    alt, beamer, pallas and pallas_alt, one ``batch_tail`` line each.
 
+10. The blocked tile route (run last), on three graphs:
+   ``grid_graph(128, 1024, perforation=0.02)`` (131,072 vertices, the
+   route's full fit at 256 queries) and the two geometries of the JAX
+   package's blocked soak, G(2000, 64/2000) and a 64x64 grid (512
+   queries). Per graph, the blocked kernel (``blocked_level``, int8
+   tensor-core products) against its plain twin on a seeded mid-search
+   state (the search's own planes after some rounds) at B = 256, a
+   ragged 37 and 1: the next plane and the stamped dist exactly equal,
+   one ``step`` line each (kernel ms, the twin's ms, the bound: the
+   live tiles, the plane read, the next plane written and the dist
+   entries this state reads and writes over 3.35 TB/s, against the int8
+   products over the card's dense int8 rate; the bound with the whole
+   dist plane read and written; one ``torch.sparse.mm`` of the
+   adjacency and the plane, the expansion alone, as a yardstick). Then
+   with every count set to 0: one seeded batch per graph through
+   ``blocked_batch_dispatch`` (a warm-up, the median of 3), every hop
+   equal to the serial oracle and every path valid, timed beside a
+   ``minor8`` batch of the same pairs whose hops it equals (one
+   ``{"phase": "blocked_batch", ...}`` line each); on the large grid a
+   ``QueryEngine(blocked=True)`` wave and a ``PipelinedQueryEngine
+   (blocked=True)`` wave of 256 distinct pairs (4 submitter threads),
+   each one blocked flush equal to ``solve_blocked_batch`` on every
+   field but the time, with no fallback, retry, error or open breaker.
+   The kernel must have launched.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
 JSON line.
@@ -155,8 +185,10 @@ import numpy as np
 import torch
 
 from bibfs_tpu_torch.graph.csr import build_csr, canonical_pairs
-from bibfs_tpu_torch.graph.generate import gnp_random_graph, rmat_graph
+from bibfs_tpu_torch.graph.blocked import build_blocked
+from bibfs_tpu_torch.graph.generate import gnp_random_graph, grid_graph, rmat_graph
 from bibfs_tpu_torch.ops import _cuda
+from bibfs_tpu_torch.ops import blocked_expand as be
 from bibfs_tpu_torch.ops import bitmap as bm
 from bibfs_tpu_torch.ops import fused_level as fl
 from bibfs_tpu_torch.ops import minor_level as ml
@@ -168,10 +200,12 @@ from bibfs_tpu_torch.serve import PipelinedQueryEngine, QueryEngine
 from bibfs_tpu_torch.solvers import dense
 from bibfs_tpu_torch.solvers.api import validate_path
 from bibfs_tpu_torch.solvers.serial import solve_serial_csr
+from bibfs_tpu_torch.solvers.timing import timed_batch_repeats
 
 INF32 = 1 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (data sheet)
 SLEEP_CYCLES = 2_000_000  # keeps the card busy while the host enqueues a launch
 REPS = 25
 
@@ -218,6 +252,19 @@ LOCKSTEP_MODES = ("sync", "sync_unfused", "alt", "beamer", "beamer_alt",
                   "pallas", "pallas_alt", "fused")
 SWEEP = (8, 16, 32, 64, 128)  # batch sizes of the crossover sweep
 TAIL_MODES = ("sync", "alt", "beamer", "pallas", "pallas_alt")
+# phase 10: (name, graph maker, batch of the batch drive, rounds run
+# before the kernel is held to its twin: the planes are mid-search)
+BLOCKED_GEOMS = (
+    ("grid-128x1024",
+     lambda: (128 * 1024, grid_graph(128, 1024, perforation=0.02, seed=1)),
+     BATCH, 120),
+    # (diameter ~3: after one round most queries are done, so its state is
+    # the first round's)
+    ("gnp-deg64", lambda: (2000, gnp_random_graph(2000, 64 / 2000, seed=1)),
+     512, 0),
+    ("grid-64x64", lambda: (64 * 64, grid_graph(64, 64, perforation=0.02, seed=1)),
+     512, 12),
+)
 
 
 # the unstaged instantiation of kernel 2, which the wrapper takes only
@@ -240,6 +287,7 @@ def reset_counts() -> None:
         wrapper.launches = 0
     for key in ml.minor_level.launches:
         ml.minor_level.launches[key] = 0
+    be.blocked_level.launches = 0
 
 
 def counts() -> dict:
@@ -247,6 +295,7 @@ def counts() -> dict:
            for name, k in (*KERNELS.items(), *LOCKSTEP.items())}
     for name, (key, *_r) in MINOR.items():
         out[name] = ml.minor_level.launches[key]
+    out["blocked_level"] = be.blocked_level.launches
     return out
 
 
@@ -1064,6 +1113,10 @@ def engine_clean(eng, wave: str) -> dict:
     check(res["bisections"] == 0, f"wave {wave}: host batch bisected")
     check(res["faults"] is None, f"wave {wave}: a fault plan is set")
     check(res["breaker"]["state"] == "closed", f"wave {wave}: breaker {res['breaker']}")
+    for name, route in st["routes"].items():  # the blocked rung's own breaker
+        if "breaker" in route:
+            check(route["breaker"]["state"] == "closed",
+                  f"wave {wave}: {name} breaker {route['breaker']}")
     return st
 
 
@@ -1097,7 +1150,7 @@ def engine_wave(eng, pairs, wave: str, **extra) -> tuple[list, dict]:
     st = engine_clean(eng, wave)
     routed = {k: st[k] - before[k] for k in (
         "trivial", "cache_served", "device_queries", "host_queries",
-        "device_batches")}
+        "device_batches", "blocked_queries")}
     ran = sorted({r.mode for r in res if r.mode is not None})
     line = {"phase": "engine", "wave": wave, "queries": len(pairs), **routed,
             "modes": ran,
@@ -1538,6 +1591,207 @@ def pipeline_phase(n, edges, pairs_all, csr) -> None:
     print(json.dumps({"phase": "engine_pipelined", "wave": "CLI", **cli}), flush=True)
 
 
+def blocked_mid_state(g, pairs, rounds: int):
+    """A seeded mid-search state of the blocked search: ``pairs`` after
+    ``rounds`` rounds of its body (the kernel each round). Returns the
+    plane, the dist plane, the live mask and the next level."""
+    srcs = torch.as_tensor(pairs[:, 0], dtype=torch.int32, device=g.device)
+    dsts = torch.as_tensor(pairs[:, 1], dtype=torch.int32, device=g.device)
+    st = dense._blocked_state(srcs, dsts, g.n_pad, torch.int8)
+    body = dense._make_blocked_body(g.tab, g.bcol, g.deg, len(pairs), rc=1)
+    for _ in range(rounds):
+        if not bool(dense._blocked_active(st).any()):
+            break
+        st = body(st)
+    live = dense._blocked_active(st).to(torch.int32)
+    return st["fr"], st["dist"], live, st["rnd"] + 1
+
+
+def sparse_adjacency(n_pad: int, csr, dev):
+    """The graph's 0/1 adjacency as a float32 CSR tensor on the card (for
+    the ``torch.sparse.mm`` yardstick)."""
+    row_ptr, col_ind = csr
+    crow = np.concatenate([row_ptr, np.full(n_pad + 1 - len(row_ptr),
+                                            row_ptr[-1])])
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(crow, dtype=torch.int64, device=dev),
+        torch.as_tensor(col_ind, dtype=torch.int64, device=dev),
+        torch.ones(len(col_ind), dtype=torch.float32, device=dev),
+        size=(n_pad, n_pad))
+
+
+def blocked_kernel_phase(g, csr, geometry: str, rounds: int, seed: int,
+                         results: dict | None) -> None:
+    """``blocked_level`` against its plain twin at B = 256, 37 and 1 on a
+    seeded mid-search state (:func:`blocked_mid_state`): the next plane
+    and the stamped dist exactly equal; one ``step`` line each with the
+    kernel's ms (25 launches, dist restored outside the timed interval),
+    the twin's (5), the bound for this state (the live tiles, the plane
+    read, the next plane written, 4 B per dist entry read where a live
+    column reaches a vertex and per entry stamped, over 3.35 TB/s;
+    against 2 operations per int8 multiply-add over the dense int8 rate),
+    the bound with the whole dist plane read and written, and one
+    ``torch.sparse.mm`` of the adjacency and the plane (the expansion
+    alone; no single PyTorch call computes the round)."""
+    adj = sparse_adjacency(g.n_pad, csr, g.device)
+    nnz = int((g.bcol < g.nblocks).sum())
+    rng = np.random.default_rng(seed)
+    for b in (BATCH, 37, 1):
+        pairs = rng.integers(0, g.n, size=(b, 2))
+        plane, dist, live, lvl = blocked_mid_state(g, pairs, rounds)
+        c, n_pad = plane.shape
+        d_k, d_p = dist.clone(), dist.clone()
+        out_k = be.blocked_level(g.tab, g.bcol, plane, d_k, live, lvl)
+        out_p = be.blocked_level_plain(g.tab, g.bcol, plane, d_p, live, lvl)
+        torch.cuda.synchronize()
+        err = max_abs_err([out_k, d_k], [out_p, d_p])
+        check(err == 0, f"blocked_level differs from its plain twin at "
+              f"{geometry} B={b}")
+        reach = be.expand_blocked_plane(
+            plane.T, g.tab, g.bcol, rc=be.chunk_block_rows(g.bwidth, c, 4)).T
+        reads = int((reach & (live.repeat(2) > 0)[:, None]).sum())
+        stamped = int(out_p.sum(dtype=torch.int64))
+        del reach, out_k, out_p, d_p
+        moved = nnz * 128 * 128 + 2 * c * n_pad
+        b_ms, by = bound_ms(moved + 4 * (reads + stamped), 0)
+        ops_ms = 2 * nnz * 128 * 128 * c / INT8_OPS_PER_S * 1e3
+        if ops_ms > b_ms:
+            b_ms, by = ops_ms, "operations"
+        full_ms = bound_ms(moved + 8 * c * n_pad, 0)[0]
+        ms = time_launch(
+            lambda: be.blocked_level(g.tab, g.bcol, plane, d_k, live, lvl,
+                                     checked=True),
+            prep=lambda: d_k.copy_(dist))
+        plain_ms = time_launch(
+            lambda: be.blocked_level_plain(g.tab, g.bcol, plane, d_k, live,
+                                           lvl),
+            prep=lambda: d_k.copy_(dist), reps=5)
+        fr32 = plane.T.float().contiguous()
+        sparse_ms = time_launch(lambda: torch.sparse.mm(adj, fr32), reps=5)
+        step_line("blocked_level", geometry, "round", ms, plain_ms=plain_ms,
+                  bound_ms=b_ms, bound_by=by, bound_ms_full_dist=full_ms,
+                  bound_ms_int8_ops=ops_ms, b=b, level=lvl,
+                  live_queries=int(live.sum()), live_tiles=nnz,
+                  dist_reads=reads, stamped=stamped,
+                  plane_mb=c * n_pad / 1e6, sparse_mm_ms=sparse_ms)
+        if results is not None and b == BATCH:
+            results["blocked_level"] = dict(max_abs_err=err, ms=ms,
+                                            plain_ms=plain_ms, bound_ms=b_ms,
+                                            bound_by=by)
+        del plane, dist, d_k, fr32
+        torch.cuda.empty_cache()
+
+
+def blocked_batch_phase(g, gell, csr, geometry: str, b: int, seed: int):
+    """One seeded batch of ``b`` pairs through the blocked search (a
+    warm-up, the median of 3): every hop equal to the serial oracle, every
+    path valid, and a ``minor8`` batch of the same pairs (the median of 3)
+    equal in hops. Returns the pairs and the blocked results."""
+    pairs = batch_pairs(np.random.default_rng(seed), g.n, csr, b)
+    stats = {"host_syncs": 0}
+    _p, thunk = bmin.blocked_batch_dispatch(g, pairs, stats=stats)
+    times, out = timed_batch_repeats(thunk, 3, device=g.device)
+    res = dense._materialize_blocked_batch(out, pairs, float(np.median(times)),
+                                           *csr)
+    del out
+    pl = [(int(s), int(d)) for s, d in pairs]
+    against_oracle(g.n, csr, pl, res, f"blocked {geometry}")
+    times8, res8 = dense.time_batch_graph(gell, pairs, repeats=3, mode="minor8")
+    for (s, d), r, r8 in zip(pl, res, res8):
+        check((r.found, r.hops) == (r8.found, r8.hops),
+              f"blocked {geometry} {s}->{d}: hops {r.hops} != minor8 {r8.hops}")
+    ms, ms8 = float(np.median(times)) * 1e3, float(np.median(times8)) * 1e3
+    print(json.dumps({
+        "phase": "blocked_batch", "geometry": geometry, "b": b,
+        "batch_ms": ms, "ms_per_query": ms / b, "minor8_ms": ms8,
+        "minor8_per_blocked": ms8 / ms,
+        "host_reads_per_batch": stats["host_syncs"] // 4,
+        "found": sum(r.found for r in res),
+        "times_ms": [t * 1e3 for t in times],
+        "minor8_times_ms": [t * 1e3 for t in times8]}), flush=True)
+    return pl, res
+
+
+def blocked_engine_phase(n, edges, pairs_all, csr, g, geometry: str) -> int:
+    """A sync and a pipelined engine wave of 256 distinct pairs with the
+    blocked rung: one blocked flush each, every answer equal to
+    ``solve_blocked_batch`` on every field but the time and to the
+    oracle's hops, no degrade. Returns the kernel's launches."""
+    ends = np.random.default_rng(61).choice(n, 2 * BATCH, replace=False)
+    pairs = [(int(s), int(d)) for s, d in ends.reshape(BATCH, 2)]
+    want = dense.solve_blocked_batch(g, pairs, csr=csr)
+    eng = QueryEngine(n, edges, pairs=pairs_all, blocked=True,
+                      max_batch=BATCH, cache_entries=0)
+    res, line = engine_wave(eng, pairs, f"E[blocked {geometry}]")
+    check(line["blocked_queries"] == BATCH and line["device_batches"] == 0
+          and line["host_queries"] == 0 and line["modes"] == ["blocked"],
+          f"blocked sync wave routes: {line}")
+    launches = line["launches"].get("blocked_level", 0)
+    check(launches > 0, "the blocked sync wave did not launch blocked_level")
+    for (s, d), r, w in zip(pairs, res, want):
+        check(fields(r) == fields(w),
+              f"blocked sync wave {s}->{d}: {fields(r)} != {fields(w)}")
+    against_oracle(n, csr, pairs, res, "E[blocked]")
+    eng.close()
+    del eng, res
+    pipe = PipelinedQueryEngine(n, edges, pairs=pairs_all, blocked=True,
+                                max_batch=BATCH, flush_threshold=BATCH,
+                                max_wait_ms=None, cache_entries=0)
+    tickets, res_p, info = pipelined_wave(pipe, pairs, threads=4)
+    st = pipe_close(pipe, tickets, f"P[blocked {geometry}]")
+    check(st["blocked_queries"] == BATCH and st["device_batches"] == 0
+          and st["host_queries"] == 0, f"blocked pipelined wave routes: {info}")
+    check(info["launches"].get("blocked_level", 0) > 0,
+          "the blocked pipelined wave did not launch blocked_level")
+    launches += info["launches"]["blocked_level"]
+    for (s, d), r, w in zip(pairs, res_p, want):
+        check(fields(r) == fields(w),
+              f"blocked pipelined wave {s}->{d}: {fields(r)} != {fields(w)}")
+    print(json.dumps({"phase": "engine_pipelined", "wave": f"P[blocked {geometry}]",
+                      "queries": BATCH, "blocked_queries": st["blocked_queries"],
+                      "flush_ms": max(r.time_s for r in res_p) * 1e3,
+                      **info}), flush=True)
+    return launches
+
+
+def blocked_phase(dev, results: dict) -> int:
+    """Phase 10 (module docstring). Returns the kernel's launches on the
+    route's path (batches and engine waves)."""
+    launches = 0
+    for geometry, make, b, rounds in BLOCKED_GEOMS:
+        t0 = time.perf_counter()
+        n, edges = make()
+        pairs_all = canonical_pairs(n, edges)
+        csr = build_csr(n, pairs=pairs_all)
+        bg = build_blocked(n, pairs=pairs_all)
+        g = dense.BlockedDeviceGraph.from_host(bg, device=dev)
+        gell = dense.DeviceGraph.build(n, edges, device=dev, pairs=pairs_all)
+        torch.cuda.synchronize()
+        print(json.dumps({"phase": "graph", "name": geometry, "n": n,
+                          "edges": int(pairs_all.shape[0]) // 2,
+                          "nblocks": bg.nblocks, "bwidth": bg.bwidth,
+                          "live_tiles": bg.nnz_blocks,
+                          "tab_mb": bg.tab_bytes / 1e6,
+                          "waste": bg.bwidth * 128 * bg.n_pad
+                          / max(len(pairs_all), 1),
+                          "build_s": time.perf_counter() - t0}), flush=True)
+        blocked_kernel_phase(g, csr, geometry, rounds, 71,
+                             results if geometry == BLOCKED_GEOMS[0][0] else None)
+        reset_counts()
+        blocked_batch_phase(g, gell, csr, geometry, b, 73)
+        launches += counts()["blocked_level"]
+        check(counts()["blocked_level"] > 0,
+              f"the {geometry} batch did not launch blocked_level")
+        if geometry == BLOCKED_GEOMS[0][0]:
+            launches += blocked_engine_phase(n, edges, pairs_all, csr, g,
+                                             geometry)
+        del g, gell
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "blocked_launches", "blocked_level": launches}),
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1675,6 +1929,19 @@ def main() -> int:
     for name in ("pull_dual", "pull_single"):
         check(tier_counts[name] > 0, f"kernel {name} not launched on the tiered path")
     routing_phase(g2, csr2, pairs2, want2)
+    # the lock-step kernel modes on the tiered graph: kernels 3 and 4 with
+    # a query axis and the rebuild of their plane after each tier pass
+    pairs64 = batch_pairs(np.random.default_rng(67), n2, csr2, 64)
+    pairs64[2:] = np.random.default_rng(67).choice(linked, size=(62, 2))
+    reset_counts()
+    lockstep_drive(g2, csr2, pairs64, "rmat-s20-ef16", ["pallas", "pallas_alt"],
+                   k_check=64)
+    tl_counts = counts()
+    print(json.dumps({"phase": "tiered_lockstep_launches", **tl_counts}),
+          flush=True)
+    for name in LOCKSTEP:
+        check(tl_counts[name] > 0,
+              f"kernel {name} was not launched by the tiered lock-step batches")
 
     # phase 6: tiered batches at RMAT scale 17 (the largest scale of the
     # family whose tiers the minor layout admits), and the int8 refill
@@ -1697,6 +1964,10 @@ def main() -> int:
     del g3
     refill_phase(dev)
 
+    # phase 10: the blocked tile route
+    torch.cuda.empty_cache()
+    blocked_launches = blocked_phase(dev, results)
+
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -1713,6 +1984,12 @@ def main() -> int:
                             replaces=replaces, launches=lockstep_counts[name],
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
+    # not a Pallas kernel: the XLA dot_general of the blocked expansion
+    kernels.append(dict(name="blocked_level", route="cuda",
+                        source="bibfs_tpu_torch/csrc/blocked_expand.cu",
+                        replaces="bibfs_tpu/ops/blocked_expand.py:82",
+                        launches=blocked_launches, **results["blocked_level"],
+                        library_ms=None, launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

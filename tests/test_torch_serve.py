@@ -718,7 +718,6 @@ def test_flush_spans_are_traced():
 # ---- options of later slices, kernels that do not build -------------
 @pytest.mark.parametrize("option,value", [
     ("store", object()), ("graph", "social"), ("oracle_k", 4), ("mesh", 2),
-    ("blocked", True), ("adaptive", True),
 ])
 def test_unported_options_raise(option, value):
     n, edges = GRAPHS["skiplink"]

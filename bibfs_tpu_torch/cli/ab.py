@@ -15,6 +15,14 @@ With ``--batch N`` it times lock-step batches in place of single solves
 ``--pad`` the deepest of the 8 pairs beside N - 1 pad lanes ``(0, 0)``
 that finish at round 0 (a serving rung's pad).
 
+With ``--blocked GEOM`` (``grid-128x1024`` or ``grid-64x64``, the grids
+of ``chip_smoke.py`` phase 10) it times blocked batches instead: each
+checkout builds the grid and its tile table, and per turn runs
+``blocked_batch_dispatch``'s thunk of the same ``--batch`` seeded pairs
+(default 256) three times (median; host clock around the batch and a
+synchronize); it prints the same JSON line with ``same_results`` over
+``(best, meet, dist, levels, edges)`` and each checkout's host reads.
+
 The host-bound modes' times drift by tens of percent from process to
 process and over minutes; run in turns within one process, both
 checkouts see the same drift. A card is used unless ``--device cpu``.
@@ -59,6 +67,13 @@ def _load(root: Path | None) -> dict:
     return {m: mod for m, mod in sys.modules.items() if _ours(m)}
 
 
+def _restore(saved: dict) -> None:
+    """Put back the package modules that were imported before ``_load``."""
+    for name in [m for m in sys.modules if _ours(m)]:
+        del sys.modules[name]
+    sys.modules.update(saved)
+
+
 def _same(a, b) -> bool:
     return (a[0] == b[0] and a[1] == b[1] and a[4:] == b[4:]
             and torch.equal(a[2], b[2]) and torch.equal(a[3], b[3]))
@@ -77,6 +92,58 @@ def _batch_pairs(dense, g, pairs, rng, b: int, pad: bool) -> np.ndarray:
     return np.array([deep] + [(0, 0)] * (b - 1), np.int64)
 
 
+#: the blocked A/B's grids: (rows, columns), as chip_smoke.py phase 10
+BLOCKED_GRIDS = {"grid-128x1024": (128, 1024), "grid-64x64": (64, 64)}
+
+
+def _blocked_ab(snaps, geom: str, b: int, rounds: int, dev, sync) -> dict:
+    """Blocked batches of both checkouts in turns (module docstring)."""
+    rows, cols = BLOCKED_GRIDS[geom]
+    n = rows * cols
+    pairs = np.random.default_rng(7).integers(0, n, (b, 2))
+    thunks, reads = {}, {}
+    for who, snap in snaps.items():
+        sys.modules.update(snap)
+        edges = snap[f"{PKG}.graph.generate"].grid_graph(
+            rows, cols, perforation=0.02, seed=1)
+        bg = snap[f"{PKG}.graph.blocked"].build_blocked(n, edges)
+        g = snap[f"{PKG}.solvers.dense"].BlockedDeviceGraph.from_host(
+            bg, device=dev)
+        reads[who] = {"host_syncs": 0}
+        thunks[who] = snap[f"{PKG}.solvers.batch_minor"].blocked_batch_dispatch(
+            g, pairs, stats=reads[who])[1]
+    times = {w: [] for w in snaps}
+    same = True
+    for rnd in range(rounds):
+        order = ("parent", "change") if rnd % 2 == 0 else ("change", "parent")
+        outs = {}
+        for who in order:
+            sys.modules.update(snaps[who])
+            outs[who] = thunks[who]()  # warm
+            sync()
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                thunks[who]()
+                sync()
+                ts.append(time.perf_counter() - t0)
+            times[who].append(float(np.median(ts)) * 1e3)
+        same &= all(torch.equal(x.contiguous(), y.contiguous())
+                    for x, y in zip(outs["parent"], outs["change"]))
+        del outs
+    line = {"geometry": geom, "n": n, "batch": b, "rounds": rounds,
+            "same_results": bool(same)}
+    for who, v in times.items():
+        hr = reads[who]["host_syncs"] // (4 * rounds)
+        line[f"{who}/blocked"] = {
+            "median_ms": float(np.median(v)),
+            "p25_ms": float(np.percentile(v, 25)),
+            "p75_ms": float(np.percentile(v, 75)), "batches": len(v),
+            "host_reads_per_batch": hr,
+            "ms_per_round": float(np.median(v)) / max(hr - 1, 1)}
+    return line
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path, help="root of the other checkout")
@@ -88,6 +155,8 @@ def main(argv=None) -> int:
                     help="time lock-step batches of this many queries")
     ap.add_argument("--pad", action="store_true",
                     help="a batch of the deepest pair and pad lanes (0, 0)")
+    ap.add_argument("--blocked", choices=sorted(BLOCKED_GRIDS),
+                    help="time blocked batches on this grid")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -100,6 +169,15 @@ def main(argv=None) -> int:
 
     saved = {m: mod for m, mod in sys.modules.items() if _ours(m)}
     snaps = {"change": _load(None), "parent": _load(args.parent.resolve())}
+    if args.blocked:
+        try:
+            line = _blocked_ab(snaps, args.blocked, args.batch or 256,
+                               args.rounds, dev, sync)
+        finally:
+            _restore(saved)
+        card = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+        print(json.dumps({"card": card, **line}), flush=True)
+        return 0
     try:
         n = 1 << args.scale
         graphs, dense = {}, {}
@@ -154,9 +232,7 @@ def main(argv=None) -> int:
                         times[(who, mode)].append(float(np.median(ts)) * 1e3)
                     same &= _same(outs["parent"], outs["change"])
     finally:
-        for name in [m for m in sys.modules if _ours(m)]:
-            del sys.modules[name]
-        sys.modules.update(saved)
+        _restore(saved)
     card = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
     print(json.dumps({
         "card": card, "n": n, "pairs": len(pairs), "rounds": args.rounds,

@@ -55,8 +55,10 @@ SIGNATURES = {
                               _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     },
     "blocked_expand": {
-        "bibfs_blocked_level": [_P, _P, _I64, _I, _P, _P, _P, _I64, _I64, _P,
-                                _I, _P],
+        "bibfs_blocked_level": [_P, _P, _I64, _I, _P, _P, _P, _P, _P, _P,
+                                _I64, _I64, _P, _I, _P, _P, _P, _P],
+        "bibfs_blocked_fold": [_I64, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P],
     },
 }
 

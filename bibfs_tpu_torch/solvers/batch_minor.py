@@ -449,11 +449,11 @@ def blocked_batch_dispatch(g, pairs, dt=None, stats: dict | None = None):
     b_pad = pad_batch(len(pairs))
     rc = min(chunk_block_rows(g.bwidth, 2 * b_pad, dt.itemsize, g.tile),
              g.nblocks)
-    kern = _build_blocked_kernel(g.n_pad, b_pad, dt, rc)
+    kern = _build_blocked_kernel(rc)
     srcs, dsts = _padded_queries(pairs, b_pad, g.device)
 
     def thunk():
-        return kern(g.tab, g.bcol, g.deg, srcs, dsts, stats=stats)
+        return kern(g.tab, g.bcol, g.deg, srcs, dsts, dt=dt, stats=stats)
 
     return pairs, thunk
 

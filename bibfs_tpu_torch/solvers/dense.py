@@ -834,64 +834,50 @@ class BlockedDeviceGraph:
         )
 
 
-def _blocked_active(st):
-    """Per-query live mask, the minor kernel's rule: both sides advance
-    lock-step, so a query stops once ``2 * rnd >= best`` or either
-    frontier is empty."""
-    return (2 * st["rnd"] < st["best"]) & (st["cnt_s"] > 0) & (st["cnt_t"] > 0)
-
-
-def _make_blocked_body(tab, bcol, deg, b: int, rc: int):
-    """The blocked level body ``st -> st``: both sides of all ``b`` queries
-    advance one level through one :func:`~bibfs_tpu_torch.ops.
-    blocked_expand.blocked_level` launch over the dual plane. The port
+def _make_blocked_body(tab, bcol, deg, rc: int):
+    """The blocked level body, in place on the state ``st``
+    (:func:`_blocked_state`): both sides of all queries advance one level
+    through one :func:`~bibfs_tpu_torch.ops.blocked_expand.blocked_level`
+    launch over the dual plane, then one :func:`~bibfs_tpu_torch.ops.
+    blocked_expand.blocked_fold` launch over the ``[B]`` vectors. The port
     keeps the planes query-major (``fr`` and ``dist`` ``[2b, n_pad]``:
     source rows ``0..b-1``, target rows ``b..2b-1``), the kernel's operand
     layout; the rules are the JAX package's body: discovery masked by
     dist, finished queries frozen by ``live``, the meet vote the lowest
     vertex of the minimum sum, ``levels += 2`` and ``edges +=`` the
-    current frontiers' degree sums per live round. No parents: paths come
-    from the dist planes on the host (:func:`_materialize_blocked_batch`).
-    The counts and the vote are torch ops on the device."""
-    from bibfs_tpu_torch.ops.blocked_expand import blocked_level
-
-    n_pad = deg.shape[0]
-    rowid = torch.arange(n_pad, dtype=torch.int32, device=deg.device)
+    current frontiers' degree sums per live round. The vote and the sums
+    are carried (a vertex reached by both sides before this round voted
+    then, so only this round's new vertices can lower ``best``; this
+    round's new frontier sums are the next round's current ones), so no
+    op over a ``[2b, n_pad]`` plane runs outside the kernel. No parents:
+    paths come from the dist planes on the host
+    (:func:`_materialize_blocked_batch`)."""
+    from bibfs_tpu_torch.ops.blocked_expand import blocked_fold, blocked_level
 
     def body(st):
-        acti = _blocked_active(st).to(torch.int32)
         lvl = st["rnd"] + 1
-        fr, dist = st["fr"], st["dist"]
-        # edges scanned this round: the CURRENT frontiers' degree sums
-        scanned = torch.where(fr > 0, deg, 0).sum(1, dtype=torch.int32)
-        new = blocked_level(tab, bcol, fr, dist, acti, lvl, rc=rc,
-                            checked=True)
-        ds, dtp = dist[:b], dist[b:]
-        sums = torch.where((ds < INF32) & (dtp < INF32), ds + dtp, INF32)
-        mval = sums.amin(1)
-        midx = torch.where(sums == mval[:, None], rowid, _BIGI).amin(1)
-        take = mval < st["best"]
-        return dict(
-            fr=new,
-            dist=dist,
-            best=torch.minimum(st["best"], mval),
-            meet=torch.where(take, midx, st["meet"]),
-            cnt_s=(new[:b] > 0).sum(1, dtype=torch.int32),
-            cnt_t=(new[b:] > 0).sum(1, dtype=torch.int32),
-            levels=st["levels"] + 2 * acti,
-            edges=st["edges"] + (scanned[:b] + scanned[b:]) * acti,
-            rnd=lvl,
-        )
+        st["fr"], st["occ"] = blocked_level(
+            tab, bcol, deg, st["fr"], st["dist"], st["occ"], st, lvl, rc=rc,
+            checked=True)
+        blocked_fold(st, lvl, checked=True)
+        st["rnd"] = lvl
 
     return body
 
 
-def _blocked_state(srcs, dsts, n_pad: int, dt) -> dict:
+def _blocked_state(srcs, dsts, deg, dt) -> dict:
     """The blocked search's round-0 state on the queries' device: each
     query's source in its row of the source half of the plane, its target
-    in the target half, at distance 0; ``src == dst`` queries done (best
-    0, meet src)."""
+    in the target half, at distance 0, the plane's occupancy flags, and
+    the round vectors (:func:`~bibfs_tpu_torch.ops.blocked_expand.
+    round_vectors`: ``src == dst`` queries done, best 0, meet src)."""
+    from bibfs_tpu_torch.ops.blocked_expand import (
+        plane_occupancy,
+        round_vectors,
+    )
+
     b = srcs.shape[0]
+    n_pad = deg.shape[0]
     dev = srcs.device
     qi = torch.arange(b, device=dev)
     si, di = srcs.long(), dsts.long()
@@ -901,40 +887,31 @@ def _blocked_state(srcs, dsts, n_pad: int, dt) -> dict:
     dist = torch.full((2 * b, n_pad), INF32, dtype=torch.int32, device=dev)
     dist[qi, si] = 0
     dist[b + qi, di] = 0
-    same = srcs == dsts
-    return dict(
-        fr=fr, dist=dist,
-        best=torch.where(same, 0, INF32).to(torch.int32),
-        meet=torch.where(same, srcs, -1).to(torch.int32),
-        cnt_s=torch.ones(b, dtype=torch.int32, device=dev),
-        cnt_t=torch.ones(b, dtype=torch.int32, device=dev),
-        levels=torch.zeros(b, dtype=torch.int32, device=dev),
-        edges=torch.zeros(b, dtype=torch.int32, device=dev),
-        rnd=0,
-    )
+    return dict(fr=fr, dist=dist, occ=plane_occupancy(fr),
+                **round_vectors(srcs, dsts, deg), rnd=0)
 
 
-def _build_blocked_kernel(n_pad: int, b: int, dt, rc: int):
-    """The whole-batch blocked search of one (table, batch) geometry:
-    ``fn(tab, bcol, deg, srcs, dsts, *, stats=None) -> (best, meet, dist
-    [n_pad, 2b], levels, edges)``, every output on the table's device
-    (``dist`` a transposed view of the query-major plane). The JAX
-    package's ``while_loop`` is a host loop that reads the ``[b]`` live
-    mask once a round (``stats["host_syncs"]``)."""
+def _build_blocked_kernel(rc: int):
+    """The whole-batch blocked search: ``fn(tab, bcol, deg, srcs, dsts, *,
+    stats=None, dt) -> (best, meet, dist [n_pad, 2b], levels, edges)``,
+    every output on the table's device (``dist`` a transposed view of the
+    query-major plane). The JAX package's ``while_loop`` is a host loop
+    that reads the one any-live word the fold writes once a round
+    (``stats["host_syncs"]``): two launches and one 4-byte read a round."""
 
-    def blocked_kernel(tab, bcol, deg, srcs, dsts, *, stats=None):
+    def blocked_kernel(tab, bcol, deg, srcs, dsts, *, dt, stats=None):
         from bibfs_tpu_torch.ops.blocked_expand import check_blocked
 
-        st = _blocked_state(srcs, dsts, n_pad, dt)
+        st = _blocked_state(srcs, dsts, deg, dt)
         if tab.is_cuda:  # the planes of every round, checked once
-            check_blocked(tab, bcol, st["fr"], st["dist"], st["levels"])
-        body = _make_blocked_body(tab, bcol, deg, b, rc)
+            check_blocked(tab, bcol, deg, st["fr"], st["dist"], st["occ"], st)
+        body = _make_blocked_body(tab, bcol, deg, rc)
         while True:
             if stats is not None:
                 stats["host_syncs"] += 1
-            if not bool(_blocked_active(st).any()):
+            if not bool(st["any"]):
                 break
-            st = body(st)
+            body(st)
         return st["best"], st["meet"], st["dist"].T, st["levels"], st["edges"]
 
     return blocked_kernel

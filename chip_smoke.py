@@ -143,26 +143,34 @@ is unavailable. Phases:
    ``grid_graph(128, 1024, perforation=0.02)`` (131,072 vertices, the
    route's full fit at 256 queries) and the two geometries of the JAX
    package's blocked soak, G(2000, 64/2000) and a 64x64 grid (512
-   queries). Per graph, the blocked kernel (``blocked_level``, int8
-   tensor-core products) against its plain twin on a seeded mid-search
-   state (the search's own planes after some rounds) at B = 256, a
-   ragged 37 and 1: the next plane and the stamped dist exactly equal,
-   one ``step`` line each (kernel ms, the twin's ms, the bound: the
-   live tiles, the plane read, the next plane written and the dist
-   entries this state reads and writes over 3.35 TB/s, against the int8
-   products over the card's dense int8 rate; the bound with the whole
-   dist plane read and written; one ``torch.sparse.mm`` of the
-   adjacency and the plane, the expansion alone, as a yardstick). Then
-   with every count set to 0: one seeded batch per graph through
-   ``blocked_batch_dispatch`` (a warm-up, the median of 3), every hop
-   equal to the serial oracle and every path valid, timed beside a
-   ``minor8`` batch of the same pairs whose hops it equals (one
-   ``{"phase": "blocked_batch", ...}`` line each); on the large grid a
-   ``QueryEngine(blocked=True)`` wave and a ``PipelinedQueryEngine
-   (blocked=True)`` wave of 256 distinct pairs (4 submitter threads),
-   each one blocked flush equal to ``solve_blocked_batch`` on every
-   field but the time, with no fallback, retry, error or open breaker.
-   The kernel must have launched.
+   queries). Per graph, the round's two kernels (``blocked_level``: int8
+   ``wgmma`` products fed by TMA, both sides of 32 queries per block,
+   unoccupied slots skipped, the stamp, counts, degree sums and meet
+   vote in its epilogue; ``blocked_fold``: the ``[B]`` vectors) against
+   their plain twins on a seeded mid-search state (the search's own
+   state after some rounds) at B = 256, a ragged 37 and 1: the next
+   plane, the stamped dist, the occupancy flags, the counts, degree sums
+   and meet key, and every folded vector exactly equal, one ``step``
+   line each (the kernel's ms, the fold's, the round's, the twins'; the
+   bound of PR 11's formula: every live tile, the plane read, the next
+   plane written and the dist entries this state reads and writes over
+   3.35 TB/s, against the int8 products over the card's dense int8
+   rate; ``bound_ms_occupied``: only the tiles and sub-planes of
+   occupied (group, block column) pairs; both with the epilogue's
+   ``deg`` and other-side dist bytes; the occupied share of (group,
+   slot) pairs; the bound with the whole dist plane read and written;
+   one ``torch.sparse.mm`` of the adjacency and the plane, the expansion
+   alone, as a yardstick). Then with every count set to 0: one seeded
+   batch per graph through ``blocked_batch_dispatch`` (a warm-up, the
+   median of 3), every hop equal to the serial oracle and every path
+   valid, timed beside a ``minor8`` batch of the same pairs whose hops
+   it equals (one ``{"phase": "blocked_batch", ...}`` line each, with
+   the ms per round); on the large grid a ``QueryEngine(blocked=True)``
+   wave and a ``PipelinedQueryEngine(blocked=True)`` wave of 256
+   distinct pairs (4 submitter threads), each one blocked flush equal to
+   ``solve_blocked_batch`` on every field but the time, with no
+   fallback, retry, error or open breaker. Both kernels must have
+   launched in each.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
@@ -267,6 +275,18 @@ BLOCKED_GEOMS = (
 )
 
 
+# phase 10's two kernels a blocked round launches: the source, and what each
+# replaces (neither is a Pallas kernel): the XLA dot_general of the
+# expansion with its body's stamp, and the body's [B] updates
+BLOCKED_KERNELS = {
+    "blocked_level": ("bibfs_tpu_torch/csrc/blocked_expand.cu",
+                      "bibfs_tpu/ops/blocked_expand.py:82",
+                      {"ported": "PR 11", "redesigned": "PR 12"}),
+    "blocked_fold": ("bibfs_tpu_torch/csrc/blocked_expand.cu",
+                     "bibfs_tpu/solvers/dense.py:225", {"ported": "PR 12"}),
+}
+
+
 # the unstaged instantiation of kernel 2, which the wrapper takes only
 # where the bitmap does not fit shared memory (not counted in .launches)
 UNSTAGED = fl._single_round_unstaged
@@ -288,6 +308,7 @@ def reset_counts() -> None:
     for key in ml.minor_level.launches:
         ml.minor_level.launches[key] = 0
     be.blocked_level.launches = 0
+    be.blocked_fold.launches = 0
 
 
 def counts() -> dict:
@@ -296,6 +317,7 @@ def counts() -> dict:
     for name, (key, *_r) in MINOR.items():
         out[name] = ml.minor_level.launches[key]
     out["blocked_level"] = be.blocked_level.launches
+    out["blocked_fold"] = be.blocked_fold.launches
     return out
 
 
@@ -1591,20 +1613,20 @@ def pipeline_phase(n, edges, pairs_all, csr) -> None:
     print(json.dumps({"phase": "engine_pipelined", "wave": "CLI", **cli}), flush=True)
 
 
-def blocked_mid_state(g, pairs, rounds: int):
+def blocked_mid_state(g, pairs, rounds: int) -> dict:
     """A seeded mid-search state of the blocked search: ``pairs`` after
-    ``rounds`` rounds of its body (the kernel each round). Returns the
-    plane, the dist plane, the live mask and the next level."""
+    ``rounds`` rounds of its body (the two kernels each round). Returns
+    the state (the plane ``fr``, ``dist``, the flags ``occ``, the round
+    vectors, ``rnd``); the next level is ``rnd + 1``."""
     srcs = torch.as_tensor(pairs[:, 0], dtype=torch.int32, device=g.device)
     dsts = torch.as_tensor(pairs[:, 1], dtype=torch.int32, device=g.device)
-    st = dense._blocked_state(srcs, dsts, g.n_pad, torch.int8)
-    body = dense._make_blocked_body(g.tab, g.bcol, g.deg, len(pairs), rc=1)
+    st = dense._blocked_state(srcs, dsts, g.deg, torch.int8)
+    body = dense._make_blocked_body(g.tab, g.bcol, g.deg, rc=1)
     for _ in range(rounds):
-        if not bool(dense._blocked_active(st).any()):
+        if not bool(st["any"]):
             break
-        st = body(st)
-    live = dense._blocked_active(st).to(torch.int32)
-    return st["fr"], st["dist"], live, st["rnd"] + 1
+        body(st)
+    return st
 
 
 def sparse_adjacency(n_pad: int, csr, dev):
@@ -1620,65 +1642,161 @@ def sparse_adjacency(n_pad: int, csr, dev):
         size=(n_pad, n_pad))
 
 
+def clone_state(st) -> dict:
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in st.items()}
+
+
+def blocked_bounds(g, st, reach, new) -> dict:
+    """The least time the card could take for one round from this state,
+    whatever implements it (ms over 3.35 TB/s and the dense int8 rate).
+    ``bound_ms`` (PR 11's formula): every live tile, the whole plane read
+    and the next plane written, 4 B per dist entry a live row reaches and
+    per entry stamped; ``bound_ms_occupied``: only the tiles and
+    sub-planes of occupied (group, block column) pairs of groups with a
+    live query, each tile once. Both add the epilogue's bytes: ``deg`` of
+    the block rows computed and the other side's dist where one side is
+    new; the int8 bound counts 2 operations per multiply-add."""
+    c, n_pad = st["fr"].shape
+    b = c // 2
+    nb, bw = g.nblocks, g.bwidth
+    bcol = g.bcol.long()
+    real = bcol < nb  # [nb, bw]
+    nnz = int(real.sum())
+    live = st["live"] > 0
+    reads = int((reach & live.repeat(2)[:, None]).sum())
+    stamped = int(new.sum(dtype=torch.int64))
+    other = int((new[:b] ^ new[b:]).sum(dtype=torch.int64))
+    gl = torch.zeros(-(-b // be.GROUP) * be.GROUP, dtype=torch.bool,
+                     device=live.device)
+    gl[:b] = live
+    glive = gl.reshape(-1, be.GROUP).any(1)  # [ng]
+    occ = (st["occ"] > 0) & glive[:, None]  # [ng, nb]
+    # occ[g, bcol[bi, k]] per (group, block row, slot)
+    trip = occ[:, bcol.clamp(max=nb - 1)] & real[None]  # [ng, nb, bw]
+    n_trip = int(trip.sum())
+    tiles = int(trip.any(0).sum())
+    rows_on = int(trip.any(2).any(0).sum())
+    # an occupied (group, block column) pair's sub-plane: 128 bytes of
+    # each of the group's real rows
+    rows_g = (b - be.GROUP * torch.arange(glive.numel(), device=live.device)
+              ).clamp(max=be.GROUP)
+    sub_bytes = int((occ.sum(1) * rows_g).sum()) * 2 * 128
+    extra = 4 * (reads + stamped + other)
+    whole = nnz * 128 * 128 + 2 * c * n_pad + 4 * n_pad + extra
+    part = (tiles * 128 * 128 + sub_bytes + c * n_pad
+            + 4 * 128 * rows_on + extra)
+    b_ms, by = bound_ms(whole, 0)
+    ops_ms = 2 * nnz * 128 * 128 * c / INT8_OPS_PER_S * 1e3
+    if ops_ms > b_ms:
+        b_ms, by = ops_ms, "operations"
+    o_ms, o_by = bound_ms(part, 0)
+    o_ops = 2 * n_trip * 128 * 128 * 2 * be.GROUP / INT8_OPS_PER_S * 1e3
+    if o_ops > o_ms:
+        o_ms, o_by = o_ops, "operations"
+    return dict(bound_ms=b_ms, bound_by=by, bound_ms_int8_ops=ops_ms,
+                bound_ms_full_dist=bound_ms(whole + 8 * c * n_pad, 0)[0],
+                bound_ms_occupied=o_ms, bound_by_occupied=o_by,
+                occupied_share=n_trip / max(glive.numel() * nnz, 1),
+                occupied_slots=n_trip, occupied_tiles=tiles, live_tiles=nnz,
+                dist_reads=reads, stamped=stamped, other_side_reads=other)
+
+
+def fold_bound_ms(b: int) -> float:
+    """The fold's bytes: the [B] vectors read and written once (best, meet,
+    levels, edges, live: 4 B; key: 8 B; scan_cur, cnt, scan: 2 x 4 B),
+    the any word written."""
+    return bound_ms(2 * b * (5 * 4 + 8 + 3 * 8) + 4, 0)[0]
+
+
 def blocked_kernel_phase(g, csr, geometry: str, rounds: int, seed: int,
                          results: dict | None) -> None:
-    """``blocked_level`` against its plain twin at B = 256, 37 and 1 on a
-    seeded mid-search state (:func:`blocked_mid_state`): the next plane
-    and the stamped dist exactly equal; one ``step`` line each with the
-    kernel's ms (25 launches, dist restored outside the timed interval),
-    the twin's (5), the bound for this state (the live tiles, the plane
-    read, the next plane written, 4 B per dist entry read where a live
-    column reaches a vertex and per entry stamped, over 3.35 TB/s;
-    against 2 operations per int8 multiply-add over the dense int8 rate),
-    the bound with the whole dist plane read and written, and one
-    ``torch.sparse.mm`` of the adjacency and the plane (the expansion
-    alone; no single PyTorch call computes the round)."""
+    """``blocked_level`` and ``blocked_fold`` against their plain twins at
+    B = 256, 37 and 1 on a seeded mid-search state
+    (:func:`blocked_mid_state`): the next plane, the stamped dist, the
+    flags, the counts, degree sums and meet key, and every folded vector
+    exactly equal. One ``step`` line each with the kernel's ms (25
+    launches, dist and the vectors restored outside the timed interval),
+    the fold's, the round's (both), the twins' (5), the bounds of
+    :func:`blocked_bounds` and one ``torch.sparse.mm`` of the adjacency
+    and the plane (the expansion alone; no single PyTorch call computes
+    the round)."""
     adj = sparse_adjacency(g.n_pad, csr, g.device)
-    nnz = int((g.bcol < g.nblocks).sum())
     rng = np.random.default_rng(seed)
     for b in (BATCH, 37, 1):
         pairs = rng.integers(0, g.n, size=(b, 2))
-        plane, dist, live, lvl = blocked_mid_state(g, pairs, rounds)
-        c, n_pad = plane.shape
-        d_k, d_p = dist.clone(), dist.clone()
-        out_k = be.blocked_level(g.tab, g.bcol, plane, d_k, live, lvl)
-        out_p = be.blocked_level_plain(g.tab, g.bcol, plane, d_p, live, lvl)
+        st = blocked_mid_state(g, pairs, rounds)
+        lvl = st["rnd"] + 1
+        c, n_pad = st["fr"].shape
+        sk, sp = clone_state(st), clone_state(st)
+        fr_k, occ_k = be.blocked_level(g.tab, g.bcol, g.deg, sk["fr"],
+                                       sk["dist"], sk["occ"], sk, lvl)
+        fr_p, occ_p = be.blocked_level_plain(g.tab, g.bcol, g.deg, sp["fr"],
+                                             sp["dist"], sp["occ"], sp, lvl)
         torch.cuda.synchronize()
-        err = max_abs_err([out_k, d_k], [out_p, d_p])
+        outs = ("plane", "dist", "occ", "cnt", "scan", "key")
+        err = max_abs_err([fr_k, sk["dist"], occ_k, sk["cnt"], sk["scan"],
+                           sk["key"]],
+                          [fr_p, sp["dist"], occ_p, sp["cnt"], sp["scan"],
+                           sp["key"]])
         check(err == 0, f"blocked_level differs from its plain twin at "
+              f"{geometry} B={b} (outputs {outs})")
+        be.blocked_fold(sk, lvl)
+        be.blocked_fold_plain(sp, lvl)
+        torch.cuda.synchronize()
+        ferr = max_abs_err([sk[k] for k in be.ROUND_VECTORS],
+                           [sp[k] for k in be.ROUND_VECTORS])
+        check(ferr == 0, f"blocked_fold differs from its plain twin at "
               f"{geometry} B={b}")
         reach = be.expand_blocked_plane(
-            plane.T, g.tab, g.bcol, rc=be.chunk_block_rows(g.bwidth, c, 4)).T
-        reads = int((reach & (live.repeat(2) > 0)[:, None]).sum())
-        stamped = int(out_p.sum(dtype=torch.int64))
-        del reach, out_k, out_p, d_p
-        moved = nnz * 128 * 128 + 2 * c * n_pad
-        b_ms, by = bound_ms(moved + 4 * (reads + stamped), 0)
-        ops_ms = 2 * nnz * 128 * 128 * c / INT8_OPS_PER_S * 1e3
-        if ops_ms > b_ms:
-            b_ms, by = ops_ms, "operations"
-        full_ms = bound_ms(moved + 8 * c * n_pad, 0)[0]
-        ms = time_launch(
-            lambda: be.blocked_level(g.tab, g.bcol, plane, d_k, live, lvl,
-                                     checked=True),
-            prep=lambda: d_k.copy_(dist))
-        plain_ms = time_launch(
-            lambda: be.blocked_level_plain(g.tab, g.bcol, plane, d_k, live,
-                                           lvl),
-            prep=lambda: d_k.copy_(dist), reps=5)
-        fr32 = plane.T.float().contiguous()
+            st["fr"].T, g.tab, g.bcol,
+            rc=be.chunk_block_rows(g.bwidth, c, 4)).T
+        bounds = blocked_bounds(g, st, reach, fr_p > 0)
+        del reach, fr_k, fr_p, sk, sp
+        d0 = st["dist"].clone()
+        v0 = {k: st[k].clone() for k in be.ROUND_VECTORS}
+
+        def prep():
+            st["dist"].copy_(d0)
+            for k in be.ROUND_VECTORS:
+                st[k].copy_(v0[k])
+
+        def level():
+            return be.blocked_level(g.tab, g.bcol, g.deg, st["fr"], st["dist"],
+                                    st["occ"], st, lvl, checked=True)
+
+        def both():
+            level()
+            be.blocked_fold(st, lvl, checked=True)
+
+        def plain():
+            be.blocked_level_plain(g.tab, g.bcol, g.deg, st["fr"], st["dist"],
+                                   st["occ"], st, lvl)
+
+        ms = time_launch(level, prep=prep)
+        fold_ms = time_launch(lambda: be.blocked_fold(st, lvl, checked=True),
+                              prep=prep)
+        round_ms = time_launch(both, prep=prep)
+        plain_ms = time_launch(plain, prep=prep, reps=5)
+        fold_plain_ms = time_launch(lambda: be.blocked_fold_plain(st, lvl),
+                                    prep=prep, reps=5)
+        prep()
+        fr32 = st["fr"].T.float().contiguous()
         sparse_ms = time_launch(lambda: torch.sparse.mm(adj, fr32), reps=5)
         step_line("blocked_level", geometry, "round", ms, plain_ms=plain_ms,
-                  bound_ms=b_ms, bound_by=by, bound_ms_full_dist=full_ms,
-                  bound_ms_int8_ops=ops_ms, b=b, level=lvl,
-                  live_queries=int(live.sum()), live_tiles=nnz,
-                  dist_reads=reads, stamped=stamped,
-                  plane_mb=c * n_pad / 1e6, sparse_mm_ms=sparse_ms)
+                  fold_ms=fold_ms, fold_plain_ms=fold_plain_ms,
+                  round_ms=round_ms, fold_bound_ms=fold_bound_ms(b), b=b,
+                  level=lvl, live_queries=int(st["live"].sum()),
+                  plane_mb=c * n_pad / 1e6, sparse_mm_ms=sparse_ms, **bounds)
         if results is not None and b == BATCH:
-            results["blocked_level"] = dict(max_abs_err=err, ms=ms,
-                                            plain_ms=plain_ms, bound_ms=b_ms,
-                                            bound_by=by)
-        del plane, dist, d_k, fr32
+            results["blocked_level"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bounds["bound_ms"], bound_by=bounds["bound_by"],
+                bound_ms_occupied=bounds["bound_ms_occupied"])
+            results["blocked_fold"] = dict(
+                max_abs_err=ferr, ms=fold_ms, plain_ms=fold_plain_ms,
+                bound_ms=fold_bound_ms(b), bound_by="bytes")
+        del st, d0, v0, fr32
         torch.cuda.empty_cache()
 
 
@@ -1701,11 +1819,14 @@ def blocked_batch_phase(g, gell, csr, geometry: str, b: int, seed: int):
         check((r.found, r.hops) == (r8.found, r8.hops),
               f"blocked {geometry} {s}->{d}: hops {r.hops} != minor8 {r8.hops}")
     ms, ms8 = float(np.median(times)) * 1e3, float(np.median(times8)) * 1e3
+    reads = stats["host_syncs"] // 4
     print(json.dumps({
         "phase": "blocked_batch", "geometry": geometry, "b": b,
         "batch_ms": ms, "ms_per_query": ms / b, "minor8_ms": ms8,
         "minor8_per_blocked": ms8 / ms,
-        "host_reads_per_batch": stats["host_syncs"] // 4,
+        "host_reads_per_batch": reads,
+        # a round is one read; the last read ends the loop
+        "ms_per_round": ms / max(reads - 1, 1),
         "found": sum(r.found for r in res),
         "times_ms": [t * 1e3 for t in times],
         "minor8_times_ms": [t * 1e3 for t in times8]}), flush=True)
@@ -1716,7 +1837,7 @@ def blocked_engine_phase(n, edges, pairs_all, csr, g, geometry: str) -> int:
     """A sync and a pipelined engine wave of 256 distinct pairs with the
     blocked rung: one blocked flush each, every answer equal to
     ``solve_blocked_batch`` on every field but the time and to the
-    oracle's hops, no degrade. Returns the kernel's launches."""
+    oracle's hops, no degrade. Returns the kernels' launches."""
     ends = np.random.default_rng(61).choice(n, 2 * BATCH, replace=False)
     pairs = [(int(s), int(d)) for s, d in ends.reshape(BATCH, 2)]
     want = dense.solve_blocked_batch(g, pairs, csr=csr)
@@ -1726,8 +1847,9 @@ def blocked_engine_phase(n, edges, pairs_all, csr, g, geometry: str) -> int:
     check(line["blocked_queries"] == BATCH and line["device_batches"] == 0
           and line["host_queries"] == 0 and line["modes"] == ["blocked"],
           f"blocked sync wave routes: {line}")
-    launches = line["launches"].get("blocked_level", 0)
-    check(launches > 0, "the blocked sync wave did not launch blocked_level")
+    launches = {k: line["launches"].get(k, 0) for k in BLOCKED_KERNELS}
+    check(all(launches.values()),
+          f"the blocked sync wave did not launch every kernel: {launches}")
     for (s, d), r, w in zip(pairs, res, want):
         check(fields(r) == fields(w),
               f"blocked sync wave {s}->{d}: {fields(r)} != {fields(w)}")
@@ -1741,9 +1863,10 @@ def blocked_engine_phase(n, edges, pairs_all, csr, g, geometry: str) -> int:
     st = pipe_close(pipe, tickets, f"P[blocked {geometry}]")
     check(st["blocked_queries"] == BATCH and st["device_batches"] == 0
           and st["host_queries"] == 0, f"blocked pipelined wave routes: {info}")
-    check(info["launches"].get("blocked_level", 0) > 0,
-          "the blocked pipelined wave did not launch blocked_level")
-    launches += info["launches"]["blocked_level"]
+    for k in BLOCKED_KERNELS:
+        check(info["launches"].get(k, 0) > 0,
+              f"the blocked pipelined wave did not launch {k}")
+        launches[k] += info["launches"][k]
     for (s, d), r, w in zip(pairs, res_p, want):
         check(fields(r) == fields(w),
               f"blocked pipelined wave {s}->{d}: {fields(r)} != {fields(w)}")
@@ -1755,9 +1878,9 @@ def blocked_engine_phase(n, edges, pairs_all, csr, g, geometry: str) -> int:
 
 
 def blocked_phase(dev, results: dict) -> int:
-    """Phase 10 (module docstring). Returns the kernel's launches on the
+    """Phase 10 (module docstring). Returns the kernels' launches on the
     route's path (batches and engine waves)."""
-    launches = 0
+    launches = dict.fromkeys(BLOCKED_KERNELS, 0)
     for geometry, make, b, rounds in BLOCKED_GEOMS:
         t0 = time.perf_counter()
         n, edges = make()
@@ -1779,16 +1902,17 @@ def blocked_phase(dev, results: dict) -> int:
                              results if geometry == BLOCKED_GEOMS[0][0] else None)
         reset_counts()
         blocked_batch_phase(g, gell, csr, geometry, b, 73)
-        launches += counts()["blocked_level"]
-        check(counts()["blocked_level"] > 0,
-              f"the {geometry} batch did not launch blocked_level")
+        for name in BLOCKED_KERNELS:
+            launches[name] += counts()[name]
+            check(counts()[name] > 0,
+                  f"the {geometry} batch did not launch {name}")
         if geometry == BLOCKED_GEOMS[0][0]:
-            launches += blocked_engine_phase(n, edges, pairs_all, csr, g,
-                                             geometry)
+            for name, k in blocked_engine_phase(n, edges, pairs_all, csr, g,
+                                                geometry).items():
+                launches[name] += k
         del g, gell
         torch.cuda.empty_cache()
-    print(json.dumps({"phase": "blocked_launches", "blocked_level": launches}),
-          flush=True)
+    print(json.dumps({"phase": "blocked_launches", **launches}), flush=True)
     return launches
 
 
@@ -1984,12 +2108,11 @@ def main() -> int:
                             replaces=replaces, launches=lockstep_counts[name],
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
-    # not a Pallas kernel: the XLA dot_general of the blocked expansion
-    kernels.append(dict(name="blocked_level", route="cuda",
-                        source="bibfs_tpu_torch/csrc/blocked_expand.cu",
-                        replaces="bibfs_tpu/ops/blocked_expand.py:82",
-                        launches=blocked_launches, **results["blocked_level"],
-                        library_ms=None, launch_floor_ms=floor_ms))
+    for name, (source, replaces, history) in BLOCKED_KERNELS.items():
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, **history,
+                            launches=blocked_launches[name], **results[name],
+                            library_ms=None, launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,9 +3,13 @@
 search of ``solvers.dense``) against ``bibfs_tpu``'s on the CPU, on the
 same seeded numpy inputs: the tiling (``tab``, ``bcol``, ``deg``, the
 meta), the budgets and fit rule, one expansion level by level in both
-plane types, and the whole batch search's raw outputs (best, meet, the
-dist planes, levels, edges) and paths, all exactly (integers, tolerance
-0). The CUDA kernel's tests carry the ``cuda`` marker and skip here."""
+plane types, the round's counts, degree sums, meet key and occupancy
+flags (against numpy), the column-group map, the fold (against the JAX
+body's ``[B]`` updates), the carried meet vote (against the JAX body's
+full-plane vote, round by round), and the whole batch search's raw
+outputs (best, meet, the dist planes, levels, edges) and paths, all
+exactly (integers, tolerance 0). The CUDA kernels' tests carry the
+``cuda`` marker and skip here."""
 
 import numpy as np
 import pytest
@@ -198,19 +202,271 @@ def test_blocked_level_plain_is_the_body_stamp(rc):
     live = np.array([1, 0, 1, 1, 0], dtype=np.int32)
     tab, bcol = torch.from_numpy(g.tab), torch.from_numpy(g.bcol)
     d = torch.from_numpy(dist.copy())
-    out = tx.blocked_level(tab, bcol, torch.from_numpy(plane), d,
-                           torch.from_numpy(live), 7, rc=rc)
+    pt = torch.from_numpy(plane)
+    vec = _vectors(b, g.deg, live)
+    out, _occ = tx.blocked_level(tab, bcol, torch.from_numpy(g.deg), pt, d,
+                                 tx.plane_occupancy(pt), vec, 7, rc=rc)
+    reach = (plane.astype(np.int64) @ _dense_adjacency(g).T) > 0  # [2b, n_pad]
+    new = reach & (dist >= INF32) & np.tile(live, 2)[:, None].astype(bool)
+    assert out.dtype == torch.float32
+    assert np.array_equal(out.numpy(), new.astype(np.float32))
+    assert np.array_equal(d.numpy(), np.where(new, 7, dist))
+
+
+def _dense_adjacency(g):
+    """The tiled table as a dense ``[n_pad, n_pad]`` int64 matrix."""
     a = np.zeros((g.n_pad, g.n_pad), dtype=np.int64)
     for bi in range(g.nblocks):
         for k in range(g.bwidth):
             bj = g.bcol[bi, k]
             if bj < g.nblocks:
                 a[bi * 128:(bi + 1) * 128, bj * 128:(bj + 1) * 128] = g.tab[bi, k]
-    reach = (plane.astype(np.int64) @ a.T) > 0  # [2b, n_pad]
+    return a
+
+
+def _vectors(b, deg, live, seed=0):
+    """A round's vectors (``ROUND_VECTORS``) for ``b`` queries with the
+    given live mask and empty accumulators; best, meet, levels, edges and
+    the current degree sums seeded."""
+    import torch
+
+    from bibfs_tpu_torch.ops import blocked_expand as tx
+
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32))  # noqa: E731
+    live = i32(live)
+    return dict(
+        best=i32(np.where(rng.random(b) < 0.5, INF32, rng.integers(4, 30, b))),
+        meet=i32(rng.integers(-1, len(deg), b)),
+        levels=i32(rng.integers(0, 20, b)), edges=i32(rng.integers(0, 999, b)),
+        live=live, any=live.amax(0, keepdim=True),
+        scan_cur=i32(rng.integers(0, 99, 2 * b)),
+        cnt=torch.zeros(2 * b, dtype=torch.int32),
+        scan=torch.zeros(2 * b, dtype=torch.int32),
+        key=torch.full((b,), tx.KEY_EMPTY, dtype=torch.int64))
+
+
+def _np_occupancy(new, b):
+    """Occupancy flags by the column-group map, in numpy."""
+    nblocks = new.shape[1] // 128
+    ng = -(-b // 32)
+    occ = np.zeros((ng, nblocks), dtype=np.int32)
+    for q in range(b):
+        for side in (0, 1):
+            blk = new[side * b + q].reshape(nblocks, 128).any(1)
+            occ[q // 32] |= blk
+    return occ
+
+
+LIVE_KINDS = ["all", "none", "mixed"]
+
+
+def _live(kind, b, rng):
+    if kind == "all":
+        return np.ones(b, dtype=np.int32)
+    if kind == "none":
+        return np.zeros(b, dtype=np.int32)
+    return (rng.random(b) < 0.6).astype(np.int32)
+
+
+@pytest.mark.parametrize("b", [1, 5, 37])
+@pytest.mark.parametrize("live_kind", LIVE_KINDS)
+def test_twin_counts_vote_and_flags_match_numpy(b, live_kind):
+    """The twin's per-row counts and degree sums of the new frontier, the
+    meet key (the lowest ``(d_s + d_t) << 32 | u`` over vertices new on
+    either side with both sides reached) and the next plane's occupancy
+    flags, against numpy on seeded random mid-search planes."""
+    import torch
+
+    from bibfs_tpu.graph import blocked as jb
+
+    from bibfs_tpu_torch.ops import blocked_expand as tx
+
+    n = 900
+    g = jb.build_blocked(n, pairs=_pairs(n, gnp_random_graph(n, 10 / n,
+                                                             seed=b)))
+    rng = np.random.default_rng(100 + b)
+    plane = (rng.random((2 * b, g.n_pad)) < 0.02).astype(np.float32)
+    dist = np.where(rng.random((2 * b, g.n_pad)) < 0.5, INF32,
+                    rng.integers(0, 5, size=(2 * b, g.n_pad))).astype(np.int32)
+    live = _live(live_kind, b, rng)
+    vec = _vectors(b, g.deg, live, seed=b)
+    d = torch.from_numpy(dist.copy())
+    pt = torch.from_numpy(plane)
+    fr, occ = tx.blocked_level(torch.from_numpy(g.tab), torch.from_numpy(g.bcol),
+                               torch.from_numpy(g.deg), pt, d,
+                               tx.plane_occupancy(pt), vec, 5)
+    reach = (plane.astype(np.int64) @ _dense_adjacency(g).T) > 0
     new = reach & (dist >= INF32) & np.tile(live, 2)[:, None].astype(bool)
-    assert out.dtype == torch.float32
-    assert np.array_equal(out.numpy(), new.astype(np.float32))
-    assert np.array_equal(d.numpy(), np.where(new, 7, dist))
+    after = np.where(new, 5, dist)
+    assert np.array_equal(fr.numpy() > 0, new)
+    assert np.array_equal(vec["cnt"].numpy(), new.sum(1))
+    assert np.array_equal(vec["scan"].numpy(), (new * g.deg).sum(1))
+    key = np.full(b, tx.KEY_EMPTY, dtype=np.int64)
+    for q in range(b):
+        for u in np.flatnonzero(new[q] | new[b + q]):
+            ds, dt = after[q, u], after[b + q, u]
+            if ds < INF32 and dt < INF32:
+                key[q] = min(key[q], (int(ds + dt) << 32) | int(u))
+    assert np.array_equal(vec["key"].numpy(), key)
+    assert occ.dtype == torch.int32
+    assert np.array_equal(occ.numpy(), _np_occupancy(new, b))
+    if live_kind == "none":
+        assert not new.any() and not occ.numpy().any()
+
+
+@pytest.mark.parametrize("b", [1, 5, 31, 32, 33, 37, 64, 100])
+def test_group_rows_map(b):
+    """Group g holds rows ``32g .. 32g + 31`` (source sides) and ``B + 32g
+    .. B + 32g + 31`` (target sides), -1 past the last query; the flags of
+    a plane follow that map."""
+    import torch
+
+    from bibfs_tpu_torch.ops import blocked_expand as tx
+
+    ng = -(-b // 32)
+    want = np.full((ng, 64), -1, dtype=np.int64)
+    for g in range(ng):
+        for i in range(32):
+            q = 32 * g + i
+            if q < b:
+                want[g, i], want[g, 32 + i] = q, b + q
+    got = tx.group_rows(b)
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), want)
+    plane = (np.random.default_rng(b).random((2 * b, 384)) < 0.004)
+    occ = tx.plane_occupancy(torch.from_numpy(plane.astype(np.int8)))
+    assert np.array_equal(occ.numpy(), _np_occupancy(plane, b))
+
+
+@pytest.mark.parametrize("b", [1, 5, 37])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fold_plain_matches_reference_body_updates(b, seed):
+    """``blocked_level_plain`` then ``blocked_fold_plain`` give the JAX
+    body's ``[B]`` updates (best, meet, levels, edges and the next live
+    mask) from one seeded mid-search state: random planes, dist, best
+    (never above an old vertex's sum, as in a search), meet, levels, edges
+    and round."""
+    import jax.numpy as jnp
+    import torch
+
+    from bibfs_tpu.graph import blocked as jb
+    from bibfs_tpu.solvers import dense as jd
+
+    from bibfs_tpu_torch.ops import blocked_expand as tx
+
+    n = 600
+    g = jb.build_blocked(n, pairs=_pairs(n, gnp_random_graph(n, 8 / n,
+                                                             seed=7 + seed)))
+    rng = np.random.default_rng(1000 * seed + b)
+    rnd = int(rng.integers(1, 6))
+    plane = (rng.random((2 * b, g.n_pad)) < 0.03).astype(np.float32)
+    dist = np.where(rng.random((2 * b, g.n_pad)) < 0.8, INF32,
+                    rng.integers(0, rnd + 1, size=(2 * b, g.n_pad))).astype(np.int32)
+    ds, dt = dist[:b], dist[b:]
+    old = np.where((ds < INF32) & (dt < INF32), ds + dt, INF32).min(1)
+    best = np.minimum(np.where(rng.random(b) < 0.5, INF32,
+                               rng.integers(2, 20, b)), old).astype(np.int32)
+    meet = rng.integers(-1, n, b).astype(np.int32)
+    levels = rng.integers(0, 20, b).astype(np.int32)
+    edges = rng.integers(0, 999, b).astype(np.int32)
+    cnt_s = (plane[:b] > 0).sum(1).astype(np.int32)
+    cnt_t = (plane[b:] > 0).sum(1).astype(np.int32)
+    cnt_s[rng.random(b) < 0.2] = 0  # some queries with an empty side
+    plane[:b][cnt_s == 0] = 0
+    jst = dict(fr=jnp.asarray(plane.T), dist=jnp.asarray(dist.T),
+               best=jnp.asarray(best), meet=jnp.asarray(meet),
+               cnt_s=jnp.asarray(cnt_s), cnt_t=jnp.asarray(cnt_t),
+               levels=jnp.asarray(levels), edges=jnp.asarray(edges),
+               rnd=jnp.int32(rnd))
+    live = np.asarray(jd._blocked_active(jst)).astype(np.int32)
+    body = jd._make_blocked_body(jnp.asarray(g.tab), jnp.asarray(g.bcol),
+                                 jnp.asarray(g.deg), b, g.nblocks)
+    jout = body(jst)
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))  # noqa: E731
+    vec = dict(best=i32(best), meet=i32(meet), levels=i32(levels),
+               edges=i32(edges), live=i32(live), any=i32(live.max(keepdims=True)),
+               scan_cur=i32((plane > 0) @ g.deg),
+               cnt=torch.zeros(2 * b, dtype=torch.int32),
+               scan=torch.zeros(2 * b, dtype=torch.int32),
+               key=torch.full((b,), tx.KEY_EMPTY, dtype=torch.int64))
+    pt = torch.from_numpy(plane)
+    tx.blocked_level_plain(torch.from_numpy(g.tab), torch.from_numpy(g.bcol),
+                           torch.from_numpy(g.deg), pt,
+                           torch.from_numpy(dist.copy()),
+                           tx.plane_occupancy(pt), vec, rnd + 1)
+    tx.blocked_fold_plain(vec, rnd + 1)
+    for k in ("best", "meet", "levels", "edges"):
+        assert np.array_equal(vec[k].numpy(), np.asarray(jout[k])), k
+    nxt = np.asarray(jd._blocked_active(jout)).astype(np.int32)
+    assert np.array_equal(vec["live"].numpy(), nxt)
+    assert int(vec["any"][0]) == int(nxt.any())
+    assert not vec["cnt"].any() and not vec["scan"].any()
+    assert (vec["key"] == tx.KEY_EMPTY).all()
+
+
+def test_fold_plain_takes_only_a_strictly_lower_vote():
+    """The reference's ``take = mval < best``: a carried vote equal to best
+    moves neither best nor meet, a lower one moves both, the empty key
+    neither; the accumulators are reset."""
+    import torch
+
+    from bibfs_tpu_torch.ops import blocked_expand as tx
+
+    vec = _vectors(3, np.zeros(128, np.int32), [1, 1, 1])
+    vec["best"][:] = torch.tensor([5, 5, 5], dtype=torch.int32)
+    vec["meet"][:] = torch.tensor([1, 1, 1], dtype=torch.int32)
+    vec["key"][:] = torch.tensor([(5 << 32) | 7, (4 << 32) | 9, tx.KEY_EMPTY])
+    vec["cnt"][:] = 1
+    tx.blocked_fold_plain(vec, 3)
+    assert vec["best"].tolist() == [5, 4, 5]
+    assert vec["meet"].tolist() == [1, 9, 1]
+    assert vec["live"].tolist() == [0, 0, 0]  # 2 * 3 >= best
+    assert not vec["cnt"].any() and (vec["key"] == tx.KEY_EMPTY).all()
+
+
+@pytest.mark.parametrize("name,n,edges", CASES, ids=IDS)
+def test_carried_vote_is_the_full_plane_vote(name, n, edges):
+    """Round by round over a whole seeded trajectory, the port's body (the
+    vote carried from the vertices new each round) and the JAX body (the
+    full-plane vote) agree on best and meet, and on dist, levels, edges
+    and the live mask."""
+    import jax.numpy as jnp
+    import torch
+
+    from bibfs_tpu.graph import blocked as jb
+    from bibfs_tpu.solvers import dense as jd
+
+    from bibfs_tpu_torch.solvers import dense as td
+
+    g = jb.build_blocked(n, pairs=_pairs(n, edges))
+    qp = _query_mix(n, edges, seed=len(name) + 1)
+    b = len(qp)
+    srcs = torch.from_numpy(qp[:, 0].astype(np.int32))
+    dsts = torch.from_numpy(qp[:, 1].astype(np.int32))
+    tab, bcol, deg = (torch.from_numpy(a) for a in (g.tab, g.bcol, g.deg))
+    st = td._blocked_state(srcs, dsts, deg, torch.float32)
+    body = td._make_blocked_body(tab, bcol, deg, g.nblocks)
+    jbody = jd._make_blocked_body(jnp.asarray(g.tab), jnp.asarray(g.bcol),
+                                  jnp.asarray(g.deg), b, g.nblocks)
+    jst = dict(fr=jnp.asarray(st["fr"].numpy().T),
+               dist=jnp.asarray(st["dist"].numpy().T),
+               best=jnp.asarray(st["best"].numpy()),
+               meet=jnp.asarray(st["meet"].numpy()),
+               cnt_s=jnp.ones(b, jnp.int32), cnt_t=jnp.ones(b, jnp.int32),
+               levels=jnp.zeros(b, jnp.int32), edges=jnp.zeros(b, jnp.int32),
+               rnd=jnp.int32(0))
+    rounds = 0
+    while bool(st["any"]):
+        body(st)
+        jst = jbody(jst)
+        rounds += 1
+        for k in ("best", "meet", "levels", "edges"):
+            assert np.array_equal(st[k].numpy(), np.asarray(jst[k])), (rounds, k)
+        assert np.array_equal(st["dist"].numpy().T, np.asarray(jst["dist"]))
+        assert np.array_equal(st["live"].numpy() > 0,
+                              np.asarray(jd._blocked_active(jst)))
+    assert not bool(jnp.any(jd._blocked_active(jst)))
+    assert rounds == int(st["rnd"])
 
 
 def _raw_batch(g, pairs, dt, batch_mod):
@@ -294,9 +550,10 @@ def test_snapshot_memoizes_blocked_and_frees_on_retire():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [256, 37, 1])
 def test_cuda_blocked_level_matches_plain(b, cuda_device):
-    """The CUDA kernel equals its plain twin bit for bit on a seeded
-    mid-search state (next plane and stamped dist), on a grid and a
-    dense-ish graph, and counts one launch per call."""
+    """The CUDA kernels equal their plain twins bit for bit on a seeded
+    mid-search state, on a grid and a dense-ish graph: the next plane, the
+    stamped dist, the occupancy flags, the counts, degree sums and meet
+    key, then every vector of the fold; one launch counted per call."""
     import torch
 
     from bibfs_tpu_torch.graph.blocked import build_blocked
@@ -308,20 +565,72 @@ def test_cuda_blocked_level_matches_plain(b, cuda_device):
         g = build_blocked(n, edges)
         tab = torch.from_numpy(g.tab).to(cuda_device)
         bcol = torch.from_numpy(g.bcol).to(cuda_device)
+        deg = torch.from_numpy(g.deg).to(cuda_device)
         plane = torch.from_numpy(
             (rng.random((2 * b, g.n_pad)) < 0.03).astype(np.int8)).to(cuda_device)
         dist = np.where(rng.random((2 * b, g.n_pad)) < 0.7, INF32,
                         rng.integers(0, 9, size=(2 * b, g.n_pad)))
         dist = torch.from_numpy(dist.astype(np.int32)).to(cuda_device)
-        live = torch.from_numpy((rng.random(b) < 0.8).astype(np.int32)
-                                ).to(cuda_device)
+        live = (rng.random(b) < 0.8).astype(np.int32)
+        vec = {k: v.to(cuda_device)
+               for k, v in _vectors(b, g.deg, live, seed=b).items()}
+        vec_p = {k: v.clone() for k, v in vec.items()}
+        occ = tx.plane_occupancy(plane)
         d_k, d_p = dist.clone(), dist.clone()
-        before = tx.blocked_level.launches
-        out_k = tx.blocked_level(tab, bcol, plane, d_k, live, 9)
-        out_p = tx.blocked_level_plain(tab, bcol, plane, d_p, live, 9)
+        before = (tx.blocked_level.launches, tx.blocked_fold.launches)
+        out_k = tx.blocked_level(tab, bcol, deg, plane, d_k, occ, vec, 9)
+        out_p = tx.blocked_level_plain(tab, bcol, deg, plane, d_p, occ, vec_p, 9)
         torch.cuda.synchronize()
-        assert tx.blocked_level.launches == before + 1
-        assert torch.equal(out_k, out_p) and torch.equal(d_k, d_p)
+        assert torch.equal(out_k[0], out_p[0]) and torch.equal(d_k, d_p)
+        assert torch.equal(out_k[1], out_p[1])
+        for k in ("cnt", "scan", "key"):
+            assert torch.equal(vec[k], vec_p[k]), k
+        tx.blocked_fold(vec, 9)
+        tx.blocked_fold_plain(vec_p, 9)
+        torch.cuda.synchronize()
+        assert (tx.blocked_level.launches, tx.blocked_fold.launches) == (
+            before[0] + 1, before[1] + 1)
+        for k in tx.ROUND_VECTORS:
+            assert torch.equal(vec[k], vec_p[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_blocked_round_wide_rows_and_many_queries(cuda_device):
+    """The kernels on a table wider than 32 slots (the slot masks are
+    taken 32 slots at a time) and on more queries than the fold's one
+    block has threads (a ragged last group too), against the twins on
+    every output, for three rounds of the search's own states."""
+    import torch
+
+    from bibfs_tpu_torch.graph.blocked import build_blocked
+    from bibfs_tpu_torch.ops import blocked_expand as tx
+    from bibfs_tpu_torch.solvers import dense as td
+
+    n = 6000
+    g = build_blocked(n, gnp_random_graph(n, 40 / n, seed=11))
+    assert g.bwidth > 32
+    tab, bcol, deg = (torch.from_numpy(a).to(cuda_device)
+                      for a in (g.tab, g.bcol, g.deg))
+    qp = np.random.default_rng(5).integers(0, n, size=(1100, 2))
+    st = td._blocked_state(torch.from_numpy(qp[:, 0].astype(np.int32)).to(cuda_device),
+                           torch.from_numpy(qp[:, 1].astype(np.int32)).to(cuda_device),
+                           deg, torch.int8)
+    for lvl in range(1, 4):
+        tw = {k: v.clone() if isinstance(v, torch.Tensor) else v
+              for k, v in st.items()}
+        out_k = tx.blocked_level(tab, bcol, deg, st["fr"], st["dist"],
+                                 st["occ"], st, lvl)
+        out_p = tx.blocked_level_plain(tab, bcol, deg, tw["fr"], tw["dist"],
+                                       tw["occ"], tw, lvl)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])
+        assert torch.equal(st["dist"], tw["dist"])
+        tx.blocked_fold(st, lvl)
+        tx.blocked_fold_plain(tw, lvl)
+        torch.cuda.synchronize()
+        for k in tx.ROUND_VECTORS:
+            assert torch.equal(st[k], tw[k]), (lvl, k)
+        st["fr"], st["occ"] = out_k
 
 
 @pytest.mark.cuda

@@ -127,6 +127,31 @@ def test_ab_runs_two_checkouts_in_turns(capsys):
     assert after == before and sys.modules["bibfs_tpu_torch.solvers.dense"] is dense
 
 
+def test_ab_blocked_times_blocked_batches_of_both_checkouts(capsys):
+    """``cli/ab.py --blocked`` against this very checkout as the parent
+    (the 64x64 grid, a small batch, CPU): both checkouts' blocked batches
+    agree on every raw output, each is timed with its host reads, and the
+    modules it swapped are put back."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from bibfs_tpu_torch.cli import ab
+    from bibfs_tpu_torch.solvers import dense
+
+    root = Path(ab.__file__).resolve().parents[2]
+    assert ab.main([str(root), "--blocked", "grid-64x64", "--batch", "8",
+                    "--rounds", "1", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["same_results"] is True and out["card"] == "cpu"
+    assert (out["geometry"], out["n"], out["batch"]) == ("grid-64x64", 4096, 8)
+    for who in ("parent", "change"):
+        row = out[f"{who}/blocked"]
+        assert row["batches"] == 1 and row["median_ms"] > 0
+        assert row["host_reads_per_batch"] > 2
+    assert sys.modules["bibfs_tpu_torch.solvers.dense"] is dense
+
+
 def _batch_lines(out: str) -> list[str]:
     return [ln for ln in out.splitlines() if " -> " in ln and ": " in ln]
 

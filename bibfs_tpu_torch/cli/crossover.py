@@ -82,7 +82,8 @@ def main(argv=None) -> int:
         engines[mode] = QueryEngine(n, edges, mode=mode, flush_threshold=1,
                                     **kw)
         engines[mode].graph  # the bucketed table, built and uploaded
-    engines["host"]._rt.get_host_solver()  # the native build and CSR
+    # the native build and CSR
+    engines["host"]._current_rt().get_host_solver()
     rng = np.random.default_rng(41)
     need = 2 * sum(sizes) * (args.repeats + 1)
     pool = list(rng.choice(n, need, replace=False))

@@ -22,7 +22,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("pull_expand", "fused_level", "batch_minor", "blocked_expand")
+SOURCES = ("pull_expand", "fused_level", "batch_minor", "blocked_expand",
+           "msbfs")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,6 +60,10 @@ SIGNATURES = {
                                 _I64, _I64, _P, _I, _P, _P, _P, _P],
         "bibfs_blocked_fold": [_I64, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P],
+    },
+    "msbfs": {
+        "bibfs_msbfs_level": [_P, _P, _I64, _I, _I, _P, _P, _P, _P, _I, _P,
+                              _P, _P],
     },
 }
 

@@ -1,6 +1,6 @@
-"""``bibfs-torch-serve`` — serve shortest-path queries over one graph: the
-counterpart of ``bibfs-serve`` (``bibfs_tpu/serve/cli.py``) for one
-``.bin`` graph.
+"""``bibfs-torch-serve`` — serve shortest-path queries over one graph or a
+graph store: the counterpart of ``bibfs-serve``
+(``bibfs_tpu/serve/cli.py``).
 
 The engine keeps the graph on the card, micro-batches queued queries into
 batched device searches above the crossover (the native host runtime
@@ -25,9 +25,27 @@ queries resolve and print) and exits 0.
 (``blocked -> device -> host``), and ``--adaptive`` orders the ladder per
 graph from measured route latencies.
 
-The engine runs on ``cuda`` unless ``--device cpu`` is given. The store,
-mesh, oracle, network, load-harness, metrics and trace flags of
-``bibfs-serve`` come with later slices of the port (ROADMAP Queue 1).
+``--store DIR`` serves a whole
+:class:`~bibfs_tpu_torch.store.GraphStore` instead of one ``.bin``: every
+``DIR/*.bin`` registers under its file stem, and the stdin stream takes
+store commands beside ``src dst`` queries: ``use NAME`` switches the
+stream's graph, ``update add U V`` / ``update del U V`` applies a live
+edge update (answered exactly through the delta overlay until
+compaction), ``swap`` forces a compaction and hot-swap of the current
+graph, and ``graphs`` lists the graphs with their versions.
+
+``--oracle K`` turns on the landmark distance oracle: under ``--store``
+the store keeps one index per graph (built in the background on the
+engine's device), with a ``.bin`` the engine builds one at startup. The
+stdin command ``oracle`` prints the current graph's index status and hit
+counts. Command replies land in the result stream.
+
+The engine runs on ``cuda`` unless ``--device cpu`` is given. The store's
+durability flags (``--durable``, ``--fsync``, ``--residency-budget``,
+``--no-mmap``) and the ``memory`` command come with the durability slice
+(ROADMAP Queue 1, item 6b) and refuse with a message naming it; the
+mesh, network, load-harness, metrics and trace flags of ``bibfs-serve``
+come with later slices of the port (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -36,6 +54,11 @@ import argparse
 import json
 import sys
 
+_STORE_COMMANDS = ("use", "update", "swap", "graphs")
+
+#: where the durability flags and the ``memory`` command are ported
+_DURABILITY = "the durability slice (ROADMAP Queue 1, item 6b)"
+
 
 class _SigTerm(Exception):
     """Raised by the SIGTERM handler out of the blocking stdin read: the
@@ -43,14 +66,16 @@ class _SigTerm(Exception):
     queued results print, exit 0)."""
 
 
-def _control_reply(engine, cmd: str) -> str:
+def _control_reply(engine, store, cmd: str) -> str:
     """The stdin ``health`` / ``stats`` commands' one-line JSON reply
-    (``health {...}`` / ``stats {...}``). No flush is forced, so a probe
-    never perturbs batching."""
+    (``health {...}`` / ``stats {...}``, the store's stats inside the
+    latter). No flush is forced, so a probe never perturbs batching."""
     if cmd == "health":
         payload = engine.health_snapshot()
     else:
         payload = engine.stats()
+        if store is not None:
+            payload["store"] = store.stats()
         # the Prometheus text rides the stats reply (a subprocess replica
         # has no HTTP port of its own)
         from bibfs_tpu_torch.obs.metrics import REGISTRY
@@ -59,6 +84,96 @@ def _control_reply(engine, cmd: str) -> str:
     return cmd + " " + json.dumps(
         payload, sort_keys=True, default=str, separators=(",", ":")
     )
+
+
+def _oracle_status(engine, store, current) -> str:
+    """The stdin ``oracle`` command's reply line: the current graph's index
+    status and hit counts (store-backed or engine-local)."""
+    if store is not None:
+        if store.oracle_k is None:
+            return "oracle: off (serve with --oracle K)"
+        st = store.stats()["graphs"][current]["oracle"]
+        state = ("ready" if st["ready"]
+                 else "building" if st["building"] else "stale")
+        head = (
+            f"oracle {current}: {state} k={st['k']} gen={st['gen']} "
+            f"builds={st['builds']} repairs={st['repairs']}"
+        )
+        idx = st.get("index")
+        if idx is not None:
+            head += f" age={idx['age_s']}s"
+    else:
+        st = engine.stats().get("oracle")
+        if st is None:
+            return "oracle: off (serve with --oracle K)"
+        idx = st["index"]
+        head = f"oracle: ready k={idx['k']} age={idx['age_s']}s"
+    hits = st.get("hits")
+    if hits:
+        head += "  hits " + " ".join(f"{k}={v}" for k, v in hits.items())
+    return head
+
+
+def _store_command(store, current: str, parts: list[str]) -> tuple[str, str]:
+    """Execute one stdin store command. Returns ``(reply_line,
+    current_graph)``; replies, malformed-command errors included, land in
+    the result stream."""
+    cmd = parts[0]
+    if cmd == "graphs":
+        if len(parts) != 1:
+            return "error invalid: usage: graphs", current
+        st = store.stats()["graphs"]
+        listing = " ".join(
+            "{star}{name}(v{v})".format(
+                star="*" if name == current else "", name=name,
+                v=st[name]["version"],
+            )
+            for name in sorted(st)
+        )
+        return f"graphs: {listing}", current
+    if cmd == "use":
+        if len(parts) != 2:
+            return "error invalid: usage: use NAME", current
+        name = parts[1]
+        try:
+            snap = store.current(name)
+        except KeyError as e:
+            return f"error invalid: {e.args[0]}", current
+        return f"use {name}: v{snap.version} digest {snap.digest[:12]}", name
+    if cmd == "swap":
+        if len(parts) != 1:
+            return "error invalid: usage: swap", current
+        old = store.current(current)
+        new = store.compact(current)  # synchronous fold + hot-swap
+        if new.version == old.version:
+            return (f"swap {current}: no pending delta (v{old.version})",
+                    current)
+        return (
+            f"swap {current}: v{old.version} -> v{new.version} "
+            f"digest {new.digest[:12]}"
+        ), current
+    # update add|del U V
+    if len(parts) != 4 or parts[1] not in ("add", "del"):
+        return "error invalid: usage: update add|del U V", current
+    try:
+        u, v = int(parts[2]), int(parts[3])
+    except ValueError:
+        return ("error invalid: non-integer node id in "
+                f"{' '.join(parts)!r}"), current
+    try:
+        out = store.update(
+            current,
+            adds=[(u, v)] if parts[1] == "add" else (),
+            dels=[(u, v)] if parts[1] == "del" else (),
+        )
+    except ValueError as e:
+        return f"error invalid: {e}", current
+    return (
+        "update {g}: +{a}/-{d} pending{c}".format(
+            g=current, a=out["adds"], d=out["dels"],
+            c=" (compacting)" if out["compacting"] else "",
+        )
+    ), current
 
 
 def _print_result(src, dst, res, no_path: bool) -> None:
@@ -79,7 +194,36 @@ def main(argv=None):
         description="Serve (src, dst) queries through the micro-batching "
         "engine (PyTorch / CUDA)"
     )
-    ap.add_argument("graph", help=".bin graph file (uint32 N,M + edge pairs)")
+    ap.add_argument("graph", nargs="?", default=None,
+                    help=".bin graph file (uint32 N,M + edge pairs), or "
+                    "serve a directory of graphs with --store")
+    ap.add_argument("--store", default=None, metavar="DIR",
+                    help="serve every *.bin graph in DIR through one "
+                    "versioned GraphStore (each under its file stem): "
+                    "per-query graph routing, live edge updates answered "
+                    "exactly through the delta overlay, and hot-swap, via "
+                    "the stdin commands use/update/swap/graphs")
+    ap.add_argument("--use", default=None, metavar="NAME",
+                    help="initial current graph under --store (default: "
+                    "the store's first graph, alphabetically)")
+    ap.add_argument("--compact-threshold", type=int, default=256,
+                    metavar="EDGES",
+                    help="pending delta edges at which a store graph "
+                    "compacts in the background (default 256); 0 disables "
+                    "auto-compaction (explicit 'swap' only)")
+    ap.add_argument("--oracle", type=int, default=None, metavar="K",
+                    help="the landmark distance oracle with K landmark BFS "
+                    "trees, built on the engine's device: landmark-endpoint, "
+                    "bound-pinned and provably disconnected queries answer "
+                    "with no search (route oracle), the rest with a search "
+                    "cutoff. Under --store the store keeps one index per "
+                    "graph; the stdin command 'oracle' prints its status")
+    for flag, kw in (("--durable", dict(action="store_true")),
+                     ("--fsync", dict(default=None)),
+                     ("--residency-budget", dict(type=int, default=None)),
+                     ("--no-mmap", dict(action="store_true"))):
+        ap.add_argument(flag, help=f"not ported yet: comes with {_DURABILITY}",
+                        **kw)
     ap.add_argument("--pairs", default=None, metavar="FILE",
                     help='query file of "src dst" lines (default: stream '
                     "stdin)")
@@ -135,6 +279,40 @@ def main(argv=None):
                     "silent CPU fallback)")
     args = ap.parse_args(argv)
 
+    for flag, given in (("--durable", args.durable),
+                        ("--fsync", args.fsync is not None),
+                        ("--residency-budget",
+                         args.residency_budget is not None),
+                        ("--no-mmap", args.no_mmap)):
+        if given:
+            print(f"Error: {flag} is not ported yet: it comes with "
+                  f"{_DURABILITY}", file=sys.stderr)
+            return 2
+    if args.store is not None:
+        if args.graph is not None:
+            print("Error: pass a .bin graph OR --store DIR, not both",
+                  file=sys.stderr)
+            return 2
+        from bibfs_tpu_torch.store import GraphStore
+
+        try:
+            store = GraphStore.from_dir(
+                args.store,
+                compact_threshold=(args.compact_threshold or None),
+                oracle_k=args.oracle,
+                device=args.device,
+            )
+        except (OSError, ValueError, RuntimeError) as e:
+            print(f"Error reading store: {e}", file=sys.stderr)
+            return 2
+        print("[Store] serving {k} graph(s): {names}".format(
+            k=len(store.names()), names=", ".join(store.names())),
+            file=sys.stderr, flush=True)
+        return _serve(args, None, None, store)
+    if args.graph is None:
+        print("Error: a .bin graph (or --store DIR) is required",
+              file=sys.stderr)
+        return 2
     from bibfs_tpu_torch.graph.io import read_graph_bin
 
     try:
@@ -142,10 +320,10 @@ def main(argv=None):
     except (OSError, ValueError) as e:
         print(f"Error reading graph: {e}", file=sys.stderr)
         return 2
-    return _serve(args, n, edges)
+    return _serve(args, n, edges, None)
 
 
-def _build_engine(args, n, edges):
+def _build_engine(args, n, edges, store):
     from bibfs_tpu_torch.serve import PipelinedQueryEngine, QueryEngine
 
     kwargs = dict(
@@ -169,17 +347,24 @@ def _build_engine(args, n, edges):
             args.inject_faults,
             seed=int(os.environ.get("BIBFS_FAULTS_SEED", 0)),
         )
+    if store is not None:
+        kwargs.update(store=store, graph=args.use)
+    else:
+        kwargs.update(n=n, edges=edges)
+        if args.oracle is not None:
+            kwargs["oracle_k"] = args.oracle
     if args.pipeline:
-        return PipelinedQueryEngine(n, edges, max_wait_ms=args.max_wait_ms,
-                                    **kwargs)
-    return QueryEngine(n, edges, **kwargs)
+        return PipelinedQueryEngine(max_wait_ms=args.max_wait_ms, **kwargs)
+    return QueryEngine(**kwargs)
 
 
-def _serve(args, n, edges) -> int:
+def _serve(args, n, edges, store) -> int:
     try:
-        engine = _build_engine(args, n, edges)
+        engine = _build_engine(args, n, edges, store)
     except (KeyError, ValueError, RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
+        if store is not None:
+            store.close()
         return 2
     try:
         if args.pairs is not None:
@@ -193,7 +378,7 @@ def _serve(args, n, edges) -> int:
             results = engine.query_many(pairs)
             for (src, dst), res in zip(pairs, results):
                 _print_result(src, dst, res, args.no_path)
-        elif _serve_stdin(args, engine):
+        elif _serve_stdin(args, engine, store):
             return 1
     except ValueError as e:
         print(f"Error: {e}", file=sys.stderr)
@@ -216,6 +401,20 @@ def _serve(args, n, edges) -> int:
         ),
         file=sys.stderr,
     )
+    if store is not None:
+        store.close()  # join in-flight compactions and index builds
+        sstats = store.stats()
+        stats["store"] = sstats
+        print(
+            "[Store] {k} graph(s), {sw} swap(s), {co} compaction(s), "
+            "{de} delta edge(s) pending".format(
+                k=len(sstats["graphs"]),
+                sw=sum(g["swaps"] for g in sstats["graphs"].values()),
+                co=sum(g["compactions"] for g in sstats["graphs"].values()),
+                de=sum(g["delta_edges"] for g in sstats["graphs"].values()),
+            ),
+            file=sys.stderr,
+        )
     if args.stats_json:
         with open(args.stats_json, "w") as f:
             json.dump(stats, f, indent=1, sort_keys=True, default=str)
@@ -223,7 +422,7 @@ def _serve(args, n, edges) -> int:
     return 0
 
 
-def _serve_stdin(args, engine) -> int:
+def _serve_stdin(args, engine, store) -> int:
     """Stream stdin: tickets resolve at each engine flush (the queue fills
     to ``max_batch`` or EOF drains the rest; under ``--pipeline`` the
     deadline flusher resolves them on its own). A malformed line answers
@@ -236,6 +435,7 @@ def _serve_stdin(args, engine) -> int:
     tickets: list = []
     emitted = 0
     failed = 0
+    current = None if store is None else (args.use or store.default_graph())
 
     def drain():
         nonlocal emitted, failed
@@ -272,13 +472,38 @@ def _serve_stdin(args, engine) -> int:
             parts = line.split()
             if not parts:
                 continue
+            if parts[0] == "oracle":
+                if len(parts) != 1:
+                    print("error invalid: usage: oracle")
+                    continue
+                print(_oracle_status(engine, store, current))
+                continue
+            if parts[0] == "memory":
+                print(f"error invalid: 'memory' is not ported yet: it "
+                      f"comes with {_DURABILITY}")
+                continue
             if parts[0] in ("health", "stats"):
                 if len(parts) != 1:
                     print(f"error invalid: usage: {parts[0]}")
                     continue
                 # resolved results first: the reply doubles as a drain nudge
                 drain()
-                print(_control_reply(engine, parts[0]))
+                print(_control_reply(engine, store, parts[0]))
+                continue
+            if parts[0] in _STORE_COMMANDS:
+                if store is None:
+                    print(f"error invalid: {parts[0]!r} needs --store")
+                    continue
+                # resolve everything queued before the command changes the
+                # store, so a query answers on the graph it was typed
+                # against (only when something is unresolved: a no-op
+                # flush would arm the pipelined flusher's drain request)
+                if any(t.result is None and t.error is None
+                       for t in tickets[emitted:]):
+                    engine.flush()
+                drain()
+                reply, current = _store_command(store, current, parts)
+                print(reply)
                 continue
             if len(parts) != 2:
                 print("error invalid: expected 'src dst', got "
@@ -291,7 +516,7 @@ def _serve_stdin(args, engine) -> int:
                       f"{line.strip()!r}")
                 continue
             try:
-                tickets.append(engine.submit(src, dst))
+                tickets.append(engine.submit(src, dst, current))
             except QueryError as e:
                 # a draining engine refuses with a structured capacity
                 # error: answer it and keep serving what is queued

@@ -58,9 +58,23 @@ and :meth:`QueryEngine._device_finish`), which the synchronous engine
 runs in turn and the pipelined engine
 (:mod:`bibfs_tpu_torch.serve.pipeline`) overlaps across batches.
 
-The graph store, the distance oracle, the mesh route and the query kinds
-other than point-to-point come with later slices of the port (ROADMAP
-Queue 1); their constructor options raise ``NotImplementedError``.
+- **graph store** — ``store=`` serves a
+  :class:`~bibfs_tpu_torch.store.GraphStore` instead of one inline graph:
+  queries name a graph (``submit(s, d, graph="social")``), a graph with
+  pending live updates answers exactly through its delta overlay
+  (``route="overlay"``, uncached), and a hot-swapped snapshot is picked up
+  at the next flush while flushes in flight finish on the snapshot they
+  pinned (the swap barrier: :meth:`QueryEngine._pin_rt` and
+  :meth:`QueryEngine._bound`).
+- **distance oracle** — a landmark index (``oracle_k=`` on an inline
+  graph, built in the constructor on the engine's device; or the store's
+  per-graph index) answers at submit time, before the cache
+  (``route="oracle"``), and hands the rest a proven upper bound that the
+  serial host rung takes as a search cutoff.
+
+The mesh route and the query kinds other than point-to-point come with
+later slices of the port (ROADMAP Queue 1); their options raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ from __future__ import annotations
 import threading
 import time
 import weakref
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -102,7 +117,22 @@ from bibfs_tpu_torch.utils.platform import resolve_device
 BATCH_LAYOUT_MODES = ("auto", "minor", "minor8")
 
 #: constructor options of later slices -> the ROADMAP Queue 1 item
-_UNPORTED = {"store": 6, "graph": 6, "oracle_k": 6, "mesh": 8}
+_UNPORTED = {"mesh": 8}
+
+
+def _solve_serial_cutoff_checked(n, row_ptr, col_ind, s, d, cutoff):
+    """Cutoff-armed serial solve with the false-unreachable guard. A cutoff
+    is armed at submit time against the live graph of that instant; a
+    delete and a swap may land before the flush solves, and a stale bound
+    can then only show as ``found=False`` (a found result's hops are a
+    real path's length, never below the true distance). So a not-found
+    answer is retried without the cutoff."""
+    from bibfs_tpu_torch.solvers.serial import solve_serial_csr
+
+    res = solve_serial_csr(n, row_ptr, col_ind, s, d, cutoff=cutoff)
+    if cutoff is not None and not res.found:
+        res = solve_serial_csr(n, row_ptr, col_ind, s, d)
+    return res
 
 
 def _mode_sources(mode: str, blocked: bool = False) -> tuple:
@@ -259,15 +289,20 @@ class _Pending:
     """A submitted query's handle; exactly one of ``result`` / ``error``
     lands at flush time (a poisoned query gets a structured
     :class:`~bibfs_tpu_torch.serve.resilience.QueryError` instead of
-    sinking its batch)."""
+    sinking its batch). ``graph`` is the store graph the query is against
+    (None on a store-less engine); ``cutoff`` the distance oracle's proven
+    upper bound when it gave one (the serial host rung seeds its meet
+    bound with it)."""
 
-    __slots__ = ("src", "dst", "result", "error")
+    __slots__ = ("src", "dst", "graph", "result", "error", "cutoff")
 
-    def __init__(self, src: int, dst: int):
+    def __init__(self, src: int, dst: int, graph: str | None = None):
         self.src = src
         self.dst = dst
+        self.graph = graph
         self.result: BFSResult | None = None
         self.error: BaseException | None = None
+        self.cutoff: int | None = None
 
 
 @guarded_by("_lock", "_graph", "bucket_key", "_host_solver",
@@ -278,7 +313,10 @@ class _GraphRuntime:
     snapshot: the lazily built and uploaded device graph and its bucket
     key, the blocked tile table and its key, the host solvers (native /
     serial), and the distance-cache namespace ``graph_id`` (the
-    snapshot's content digest unless the caller overrides it)."""
+    snapshot's content digest unless the caller overrides it). An engine
+    keeps one runtime per served graph name and builds a fresh one when
+    the store hot-swaps the snapshot; a flush binds one runtime for its
+    whole life (``QueryEngine._bound``)."""
 
     def __init__(self, snapshot: GraphSnapshot, *, layout: str, device,
                  host_backend: str | None = None, graph_id=None):
@@ -391,8 +429,10 @@ class _GraphRuntime:
                     # shares only the read-only CSR
                     self.host_native_graph = ng
                     self.host_backend_resolved = "native"
+                    # the native search has no seed seam: it ignores the
+                    # oracle's cutoff
                     self._host_solver = (
-                        lambda s, d: solve_native_graph(ng, s, d)
+                        lambda s, d, cutoff=None: solve_native_graph(ng, s, d)
                     )
                     return self._host_solver
                 except OSError:
@@ -403,14 +443,16 @@ class _GraphRuntime:
             return self._host_solver
 
     def _serial_csr_solver(self):
-        from bibfs_tpu_torch.solvers.serial import solve_serial_csr
-
         row_ptr, col_ind = self.snapshot.csr()
-        return lambda s, d: solve_serial_csr(self.n, row_ptr, col_ind, s, d)
+        return lambda s, d, cutoff=None: _solve_serial_cutoff_checked(
+            self.n, row_ptr, col_ind, s, d, cutoff
+        )
 
-    def solve_serial_one(self, src: int, dst: int) -> BFSResult:
+    def solve_serial_one(self, src: int, dst: int,
+                         cutoff: int | None = None) -> BFSResult:
         """The bottom of the fallback ladder: the NumPy serial oracle over
-        the snapshot's CSR."""
+        the snapshot's CSR (seeded with the oracle's ``cutoff`` when
+        given)."""
         if self._serial_solver is None:
             with self._lock:
                 if self._serial_solver is None:
@@ -420,10 +462,10 @@ class _GraphRuntime:
                         self._serial_solver = self._host_solver
                     else:
                         self._serial_solver = self._serial_csr_solver()
-        return self._serial_solver(int(src), int(dst))
+        return self._serial_solver(int(src), int(dst), cutoff=cutoff)
 
 
-@guarded_by("_rt_lock", "_rts_released")
+@guarded_by("_rt_lock", "_runtimes", "_rts_released")
 class QueryEngine:
     """Serve ``(src, dst)`` shortest-path queries over one graph.
 
@@ -433,6 +475,13 @@ class QueryEngine:
         optionally passes a precomputed ``canonical_pairs`` result.
         Internally the graph becomes an immutable
         :class:`~bibfs_tpu_torch.store.snapshot.GraphSnapshot`.
+    store, graph : serve a :class:`~bibfs_tpu_torch.store.GraphStore`
+        instead of one inline graph: ``store=`` (exclusive with
+        ``n``/``edges``/``pairs``) attaches it, ``graph=`` names the
+        default graph (default: the store's). Queries then take a graph
+        name, live edge updates answer exactly through the store's delta
+        overlay, and a hot-swapped snapshot is picked up at the next flush
+        while flushes in flight finish on the version they started on.
     mode : batch mode of device flushes (default ``"auto"``: ``minor8``
         where the graph and batch fit, else ``minor``, else the lock-step
         ``sync`` batch); any mode of :func:`~bibfs_tpu_torch.solvers.dense.
@@ -458,8 +507,19 @@ class QueryEngine:
         (default: the process-wide one).
     dist_cache : a :class:`DistanceCache` to share across engines
         (default: a private one); entries are namespaced by ``graph_id``.
-    graph_id : distance-cache namespace override (default: the
-        snapshot's content digest, which equals the JAX package's).
+    oracle_k : landmarks of an engine-local distance oracle over the
+        inline graph (:mod:`bibfs_tpu_torch.oracle`), built in the
+        constructor on the engine's device (the multi-source BFS kernel on
+        the card). It is consulted before the distance cache on every
+        submit: exact answers resolve with no solver (``route="oracle"``,
+        ``path=None``), and an upper bound arms the serial host rung's
+        cutoff. A store-backed engine reads the store's oracles
+        (``GraphStore(oracle_k=...)``), so ``oracle_k`` with ``store=`` is
+        an error.
+    graph_id : distance-cache namespace override of the default graph
+        (default: the snapshot's content digest, which equals the JAX
+        package's). On a store-backed engine it holds until that graph's
+        first hot-swap; the replacement runtime reverts to the digest.
     device : the device of the batched search (default ``cuda``; a CUDA
         engine without a card raises, ``"cpu"`` runs the plain torch
         versions of the kernels).
@@ -491,8 +551,8 @@ class QueryEngine:
         store comes with the store slice); pass a ready ``AdaptiveRouter``
         to share one across engines or to persist it at a ``path``.
         Default None: the static ladder.
-    store, graph, oracle_k, mesh : options of later slices of the port;
-        passing any raises ``NotImplementedError``.
+    mesh : an option of a later slice of the port; passing it raises
+        ``NotImplementedError``.
     """
 
     _OBS_PREFIX = "sync"
@@ -532,8 +592,7 @@ class QueryEngine:
         from bibfs_tpu_torch.solvers.batch_minor import small_batch_threshold
         from bibfs_tpu_torch.solvers.dense import DENSE_MODES
 
-        given = {"store": store, "graph": graph, "oracle_k": oracle_k,
-                 "mesh": mesh, "blocked": blocked, "adaptive": adaptive}
+        given = {"mesh": mesh}
         for opt, item in _UNPORTED.items():
             if given[opt] is not None and given[opt] is not False:
                 raise NotImplementedError(
@@ -556,8 +615,25 @@ class QueryEngine:
             )
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if n is None:
-            raise ValueError("n (and edges/pairs) required")
+        if oracle_k is not None:
+            if store is not None:
+                raise ValueError(
+                    "oracle_k configures an engine-local oracle over an "
+                    "inline graph; a store-backed engine's oracles come "
+                    "from the store (GraphStore(oracle_k=...))"
+                )
+            if int(oracle_k) < 1:
+                raise ValueError(f"oracle_k must be >= 1, got {oracle_k}")
+        if store is not None:
+            if n is not None or edges is not None or pairs is not None:
+                raise ValueError(
+                    "pass the graph inline (n, edges/pairs) OR store=, "
+                    "not both"
+                )
+        elif graph is not None:
+            raise ValueError("graph= names a store graph; pass store=")
+        elif n is None:
+            raise ValueError("n (and edges/pairs) required without store=")
         from bibfs_tpu_torch.serve.routes import BlockedConfig
 
         self._blocked_cfg = (
@@ -586,9 +662,23 @@ class QueryEngine:
             # flushes to the host route
             from bibfs_tpu_torch.ops import _cuda
 
-            for source in _mode_sources(mode, self._blocked_cfg is not None):
+            sources = _mode_sources(mode, self._blocked_cfg is not None)
+            for source in sources + (("msbfs",) if oracle_k else ()):
                 _cuda.lib(source)
-        snap = GraphSnapshot.build(n, edges, pairs=pairs)
+        # the store pin comes after every check that can raise: a raise
+        # past it would leak the pin and the snapshot would never retire
+        self._store = store
+        if store is not None:
+            self._default_name = (
+                store.default_graph() if graph is None else str(graph)
+            )
+            try:
+                snap = store.acquire(self._default_name)  # the engine's pin
+            except KeyError as e:
+                raise ValueError(str(e)) from e
+        else:
+            snap = GraphSnapshot.build(n, edges, pairs=pairs)
+            self._default_name = None
         self.mode = mode
         self.layout = layout
         self.flush_threshold = (
@@ -596,16 +686,37 @@ class QueryEngine:
             if flush_threshold is None else int(flush_threshold)
         )
         self.max_batch = bucket_batch(max_batch)
+        self._host_backend = host_backend
+        # one runtime per served graph name; a hot-swap replaces it at the
+        # next resolution while bound flushes finish on the old one
         self._rt_lock = threading.RLock()
+        self._flush_tls = threading.local()
         self._rts_released = False
-        self._rt = _GraphRuntime(
-            snap, layout=layout, device=self._device,
-            host_backend=host_backend, graph_id=graph_id,
-        )
+        self._runtimes: dict = {
+            self._default_name: _GraphRuntime(
+                snap, layout=layout, device=self._device,
+                host_backend=host_backend, graph_id=graph_id,
+            )
+        }
         self.obs_label = (
             next_instance_label(self._OBS_PREFIX) if obs_label is None
             else obs_label
         )
+        # the engine-local oracle over the inline graph (a store-backed
+        # engine reads the store's per-graph oracles at submit time)
+        self._oracle = None
+        if oracle_k is not None:
+            from bibfs_tpu_torch.oracle import DistanceOracle, build_index
+
+            row_ptr, col_ind = snap.csr()
+            self._oracle = DistanceOracle(
+                build_index(
+                    snap.n, row_ptr, col_ind, int(oracle_k),
+                    digest=snap.digest, version=snap.version,
+                    device=self._device,
+                ),
+                metrics_label=self.obs_label,
+            )
         self.dist_cache = (
             DistanceCache(entries=cache_entries, metrics_label=self.obs_label)
             if dist_cache is None else dist_cache
@@ -682,8 +793,10 @@ class QueryEngine:
         # direct cell handles for the per-query submit path
         self._c_queries = self.counters.cell("queries")
         self._c_trivial = self.counters.cell("trivial")
+        self._c_oracle = self.counters.cell("oracle_served")
         self._c_cache_served = self.counters.cell("cache_served")
         self._c_host_queries = self.counters.cell("host_queries")
+        self._c_overlay = self.counters.cell("overlay_queries")
         # the per-query stage histogram, minted so it renders at zero; the
         # pipelined engine records into it (the synchronous engine has no
         # stages of its own)
@@ -707,54 +820,151 @@ class QueryEngine:
             cell[0] += n
             cell[1] += dur_s
 
-    # ---- the graph ---------------------------------------------------
-    def _resolve_graph(self, graph) -> _GraphRuntime:
-        """The runtime a submit-time graph argument names: only the
-        engine's own graph (None) — per-query graph names need a store."""
-        if graph is not None:
-            raise ValueError(
-                "per-query graph names need an attached store (store=), "
-                "which is not ported yet"
-            )
-        return self._rt
-
-    def _pin_rt(self) -> _GraphRuntime:
-        """Pin the runtime's snapshot for one flush (the caller owes one
-        ``snapshot.release()``)."""
+    # ---- graph resolution (the store seam) ---------------------------
+    def _graph_rt(self, name) -> _GraphRuntime:
+        """The runtime serving ``name``'s current snapshot. On a version
+        change (a hot-swap) build a fresh runtime and release the old one
+        (its distance-cache namespace is invalidated; its snapshot retires
+        once in-flight flush pins drop)."""
+        if self._store is None:
+            return self._runtimes[None]
+        rt = self._runtimes.get(name)
+        if self._rts_released:  # post-close stats(): no new pins
+            if rt is None:
+                raise ValueError("engine is closed")
+            return rt
+        if rt is not None and rt.snapshot is self._store.current(name):
+            return rt  # the hot path: same version, no lock
         with self._rt_lock:
-            self._rt.snapshot.retain()
-        return self._rt
+            rt = self._runtimes.get(name)
+            snap = self._store.acquire(name)
+            if rt is not None and rt.snapshot is snap:
+                snap.release()
+                return rt
+            new = _GraphRuntime(
+                snap, layout=self.layout, device=self._device,
+                host_backend=self._host_backend,
+            )
+            self._runtimes[name] = new
+            if rt is not None:
+                old_id = rt.graph_id
+                rt.snapshot.release()
+                if old_id != new.graph_id:
+                    # digest keys already make the old entries unreachable;
+                    # reclaim their rows now
+                    self.dist_cache.invalidate(old_id)
+            return new
+
+    def _resolve_graph(self, graph) -> tuple:
+        """``(name, runtime)`` for a submit-time graph argument; a client
+        mistake (an unknown name, a name without a store) is a
+        ``ValueError``, so ``return_errors`` tags it invalid."""
+        if graph is None:
+            name = self._default_name
+        elif self._store is None:
+            raise ValueError(
+                "per-query graph names need an attached store (store=)"
+            )
+        else:
+            name = str(graph)
+        try:
+            return name, self._graph_rt(name)
+        except KeyError as e:
+            raise ValueError(str(e)) from e
+
+    def _pin_rt(self, name=None) -> _GraphRuntime:
+        """Resolve and pin in one step, under the runtime lock, so a
+        concurrent swap cannot retire the snapshot between the two. The
+        caller owes one ``snapshot.release()`` (or hands the pin to
+        :meth:`_bound`)."""
+        with self._rt_lock:
+            rt = self._graph_rt(name)
+            rt.snapshot.retain()
+        if self._store is not None:
+            self._store.touch(name)
+        return rt
+
+    @contextmanager
+    def _bound(self, rt: _GraphRuntime):
+        """Make ``rt`` the calling thread's flush target: everything in the
+        block (device launch, host solves, banking, cache namespacing)
+        reads this runtime through the engine's graph properties, whatever
+        the store swaps to meanwhile. Consumes one snapshot pin
+        (:meth:`_pin_rt`)."""
+        tls = self._flush_tls
+        prev = getattr(tls, "rt", None)
+        tls.rt = rt
+        try:
+            yield rt
+        finally:
+            tls.rt = prev
+            rt.snapshot.release()
+
+    def _current_rt(self) -> _GraphRuntime:
+        """The thread's bound flush runtime, else the default graph's
+        current one: what the graph properties and solver seams read."""
+        rt = getattr(self._flush_tls, "rt", None)
+        return rt if rt is not None else self._graph_rt(self._default_name)
+
+    def _overlay_pending(self, name):
+        """The graph's pending delta overlay (None when absent): while one
+        exists, queries answer exactly through it and the distance cache
+        stands aside (its entries describe the base snapshot)."""
+        if self._store is None:
+            return None
+        return self._store.overlay(name)
+
+    def _oracle_for(self, name):
+        """The distance oracle serving ``name`` now, or None: the store's
+        per-graph oracle (its generation check guarantees it describes the
+        current live edges, pending overlay included, which is why the
+        consult may run before the overlay route), else the engine-local
+        one."""
+        if self._store is None:
+            return self._oracle
+        return self._store.oracle(name)
+
+    def _consult_oracle(self, t: _Pending, name) -> bool:
+        """Consult the oracle for one submitted query
+        (:class:`~bibfs_tpu_torch.serve.routes.OracleRoute`): True when it
+        served the query exactly; False to fall through (with
+        ``t.cutoff`` armed when it gave an upper bound)."""
+        return self.routes["oracle"].consult(t, name)
 
     @property
     def n(self) -> int:
-        return self._rt.n
+        """Vertex count of the bound flush graph (outside a flush: the
+        default graph's current snapshot)."""
+        return self._current_rt().n
 
     @property
     def graph(self):
         """The bucketed device-resident graph (built on first use)."""
-        return self._rt.graph
+        return self._current_rt().graph
 
     @property
     def graph_id(self):
-        return self._rt.graph_id
+        return self._current_rt().graph_id
 
     @property
     def _bucket_key(self):
-        return self._rt.bucket_key
+        return self._current_rt().bucket_key
 
     @property
     def _host_native_graph(self):
-        return self._rt.host_native_graph
+        return self._current_rt().host_native_graph
 
     @property
     def host_backend_resolved(self):
-        return self._rt.host_backend_resolved
+        return self._current_rt().host_backend_resolved
 
     # ---- submission --------------------------------------------------
     def submit(self, src: int, dst: int, graph: str | None = None) -> _Pending:
-        """Queue one query. Cache hits and trivial queries resolve
-        immediately; everything else resolves at the next flush (an
-        overfull queue flushes itself at ``max_batch``)."""
+        """Queue one query (``graph`` names a store graph on a store-backed
+        engine; None: the default graph). Oracle answers, cache hits and
+        trivial queries resolve immediately; everything else resolves at
+        the next flush (an overfull queue flushes itself at
+        ``max_batch``)."""
         if self._rts_released:
             raise ValueError("engine is closed")
         if self._draining:
@@ -765,16 +975,28 @@ class QueryEngine:
                 query=(int(src), int(dst)),
             )
         src, dst = int(src), int(dst)
-        rt = self._resolve_graph(graph)
+        name, rt = self._resolve_graph(graph)
         if not (0 <= src < rt.n and 0 <= dst < rt.n):
             raise ValueError(f"src/dst out of range for n={rt.n}")
-        t = _Pending(src, dst)
+        t = _Pending(src, dst, name)
         self._c_queries.inc()
         if src == dst:
             self._c_trivial.inc()
             t.result = BFSResult(True, 0, [src], src, 0.0, 0, 0)
             return t
-        hit = self.dist_cache.lookup(rt.graph_id, src, dst)
+        # the oracle answers before the distance cache and the overlay
+        if self._consult_oracle(t, name):
+            self._c_oracle.inc()
+            return t
+        if self._overlay_pending(name) is not None:
+            hit = None
+        else:
+            # re-resolve after the overlay read: a compaction commits
+            # (overlay gone, snapshot k + 1) atomically, so a runtime
+            # resolved before it and an overlay read after it would serve
+            # a stale version-k entry
+            rt = self._graph_rt(name)
+            hit = self.dist_cache.lookup(rt.graph_id, src, dst)
         if hit is not None:
             found, hops, path = hit
             self._c_cache_served.inc()
@@ -878,24 +1100,58 @@ class QueryEngine:
 
     # ---- flushing ----------------------------------------------------
     def flush(self) -> None:
-        """Resolve every pending query: batched device dispatch at or
-        above the crossover, per-query host dispatch below."""
+        """Resolve every pending query, grouped per graph, each group bound
+        to the snapshot it resolves at flush start (the swap barrier):
+        batched device dispatch at or above the crossover, per-query host
+        dispatch below, exact overlay solves while the graph has pending
+        live updates."""
         pend, self._pending = self._pending, []
         if not pend:
             return
-        rt = self._pin_rt()
-        try:
-            with span("flush", queued=len(pend)):
-                # dedupe exact repeats within one flush: a batch slot per
-                # duplicate would be pure waste
-                unique: dict[tuple[int, int], list[_Pending]] = {}
-                for t in pend:
-                    unique.setdefault((t.src, t.dst), []).append(t)
-                pairs = list(unique)
-                for i in range(0, len(pairs), self.max_batch):
-                    self._flush_ladder(pairs[i: i + self.max_batch], unique)
-        finally:
-            rt.snapshot.release()
+        if self._store is None:
+            self._flush_graph(None, pend)
+            return
+        groups: dict = {}
+        for t in pend:
+            groups.setdefault(t.graph, []).append(t)
+        for name, group in groups.items():
+            self._flush_graph(name, group)
+
+    def _flush_graph(self, name, pend) -> None:
+        # the overlay read comes BEFORE the pin: a compaction commits (new
+        # snapshot, no overlay) atomically, so pin-then-read could pin the
+        # old snapshot and read no overlay, serving without the folded
+        # delta. Read-then-pin is safe both ways: an overlay answers on its
+        # own base whatever is swapped meanwhile, and no overlay means the
+        # pin taken after the read is the compacted (or a newer) snapshot.
+        overlay = self._overlay_pending(name)
+        rt = self._pin_rt(name)
+        with self._bound(rt), span("flush", queued=len(pend)):
+            # dedupe exact repeats within one flush: a batch slot per
+            # duplicate would be pure waste
+            unique: dict[tuple[int, int], list[_Pending]] = {}
+            for t in pend:
+                unique.setdefault((t.src, t.dst), []).append(t)
+            pairs = list(unique)
+            if overlay is not None:
+                self._flush_overlay(overlay, pairs, unique)
+                return
+            for i in range(0, len(pairs), self.max_batch):
+                self._flush_ladder(pairs[i: i + self.max_batch], unique)
+
+    def _flush_overlay(self, overlay, pairs, unique) -> None:
+        """Exact answering while live edge updates are pending
+        (:class:`~bibfs_tpu_torch.serve.routes.OverlayRoute`): every query
+        solves against base + delta on the host, isolated per query, with
+        no cache lookup or banking (the overlaid graph is no snapshot)."""
+        with span("overlay_batch", batch=len(pairs)):
+            for key, res in self.routes["overlay"].solve_iter(overlay, pairs):
+                if isinstance(res, QueryError):
+                    self._resolve_error(unique[key], res)
+                    continue
+                self._c_overlay.inc()
+                for t in unique[key]:
+                    t.result = res
 
     def _next_rung(self, i: int, rt, pairs, ladder=None) -> str:
         """The rung a failed ladder step actually degrades TO (the ``to``
@@ -974,7 +1230,7 @@ class QueryEngine:
         not degrade (:meth:`_may_degrade`) fails the chunk's tickets
         instead. The walk order is the adaptive policy's when the engine
         runs adaptive, and each resolved chunk feeds it its time."""
-        rt = self._rt
+        rt = self._current_rt()
         ladder = self._ladder_for(rt, pairs)
         for i, name in enumerate(ladder):
             if name == "host":
@@ -1009,7 +1265,7 @@ class QueryEngine:
         (:meth:`_device_finish`). ``DeviceRoute.solve`` calls this seam,
         so the synchronous ladder runs both stages in turn."""
         route = self.routes["device"]
-        out, fin, t0 = route.launch(self._rt, pairs)
+        out, fin, t0 = route.launch(self._current_rt(), pairs)
         return route.finish(out, fin, t0, pairs)
 
     def _device_launch(self, pairs):
@@ -1121,11 +1377,24 @@ class QueryEngine:
             return self._device_batches
         return self._device.type == "cuda"
 
+    @staticmethod
+    def _cutoffs_for(pairs, unique):
+        """Per-pair oracle cutoffs of a host flush (None when no ticket
+        carried one); duplicate tickets of a pair share the tightest."""
+        cutoffs = [
+            min((t.cutoff for t in unique[key] if t.cutoff is not None),
+                default=None)
+            for key in pairs
+        ]
+        return cutoffs if any(c is not None for c in cutoffs) else None
+
     def _flush_host(self, pairs, unique) -> float:
         """Solve and deliver one host batch; returns the solve seconds
         (the adaptive policy's measure of the host rung)."""
         t0 = time.perf_counter()
-        results = self._solve_host_isolated(pairs)
+        results = self._solve_host_isolated(
+            pairs, self._cutoffs_for(pairs, unique)
+        )
         solve_s = time.perf_counter() - t0
         n_ok = self._deliver_host_results(
             pairs, results,
@@ -1157,34 +1426,44 @@ class QueryEngine:
             resolve_ok((src, dst), res)
         return len(ok_idx)
 
-    def _solve_host_isolated(self, pairs):
+    def _solve_host_isolated(self, pairs, cutoffs=None):
         """The host route with failure isolation: the whole batch first;
         on failure, BISECT — halves re-solve independently, so a poison
         batch converges in O(log B) extra solves to exactly the queries
         that are bad. A failing singleton gets one last rung (the serial
-        oracle) and only then a structured :class:`QueryError`. Returns one
-        ``BFSResult | QueryError`` per pair; never raises."""
+        oracle) and only then a structured :class:`QueryError`.
+        ``cutoffs`` (oracle upper bounds, aligned with ``pairs``) ride the
+        recursion. Returns one ``BFSResult | QueryError`` per pair; never
+        raises."""
         try:
-            return self._solve_host(pairs)
+            return self._solve_host(pairs, cutoffs)
         except Exception as exc:
             if len(pairs) == 1:
                 self._note_fallback("host", "serial")
                 try:
                     src, dst = pairs[0]
-                    return [self._solve_serial_one(src, dst)]
+                    return [self._solve_serial_one(
+                        src, dst, cutoffs[0] if cutoffs else None
+                    )]
                 except Exception as exc2:
                     return [to_query_error(exc2, pairs[0])]
             self._res_cells.bisections.inc()
             mid = len(pairs) // 2
             del exc  # halves re-derive their own failure (or succeed)
-            return (self._solve_host_isolated(pairs[:mid])
-                    + self._solve_host_isolated(pairs[mid:]))
+            c_lo = cutoffs[:mid] if cutoffs else None
+            c_hi = cutoffs[mid:] if cutoffs else None
+            return (self._solve_host_isolated(pairs[:mid], c_lo)
+                    + self._solve_host_isolated(pairs[mid:], c_hi))
 
-    def _solve_serial_one(self, src: int, dst: int) -> BFSResult:
+    def _solve_serial_one(self, src: int, dst: int,
+                          cutoff: int | None = None) -> BFSResult:
         """The bottom of the fallback ladder
-        (:class:`~bibfs_tpu_torch.serve.routes.SerialRoute`); a thin seam
-        so chaos tests can break this rung per engine."""
-        return self.routes["serial"].solve_one(self._rt, src, dst)
+        (:class:`~bibfs_tpu_torch.serve.routes.SerialRoute`) over the bound
+        graph; a thin seam so chaos tests can break this rung per
+        engine."""
+        return self.routes["serial"].solve_one(
+            self._current_rt(), src, dst, cutoff
+        )
 
     def _resolve_error(self, tickets, err: QueryError) -> None:
         """Fail exactly these tickets with a structured error (their batch
@@ -1217,16 +1496,18 @@ class QueryEngine:
         self.counters["inserts_skipped"] += len(found) - len(bank)
         return bank
 
-    def _solve_host(self, pairs) -> list[BFSResult]:
+    def _solve_host(self, pairs, cutoffs=None) -> list[BFSResult]:
         """Solve ``pairs`` on the host route: the threaded native C batch
         when the native runtime carries the route and the flush has at
         least :attr:`HOST_BATCH_MIN` queries, else the per-query solver.
         The C batch caps each query's path buffer, so a found result
-        without a path is re-solved per query (full path buffer)."""
+        without a path is re-solved per query (full path buffer).
+        ``cutoffs`` reach the per-query solvers (the serial one seeds its
+        meet bound; the native ones ignore them)."""
         with span("host_batch", batch=len(pairs)):
             if self._faults is not None:
                 self._faults.fire("host_batch", pairs)
-            solver = self._rt.get_host_solver()
+            solver = self._current_rt().get_host_solver()
             ng = self._host_native_graph
             if ng is not None and len(pairs) >= self.HOST_BATCH_MIN:
                 from bibfs_tpu_torch.solvers.native import (
@@ -1240,7 +1521,10 @@ class QueryEngine:
                     solver(src, dst) if (r.found and r.path is None) else r
                     for (src, dst), r in zip(pairs, results)
                 ]
-            return [solver(src, dst) for src, dst in pairs]
+            if cutoffs is None:
+                return [solver(src, dst) for src, dst in pairs]
+            return [solver(src, dst, cutoff=c)
+                    for (src, dst), c in zip(pairs, cutoffs)]
 
     def _resolve(self, tickets, src, dst, res: BFSResult) -> None:
         self.dist_cache.put_result(
@@ -1280,19 +1564,23 @@ class QueryEngine:
 
     def close(self) -> None:
         """Resolve anything still queued, mark the engine draining and
-        drop its snapshot pin. Later ``submit``/``query`` calls raise
-        ``engine is closed``; ``stats()`` stays readable."""
+        drop its snapshot pins (store-backed snapshots retire once the last
+        pin lands). Later ``submit``/``query`` calls raise ``engine is
+        closed``; ``stats()`` stays readable."""
         self.flush()
         self.health.set_draining()
         self._release_runtimes()
 
     def _release_runtimes(self) -> None:
-        """Drop the engine's snapshot pin, once."""
+        """Drop the engine's per-runtime snapshot pins, once. The runtimes
+        stay readable (``stats()``) but are never re-resolved."""
         with self._rt_lock:
             if self._rts_released:
                 return
             self._rts_released = True
-        self._rt.snapshot.release()
+            rts = list(self._runtimes.values())
+        for rt in rts:
+            rt.snapshot.release()
         if self._policy is not None:
             try:
                 self._policy.save()  # best-effort: a full disk must not
@@ -1316,7 +1604,7 @@ class QueryEngine:
         """Machine-readable serving counters: the JAX package's engine
         ``stats()`` keys for the ported features, plus ``device``."""
         c = dict(self.counters)
-        rt = self._rt
+        rt = self._current_rt()
         solved = (
             c["device_queries"] + c["host_queries"] + c["overlay_queries"]
             + c["mesh_queries"] + c["blocked_queries"]
@@ -1349,7 +1637,15 @@ class QueryEngine:
                 "n": rt.n,
                 "digest": rt.snapshot.digest,
                 "version": rt.snapshot.version,
+                "store_graph": self._default_name,
+                "graphs_resolved": (
+                    None if self._store is None
+                    else sorted(self._runtimes)
+                ),
             },
+            # the engine-local oracle (store-backed engines report their
+            # per-graph oracles through store.stats())
+            "oracle": None if self._oracle is None else self._oracle.stats(),
             "resilience": {
                 **self._res_cells.snapshot(),
                 "breaker": self._breaker.snapshot(),

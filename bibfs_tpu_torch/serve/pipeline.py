@@ -44,8 +44,15 @@ does not feed the breaker, and frees a half-open probe claim. An engine
 on the CPU keeps the JAX package's ladder (retry, then degrade at launch;
 re-solve on the host at finish).
 
-Trace contexts, the flight recorder and the store's per-graph grouping
-and overlay route come with later slices of the port (ROADMAP Queue 1).
+**Graph store and oracle.** On a store-backed engine a popped batch is
+grouped per graph, each group bound to the snapshot it resolves at launch
+(the finish job decodes and banks on that snapshot); a graph with pending
+updates answers its group exactly through the overlay route on the
+flusher. The oracle is consulted at submit time, before the cache; a
+consult that yields bounds arms the serial host rung's cutoff.
+
+Trace contexts and the flight recorder come with a later slice of the
+port (ROADMAP Queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -175,8 +182,9 @@ class QueryTicket(_Pending):
 
     __slots__ = ("t_submit", "t_launch", "t_done", "_engine")
 
-    def __init__(self, src: int, dst: int, engine=None):
-        super().__init__(src, dst)
+    def __init__(self, src: int, dst: int, engine=None,
+                 graph: str | None = None):
+        super().__init__(src, dst, graph)
         self.t_submit = time.perf_counter()
         self.t_launch: float | None = None  # stamped at batch pop
         self.t_done: float | None = None
@@ -335,10 +343,11 @@ class PipelinedQueryEngine(QueryEngine):
     # ---- submission --------------------------------------------------
     def submit(self, src: int, dst: int, graph: str | None = None
                ) -> QueryTicket:
-        """Queue one query WITHOUT blocking on any solve. Trivial queries
-        and cache hits (on an idle engine) resolve before returning;
-        everything else resolves when the flusher's batch lands (depth,
-        deadline or drain, whichever comes first)."""
+        """Queue one query WITHOUT blocking on any solve (``graph`` names a
+        store graph on a store-backed engine). Trivial queries, oracle
+        answers and cache hits (on an idle engine) resolve before
+        returning; everything else resolves when the flusher's batch lands
+        (depth, deadline or drain, whichever comes first)."""
         if self._draining:
             if self._closed:
                 raise RuntimeError("engine is closed")
@@ -347,10 +356,10 @@ class PipelinedQueryEngine(QueryEngine):
                 query=(int(src), int(dst)),
             )
         src, dst = int(src), int(dst)
-        rt = self._resolve_graph(graph)
+        name, rt = self._resolve_graph(graph)
         if not (0 <= src < rt.n and 0 <= dst < rt.n):
             raise ValueError(f"src/dst out of range for n={rt.n}")
-        t = QueryTicket(src, dst, self)
+        t = QueryTicket(src, dst, self, name)
         if src == dst:
             with self._lock:
                 if self._closed:
@@ -360,10 +369,24 @@ class PipelinedQueryEngine(QueryEngine):
             self._finish_ticket(t, BFSResult(True, 0, [src], src, 0.0, 0, 0))
             self.latency.record(t.t_done - t.t_submit)
             return t
-        if not self._queue:
+        # the oracle answers at submit time, before the cache and the
+        # overlay (a store's oracle describes the current live graph)
+        if self._consult_oracle(t, name):
+            with self._lock:
+                if self._closed:
+                    raise RuntimeError("engine is closed")
+                self._c_queries.inc()
+                self._c_oracle.inc()
+            self._finish_ticket(t, t.result)
+            self.latency.record(t.t_done - t.t_submit)
+            return t
+        if not self._queue and self._overlay_pending(name) is None:
             # idle fast path: a cache hit answers inline. Under load the
             # lookup moves to the flusher (_serve_cached, one pass per
-            # batch), which also sees results that land after the submit
+            # batch), which also sees results that land after the submit.
+            # A graph with pending updates skips the cache; the runtime is
+            # re-resolved after the overlay read (the sync submit's order)
+            rt = self._graph_rt(name)
             hit = self.dist_cache.lookup(rt.graph_id, src, dst)
             if hit is not None:
                 found, hops, path = hit
@@ -583,18 +606,41 @@ class PipelinedQueryEngine(QueryEngine):
                 self._fail_batch(batch, e)
 
     def _launch(self, batch: list[QueryTicket]) -> None:
-        """Dedupe exact repeats, pin the snapshot, answer cache hits, then
-        walk the ladder (in the adaptive policy's order when the engine
-        runs adaptive): each eligible dispatch rung whose breaker admits
-        the batch launches here and finishes on the worker; the terminal
-        host rung solves here behind the bisection isolator."""
+        """Launch one popped batch: on a store-backed engine, one group per
+        graph, each failing alone (a raise from group k fails only group
+        k's tickets; earlier groups are already with the finish worker)."""
+        if self._store is None:
+            self._launch_group(None, batch)
+            return
+        groups: OrderedDict[str, list[QueryTicket]] = OrderedDict()
+        for t in batch:
+            groups.setdefault(t.graph, []).append(t)
+        for name, group in groups.items():
+            try:
+                self._launch_group(name, group)
+            except Exception as e:
+                self._record_error(e)
+                self._fail_batch(group, e)
+
+    def _launch_group(self, name, batch: list[QueryTicket]) -> None:
+        """Dedupe exact repeats, read the overlay, pin the snapshot (the
+        sync engine's order, ``QueryEngine._flush_graph``), answer an
+        overlaid graph exactly or cache hits, then walk the ladder (in the
+        adaptive policy's order when the engine runs adaptive): each
+        eligible dispatch rung whose breaker admits the batch launches here
+        and finishes on the worker; the terminal host rung solves here
+        behind the bisection isolator."""
         unique: OrderedDict[tuple[int, int], list[QueryTicket]] = (
             OrderedDict()
         )
         for t in batch:
             unique.setdefault((t.src, t.dst), []).append(t)
-        rt = self._pin_rt()
-        try:
+        overlay = self._overlay_pending(name)
+        rt = self._pin_rt(name)
+        with self._bound(rt):
+            if overlay is not None:
+                self._launch_overlay(overlay, unique)
+                return
             pairs = self._serve_cached(unique)
             if not pairs:
                 return
@@ -611,8 +657,46 @@ class PipelinedQueryEngine(QueryEngine):
                 self._note_fallback(rung,
                                     self._next_rung(i, rt, pairs, ladder))
             self._launch_host(rt, pairs, unique)
+
+    def _launch_overlay(self, overlay, unique) -> None:
+        """Exact answering while the graph has pending live updates: base +
+        delta host solves on the flusher (the route is host-bound), tickets
+        resolved here, nothing banked (the overlaid graph is no
+        snapshot)."""
+        t_launch = time.perf_counter()
+        self.stages.enter()
+        try:
+            with span("overlay_batch", batch=len(unique)):
+                lats = []
+                qlist = []
+                served = 0
+                for key, res in self.routes["overlay"].solve_iter(
+                    overlay, list(unique)
+                ):
+                    tickets = unique[key]
+                    if isinstance(res, QueryError):
+                        for t in tickets:
+                            if not t.done():
+                                self._fail_ticket(t, res)
+                        continue
+                    served += 1
+                    for t in tickets:
+                        if self._finish_ticket(t, res):
+                            lats.append(t.t_done - t.t_submit)
+                            if t.t_launch is not None:
+                                qlist.append(t.t_launch - t.t_submit)
+                self.latency.record_many(lats)
+                with self._lock:
+                    self._c_overlay.inc(served)
+                self._note_batch_stages(
+                    "overlay", len(lats), qlist,
+                    resolve_s=time.perf_counter() - t_launch,
+                )
         finally:
-            rt.snapshot.release()
+            self.stages.exit()
+            self._note_batch_done(
+                t_launch, sum(len(ts) for ts in unique.values())
+            )
 
     def _serve_cached(self, unique) -> list[tuple[int, int]]:
         """One cache pass over the deduped batch (submit skips the lookup
@@ -718,52 +802,11 @@ class PipelinedQueryEngine(QueryEngine):
                              unique, t_launch, launch_s=0.0):
         self.stages.enter()
         try:
-            try:
-                # route.finish mutates engine counters unlocked: this pool
-                # has exactly ONE worker, the only dispatch-side mutator
-                t_fin = time.perf_counter()
-                results = route.finish(out, finish, t0, pairs)
-            except Exception as e:
-                if not self._may_degrade(e):
-                    # the outer handler fails the batch's tickets
-                    route.breaker.release()
-                    raise
-                # a degradable failure after the launch: the batch is off
-                # the flusher, so recover it here through the host ladder
-                self._record_error(e)
-                route.breaker.record_failure()
-                self._note_fallback(route.name, "host")
-                with span("recover_host", batch=len(pairs)):
-                    self._deliver_host(
-                        pairs, unique, self._solve_host_isolated(pairs)
-                    )
-                return
-            route.breaker.record_success()
-            # the adaptive sample: launch_s + the finish wall excludes the
-            # finish pool's queue wait, the batch's own clock excludes the
-            # untimed epilogue; the lesser is the tighter bound on the solve
-            self._note_route_time(
-                rt, route.name, pairs,
-                min(launch_s + time.perf_counter() - t_fin,
-                    results[0].time_s if results else 0.0),
-            )
-            t_resv = time.perf_counter()
-            lats = []
-            qlist = []
-            for (src, dst), res in zip(pairs, results):
-                self.dist_cache.put_result(
-                    self.graph_id, src, dst, res.found, res.hops, res.path,
-                )
-                for t in unique[(src, dst)]:
-                    if self._finish_ticket(t, res):
-                        lats.append(t.t_done - t.t_submit)
-                        qlist.append(t.t_launch - t.t_submit)
-            self.latency.record_many(lats)
-            self._note_batch_stages(
-                route.name, len(lats), qlist, launch_s,
-                finish_s=t_resv - t_fin,
-                resolve_s=time.perf_counter() - t_resv,
-            )
+            # materialize and bank on the launch's snapshot (consumes the
+            # job's pin)
+            with self._bound(rt):
+                self._finish_bound(route, rt, out, finish, t0, pairs, unique,
+                                   launch_s)
         except Exception as e:
             self._record_error(e)
             for key in pairs:
@@ -772,11 +815,63 @@ class PipelinedQueryEngine(QueryEngine):
                         self._fail_ticket(t, e)
         finally:
             self.stages.exit()
-            rt.snapshot.release()
             self._inflight.release()
             self._note_batch_done(
                 t_launch, sum(len(unique[p]) for p in pairs)
             )
+
+    def _finish_bound(self, route, rt, out, finish, t0, pairs, unique,
+                      launch_s) -> None:
+        """The finish stage of one dispatched batch, on the finish worker
+        with the launch's runtime bound."""
+        try:
+            # route.finish mutates engine counters unlocked: this pool has
+            # exactly ONE worker, the only dispatch-side mutator
+            t_fin = time.perf_counter()
+            results = route.finish(out, finish, t0, pairs)
+        except Exception as e:
+            if not self._may_degrade(e):
+                # the caller fails the batch's tickets
+                route.breaker.release()
+                raise
+            # a degradable failure after the launch: the batch is off the
+            # flusher, so recover it here through the host ladder
+            self._record_error(e)
+            route.breaker.record_failure()
+            self._note_fallback(route.name, "host")
+            with span("recover_host", batch=len(pairs)):
+                self._deliver_host(
+                    pairs, unique, self._solve_host_isolated(
+                        pairs, self._cutoffs_for(pairs, unique)
+                    )
+                )
+            return
+        route.breaker.record_success()
+        # the adaptive sample: launch_s + the finish wall excludes the
+        # finish pool's queue wait, the batch's own clock excludes the
+        # untimed epilogue; the lesser is the tighter bound on the solve
+        self._note_route_time(
+            rt, route.name, pairs,
+            min(launch_s + time.perf_counter() - t_fin,
+                results[0].time_s if results else 0.0),
+        )
+        t_resv = time.perf_counter()
+        lats = []
+        qlist = []
+        for (src, dst), res in zip(pairs, results):
+            self.dist_cache.put_result(
+                self.graph_id, src, dst, res.found, res.hops, res.path,
+            )
+            for t in unique[(src, dst)]:
+                if self._finish_ticket(t, res):
+                    lats.append(t.t_done - t.t_submit)
+                    qlist.append(t.t_launch - t.t_submit)
+        self.latency.record_many(lats)
+        self._note_batch_stages(
+            route.name, len(lats), qlist, launch_s,
+            finish_s=t_resv - t_fin,
+            resolve_s=time.perf_counter() - t_resv,
+        )
 
     # -- the host route: solve on the flusher, resolve on the worker ---
     def _launch_host(self, rt, pairs, unique) -> None:
@@ -791,7 +886,9 @@ class PipelinedQueryEngine(QueryEngine):
         try:
             self.stages.enter()
             try:
-                results = self._solve_host_isolated(pairs)
+                results = self._solve_host_isolated(
+                    pairs, self._cutoffs_for(pairs, unique)
+                )
                 launch_s = time.perf_counter() - t_launch
                 self._note_route_time(rt, "host", pairs, launch_s)
             finally:
@@ -812,7 +909,8 @@ class PipelinedQueryEngine(QueryEngine):
                           launch_s=None) -> None:
         self.stages.enter()
         try:
-            with span("host_resolve", batch=len(pairs)):
+            # bank on the solve's snapshot (consumes the job's pin)
+            with self._bound(rt), span("host_resolve", batch=len(pairs)):
                 try:
                     self._deliver_host(pairs, unique, results, launch_s)
                 except Exception as e:
@@ -823,16 +921,15 @@ class PipelinedQueryEngine(QueryEngine):
                                 self._fail_ticket(t, e)
         finally:
             self.stages.exit()
-            rt.snapshot.release()
             self._inflight.release()
             self._note_batch_done(
                 t_launch, sum(len(unique[p]) for p in pairs)
             )
 
-    def _solve_host_isolated(self, pairs):
+    def _solve_host_isolated(self, pairs, cutoffs=None):
         # host solves take turns (see _host_solve_lock)
         with self._host_solve_lock:
-            return super()._solve_host_isolated(pairs)
+            return super()._solve_host_isolated(pairs, cutoffs)
 
     # the resilience cells are lock-free counters whose mutators hold
     # the component's lock: here the flusher AND the finish worker reach

@@ -4,9 +4,10 @@
 and fallback ladder: the ladder runs ``device -> host``, with the
 blocked tile rung ahead of device when the engine has one
 (``blocked -> device -> host``), and ``serial`` reached per query
-through the host isolator. The oracle, overlay, mesh, query-kind and
-analytics routes of the JAX package come with their slices of the port
-(ROADMAP Queue 1).
+through the host isolator. ``oracle`` (submit-time consult) and
+``overlay`` (exact base + delta answering) sit outside the ladder. The
+mesh, query-kind and analytics routes of the JAX package come with their
+slices of the port (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -15,20 +16,26 @@ from bibfs_tpu_torch.serve.routes.base import Route
 from bibfs_tpu_torch.serve.routes.blocked import BlockedConfig, BlockedRoute
 from bibfs_tpu_torch.serve.routes.device import DeviceRoute
 from bibfs_tpu_torch.serve.routes.host import HostRoute, SerialRoute
+from bibfs_tpu_torch.serve.routes.oracle import OracleRoute
+from bibfs_tpu_torch.serve.routes.overlay import OverlayRoute
 
 __all__ = ["Route", "BlockedConfig", "BlockedRoute", "DeviceRoute",
-           "HostRoute", "SerialRoute", "build_routes"]
+           "HostRoute", "OracleRoute", "OverlayRoute", "SerialRoute",
+           "build_routes"]
 
 
 def build_routes(engine, blocked_cfg=None):
     """The engine's route set and fallback ladder: ``(routes, ladder)``,
-    ``ladder`` the ordered batch rungs (``host`` terminal); ``serial``
-    sits outside it. The device rung carries the engine's retry policy
-    and circuit breaker; ``blocked_cfg`` adds the blocked rung ahead of
-    device, with a retry policy and breaker of its own."""
+    ``ladder`` the ordered batch rungs (``host`` terminal); ``oracle``,
+    ``overlay`` and ``serial`` sit outside it. The device rung carries the
+    engine's retry policy and circuit breaker; ``blocked_cfg`` adds the
+    blocked rung ahead of device, with a retry policy and breaker of its
+    own."""
     from bibfs_tpu_torch.serve.resilience import CircuitBreaker, RetryPolicy
 
     routes = {
+        "oracle": OracleRoute(engine),
+        "overlay": OverlayRoute(engine),
         "device": DeviceRoute(
             engine, retry=engine._retry, breaker=engine._breaker
         ),

@@ -237,7 +237,7 @@ class BlockedRoute(Route):
                 eng._faults.fire("blocked_finish", pairs)
             elapsed, host_syncs = meta
             results = _materialize_blocked_batch(
-                outs, pairs, elapsed, *eng._rt.snapshot.csr(),
+                outs, pairs, elapsed, *eng._current_rt().snapshot.csr(),
                 host_syncs=host_syncs,
             )
             # one mutator: the flushing thread (sync) or the one finish

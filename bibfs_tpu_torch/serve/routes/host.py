@@ -29,5 +29,5 @@ class SerialRoute(Route):
 
     name = "serial"
 
-    def solve_one(self, rt, src: int, dst: int):
-        return rt.solve_serial_one(src, dst)
+    def solve_one(self, rt, src: int, dst: int, cutoff: int | None = None):
+        return rt.solve_serial_one(src, dst, cutoff)

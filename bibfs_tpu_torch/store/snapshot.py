@@ -17,9 +17,9 @@ A :class:`GraphSnapshot` gives a graph a content-addressed identity:
   release the retire hooks fire and the memoized tables are dropped.
 
 Memory tiers (``demote``/``promote``) and arrays sidecars come with the
-store slice of the port (ROADMAP Queue 1);
-:meth:`GraphSnapshot.native_csr` therefore always returns None and the
-host route builds its own native CSR.
+durability slice of the port (ROADMAP Queue 1, item 6b): every snapshot
+here is in the ``hot`` tier, and :meth:`GraphSnapshot.native_csr`
+always returns None (the host route builds its own native CSR).
 """
 
 from __future__ import annotations
@@ -145,10 +145,20 @@ class GraphSnapshot:
 
     def native_csr(self):
         """The native solver's CSR from a mapped arrays sidecar; sidecars
-        come with the store slice, so this is always None and the host
-        route builds its own :class:`~bibfs_tpu_torch.solvers.native.
+        come with the durability slice, so this is always None and the
+        host route builds its own :class:`~bibfs_tpu_torch.solvers.native.
         NativeGraph`."""
         return None
+
+    @property
+    def tier(self) -> str:
+        """The memory tier: always ``hot`` (private in-memory arrays) until
+        the durability slice brings the mapped and cold tiers."""
+        return "hot"
+
+    def mapped_bytes(self) -> int:
+        """Sidecar bytes this snapshot keeps mapped: none in this tier."""
+        return 0
 
     # ---- refcount retirement ----------------------------------------
     def retain(self) -> "GraphSnapshot":
@@ -204,6 +214,7 @@ class GraphSnapshot:
             "digest": self.digest,
             "version": self.version,
             "refs": self.refs,
+            "tier": self.tier,
         }
 
     def __repr__(self) -> str:

@@ -172,6 +172,42 @@ is unavailable. Phases:
    fallback, retry, error or open breaker. Both kernels must have
    launched in each.
 
+11. The graph store and the distance oracle (run after phase 10). The
+   multi-source BFS level ``msbfs_level`` (``csrc/msbfs.cu``: a pull over
+   the CSR, one thread per (vertex, mask word), new bits stamped into the
+   ``int16 [n, K]`` plane) at K = 32, 64 and 65 on the store's graph,
+   ``grid_graph(500, 500, perforation=0.02, seed=1)`` (250,000 vertices:
+   the JAX package's oracle soak, ``bench_oracle.json``), and on
+   gnp-deg8-s20: one level against its plain version on the sweep's own
+   mid-sweep state (every output equal), the whole sweep on the card
+   against the NumPy host sweep (every entry), and ``build_index`` on the
+   card (on the host too at K = 64 on the grid, the same index); one
+   ``step`` line each with the level's ms, its bound (the CSR, the
+   pending and reach words once, the changed words and new stamps, over
+   3.35 TB/s), the plain version's ms, one ``torch.sparse.mm`` of the
+   adjacency and the 0/1 pending plane as a yardstick, the sweep's ms,
+   levels, launches and host reads, and the build's ms and launches.
+   Then, with every
+   count set to 0, the store's path: waves of 2,000 seeded Zipf pairs
+   (skew 1.3, a quarter repeats) through a store without an oracle
+   (``B[sync]``) and through ``GraphStore(oracle_k=64)`` holding the grid
+   and a vertex-relabelled twin (its index built on the card): the
+   synchronous and the pipelined engine on the grid, the pipelined one on
+   the twin; one update batch (24 adds, 8 deletes) answered by the
+   overlay route (64 queries); a compaction swap; and a second update
+   with a compaction forced from inside a device flush's launch, whose
+   batch must finish on the old snapshot while the next wave sees the
+   new one. Every answer equals the native host solver's on the graph it
+   was served against (audited against the serial oracle on a sample),
+   exactly the queries the oracle answered at submit carry no path and
+   every other found answer a valid one, no ticket is lost or left
+   outstanding,
+   the version moves forward and the index is rebuilt at the new
+   generation. One ``{"phase": "store", ...}`` line per wave (routes,
+   wall, queries/s, flush and span ms, latency percentiles), and
+   ``store_launches``: ``msbfs_level`` and ``minor_level[minor8]`` must
+   have launched.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
 JSON line.
@@ -180,6 +216,7 @@ JSON line.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import queue
 import signal
@@ -200,14 +237,19 @@ from bibfs_tpu_torch.ops import blocked_expand as be
 from bibfs_tpu_torch.ops import bitmap as bm
 from bibfs_tpu_torch.ops import fused_level as fl
 from bibfs_tpu_torch.ops import minor_level as ml
+from bibfs_tpu_torch.ops import msbfs_device as md
 from bibfs_tpu_torch.ops import pull_expand as pe
 from bibfs_tpu_torch.ops.expand import pack_dual
 from bibfs_tpu_torch.solvers import batch_minor as bmin
 from bibfs_tpu_torch.obs.trace import Tracer, set_tracer
+from bibfs_tpu_torch.oracle import build_index, multi_source_bfs
 from bibfs_tpu_torch.serve import PipelinedQueryEngine, QueryEngine
+from bibfs_tpu_torch.serve.loadgen import sample_skewed_pairs
 from bibfs_tpu_torch.solvers import dense
 from bibfs_tpu_torch.solvers.api import validate_path
+from bibfs_tpu_torch.solvers.native import NativeGraph, solve_batch_native_graph
 from bibfs_tpu_torch.solvers.serial import solve_serial_csr
+from bibfs_tpu_torch.store import GraphStore
 from bibfs_tpu_torch.solvers.timing import timed_batch_repeats
 
 INF32 = 1 << 30
@@ -287,6 +329,22 @@ BLOCKED_KERNELS = {
 }
 
 
+# phase 11: the multi-source BFS level of the oracle's index builds; not a
+# Pallas kernel but the XLA while_loop of the reference's ELL sweep
+MSBFS = ("bibfs_tpu_torch/csrc/msbfs.cu", "bibfs_tpu/ops/msbfs_device.py:89")
+MSBFS_KS = (32, 64, 65)  # landmarks per sweep (1, 2 and 3 mask words)
+ORACLE_K = 64  # the JAX package's oracle soak (bench_oracle.json)
+STORE_QUERIES = 2000  # the soak's traffic: Zipf skew 1.3, a quarter repeats
+# phase 11's graphs: (geometry, vertices, edge maker, the level whose state
+# the kernel is held to its plain version on, the sources' seed)
+MSBFS_GEOMS = (
+    ("grid-500x500", 500 * 500,
+     lambda: grid_graph(500, 500, perforation=0.02, seed=1), 200, 71),
+    ("gnp-deg8-s20", 1 << 20,
+     lambda: gnp_random_graph(1 << 20, 8 / (1 << 20), seed=7), 4, 73),
+)
+
+
 # the unstaged instantiation of kernel 2, which the wrapper takes only
 # where the bitmap does not fit shared memory (not counted in .launches)
 UNSTAGED = fl._single_round_unstaged
@@ -309,6 +367,7 @@ def reset_counts() -> None:
         ml.minor_level.launches[key] = 0
     be.blocked_level.launches = 0
     be.blocked_fold.launches = 0
+    md.msbfs_level.launches = 0
 
 
 def counts() -> dict:
@@ -318,6 +377,7 @@ def counts() -> dict:
         out[name] = ml.minor_level.launches[key]
     out["blocked_level"] = be.blocked_level.launches
     out["blocked_fold"] = be.blocked_fold.launches
+    out["msbfs_level"] = md.msbfs_level.launches
     return out
 
 
@@ -1202,7 +1262,7 @@ def engine_phase(g, n, edges, pairs_all, csr) -> None:
     ensure_built()
     native_build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    eng._rt.get_host_solver()  # the native CSR and scratch
+    eng._current_rt().get_host_solver()  # the native CSR and scratch
     native_graph_s = time.perf_counter() - t0
     builds = dict(snapshot_s=snapshot_s, table_s=table_s,
                   native_build_s=native_build_s, native_graph_s=native_graph_s)
@@ -1580,7 +1640,7 @@ def pipeline_phase(n, edges, pairs_all, csr) -> None:
     # on the host route
     eng = PipelinedQueryEngine(n, edges, pairs=pairs_all, max_batch=BATCH,
                                cache_entries=512, max_wait_ms=5.0)
-    eng._rt.get_host_solver()
+    eng._current_rt().get_host_solver()
     pairs_s = [(int(s), int(d)) for s, d in np.random.default_rng(53).choice(
         n, 16, replace=False).reshape(8, 2)]
     reset_counts()
@@ -1916,6 +1976,410 @@ def blocked_phase(dev, results: dict) -> int:
     return launches
 
 
+def msbfs_bound(n: int, nnz: int, words: int, changed: int,
+                stamps: int) -> tuple[float, str]:
+    """The least time one level could take (``bound_ms``): the CSR
+    (``row_ptr`` int64, ``col_ind`` int32), the pending and reach words
+    read once, the next pending words written, the changed reach words and
+    one int16 stamp per new (vertex, search) bit written, and the flag;
+    against one OR per gathered word over the card's integer rate."""
+    nbytes = (8 * (n + 1) + 4 * nnz + 3 * 4 * n * words + 4 * changed
+              + 2 * stamps + 4)
+    return bound_ms(nbytes, nnz * words)
+
+
+def msbfs_mid_state(n: int, rp, ci, src, levels: int):
+    """The sweep's own state on the card after ``levels`` levels: ``(reach,
+    pending, dist)``."""
+    reach, pending, dist = md.seed_state(n, torch.as_tensor(src, device=rp.device))
+    flag = torch.zeros(1, dtype=torch.int32, device=rp.device)
+    for lvl in range(1, levels + 1):
+        pending = md.msbfs_level(rp, ci, pending, reach, dist, lvl, flag)
+    return reach, pending, dist
+
+
+def msbfs_sources(n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).choice(n, max(MSBFS_KS), replace=False)
+
+
+def host_sweeps(out_dir: str) -> None:
+    """Phase 11's host references, in a child process started with the
+    run (its minute of NumPy overlaps phases 1-10): the NumPy sweep of
+    each graph's widest source set, saved into ``out_dir``. The sweeps
+    are independent per source, so it holds every narrower set's
+    columns."""
+    for geometry, n, make, _level, seed in MSBFS_GEOMS:
+        row_ptr, col_ind = build_csr(n, make())
+        t0 = time.perf_counter()
+        want = multi_source_bfs(n, row_ptr, col_ind, msbfs_sources(n, seed))
+        ms = (time.perf_counter() - t0) * 1e3
+        np.save(os.path.join(out_dir, f"{geometry}.npy"), want)
+        with open(os.path.join(out_dir, f"{geometry}.json"), "w") as f:
+            json.dump({"host_sweep_ms": ms}, f)
+
+
+def msbfs_phase(geometry: str, n: int, csr, mid_level: int, seed: int,
+                ref_dir: str, results: dict | None, host_build: bool) -> None:
+    """Phase 11's kernel checks on one graph (module docstring): per K,
+    one level held to its plain version and timed, the whole sweep on the
+    card against the host sweep (:func:`host_sweeps`), and
+    ``build_index`` on the card."""
+    dev = torch.device("cuda")
+    rp_np, ci_np = csr
+    rp = torch.as_tensor(rp_np, dtype=torch.int64, device=dev)
+    ci = torch.as_tensor(ci_np.astype(np.int32), device=dev)
+    nnz = int(ci_np.shape[0])
+    src_all = msbfs_sources(n, seed)
+    want = np.load(os.path.join(ref_dir, f"{geometry}.npy"))
+    with open(os.path.join(ref_dir, f"{geometry}.json")) as f:
+        host_sweep_ms = json.load(f)["host_sweep_ms"]
+    adj = sparse_adjacency(n, csr, dev)
+    for k in MSBFS_KS:
+        src = src_all[:k]
+        sweeps = []
+        for _ in range(2):  # the second is warm
+            stats: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plane = md.msbfs_plane_csr(n, rp_np, ci_np, src, device=dev,
+                                       stats=stats)
+            sweeps.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(plane, want[:, :k]),
+              f"msbfs sweep {geometry} K={k} differs from the host sweep")
+        reach0, pending, dist0 = msbfs_mid_state(n, rp, ci, src, mid_level)
+        reach, dist = reach0.clone(), dist0.clone()
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        lvl = mid_level + 1
+        nxt = md.msbfs_level(rp, ci, pending, reach, dist, lvl, flag)
+        reach_p, dist_p = reach0.clone(), dist0.clone()
+        flag_p = torch.zeros(1, dtype=torch.int32, device=dev)
+        nxt_p = md.msbfs_level_plain(rp, ci, pending, reach_p, dist_p, lvl,
+                                     flag_p)
+        torch.cuda.synchronize()
+        err = max_abs_err([nxt, reach, dist, flag],
+                          [nxt_p, reach_p, dist_p, flag_p])
+        check(err == 0, f"msbfs_level {geometry} K={k} differs from its "
+              f"plain version (max abs err {err})")
+        check(int(flag_p) == 1, f"msbfs mid state {geometry} K={k} is empty")
+        changed = int((nxt_p != 0).sum())
+        stamps = int((dist_p == lvl).sum())
+
+        def restore():
+            reach.copy_(reach0)
+            dist.copy_(dist0)
+            flag.zero_()
+
+        ms = time_launch(lambda: md.msbfs_level(
+            rp, ci, pending, reach, dist, lvl, flag, checked=True), restore)
+        plain_ms = time_launch(lambda: md.msbfs_level_plain(
+            rp, ci, pending, reach, dist, lvl, flag), restore, reps=5)
+        plane01 = md.unpack_words(pending)[:, :k].float()
+        library_ms = time_launch(lambda: torch.sparse.mm(adj, plane01))
+        b_ms, by = msbfs_bound(n, nnz, reach.shape[1], changed, stamps)
+        torch.cuda.synchronize()
+        before = md.msbfs_level.launches
+        t0 = time.perf_counter()
+        idx = build_index(n, rp_np, ci_np, k, device=dev)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        build_launches = md.msbfs_level.launches - before
+        extra = {}
+        if host_build and k == ORACLE_K:
+            t0 = time.perf_counter()
+            host_idx = build_index(n, rp_np, ci_np, k, device="host")
+            extra["host_build_index_ms"] = (time.perf_counter() - t0) * 1e3
+            check(np.array_equal(host_idx.landmarks, idx.landmarks)
+                  and np.array_equal(host_idx.dist, idx.dist),
+                  f"build_index {geometry} K={k}: card != host")
+        if k == max(MSBFS_KS):  # timed beside phases 1-10
+            extra["host_sweep_ms"] = host_sweep_ms
+        step_line("msbfs_level", geometry, f"K={k}", ms, k=k, level=lvl,
+                  bound_ms=b_ms, bound_by=by, plain_ms=plain_ms,
+                  library_ms=library_ms, max_abs_err=err, changed_words=changed,
+                  new_stamps=stamps, sweep_ms=sweeps[-1],
+                  first_sweep_ms=sweeps[0], **stats, build_index_ms=build_ms,
+                  build_index_launches=build_launches,
+                  index_mb=idx.dist.nbytes / 1e6, **extra)
+        if results is not None and k == ORACLE_K:
+            results["msbfs_level"] = dict(ms=ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms, bound_by=by,
+                                          max_abs_err=err,
+                                          library_ms=library_ms)
+        del reach0, reach, reach_p, dist0, dist, dist_p, pending, plane01
+        torch.cuda.empty_cache()
+
+
+def native_hops(n: int, edges, pairs) -> list:
+    """``(found, hops)`` of every pair by the native host solver's threaded
+    batch on ``edges``; 8 seeded pairs audited against the serial oracle."""
+    ng = NativeGraph.build(n, edges)
+    res = solve_batch_native_graph(ng, np.asarray(pairs, dtype=np.int64))
+    out = [(r.found, r.hops) for r in res]
+    row_ptr, col_ind = build_csr(n, edges)
+    for i in np.random.default_rng(53).choice(len(pairs), 8, replace=False):
+        s, d = (int(v) for v in pairs[i])
+        w = solve_serial_csr(n, row_ptr, col_ind, s, d)
+        check((w.found, w.hops) == out[i],
+              f"native {s}->{d} {out[i]} != serial {(w.found, w.hops)}")
+    return out
+
+
+def store_wave(eng, pairs, wave: str, graph: str, truth, edges
+               ) -> tuple[list, dict]:
+    """Serve ``pairs`` on ``graph`` through a store-backed engine; every
+    answer equal to ``truth`` (``(found, hops)`` per pair), exactly the
+    queries the oracle answered at submit pathless, and every other found
+    answer's path valid on ``edges``. Returns the results and the printed
+    line. The kernel counts are not reset here."""
+    before = dict(eng.counters)
+    consult = eng._consult_oracle
+    served = []  # (src, dst, answered by the oracle) in submit order
+
+    def record(t, name):
+        hit = consult(t, name)
+        served.append((t.src, t.dst, hit))
+        return hit
+
+    eng._consult_oracle = record
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    t0 = time.perf_counter()
+    try:
+        res = eng.query_many(pairs, graph=graph)
+    finally:
+        wall = time.perf_counter() - t0
+        set_tracer(prev)
+        del eng._consult_oracle
+    st = engine_clean(eng, wave)
+    routed = {k: st[k] - before[k] for k in (
+        "trivial", "oracle_served", "cache_served", "device_queries",
+        "host_queries", "overlay_queries", "device_batches")}
+    check(len(res) == len(pairs) and all(r is not None for r in res),
+          f"store wave {wave}: a ticket is missing")
+    csr = build_csr(eng._store.current(graph).n, edges)
+    consults = iter(served)
+    pathless = 0
+    for (s, d), r, w in zip(pairs, res, truth):
+        check((r.found, r.hops) == w,
+              f"store wave {wave} {s}->{d}: {(r.found, r.hops)} != {w}")
+        if s == d:
+            continue  # trivial: answered before the oracle
+        cs, cd, by_oracle = next(consults)
+        check((cs, cd) == (int(s), int(d)),
+              f"store wave {wave}: consult {cs}->{cd} out of order at {s}->{d}")
+        if by_oracle:
+            pathless += 1
+            check(r.path is None,
+                  f"store wave {wave} {s}->{d}: an oracle answer has a path")
+        elif r.found:
+            check(r.path is not None
+                  and validate_path(csr, r.path, s, d, hops=r.hops),
+                  f"store wave {wave} {s}->{d}: a {r.hops}-hop answer off "
+                  "the oracle without a valid path")
+    check(next(consults, None) is None and pathless == routed["oracle_served"],
+          f"store wave {wave}: {pathless} oracle answers at submit, "
+          f"{routed['oracle_served']} counted")
+    line = {"phase": "store", "wave": wave, "graph": graph,
+            "queries": len(pairs), **routed, "pathless": pathless,
+            "flush_ms": max(r.time_s for r in res) * 1e3,
+            "wall_ms": wall * 1e3, "queries_per_s": len(pairs) / wall,
+            "spans_ms": span_ms(tracer),
+            "version": st["graph"]["version"]}
+    if "latency_ms" in st:
+        line["latency_ms"] = st["latency_ms"]
+        check(st["pipeline"]["outstanding"] == 0,
+              f"store wave {wave}: tickets left outstanding")
+    print(json.dumps(line), flush=True)
+    return res, line
+
+
+def store_phase(n: int, edges, csr) -> dict:
+    """Phase 11's main path (module docstring); returns the kernel counts
+    of the run."""
+    perm = np.random.default_rng(43).permutation(n)
+    twin = perm[edges]  # the same graph, vertices relabelled
+    pairs = sample_skewed_pairs(n, STORE_QUERIES, seed=47, skew=1.3,
+                                repeat_fraction=0.25,
+                                degrees=np.diff(csr[0]))
+    truth = native_hops(n, edges, pairs)
+    reset_counts()
+    # the baseline: the same traffic through a store without an oracle
+    plain_store = GraphStore(compact_threshold=None)
+    plain_store.add("grid", n, edges)
+    base = QueryEngine(store=plain_store, max_batch=1024)
+    store_wave(base, pairs, "B[sync]", "grid", truth, edges)
+    base.close()
+    plain_store.close()
+    del base, plain_store
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    store = GraphStore(oracle_k=ORACLE_K, compact_threshold=None)
+    store.add("grid", n, edges)
+    store.add("twin", n, twin)
+    for name in ("grid", "twin"):
+        check(store.wait_for_index(name, timeout=600),
+              f"store: no index for {name}")
+    index_s = time.perf_counter() - t0
+    ost = store.stats()["graphs"]["grid"]["oracle"]
+    print(json.dumps({"phase": "store_index", "graphs": 2, "k": ORACLE_K,
+                      "build_s": index_s,
+                      "launches_both_graphs": md.msbfs_level.launches,
+                      "index": ost["index"]}), flush=True)
+    eng = QueryEngine(store=store, max_batch=1024)
+    res, _line = store_wave(eng, pairs, "O[sync]", "grid", truth, edges)
+    # depth-only flushing at 128 queued misses: few, large device flushes
+    pipe = PipelinedQueryEngine(store=store, max_batch=1024,
+                                flush_threshold=128, max_wait_ms=None)
+    res_p, _line = store_wave(pipe, pairs, "O[pipelined]", "grid", truth,
+                              edges)
+    for r, w in zip(res, res_p):
+        check((r.found, r.hops) == (w.found, w.hops), "sync != pipelined")
+    twin_pairs = perm[pairs[:500]]
+    store_wave(pipe, twin_pairs, "O[pipelined twin]", "twin", truth[:500],
+               twin)
+
+    # one live update batch: the overlay route answers, exactly
+    rng = np.random.default_rng(59)
+    have = {tuple(e) for e in store.current("grid").undirected_edges().tolist()}
+    adds = []
+    while len(adds) < 24:
+        u, v = (int(x) for x in rng.integers(0, n, 2))
+        e = (min(u, v), max(u, v))
+        if u != v and e not in have:
+            have.add(e)
+            adds.append(e)
+    dels = [tuple(int(x) for x in edges[i])
+            for i in rng.choice(len(edges), 8, replace=False)]
+    store.update("grid", adds=adds, dels=dels)
+    check(store.oracle("grid") is None, "store: a delete left the index live")
+    # 64 pairs across the updated edges, each to a vertex near the far
+    # endpoint (the overlay route is a host BFS: short pairs keep it brief)
+    side = 500
+    ov_pairs = []
+    for u, v in adds + dels:
+        for a, b in ((u, v), (v, u)):
+            r, c = divmod(b, side)
+            dr, dc = (int(x) for x in rng.integers(-6, 7, 2))
+            near = (min(max(r + dr, 0), side - 1) * side
+                    + min(max(c + dc, 0), side - 1))
+            ov_pairs.append((a, near if near != a else b))
+    merged = store.overlay("grid").merged_edges()
+    _res, line = store_wave(pipe, ov_pairs, "U[overlay]", "grid",
+                            native_hops(n, merged, ov_pairs), merged)
+    check(line["overlay_queries"] == len(set(ov_pairs)),
+          f"store: overlay route answered {line['overlay_queries']}")
+    ms_per_query = line["wall_ms"] / len(ov_pairs)
+
+    # the compaction swap: a new version, the index rebuilt at its gen
+    t0 = time.perf_counter()
+    v2 = store.compact("grid")
+    compact_ms = (time.perf_counter() - t0) * 1e3
+    check(v2.version == 2, f"store: compaction made v{v2.version}")
+    check(store.wait_for_index("grid", timeout=600), "store: no v2 index")
+    st = store.stats()["graphs"]["grid"]
+    check(st["oracle"]["ready"] and st["oracle"]["index"]["version"] == 2
+          and st["oracle"]["index"]["gen"] == st["oracle"]["gen"],
+          f"store: v2 index {st['oracle']}")
+    v2_edges = v2.undirected_edges()
+
+    # a swap while a device flush is in flight: a second update (every
+    # edge of 8 victims deleted) compacted from inside the flush's launch
+    sw_rng = np.random.default_rng(61)
+    victims = sw_rng.choice(n, 8, replace=False)
+    ends = sw_rng.choice(np.setdiff1d(np.arange(n), victims), (248, 2))
+    sw_pairs = [(int(s), int(d)) for s, d in ends if s != d]
+    sw_pairs += [(int(ends[i, 0]), int(v)) for i, v in enumerate(victims)]
+    cut = [(int(u), int(v)) for u, v in v2_edges.tolist()
+           if u in set(victims.tolist()) or v in set(victims.tolist())]
+    want_v2 = native_hops(n, v2_edges, sw_pairs)
+    swap: dict = {}
+    launch = eng._device_launch
+
+    def launch_then_swap(p):
+        if not swap:
+            swap["in_flight"] = len(p)
+            t1 = time.perf_counter()
+            store.update("grid", dels=cut)
+            swap["snapshot"] = store.compact("grid")
+            swap["swap_ms"] = (time.perf_counter() - t1) * 1e3
+        return launch(p)
+
+    # the synchronous engine flushes the wave's misses as one batch, bound
+    # to the snapshot it pinned before the swap
+    eng._device_launch = launch_then_swap
+    try:
+        _res, line_in = store_wave(eng, sw_pairs, "S[in flight]", "grid",
+                                   want_v2, v2_edges)
+    finally:
+        eng._device_launch = launch
+    check(swap.get("in_flight", 0) > 0, "store: no device flush met the swap")
+    v3 = swap["snapshot"]
+    check(v3.version == 3 and store.current("grid") is v3,
+          f"store: the forced swap made v{v3.version}")
+    v3_edges = v3.undirected_edges()
+    want_v3 = native_hops(n, v3_edges, sw_pairs)
+    changed = sum(a != b for a, b in zip(want_v2, want_v3))
+    check(changed >= len(victims), f"store: only {changed} answers changed")
+    _res, line_post = store_wave(pipe, sw_pairs, "S[after]", "grid", want_v3,
+                                 v3_edges)
+    check(store.wait_for_index("grid", timeout=600), "store: no v3 index")
+    st = store.stats()["graphs"]["grid"]
+    check(st["version"] == 3 and st["oracle"]["index"]["version"] == 3
+          and st["oracle"]["index"]["gen"] == st["oracle"]["gen"]
+          and st["oracle"]["failures"] == 0, f"store: v3 index {st['oracle']}")
+    _res, line_idx = store_wave(pipe, sw_pairs, "S[indexed]", "grid", want_v3,
+                                v3_edges)
+    eng.close()
+    pipe.close()
+    store.close()
+    check(not pipe._flusher.is_alive(), "store: the flusher outlived close")
+    launches = counts()
+    print(json.dumps({"phase": "store_swap", "compact_ms": compact_ms,
+                      "overlay_ms_per_query": ms_per_query,
+                      "in_flight_queries": swap["in_flight"],
+                      "forced_swap_ms": swap["swap_ms"],
+                      "changed_answers": changed, "stale_answers": 0,
+                      "wall_ms_in_flight": line_in["wall_ms"],
+                      "wall_ms_after": line_post["wall_ms"],
+                      "wall_ms_indexed": line_idx["wall_ms"],
+                      "store": {k: st[k] for k in ("version", "swaps",
+                                                   "compactions")},
+                      "oracle": {k: st["oracle"][k] for k in (
+                          "builds", "repairs", "aborts", "failures", "gen")}}),
+          flush=True)
+    print(json.dumps({"phase": "store_launches", **{
+        k: v for k, v in launches.items() if v}}), flush=True)
+    for name in ("msbfs_level", "minor_level[minor8]"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the "
+              "store's path")
+    return launches
+
+
+def store_and_oracle_phase(gnp_csr, results: dict, host_ref, ref_dir: str
+                           ) -> dict:
+    """Phase 11 (module docstring); ``host_ref`` is the
+    :func:`host_sweeps` process writing into ``ref_dir``."""
+    t0 = time.perf_counter()
+    (grid, n, make, grid_level, grid_seed), gnp = MSBFS_GEOMS
+    edges = make()
+    csr = build_csr(n, edges)
+    print(json.dumps({"phase": "graph", "name": grid, "n": n,
+                      "edges": int(edges.shape[0]),
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    host_ref.join(timeout=900)
+    check(host_ref.exitcode == 0,
+          f"the host sweeps' process ended with {host_ref.exitcode}")
+    print(json.dumps({"phase": "host_sweeps_wait", "s": time.perf_counter() - t0}),
+          flush=True)
+    msbfs_phase(grid, n, csr, grid_level, grid_seed, ref_dir, results,
+                host_build=True)
+    check(len(gnp_csr[0]) - 1 == gnp[1], "phase 11 needs the gnp-deg8-s20 CSR")
+    msbfs_phase(gnp[0], gnp[1], gnp_csr, gnp[3], gnp[4], ref_dir, None,
+                host_build=False)
+    return store_phase(n, edges, csr)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1927,6 +2391,11 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    # phase 11's NumPy references, computed beside phases 1-10
+    ref_dir = tempfile.TemporaryDirectory()
+    host_ref = multiprocessing.get_context("spawn").Process(
+        target=host_sweeps, args=(ref_dir.name,), daemon=True)
+    host_ref.start()
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -2092,6 +2561,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     blocked_launches = blocked_phase(dev, results)
 
+    # phase 11: the graph store and the distance oracle
+    torch.cuda.empty_cache()
+    store_launches = store_and_oracle_phase(csr, results, host_ref,
+                                            ref_dir.name)
+    ref_dir.cleanup()
+
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -2113,6 +2588,10 @@ def main() -> int:
                             replaces=replaces, **history,
                             launches=blocked_launches[name], **results[name],
                             library_ms=None, launch_floor_ms=floor_ms))
+    kernels.append(dict(name="msbfs_level", route="cuda", source=MSBFS[0],
+                        replaces=MSBFS[1],
+                        launches=store_launches["msbfs_level"],
+                        **results["msbfs_level"], launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

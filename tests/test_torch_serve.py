@@ -5,8 +5,9 @@ distance and executable caches, and the synchronous ``QueryEngine`` and
 ``solve_many`` — every ``BFSResult`` field except ``time_s`` and the
 engine counters equal the reference engine's in every batch mode, layout
 and ``device_batches`` setting. Then the reference's own engine cases run
-against the port, the options of later slices raise
-``NotImplementedError``, a CUDA engine whose kernels do not build raises
+against the port, the option of a later slice raises
+``NotImplementedError`` and the store options refuse what the
+reference refuses, a CUDA engine whose kernels do not build raises
 from its constructor, and (on a card only) a device flush equals the CPU
 engine's."""
 
@@ -669,7 +670,7 @@ def test_drain_kill_close_lifecycle():
         eng.end_drain()
         assert eng.health_snapshot()["state"] == "ready"
         assert eng.query(1, 40).hops == solve_serial(n, edges, 1, 40).hops
-        snap = eng._rt.snapshot
+        snap = eng._current_rt().snapshot
     assert eng.health_snapshot()["state"] == "draining"
     assert snap.retired  # close dropped the engine's pin
     with pytest.raises(ValueError, match="closed"):
@@ -717,11 +718,32 @@ def test_flush_spans_are_traced():
 
 # ---- options of later slices, kernels that do not build -------------
 @pytest.mark.parametrize("option,value", [
-    ("store", object()), ("graph", "social"), ("oracle_k", 4), ("mesh", 2),
+    pytest.param("store", object(), id="store-value0"),
+    pytest.param("graph", "social", id="graph-social"),
+    pytest.param("oracle_k", 4, id="oracle_k-4"),
+    pytest.param("mesh", 2, id="mesh-2"),
 ])
 def test_unported_options_raise(option, value):
+    """``mesh=`` comes with a later slice (``NotImplementedError``); the
+    store options are ported and refuse what the reference refuses: an
+    inline graph beside ``store=``, ``graph=`` without a store, and
+    ``oracle_k`` beside ``store=`` (the store owns the oracles)."""
+    from bibfs_tpu_torch.serve import QueryEngine
+    from bibfs_tpu_torch.store import GraphStore
+
     n, edges = GRAPHS["skiplink"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if option == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _engine(n, edges, **{option: value})
+        return
+    if option == "oracle_k":
+        store = GraphStore()
+        store.add("g", n, edges)
+        with pytest.raises(ValueError, match="oracle_k"):
+            QueryEngine(store=store, oracle_k=value, device="cpu")
+        assert store.current("g").refs == 1  # the refused engine took no pin
+        return
+    with pytest.raises(ValueError, match="store"):
         _engine(n, edges, **{option: value})
 
 

@@ -163,12 +163,13 @@ def test_blocked_stands_aside_below_crossover_and_on_sparse():
     ref2, port2 = _engines("sync", n2, edges2, pairs2, blocked=True,
                            cache_entries=0, flush_threshold=4)
     try:
+        rt, rt2 = port._current_rt(), port2._current_rt()
         for b in (64, 128, 256, 1024):
             batch = [(0, 1)] * b
-            assert not port2.routes["blocked"].eligible(port2._rt, batch)
-            assert port.routes["blocked"].eligible(port._rt, batch) == (
+            assert not port2.routes["blocked"].eligible(rt2, batch)
+            assert port.routes["blocked"].eligible(rt, batch) == (
                 ref.routes["blocked"].eligible(ref._graph_rt(None), batch))
-        assert port2.routes["blocked"].eligible(port2._rt, [(0, 1)] * 256) \
+        assert port2.routes["blocked"].eligible(rt2, [(0, 1)] * 256) \
             == ref2.routes["blocked"].eligible(ref2._graph_rt(None),
                                                [(0, 1)] * 256)
     finally:
@@ -403,7 +404,7 @@ def test_adaptive_engine_explores_then_learns():
         st = eng.stats()["adaptive"]
         first = st["first_decision"]
         entry = st["digests"][first["digest"]]
-        assert first["digest"] == eng._rt.snapshot.digest
+        assert first["digest"] == eng._current_rt().snapshot.digest
         assert (first["route"], first["reason"]) == ("device", "explore")
         assert entry["last"]["reason"] == "learned"
         lat = {r: entry["routes"][r]["256"]["lat_us"]

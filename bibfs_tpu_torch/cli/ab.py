@@ -23,6 +23,14 @@ checkout builds the grid and its tile table, and per turn runs
 synchronize); it prints the same JSON line with ``same_results`` over
 ``(best, meet, dist, levels, edges)`` and each checkout's host reads.
 
+With ``--oracle GEOM`` (``grid-500x500`` or ``gnp-deg8-s20``, the graphs
+of ``chip_smoke.py`` phase 11) it times the oracle's index build instead:
+each checkout builds the graph's host CSR, and per turn runs
+``build_index`` of ``--k`` landmarks (default 64) three times (median),
+each split by :func:`build_split` into the device sweeps, the copies
+(CSR uploads, sources, planes back), the NumPy landmark scoring and the
+index's construction; ``same_results`` compares landmarks and planes.
+
 The host-bound modes' times drift by tens of percent from process to
 process and over minutes; run in turns within one process, both
 checkouts see the same drift. A card is used unless ``--device cpu``.
@@ -92,6 +100,106 @@ def _batch_pairs(dense, g, pairs, rng, b: int, pad: bool) -> np.ndarray:
     return np.array([deep] + [(0, 0)] * (b - 1), np.int64)
 
 
+def build_split(mods: dict, n: int, row_ptr, col_ind, k: int, device,
+                sync) -> tuple:
+    """``build_index(n, row_ptr, col_ind, k, device=device)`` of the
+    checkout whose modules ``mods`` holds (``sys.modules`` entries of this
+    package), timed on the host clock and split into ``sweeps_ms`` (inside
+    ``msbfs_device.sweep``: the state's seeding, the kernel launches and
+    their host reads), ``copies_ms`` (the rest of each sweep call: the CSR
+    and sources uploaded, the plane copied back; and a separate CSR
+    upload, where the build has one), ``scoring_ms`` (the rest of
+    landmark selection: the NumPy scoring between batches) and
+    ``index_ms`` (the rest: the index built from the planes). Returns
+    ``(index, split)``."""
+    md = mods[f"{PKG}.ops.msbfs_device"]
+    lm = mods[f"{PKG}.oracle.landmarks"]
+    trees = mods[f"{PKG}.oracle.trees"]
+    spent = {"sweep": 0.0, "call": 0.0, "upload": 0.0, "select": 0.0}
+    wrap = [(md, "sweep", "sweep"), (lm, "multi_source_dist", "call"),
+            (lm, "select_landmarks", "select")]
+    if hasattr(lm, "device_csr"):
+        wrap.append((lm, "device_csr", "upload"))
+    saved = []
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+                sync()
+                return out
+            finally:
+                spent[key] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    for mod, name, key in wrap:
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, timed(getattr(mod, name), key))
+    try:
+        sync()
+        t0 = time.perf_counter()
+        idx = trees.build_index(n, row_ptr, col_ind, k, device=device)
+        sync()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return idx, {
+        "build_ms": total, "sweeps_ms": spent["sweep"],
+        "copies_ms": spent["call"] - spent["sweep"] + spent["upload"],
+        "scoring_ms": spent["select"] - spent["call"] - spent["upload"],
+        "index_ms": total - spent["select"]}
+
+
+#: the oracle A/B's graphs, as chip_smoke.py phase 11
+ORACLE_GRAPHS = ("grid-500x500", "gnp-deg8-s20")
+
+
+def _oracle_ab(snaps, geom: str, k: int, rounds: int, dev, sync) -> dict:
+    """Index builds of both checkouts in turns (module docstring)."""
+    csrs = {}
+    for who, snap in snaps.items():
+        sys.modules.update(snap)
+        gen = snap[f"{PKG}.graph.generate"]
+        if geom == "grid-500x500":
+            n, edges = 500 * 500, gen.grid_graph(500, 500, perforation=0.02,
+                                                 seed=1)
+        else:
+            n = 1 << 20
+            edges = gen.gnp_random_graph(n, 8 / n, seed=7)
+        csrs[who] = snap[f"{PKG}.graph.csr"].build_csr(n, edges)
+    splits = {w: [] for w in snaps}
+    same = True
+    for rnd in range(rounds):
+        order = ("parent", "change") if rnd % 2 == 0 else ("change", "parent")
+        outs = {}
+        for who in order:
+            sys.modules.update(snaps[who])
+            outs[who], _ = build_split(snaps[who], n, *csrs[who], k, dev,
+                                       sync)  # warm
+            runs = [build_split(snaps[who], n, *csrs[who], k, dev, sync)[1]
+                    for _ in range(3)]
+            runs.sort(key=lambda r: r["build_ms"])
+            splits[who].append(runs[1])
+        same &= (np.array_equal(outs["parent"].landmarks,
+                                outs["change"].landmarks)
+                 and np.array_equal(outs["parent"].dist, outs["change"].dist))
+        del outs
+    line = {"geometry": geom, "n": n, "k": k, "rounds": rounds,
+            "same_results": bool(same)}
+    for who, v in splits.items():
+        build = [r["build_ms"] for r in v]
+        line[f"{who}/build_index"] = {
+            "median_ms": float(np.median(build)),
+            "p25_ms": float(np.percentile(build, 25)),
+            "p75_ms": float(np.percentile(build, 75)), "builds": len(v),
+            **{key: float(np.median([r[key] for r in v]))
+               for key in ("sweeps_ms", "copies_ms", "scoring_ms",
+                           "index_ms")}}
+    return line
+
+
 #: the blocked A/B's grids: (rows, columns), as chip_smoke.py phase 10
 BLOCKED_GRIDS = {"grid-128x1024": (128, 1024), "grid-64x64": (64, 64)}
 
@@ -157,6 +265,10 @@ def main(argv=None) -> int:
                     help="a batch of the deepest pair and pad lanes (0, 0)")
     ap.add_argument("--blocked", choices=sorted(BLOCKED_GRIDS),
                     help="time blocked batches on this grid")
+    ap.add_argument("--oracle", choices=ORACLE_GRAPHS,
+                    help="time the oracle's index build on this graph")
+    ap.add_argument("--k", type=int, default=64,
+                    help="landmarks of the --oracle index")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -169,10 +281,12 @@ def main(argv=None) -> int:
 
     saved = {m: mod for m, mod in sys.modules.items() if _ours(m)}
     snaps = {"change": _load(None), "parent": _load(args.parent.resolve())}
-    if args.blocked:
+    if args.blocked or args.oracle:
         try:
-            line = _blocked_ab(snaps, args.blocked, args.batch or 256,
-                               args.rounds, dev, sync)
+            line = (_blocked_ab(snaps, args.blocked, args.batch or 256,
+                                args.rounds, dev, sync) if args.blocked
+                    else _oracle_ab(snaps, args.oracle, args.k, args.rounds,
+                                    dev, sync))
         finally:
             _restore(saved)
         card = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"

@@ -62,8 +62,8 @@ SIGNATURES = {
                                _P, _P],
     },
     "msbfs": {
-        "bibfs_msbfs_level": [_P, _P, _I64, _I, _I, _P, _P, _P, _P, _I, _P,
-                              _P, _P],
+        "bibfs_msbfs_sweep": [_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     },
 }
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from bibfs_tpu_torch.oracle.trees import multi_source_dist
+from bibfs_tpu_torch.oracle.trees import device_csr, multi_source_dist
 
 _UNREACHED = np.int64(1 << 40)  # farther than any real distance
 
@@ -39,6 +39,7 @@ def select_landmarks(n: int, row_ptr: np.ndarray, col_ind: np.ndarray,
         chunk = max(8, k // 2)
     del seed  # reserved (module docstring)
     deg = (row_ptr[1:] - row_ptr[:-1]).astype(np.int64)
+    csr = device_csr(row_ptr, col_ind, device)  # one upload for every batch
     tie = np.arange(n)
     chosen: list[int] = []
     cols: list[np.ndarray] = []
@@ -57,7 +58,7 @@ def select_landmarks(n: int, row_ptr: np.ndarray, col_ind: np.ndarray,
             break  # fewer vertices than requested landmarks
         taken[batch] = True
         chosen.extend(int(v) for v in batch)
-        d = multi_source_dist(n, row_ptr, col_ind, batch, device=device)
+        d = multi_source_dist(n, *csr, batch, device=device)
         cols.append(d)
         d64 = np.where(d < 0, _UNREACHED, d.astype(np.int64))
         np.minimum(mindist, d64.min(axis=1), out=mindist)

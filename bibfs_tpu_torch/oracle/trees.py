@@ -110,15 +110,27 @@ def multi_source_bfs(n: int, row_ptr: np.ndarray, col_ind: np.ndarray,
     return _as_int16_dist(dist)
 
 
-def multi_source_dist(n: int, row_ptr: np.ndarray, col_ind: np.ndarray,
-                      sources, *, device=None, stats: dict | None = None
-                      ) -> np.ndarray:
+def device_csr(row_ptr, col_ind, device=None):
+    """The CSR where the sweeps on ``device`` read it: the host arrays for
+    ``device="host"``, else the tensors on the device
+    (:func:`bibfs_tpu_torch.ops.msbfs_device.upload_csr`), uploaded once
+    for every sweep of a build."""
+    if device == HOST:
+        return row_ptr, col_ind
+    from bibfs_tpu_torch.ops.msbfs_device import upload_csr
+
+    return upload_csr(row_ptr, col_ind, device)
+
+
+def multi_source_dist(n: int, row_ptr, col_ind, sources, *, device=None,
+                      stats: dict | None = None) -> np.ndarray:
     """One packed K-source sweep on ``device``
     (:func:`bibfs_tpu_torch.ops.msbfs_device.msbfs_plane_csr`: default
     ``cuda``, the CUDA kernel on the card; ``"cpu"`` its plain torch
-    twin), or the NumPy host sweep for ``device="host"``. The output is
-    the same ``int16 [n, K]`` either way. A device sweep that fails
-    raises; there is no host fallback. ``stats`` receives a device
+    twin), or the NumPy host sweep for ``device="host"``. The CSR is host
+    arrays or, for a device sweep, :func:`device_csr`'s tensors. The
+    output is the same ``int16 [n, K]`` either way. A device sweep that
+    fails raises; there is no host fallback. ``stats`` receives a device
     sweep's levels, launches and host reads."""
     if device == HOST:
         return multi_source_bfs(n, row_ptr, col_ind, sources)

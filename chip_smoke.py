@@ -173,20 +173,36 @@ is unavailable. Phases:
    launched in each.
 
 11. The graph store and the distance oracle (run after phase 10). The
-   multi-source BFS level ``msbfs_level`` (``csrc/msbfs.cu``: a pull over
-   the CSR, one thread per (vertex, mask word), new bits stamped into the
-   ``int16 [n, K]`` plane) at K = 32, 64 and 65 on the store's graph,
-   ``grid_graph(500, 500, perforation=0.02, seed=1)`` (250,000 vertices:
-   the JAX package's oracle soak, ``bench_oracle.json``), and on
-   gnp-deg8-s20: one level against its plain version on the sweep's own
-   mid-sweep state (every output equal), the whole sweep on the card
-   against the NumPy host sweep (every entry), and ``build_index`` on the
-   card (on the host too at K = 64 on the grid, the same index); one
-   ``step`` line each with the level's ms, its bound (the CSR, the
-   pending and reach words once, the changed words and new stamps, over
-   3.35 TB/s), the plain version's ms, one ``torch.sparse.mm`` of the
-   adjacency and the 0/1 pending plane as a yardstick, the sweep's ms,
-   levels, launches and host reads, and the build's ms and launches.
+   multi-source BFS sweep kernel ``msbfs_sweep_kernel`` (``csrc/msbfs.cu``:
+   one cooperative launch runs every level of a sweep, pushing from a
+   frontier worklist or, on dense levels, pulling over the CSR; new bits
+   stamped into the ``int16 [n, K]`` plane) at K = 32, 64 and 65 on the
+   store's graph, ``grid_graph(500, 500, perforation=0.02, seed=1)``
+   (250,000 vertices: the JAX package's oracle soak,
+   ``bench_oracle.json``), and on gnp-deg8-s20: the whole sweep on the
+   card against the NumPy host sweep (every entry; one launch and one
+   host read each), one level from the sweep's own mid state against
+   ``msbfs_level_plain`` and a span of 64 levels from it against the
+   range twin ``msbfs_levels_plain`` (every output equal), and
+   ``build_index`` on the card (on the host too at K = 64 on the grid,
+   the same index); one ``step`` line each with the level's ms (with the
+   dense-pull rule, every level pulled, every level pushed, and with an
+   empty frontier: the launch's own cost), its
+   frontier bound (``md.frontier_bytes``: what the level's frontier
+   needs, over 3.35 TB/s) and its dense bound (every vertex's CSR row,
+   pending and reach words), the span's ms against its twin's, the plain
+   level's ms, one ``torch.sparse.mm`` of the adjacency and the 0/1
+   pending plane as a yardstick, the sweep's ms (first and warm: the
+   call from a host CSR, its plane copied back), its time on the card
+   (the CSR there, no copy: ``sweep()`` with its seeding, and the kernel
+   alone from a seeded state against the sum of its levels' frontier
+   bounds, from the host plane), its levels, dense and sparse levels,
+   launches and host reads, and the build's ms split into its sweeps,
+   copies, NumPy scoring and index construction
+   (``bibfs_tpu_torch.cli.ab.build_split``), and its launches; at K = 64 the sweep on the card under other shares of the
+   pull rule (1/16, 1/8, 1/2). One ``msbfs_floor`` line: a sweep of
+   20,000 one-vertex levels (a path among the grid's vertices, checked),
+   its us a level.
    Then, with every
    count set to 0, the store's path: waves of 2,000 seeded Zipf pairs
    (skew 1.3, a quarter repeats) through a store without an oracle
@@ -205,7 +221,7 @@ is unavailable. Phases:
    the version moves forward and the index is rebuilt at the new
    generation. One ``{"phase": "store", ...}`` line per wave (routes,
    wall, queries/s, flush and span ms, latency percentiles), and
-   ``store_launches``: ``msbfs_level`` and ``minor_level[minor8]`` must
+   ``store_launches``: ``msbfs_sweep`` and ``minor_level[minor8]`` must
    have launched.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -229,6 +245,7 @@ import time
 import numpy as np
 import torch
 
+from bibfs_tpu_torch.cli.ab import build_split
 from bibfs_tpu_torch.graph.csr import build_csr, canonical_pairs
 from bibfs_tpu_torch.graph.blocked import build_blocked
 from bibfs_tpu_torch.graph.generate import gnp_random_graph, grid_graph, rmat_graph
@@ -329,9 +346,13 @@ BLOCKED_KERNELS = {
 }
 
 
-# phase 11: the multi-source BFS level of the oracle's index builds; not a
+# phase 11: the multi-source BFS sweep of the oracle's index builds; not a
 # Pallas kernel but the XLA while_loop of the reference's ELL sweep
-MSBFS = ("bibfs_tpu_torch/csrc/msbfs.cu", "bibfs_tpu/ops/msbfs_device.py:89")
+MSBFS = ("bibfs_tpu_torch/csrc/msbfs.cu", "bibfs_tpu/ops/msbfs_device.py:89",
+         {"ported": "PR 13", "redesigned": "PR 14"})
+SPAN = 64  # levels of the range check from the mid state
+DENSE_SHARES = (1 / 16, 1 / 8, 1 / 2)  # the pull rule's share, besides 1/4
+FLOOR_PATH = 20_000  # a path's vertices: a sweep of one-vertex levels
 MSBFS_KS = (32, 64, 65)  # landmarks per sweep (1, 2 and 3 mask words)
 ORACLE_K = 64  # the JAX package's oracle soak (bench_oracle.json)
 STORE_QUERIES = 2000  # the soak's traffic: Zipf skew 1.3, a quarter repeats
@@ -367,7 +388,7 @@ def reset_counts() -> None:
         ml.minor_level.launches[key] = 0
     be.blocked_level.launches = 0
     be.blocked_fold.launches = 0
-    md.msbfs_level.launches = 0
+    md.msbfs_levels.launches = 0
 
 
 def counts() -> dict:
@@ -377,7 +398,7 @@ def counts() -> dict:
         out[name] = ml.minor_level.launches[key]
     out["blocked_level"] = be.blocked_level.launches
     out["blocked_fold"] = be.blocked_fold.launches
-    out["msbfs_level"] = md.msbfs_level.launches
+    out["msbfs_sweep"] = md.msbfs_levels.launches
     return out
 
 
@@ -1978,24 +1999,21 @@ def blocked_phase(dev, results: dict) -> int:
 
 def msbfs_bound(n: int, nnz: int, words: int, changed: int,
                 stamps: int) -> tuple[float, str]:
-    """The least time one level could take (``bound_ms``): the CSR
-    (``row_ptr`` int64, ``col_ind`` int32), the pending and reach words
-    read once, the next pending words written, the changed reach words and
-    one int16 stamp per new (vertex, search) bit written, and the flag;
-    against one OR per gathered word over the card's integer rate."""
+    """The least time one level could take if it read every vertex (a
+    pull, ``bound_ms``): the CSR (``row_ptr`` int64, ``col_ind`` int32),
+    the pending and reach words read once, the next pending words written,
+    the changed reach words and one int16 stamp per new (vertex, search)
+    bit written, and the flag; against one OR per gathered word over the
+    card's integer rate."""
     nbytes = (8 * (n + 1) + 4 * nnz + 3 * 4 * n * words + 4 * changed
               + 2 * stamps + 4)
     return bound_ms(nbytes, nnz * words)
 
 
-def msbfs_mid_state(n: int, rp, ci, src, levels: int):
-    """The sweep's own state on the card after ``levels`` levels: ``(reach,
-    pending, dist)``."""
-    reach, pending, dist = md.seed_state(n, torch.as_tensor(src, device=rp.device))
-    flag = torch.zeros(1, dtype=torch.int32, device=rp.device)
-    for lvl in range(1, levels + 1):
-        pending = md.msbfs_level(rp, ci, pending, reach, dist, lvl, flag)
-    return reach, pending, dist
+def frontier_ms(nbytes) -> float:
+    """Bytes a level's frontier needs (``md.frontier_bytes``) over the
+    card's memory rate, in ms."""
+    return float(nbytes) / HBM_BYTES_PER_S * 1e3
 
 
 def msbfs_sources(n: int, seed: int) -> np.ndarray:
@@ -2005,48 +2023,78 @@ def msbfs_sources(n: int, seed: int) -> np.ndarray:
 def host_sweeps(out_dir: str) -> None:
     """Phase 11's host references, in a child process started with the
     run (its minute of NumPy overlaps phases 1-10): the NumPy sweep of
-    each graph's widest source set, saved into ``out_dir``. The sweeps
-    are independent per source, so it holds every narrower set's
-    columns."""
+    each graph's widest source set, saved into ``out_dir`` (the sweeps are
+    independent per source, so it holds every narrower set's columns),
+    and each K's frontier bytes by level (``md.frontier_bytes`` of the
+    plane's first K columns)."""
     for geometry, n, make, _level, seed in MSBFS_GEOMS:
         row_ptr, col_ind = build_csr(n, make())
         t0 = time.perf_counter()
         want = multi_source_bfs(n, row_ptr, col_ind, msbfs_sources(n, seed))
         ms = (time.perf_counter() - t0) * 1e3
         np.save(os.path.join(out_dir, f"{geometry}.npy"), want)
+        levels = {str(k): md.frontier_bytes(row_ptr, col_ind,
+                                            want[:, :k]).tolist()
+                  for k in MSBFS_KS}
         with open(os.path.join(out_dir, f"{geometry}.json"), "w") as f:
-            json.dump({"host_sweep_ms": ms}, f)
+            json.dump({"host_sweep_ms": ms, "frontier_bytes": levels}, f)
 
 
 def msbfs_phase(geometry: str, n: int, csr, mid_level: int, seed: int,
                 ref_dir: str, results: dict | None, host_build: bool) -> None:
-    """Phase 11's kernel checks on one graph (module docstring): per K,
-    one level held to its plain version and timed, the whole sweep on the
-    card against the host sweep (:func:`host_sweeps`), and
-    ``build_index`` on the card."""
+    """Phase 11's kernel checks on one graph (module docstring): per K, the
+    whole sweep on the card against the host sweep (:func:`host_sweeps`),
+    one level from the sweep's mid state held to its plain version and
+    timed (with the rule's pick, every level pulled, every level pushed),
+    a span of :data:`SPAN` levels from that state held to the range twin,
+    and ``build_index`` on the card."""
     dev = torch.device("cuda")
     rp_np, ci_np = csr
-    rp = torch.as_tensor(rp_np, dtype=torch.int64, device=dev)
-    ci = torch.as_tensor(ci_np.astype(np.int32), device=dev)
+    rp, ci = md.upload_csr(rp_np, ci_np, dev)
     nnz = int(ci_np.shape[0])
     src_all = msbfs_sources(n, seed)
     want = np.load(os.path.join(ref_dir, f"{geometry}.npy"))
     with open(os.path.join(ref_dir, f"{geometry}.json")) as f:
-        host_sweep_ms = json.load(f)["host_sweep_ms"]
+        ref = json.load(f)
     adj = sparse_adjacency(n, csr, dev)
+    share = md.DENSE_SHARE
     for k in MSBFS_KS:
         src = src_all[:k]
         sweeps = []
         for _ in range(2):  # the second is warm
             stats: dict = {}
             torch.cuda.synchronize()
+            before = md.msbfs_levels.launches
             t0 = time.perf_counter()
             plane = md.msbfs_plane_csr(n, rp_np, ci_np, src, device=dev,
                                        stats=stats)
             sweeps.append((time.perf_counter() - t0) * 1e3)
+            check(md.msbfs_levels.launches - before == 1
+                  and (stats["launches"], stats["host_reads"]) == (1, 1),
+                  f"msbfs sweep {geometry} K={k}: {stats}")
         check(np.array_equal(plane, want[:, :k]),
               f"msbfs sweep {geometry} K={k} differs from the host sweep")
-        reach0, pending, dist0 = msbfs_mid_state(n, rp, ci, src, mid_level)
+        # the sweep on the card: the CSR already there, no copy back; the
+        # whole sweep() (the state seeded, the launch, its status read)
+        device_ms = time_launch(lambda: md.sweep(n, rp, ci, src), reps=3)
+        reach0, pending0, dist0 = md.seed_state(
+            n, torch.as_tensor(src, device=dev))
+        reach, dist = reach0.clone(), dist0.clone()
+
+        def reseed():
+            reach.copy_(reach0)
+            dist.copy_(dist0)
+
+        # and the kernel alone, from the seeded state (its one status read)
+        kernel_ms = time_launch(lambda: md.msbfs_levels(
+            rp, ci, pending0, reach, dist, 1, md.INT16_MAX + 1, checked=True),
+            reseed, reps=3)
+        check(torch.equal(dist.cpu(), torch.from_numpy(want[:, :k])),
+              f"msbfs sweep {geometry} K={k}: the timed launch differs")
+        # the sweep's mid state, in one launch
+        pending, st = md.msbfs_levels(rp, ci, pending0, reach0, dist0, 1,
+                                      mid_level)
+        check(st["levels"] == mid_level, f"msbfs mid state {geometry} {st}")
         reach, dist = reach0.clone(), dist0.clone()
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
         lvl = mid_level + 1
@@ -2058,30 +2106,72 @@ def msbfs_phase(geometry: str, n: int, csr, mid_level: int, seed: int,
         torch.cuda.synchronize()
         err = max_abs_err([nxt, reach, dist, flag],
                           [nxt_p, reach_p, dist_p, flag_p])
-        check(err == 0, f"msbfs_level {geometry} K={k} differs from its "
-              f"plain version (max abs err {err})")
+        check(err == 0, f"msbfs_sweep {geometry} K={k} level {lvl} differs "
+              f"from msbfs_level_plain (max abs err {err})")
         check(int(flag_p) == 1, f"msbfs mid state {geometry} K={k} is empty")
         changed = int((nxt_p != 0).sum())
         stamps = int((dist_p == lvl).sum())
+        # the span: SPAN levels from the same state, kernel against twin
+        reach_s, dist_s = reach0.clone(), dist0.clone()
+        span_p, span_st = md.msbfs_levels(rp, ci, pending, reach_s, dist_s,
+                                          lvl, lvl + SPAN - 1)
+        reach_t, dist_t = reach0.clone(), dist0.clone()
+        t0 = time.perf_counter()
+        span_tp, span_tst = md.msbfs_levels_plain(rp, ci, pending, reach_t,
+                                                  dist_t, lvl,
+                                                  lvl + SPAN - 1)
+        torch.cuda.synchronize()
+        span_plain_ms = (time.perf_counter() - t0) * 1e3
+        span_err = max_abs_err([span_p, reach_s, dist_s],
+                               [span_tp, reach_t, dist_t])
+        check(span_err == 0
+              and (span_st["levels"], span_st["run"])
+              == (span_tst["levels"], span_tst["run"]),
+              f"msbfs_sweep {geometry} K={k} levels {lvl}..{lvl + SPAN - 1} "
+              f"differ from msbfs_levels_plain (max abs err {span_err}, "
+              f"{span_st} against {span_tst})")
 
         def restore():
             reach.copy_(reach0)
             dist.copy_(dist0)
             flag.zero_()
 
-        ms = time_launch(lambda: md.msbfs_level(
-            rp, ci, pending, reach, dist, lvl, flag, checked=True), restore)
+        def one_level():
+            md.msbfs_level(rp, ci, pending, reach, dist, lvl, flag,
+                           checked=True)
+
+        ms = time_launch(one_level, restore)
+        idle = torch.zeros_like(pending)  # a launch with nothing to push
+        forced = {"empty_ms": time_launch(lambda: md.msbfs_level(
+            rp, ci, idle, reach, dist, lvl, flag, checked=True), restore)}
+        for mode, forced_share in (("pull", 0.0), ("push", 2.0)):
+            md.DENSE_SHARE = forced_share  # every level pulled, or pushed
+            try:
+                forced[f"{mode}_ms"] = time_launch(one_level, restore)
+            finally:
+                md.DENSE_SHARE = share
+        span_ms = time_launch(lambda: md.msbfs_levels(
+            rp, ci, pending, reach, dist, lvl, lvl + SPAN - 1, checked=True),
+            restore, reps=5)
         plain_ms = time_launch(lambda: md.msbfs_level_plain(
             rp, ci, pending, reach, dist, lvl, flag), restore, reps=5)
         plane01 = md.unpack_words(pending)[:, :k].float()
         library_ms = time_launch(lambda: torch.sparse.mm(adj, plane01))
-        b_ms, by = msbfs_bound(n, nnz, reach.shape[1], changed, stamps)
+        dense_ms, dense_by = msbfs_bound(n, nnz, md.plane_words(k), changed,
+                                         stamps)
+        by_level = ref["frontier_bytes"][str(k)]
+        check(len(by_level) == int(want[:, :k].max()) + 2,
+              f"frontier bytes {geometry} K={k}: {len(by_level)} levels")
+        b_ms = frontier_ms(by_level[lvl])
+        sweep_bound = frontier_ms(sum(by_level))
         torch.cuda.synchronize()
-        before = md.msbfs_level.launches
-        t0 = time.perf_counter()
-        idx = build_index(n, rp_np, ci_np, k, device=dev)
-        build_ms = (time.perf_counter() - t0) * 1e3
-        build_launches = md.msbfs_level.launches - before
+        before = md.msbfs_levels.launches
+        # the build split into its sweeps, copies, scoring and index
+        idx, build = build_split(
+            {m: mod for m, mod in sys.modules.items()
+             if m.startswith("bibfs_tpu_torch.")},
+            n, rp_np, ci_np, k, dev, torch.cuda.synchronize)
+        build_launches = md.msbfs_levels.launches - before
         extra = {}
         if host_build and k == ORACLE_K:
             t0 = time.perf_counter()
@@ -2091,21 +2181,67 @@ def msbfs_phase(geometry: str, n: int, csr, mid_level: int, seed: int,
                   and np.array_equal(host_idx.dist, idx.dist),
                   f"build_index {geometry} K={k}: card != host")
         if k == max(MSBFS_KS):  # timed beside phases 1-10
-            extra["host_sweep_ms"] = host_sweep_ms
-        step_line("msbfs_level", geometry, f"K={k}", ms, k=k, level=lvl,
-                  bound_ms=b_ms, bound_by=by, plain_ms=plain_ms,
-                  library_ms=library_ms, max_abs_err=err, changed_words=changed,
-                  new_stamps=stamps, sweep_ms=sweeps[-1],
-                  first_sweep_ms=sweeps[0], **stats, build_index_ms=build_ms,
+            extra["host_sweep_ms"] = ref["host_sweep_ms"]
+        if k == ORACLE_K:  # the sweep under other shares of the pull rule
+            extra["share_sweeps"] = {}
+            for other in DENSE_SHARES:
+                got: dict = {}
+                md.DENSE_SHARE = other
+                try:
+                    other_ms = time_launch(
+                        lambda: md.sweep(n, rp, ci, src, stats=got), reps=3)
+                finally:
+                    md.DENSE_SHARE = share
+                extra["share_sweeps"][f"{other:g}"] = dict(
+                    ms=other_ms, dense_levels=got["dense_levels"])
+        step_line("msbfs_sweep", geometry, f"K={k}", ms, k=k, level=lvl,
+                  bound_ms=b_ms, bound_by="bytes", dense_bound_ms=dense_ms,
+                  dense_bound_by=dense_by, **forced, plain_ms=plain_ms,
+                  library_ms=library_ms, max_abs_err=err,
+                  changed_words=changed, new_stamps=stamps,
+                  span_levels=span_st["run"], span_ms=span_ms,
+                  span_plain_ms=span_plain_ms, span_max_abs_err=span_err,
+                  sweep_ms=sweeps[-1], first_sweep_ms=sweeps[0],
+                  sweep_device_ms=device_ms, sweep_kernel_ms=kernel_ms,
+                  sweep_bound_ms=sweep_bound,
+                  sweep_over_bound=kernel_ms / sweep_bound, **stats,
+                  build_index_ms=build["build_ms"],
+                  build_split_ms={key[:-3]: build[key] for key in
+                                  ("sweeps_ms", "copies_ms", "scoring_ms",
+                                   "index_ms")},
                   build_index_launches=build_launches,
                   index_mb=idx.dist.nbytes / 1e6, **extra)
         if results is not None and k == ORACLE_K:
-            results["msbfs_level"] = dict(ms=ms, plain_ms=plain_ms,
-                                          bound_ms=b_ms, bound_by=by,
-                                          max_abs_err=err,
-                                          library_ms=library_ms)
-        del reach0, reach, reach_p, dist0, dist, dist_p, pending, plane01
+            results["msbfs_sweep"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by="bytes",
+                dense_bound_ms=dense_ms, max_abs_err=max(err, span_err),
+                library_ms=library_ms, sweep_ms=kernel_ms,
+                sweep_bound_ms=sweep_bound, launches_per_sweep=1)
+        del reach0, reach, reach_p, reach_s, reach_t, dist0, dist, dist_p
+        del dist_s, dist_t, pending, pending0, plane01, idle
         torch.cuda.empty_cache()
+
+
+def msbfs_floor(n: int) -> None:
+    """A sweep's cost a level when the level does almost nothing: one
+    source at the end of a path of :data:`FLOOR_PATH` vertices among
+    ``n`` (the grid's vertex count, so the grid's block count), every
+    level one pushed vertex: the launch, the barrier and a few dependent
+    loads. Checked against the path's distances."""
+    dev = torch.device("cuda")
+    path = np.stack([np.arange(FLOOR_PATH - 1), np.arange(1, FLOOR_PATH)], 1)
+    rp, ci = md.upload_csr(*build_csr(n, path), dev)
+    stats: dict = {}
+    ms = time_launch(lambda: md.sweep(n, rp, ci, np.zeros(1), stats=stats),
+                     reps=3)
+    plane = md.sweep(n, rp, ci, np.zeros(1)).cpu().numpy()[:, 0]
+    want = np.full(n, -1, dtype=np.int16)
+    want[:FLOOR_PATH] = np.arange(FLOOR_PATH)
+    check(np.array_equal(plane, want), "msbfs floor: the path's distances")
+    print(json.dumps({"phase": "msbfs_floor", "n": n, "levels":
+                      stats["levels"], "sweep_ms": ms,
+                      "us_per_level": ms * 1e3 / stats["levels"]}),
+          flush=True)
 
 
 def native_hops(n: int, edges, pairs) -> list:
@@ -2223,7 +2359,7 @@ def store_phase(n: int, edges, csr) -> dict:
     ost = store.stats()["graphs"]["grid"]["oracle"]
     print(json.dumps({"phase": "store_index", "graphs": 2, "k": ORACLE_K,
                       "build_s": index_s,
-                      "launches_both_graphs": md.msbfs_level.launches,
+                      "launches_both_graphs": md.msbfs_levels.launches,
                       "index": ost["index"]}), flush=True)
     eng = QueryEngine(store=store, max_batch=1024)
     res, _line = store_wave(eng, pairs, "O[sync]", "grid", truth, edges)
@@ -2349,7 +2485,7 @@ def store_phase(n: int, edges, csr) -> dict:
           flush=True)
     print(json.dumps({"phase": "store_launches", **{
         k: v for k, v in launches.items() if v}}), flush=True)
-    for name in ("msbfs_level", "minor_level[minor8]"):
+    for name in ("msbfs_sweep", "minor_level[minor8]"):
         check(launches[name] > 0, f"kernel {name} was not launched on the "
               "store's path")
     return launches
@@ -2374,6 +2510,7 @@ def store_and_oracle_phase(gnp_csr, results: dict, host_ref, ref_dir: str
           flush=True)
     msbfs_phase(grid, n, csr, grid_level, grid_seed, ref_dir, results,
                 host_build=True)
+    msbfs_floor(n)
     check(len(gnp_csr[0]) - 1 == gnp[1], "phase 11 needs the gnp-deg8-s20 CSR")
     msbfs_phase(gnp[0], gnp[1], gnp_csr, gnp[3], gnp[4], ref_dir, None,
                 host_build=False)
@@ -2588,10 +2725,10 @@ def main() -> int:
                             replaces=replaces, **history,
                             launches=blocked_launches[name], **results[name],
                             library_ms=None, launch_floor_ms=floor_ms))
-    kernels.append(dict(name="msbfs_level", route="cuda", source=MSBFS[0],
-                        replaces=MSBFS[1],
-                        launches=store_launches["msbfs_level"],
-                        **results["msbfs_level"], launch_floor_ms=floor_ms))
+    kernels.append(dict(name="msbfs_sweep", route="cuda", source=MSBFS[0],
+                        replaces=MSBFS[1], **MSBFS[2],
+                        launches=store_launches["msbfs_sweep"],
+                        **results["msbfs_sweep"], launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -152,6 +152,36 @@ def test_ab_blocked_times_blocked_batches_of_both_checkouts(capsys):
     assert sys.modules["bibfs_tpu_torch.solvers.dense"] is dense
 
 
+def test_ab_build_split_parts_sum_to_the_build():
+    """``cli/ab.py``'s ``build_split`` (what ``--oracle`` and
+    ``chip_smoke.py`` phase 11 time) on a small grid on the CPU: the index
+    equals the host build's, the four parts add up to the build, none is
+    negative, and the functions it wrapped are put back."""
+    import sys
+
+    from bibfs_tpu_torch.cli import ab
+    from bibfs_tpu_torch.graph.csr import build_csr
+    from bibfs_tpu_torch.graph.generate import grid_graph
+    from bibfs_tpu_torch.ops import msbfs_device as md
+    from bibfs_tpu_torch.oracle import build_index, landmarks
+
+    n = 24 * 20
+    rp, ci = build_csr(n, grid_graph(24, 20, perforation=0.05, seed=1))
+    wrapped = (md.sweep, landmarks.multi_source_dist,
+               landmarks.select_landmarks, landmarks.device_csr)
+    mods = {m: mod for m, mod in sys.modules.items()
+            if m.startswith("bibfs_tpu_torch.")}
+    idx, split = ab.build_split(mods, n, rp, ci, 12, "cpu", lambda: None)
+    want = build_index(n, rp, ci, 12, device="host")
+    np.testing.assert_array_equal(idx.landmarks, want.landmarks)
+    np.testing.assert_array_equal(idx.dist, want.dist)
+    parts = ("sweeps_ms", "copies_ms", "scoring_ms", "index_ms")
+    assert split["sweeps_ms"] > 0 and all(split[p] >= 0 for p in parts)
+    assert abs(sum(split[p] for p in parts) - split["build_ms"]) < 1e-6
+    assert (md.sweep, landmarks.multi_source_dist, landmarks.select_landmarks,
+            landmarks.device_csr) == wrapped
+
+
 def _batch_lines(out: str) -> list[str]:
     return [ln for ln in out.splitlines() if " -> " in ln and ": " in ln]
 

@@ -335,15 +335,21 @@ def test_oracle_metric_family_renders():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", K_VALUES)
-def test_cuda_level_and_sweep_equal_plain(k):
-    """On a card: ``msbfs_level`` equals its plain version on every output
-    of a seeded mid-sweep state, and the whole CUDA sweep equals the host
-    sweep."""
+@pytest.mark.parametrize("k", K_VALUES + (129, 200))
+def test_cuda_level_and_sweep_equal_plain(k, monkeypatch):
+    """On a card: one level of the sweep kernel equals its plain version on
+    every output of a seeded mid-sweep state; a span of levels from the
+    next state equals the level-range twin under the dense-pull rule,
+    with every level pulled and with every level pushed; a whole sweep is
+    one launch and one host read and equals the host sweep; a path deeper
+    than the int16 range raises the reference's ValueError; every launch
+    leaves the kernel's working block zero. K = 129 and 200 run the
+    kernel's loops over more than one vector of words."""
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from bibfs_tpu_torch.graph.csr import build_csr
     from bibfs_tpu_torch.ops import msbfs_device as md
     from bibfs_tpu_torch.oracle.trees import multi_source_bfs
 
@@ -359,15 +365,60 @@ def test_cuda_level_and_sweep_equal_plain(k):
     inputs = [t.to(dev) for t in (rpt, cit, pending, reach, dist)]
     flag.zero_()
     flag_d = torch.zeros(1, dtype=torch.int32, device=dev)
-    before = md.msbfs_level.launches
+    before = md.msbfs_levels.launches
     nxt_d = md.msbfs_level(*inputs, 6, flag_d)
     torch.cuda.synchronize()
-    assert md.msbfs_level.launches == before + 1
+    assert md.msbfs_levels.launches == before + 1
     nxt = md.msbfs_level(rpt, cit, pending, reach, dist, 6, flag)
     assert torch.equal(nxt_d.cpu(), nxt)
     assert torch.equal(inputs[3].cpu(), reach)
     assert torch.equal(inputs[4].cpu(), dist)
     assert int(flag_d) == int(flag)
+    with pytest.raises(ValueError, match="live"):  # the CPU loop's alone
+        md.msbfs_level(*inputs, 6, flag_d, flag_d)
+    # levels 7 .. 70 from that state: the range kernel against its twin
+    want_r, want_d = reach.clone(), dist.clone()
+    want_p, want_st = md.msbfs_levels(rpt, cit, nxt, want_r, want_d, 7, 70)
+    assert want_st["run"] > 1
+    for share, mode in ((md.DENSE_SHARE, None), (0.0, "dense"),
+                        (2.0, "sparse")):
+        monkeypatch.setattr(md, "DENSE_SHARE", share)
+        rp_d, ci_d, p_d, r_d, d_d = (t.to(dev) for t in
+                                     (rpt, cit, nxt, reach, dist))
+        got_p, st = md.msbfs_levels(rp_d, ci_d, p_d, r_d, d_d, 7, 70)
+        assert torch.equal(p_d.cpu(), nxt)  # the input is left as it was
+        assert torch.equal(got_p.cpu(), want_p), mode
+        assert torch.equal(r_d.cpu(), want_r), mode
+        assert torch.equal(d_d.cpu(), want_d), mode
+        assert (st["levels"], st["run"]) == (want_st["levels"],
+                                             want_st["run"])
+        assert st["dense_levels"] + st["sparse_levels"] == st["run"]
+        if mode is not None:
+            assert st[f"{mode}_levels"] == st["run"], (mode, st)
+    monkeypatch.undo()
+    # a whole sweep: one launch, one host read, the host sweep's plane
     want = multi_source_bfs(n, rp, ci, src)
+    before = md.msbfs_levels.launches
+    stats: dict = {}
     np.testing.assert_array_equal(
-        md.msbfs_plane_csr(n, rp, ci, src, device="cuda"), want)
+        md.msbfs_plane_csr(n, rp, ci, src, device="cuda", stats=stats), want)
+    assert md.msbfs_levels.launches == before + 1
+    assert (stats["launches"], stats["host_reads"]) == (1, 1)
+    assert stats["levels"] == int(want.max())
+    # a path deeper than the int16 range: raised, nothing stamped past it
+    n_path = md.INT16_MAX + 40
+    prp, pci = build_csr(n_path, np.stack([np.arange(n_path - 1),
+                                           np.arange(1, n_path)], axis=1))
+    prp_d, pci_d = md.upload_csr(prp, pci, dev)
+    reach, pending, dist = md.seed_state(
+        n_path, torch.arange(k, device=dev) % 3)
+    with pytest.raises(ValueError, match="int16"):
+        md.msbfs_levels(prp_d, pci_d, pending, reach, dist, 1,
+                        md.INT16_MAX + 1)
+    assert int(dist.min()) == -1 and int(dist.max()) == md.INT16_MAX
+    assert not bool(md._ctl_block(dev).any())
+    # no vertices: one launch of one block that runs no level
+    reach, pending, dist = md.seed_state(0, torch.zeros(0, dtype=torch.int64,
+                                                        device=dev))
+    _p, st = md.msbfs_levels(prp_d[:1], pci_d[:0], pending, reach, dist, 1, 9)
+    assert (st["levels"], st["run"], st["grid"]) == (0, 0, 1)

@@ -44,6 +44,7 @@ import json
 import pkgutil
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -76,10 +77,20 @@ def _load(root: Path | None) -> dict:
 
 
 def _restore(saved: dict) -> None:
-    """Put back the package modules that were imported before ``_load``."""
+    """Put back the package modules that were imported before ``_load``,
+    and unbind from those packages every submodule ``_load`` imported
+    first: left bound, a later ``from package import module`` would bind
+    a module that ``sys.modules`` no longer holds, where the next import
+    now loads and registers it anew."""
     for name in [m for m in sys.modules if _ours(m)]:
         del sys.modules[name]
     sys.modules.update(saved)
+    for name, mod in saved.items():
+        for attr, val in list(vars(mod).items()):
+            if (isinstance(val, types.ModuleType)
+                    and val.__name__ == f"{name}.{attr}"
+                    and val.__name__ not in saved):
+                delattr(mod, attr)
 
 
 def _same(a, b) -> bool:

@@ -388,7 +388,10 @@ def _on(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=dtype).contiguous()
     np_dtype = np.int64 if dtype == torch.int64 else np.int32
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np_dtype)).to(dev)
+    a = np.ascontiguousarray(x, dtype=np_dtype)
+    if not a.flags.writeable:
+        a = a.copy()  # a read-only mapping: torch takes writable memory only
+    return torch.from_numpy(a).to(dev)
 
 
 def upload_csr(row_ptr, col_ind, device=None):

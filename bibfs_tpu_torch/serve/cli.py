@@ -40,12 +40,19 @@ engine's device), with a ``.bin`` the engine builds one at startup. The
 stdin command ``oracle`` prints the current graph's index status and hit
 counts. Command replies land in the result stream.
 
-The engine runs on ``cuda`` unless ``--device cpu`` is given. The store's
-durability flags (``--durable``, ``--fsync``, ``--residency-budget``,
-``--no-mmap``) and the ``memory`` command come with the durability slice
-(ROADMAP Queue 1, item 6b) and refuse with a message naming it; the
-mesh, network, load-harness, metrics and trace flags of ``bibfs-serve``
-come with later slices of the port (ROADMAP Queue 1).
+``--durable`` (with ``--store``) turns on the store's durability layer
+(``bibfs_tpu_torch/store/wal.py``): every acked update is written ahead
+to the log under the ``--fsync`` policy before the ack, compactions and
+swaps commit checkpoints, and startup recovers manifest + WAL, so a
+killed server comes back at its last acked state. Recovery maps each
+checkpoint's arrays sidecar unless ``--no-mmap`` is given (then it
+rebuilds from the ``.bin``). ``--residency-budget BYTES`` demotes the
+least recently used graphs past the budget to the compressed cold tier,
+and the stdin command ``memory`` prints each graph's tier and bytes.
+
+The engine runs on ``cuda`` unless ``--device cpu`` is given. The mesh,
+network, load-harness, metrics and trace flags of ``bibfs-serve`` come
+with later slices of the port (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -56,9 +63,6 @@ import sys
 
 _STORE_COMMANDS = ("use", "update", "swap", "graphs")
 
-#: where the durability flags and the ``memory`` command are ported
-_DURABILITY = "the durability slice (ROADMAP Queue 1, item 6b)"
-
 
 class _SigTerm(Exception):
     """Raised by the SIGTERM handler out of the blocking stdin read: the
@@ -67,11 +71,14 @@ class _SigTerm(Exception):
 
 
 def _control_reply(engine, store, cmd: str) -> str:
-    """The stdin ``health`` / ``stats`` commands' one-line JSON reply
-    (``health {...}`` / ``stats {...}``, the store's stats inside the
-    latter). No flush is forced, so a probe never perturbs batching."""
+    """The stdin ``health`` / ``stats`` / ``memory`` commands' one-line
+    JSON reply (``health {...}`` / ``stats {...}``, the store's stats
+    inside the latter / ``memory {...}``, the store's tiers and bytes). No
+    flush is forced, so a probe never perturbs batching."""
     if cmd == "health":
         payload = engine.health_snapshot()
+    elif cmd == "memory":
+        payload = store.memory_stats()
     else:
         payload = engine.stats()
         if store is not None:
@@ -218,12 +225,30 @@ def main(argv=None):
                     "with no search (route oracle), the rest with a search "
                     "cutoff. Under --store the store keeps one index per "
                     "graph; the stdin command 'oracle' prints its status")
-    for flag, kw in (("--durable", dict(action="store_true")),
-                     ("--fsync", dict(default=None)),
-                     ("--residency-budget", dict(type=int, default=None)),
-                     ("--no-mmap", dict(action="store_true"))):
-        ap.add_argument(flag, help=f"not ported yet: comes with {_DURABILITY}",
-                        **kw)
+    ap.add_argument("--durable", action="store_true",
+                    help="the store's durability layer (needs --store): every "
+                    "acked edge update is written ahead to the log before the "
+                    "ack, compactions and swaps commit checkpoints (.bin, "
+                    "arrays sidecar, manifest rename, WAL segment switch), "
+                    "and startup recovers every graph that left a manifest "
+                    "or WAL behind")
+    ap.add_argument("--fsync", default="batch",
+                    choices=["always", "batch", "off"],
+                    help="WAL fsync policy under --durable: always = an fsync "
+                    "per update (survives OS or power loss), batch = group "
+                    "commit (survives process death; the default), off = OS "
+                    "flush only")
+    ap.add_argument("--residency-budget", type=int, default=None,
+                    metavar="BYTES",
+                    help="private (not mapped) snapshot bytes past which the "
+                    "store demotes the least recently used graphs to the "
+                    "compressed cold tier (promoted back on access; default: "
+                    "no limit). The stdin command 'memory' prints each "
+                    "graph's tier and bytes")
+    ap.add_argument("--no-mmap", action="store_true",
+                    help="no arrays sidecars: durable recovery rebuilds "
+                    "snapshots from the .bin instead of mapping the "
+                    "checkpointed arrays")
     ap.add_argument("--pairs", default=None, metavar="FILE",
                     help='query file of "src dst" lines (default: stream '
                     "stdin)")
@@ -251,7 +276,10 @@ def main(argv=None):
     ap.add_argument("--adaptive", action="store_true",
                     help="adaptive routing: learn a per-graph route order "
                     "from measured per-route latencies and sampled level "
-                    "telemetry instead of the static ladder (in memory)")
+                    "telemetry instead of the static ladder. With --store "
+                    "--durable the learned policy persists as policy.json "
+                    "in the store directory, and a restart serves its first "
+                    "flush on the learned route")
     ap.add_argument("--max-batch", type=int, default=1024,
                     help="largest single device flush (default 1024)")
     ap.add_argument("--cache-entries", type=int, default=64,
@@ -279,15 +307,6 @@ def main(argv=None):
                     "silent CPU fallback)")
     args = ap.parse_args(argv)
 
-    for flag, given in (("--durable", args.durable),
-                        ("--fsync", args.fsync is not None),
-                        ("--residency-budget",
-                         args.residency_budget is not None),
-                        ("--no-mmap", args.no_mmap)):
-        if given:
-            print(f"Error: {flag} is not ported yet: it comes with "
-                  f"{_DURABILITY}", file=sys.stderr)
-            return 2
     if args.store is not None:
         if args.graph is not None:
             print("Error: pass a .bin graph OR --store DIR, not both",
@@ -301,14 +320,35 @@ def main(argv=None):
                 compact_threshold=(args.compact_threshold or None),
                 oracle_k=args.oracle,
                 device=args.device,
+                durable=args.durable,
+                fsync=args.fsync,
+                mmap_arrays=not args.no_mmap,
+                residency_budget=args.residency_budget,
             )
         except (OSError, ValueError, RuntimeError) as e:
             print(f"Error reading store: {e}", file=sys.stderr)
             return 2
-        print("[Store] serving {k} graph(s): {names}".format(
-            k=len(store.names()), names=", ".join(store.names())),
+        print("[Store] serving {k} graph(s): {names}{d}".format(
+            k=len(store.names()), names=", ".join(store.names()),
+            d=f" (durable, fsync={args.fsync})" if args.durable else ""),
             file=sys.stderr, flush=True)
+        sstats = store.stats()["graphs"]
+        for gname in store.names():
+            rec = (sstats[gname].get("durable") or {}).get("recovered")
+            if rec is not None:
+                print(
+                    "[Store] recovered {g}: v{v}, {r} WAL record(s) "
+                    "replayed{t}".format(
+                        g=gname, v=rec["version"], r=rec["replayed_records"],
+                        t=(", torn tail truncated"
+                           if rec["torn_tail_truncated"] else ""),
+                    ),
+                    file=sys.stderr, flush=True,
+                )
         return _serve(args, None, None, store)
+    if args.durable:
+        print("Error: --durable needs --store DIR", file=sys.stderr)
+        return 2
     if args.graph is None:
         print("Error: a .bin graph (or --store DIR) is required",
               file=sys.stderr)
@@ -478,13 +518,12 @@ def _serve_stdin(args, engine, store) -> int:
                     continue
                 print(_oracle_status(engine, store, current))
                 continue
-            if parts[0] == "memory":
-                print(f"error invalid: 'memory' is not ported yet: it "
-                      f"comes with {_DURABILITY}")
-                continue
-            if parts[0] in ("health", "stats"):
+            if parts[0] in ("health", "stats", "memory"):
                 if len(parts) != 1:
                     print(f"error invalid: usage: {parts[0]}")
+                    continue
+                if parts[0] == "memory" and store is None:
+                    print("error invalid: 'memory' needs --store")
                     continue
                 # resolved results first: the reply doubles as a drain nudge
                 drain()

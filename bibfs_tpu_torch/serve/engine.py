@@ -79,6 +79,7 @@ later slices of the port (ROADMAP Queue 1); their options raise
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import weakref
@@ -547,9 +548,11 @@ class QueryEngine:
     adaptive : per-digest adaptive routing
         (:class:`~bibfs_tpu_torch.serve.policy.AdaptiveRouter`): ``True``
         learns the ladder's order from measured per-route latencies and
-        sampled level telemetry, in memory (the sidecar next to a durable
-        store comes with the store slice); pass a ready ``AdaptiveRouter``
-        to share one across engines or to persist it at a ``path``.
+        sampled level telemetry, in memory, or over a durable store in the
+        sidecar ``policy.json`` of its ``wal_dir`` (saved every few notes
+        and at close, loaded by the next engine there); pass a ready
+        ``AdaptiveRouter`` to share one across engines or to persist it at
+        a ``path``.
         Default None: the static ladder.
     mesh : an option of a later slice of the port; passing it raises
         ``NotImplementedError``.
@@ -781,15 +784,24 @@ class QueryEngine:
 
         self.routes, self._ladder = build_routes(self, self._blocked_cfg)
         # adaptive routing (serve/policy.py): the ladder's order learned
-        # per graph digest
+        # per graph digest, persisted beside a durable store's checkpoints
+        # so that a respawn serves its first flush on the learned route
         self._policy = None
         if adaptive:
-            from bibfs_tpu_torch.serve.policy import AdaptiveRouter
-
-            self._policy = (
-                AdaptiveRouter(label=self.obs_label, routes=self._ladder)
-                if isinstance(adaptive, bool) else adaptive
+            from bibfs_tpu_torch.serve.policy import (
+                POLICY_SIDECAR,
+                AdaptiveRouter,
             )
+
+            if isinstance(adaptive, bool):
+                wal_dir = getattr(store, "wal_dir", None)
+                self._policy = AdaptiveRouter(
+                    label=self.obs_label, routes=self._ladder,
+                    path=(None if wal_dir is None
+                          else os.path.join(wal_dir, POLICY_SIDECAR)),
+                )
+            else:
+                self._policy = adaptive
         # direct cell handles for the per-query submit path
         self._c_queries = self.counters.cell("queries")
         self._c_trivial = self.counters.cell("trivial")

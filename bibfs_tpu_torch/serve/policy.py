@@ -29,9 +29,9 @@ from what the engines measure:
   (atomic tmp + ``os.replace`` writes, merged on save under an ``flock``
   so engines sharing one file compose) that a new router at the same
   path loads at construction and serves its first flush from. The
-  engine's ``adaptive=True`` keeps the policy in memory: the sidecar
-  next to a durable store's checkpoints comes with the store slice of
-  the port (ROADMAP Queue 1, item 6).
+  engine's ``adaptive=True`` persists the policy next to a durable
+  store's checkpoints (``POLICY_SIDECAR`` in its ``wal_dir``) and keeps it
+  in memory otherwise.
 
 The derived fields a policy carries per digest (the learned route order,
 ``push_frontier_max``: the largest frontier a push level was observed
@@ -54,8 +54,8 @@ from bibfs_tpu_torch.utils.annotations import guarded_by
 #: decision taxonomy for ``bibfs_routes_adaptive_total{reason=}``
 ADAPTIVE_REASONS = ("default", "explore", "learned")
 
-#: sidecar filename of a durable store's policy (its ``wal_dir``, next to
-#: the checkpoint manifests; the store comes with a later slice)
+#: sidecar filename of a durable store's policy (in its ``wal_dir``, next
+#: to the checkpoint manifests)
 POLICY_SIDECAR = "policy.json"
 
 #: observations per (route, batch rung) before the ordering trusts the

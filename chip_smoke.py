@@ -224,6 +224,38 @@ is unavailable. Phases:
    ``store_launches``: ``msbfs_sweep`` and ``minor_level[minor8]`` must
    have launched.
 
+12. The durable store (run after phase 11). With every count set to 0,
+   ``GraphStore(wal_dir=..., fsync="always", oracle_k=64,
+   retain_history=True, sidecar_layouts=("ell",))`` in a directory under
+   the gitignored ``.chip_durable/`` holds phase 3's gnp-deg8-s20 and phase
+   11's grid-500x500 (their indexes swept on the card), serves a first
+   wave of 256 Zipf pairs on each, acks two update batches on each (24 adds
+   and 8 deletes, then 16 and 8) and compacts both: a checkpoint ``.bin``
+   and a sidecar holding the ``ell.*`` and ``oracle.*`` groups, the index
+   built on the card by ``msbfs_sweep`` (``durable_checkpoint``: seconds
+   of the updates and the compaction, its spans, the sidecar's and the
+   bin's MB). A spawned child recovers the store (both graphs mapped, both
+   indexes adopted), acks three more batches on the grid and is
+   SIGKILLed after the last ack (``durable_crash``). A second spawned
+   process then recovers it: both graphs mapped, gnp's digest and version
+   the checkpoint's, the grid's live digest the killed child's, every acked
+   add present and every acked delete gone; it serves 2,000 Zipf pairs
+   (skew 1.3, a quarter repeats) on gnp through the sync engine and again
+   with ``mode="pallas"``, every answer equal to the native host solver's
+   on the recovered snapshot, ``minor_level[minor8]`` and
+   ``pull_dual_batch`` launched and no ``msbfs_sweep`` (the indexes came
+   from the sidecars). It recovers the directory again with
+   ``mmap_arrays=False`` (the rebuild path), folds the grid's replayed
+   batches into a new checkpoint, sets a residency budget one byte below
+   the two graphs' resident bytes (the grid, least recently used, is
+   demoted to the cold tier) and serves 2,000 Zipf pairs on the grid: its
+   promote counted, every answer exact (``durable_memory``). One
+   ``{"phase": "durable", ...}`` line splits each recovery's seconds per
+   graph (the sidecar mapped and its digest recomputed, or the ``.bin``
+   rebuilt; the WAL replay; the registration with the index adopted)
+   beside the upload to the card, the first answer and the first flush of
+   256 pairs.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
 JSON line.
@@ -2244,13 +2276,14 @@ def msbfs_floor(n: int) -> None:
           flush=True)
 
 
-def native_hops(n: int, edges, pairs) -> list:
+def native_hops(n: int, edges, pairs, csr=None) -> list:
     """``(found, hops)`` of every pair by the native host solver's threaded
-    batch on ``edges``; 8 seeded pairs audited against the serial oracle."""
+    batch on ``edges``; 8 seeded pairs audited against the serial oracle
+    (on ``csr``, the CSR of ``edges``, when given)."""
     ng = NativeGraph.build(n, edges)
     res = solve_batch_native_graph(ng, np.asarray(pairs, dtype=np.int64))
     out = [(r.found, r.hops) for r in res]
-    row_ptr, col_ind = build_csr(n, edges)
+    row_ptr, col_ind = build_csr(n, edges) if csr is None else csr
     for i in np.random.default_rng(53).choice(len(pairs), 8, replace=False):
         s, d = (int(v) for v in pairs[i])
         w = solve_serial_csr(n, row_ptr, col_ind, s, d)
@@ -2259,13 +2292,14 @@ def native_hops(n: int, edges, pairs) -> list:
     return out
 
 
-def store_wave(eng, pairs, wave: str, graph: str, truth, edges
+def store_wave(eng, pairs, wave: str, graph: str, truth, edges, csr=None
                ) -> tuple[list, dict]:
     """Serve ``pairs`` on ``graph`` through a store-backed engine; every
     answer equal to ``truth`` (``(found, hops)`` per pair), exactly the
     queries the oracle answered at submit pathless, and every other found
-    answer's path valid on ``edges``. Returns the results and the printed
-    line. The kernel counts are not reset here."""
+    answer's path valid on ``edges`` (whose CSR ``csr`` is, when given).
+    Returns the results and the printed line. The kernel counts are not
+    reset here."""
     before = dict(eng.counters)
     consult = eng._consult_oracle
     served = []  # (src, dst, answered by the oracle) in submit order
@@ -2291,7 +2325,8 @@ def store_wave(eng, pairs, wave: str, graph: str, truth, edges
         "host_queries", "overlay_queries", "device_batches")}
     check(len(res) == len(pairs) and all(r is not None for r in res),
           f"store wave {wave}: a ticket is missing")
-    csr = build_csr(eng._store.current(graph).n, edges)
+    if csr is None:
+        csr = build_csr(eng._store.current(graph).n, edges)
     consults = iter(served)
     pathless = 0
     for (s, d), r, w in zip(pairs, res, truth):
@@ -2517,6 +2552,427 @@ def store_and_oracle_phase(gnp_csr, results: dict, host_ref, ref_dir: str
     return store_phase(n, edges, csr)
 
 
+# ---- phase 12: the durable store ---------------------------------------
+def fresh_batch(rng, n: int, csr, k_add: int, k_del: int, added: set,
+                deleted: set) -> tuple[list, list]:
+    """``k_add`` seeded edges the graph lacks and ``k_del`` it has (its
+    first CSR ``csr`` less ``deleted``, plus ``added``), none touched by an
+    earlier batch; both sets take the batch."""
+    rp, ci = csr
+    adds: list = []
+    while len(adds) < k_add:
+        u, v = sorted(int(x) for x in rng.integers(0, n, 2))
+        e = (u, v)
+        if (u == v or e in added or e in deleted or e in adds
+                or v in ci[rp[u]:rp[u + 1]]):
+            continue
+        adds.append(e)
+    dels: list = []
+    while len(dels) < k_del:
+        u = int(rng.integers(0, n))
+        row = ci[rp[u]:rp[u + 1]]
+        if row.size == 0:
+            continue
+        v = int(row[int(rng.integers(0, row.size))])
+        e = (min(u, v), max(u, v))
+        if e in deleted or e in dels:
+            continue
+        dels.append(e)
+    added.update(adds)
+    deleted.update(dels)
+    return adds, dels
+
+
+def has_edge(csr, u: int, v: int) -> bool:
+    rp, ci = csr
+    return bool((ci[rp[u]:rp[u + 1]] == v).any())
+
+
+def live_has(store, name: str, u: int, v: int) -> bool:
+    """Whether ``name``'s live graph (its snapshot and pending overlay)
+    holds the edge ``u``-``v``."""
+    e = (min(u, v), max(u, v))
+    ov = store.overlay(name)
+    if ov is not None:
+        adds, dels = ov.capture()
+        if e in adds:
+            return True
+        if e in dels:
+            return False
+    return has_edge(store.current(name).csr(), *e)
+
+
+def live_digest(store, name: str) -> str:
+    """The content digest of ``name``'s live graph, pending overlay
+    included."""
+    from bibfs_tpu_torch.store import content_digest
+
+    ov = store.overlay(name)
+    snap = store.current(name)
+    if ov is None:
+        return snap.digest
+    return content_digest(snap.n, canonical_pairs(snap.n, ov.merged_edges()))
+
+
+def check_acked(store, name: str, batches, wave: str) -> None:
+    """Every acked add of ``batches`` is in ``name``'s live graph and every
+    acked delete is not."""
+    for adds, dels in batches:
+        for u, v in adds:
+            check(live_has(store, name, u, v),
+                  f"{wave}: acked add {u}-{v} of {name} is missing")
+        for u, v in dels:
+            check(not live_has(store, name, u, v),
+                  f"{wave}: acked delete {u}-{v} of {name} is back")
+
+
+def engine_options(dev_name: str) -> dict:
+    """Phase 12's engine options: on the CPU (a rehearsal at a small size)
+    the device route is forced, as the tests force it."""
+    if dev_name == "cuda":
+        return {"max_batch": 1024}
+    return {"max_batch": 1024, "device": dev_name, "device_batches": True}
+
+
+def crash_child(root: str, batches, conn, dev_name: str) -> None:
+    """Phase 12's crash: recover the store, ack ``batches`` on the grid
+    one by one (each ack reported with the live graph's digest), then
+    wait to be killed."""
+    store = GraphStore.from_dir(root, durable=True, fsync="always",
+                                oracle_k=ORACLE_K, retain_history=True,
+                                compact_threshold=None,
+                                sidecar_layouts=("ell",), device=dev_name)
+    st = store.stats()["graphs"]
+    conn.send({"recovered": {name: g["durable"]["recovered"]["remapped"]
+                             for name, g in st.items()},
+               "indexes": {name: g["durable"]["recovered"]["index_adopted"]
+                           for name, g in st.items()}})
+    for i, (adds, dels) in enumerate(batches):
+        store.update("grid", adds=adds, dels=dels)  # returning is the ack
+        conn.send({"acked": i, "digest": live_digest(store, "grid"),
+                   "version": store.current("grid").version})
+    time.sleep(3600)
+
+
+def recovery_split(store, seconds: float) -> dict:
+    """One recovery's seconds per graph (``recovered["split_s"]``: the
+    base snapshot mapped or rebuilt, the WAL replay, the registration with
+    the index adopted) beside the whole ``from_dir``."""
+    out = {"from_dir_s": seconds, "graphs": {}}
+    for name, g in store.stats()["graphs"].items():
+        rec = g["durable"]["recovered"]
+        out["graphs"][name] = {
+            "base_s": rec["split_s"]["base"],
+            "replay_s": rec["split_s"]["replay"],
+            "register_s": rec["split_s"]["register"],
+            "replayed_records": rec["replayed_records"],
+            "remapped": rec["remapped"], "tier": g["tier"],
+            "index_adopted": rec["index_adopted"],
+            "version": g["version"], "digest": g["digest"],
+        }
+    return out
+
+
+def first_answers(eng, name: str, pairs, dev) -> dict:
+    """The seconds to the card's tables of ``name`` (built where the
+    snapshot lacks them, copied from its host arrays, uploaded), to the
+    first answer (one query; the route that answered it reported) and to
+    the first flush of ``BATCH`` queries."""
+    t0 = time.perf_counter()
+    eng._graph_rt(name).graph  # noqa: B018  the upload
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = dict(eng.counters)
+    s, d = (int(x) for x in pairs[0])
+    eng.query(s, d, graph=name)
+    t2 = time.perf_counter()
+    route = [k for k in ("oracle_served", "cache_served", "host_queries",
+                         "device_queries") if eng.counters[k] > before[k]]
+    eng.query_many(pairs[1:1 + BATCH], graph=name)
+    t3 = time.perf_counter()
+    return {"upload_s": t1 - t0, "first_answer_s": t2 - t1,
+            "first_answer_route": route, "first_flush_s": t3 - t2}
+
+
+def durable_respawn(root: str, expect: dict, conn, dev_name: str) -> None:
+    """Phase 12's respawn (module docstring), in a fresh process: the
+    mapped recovery and its waves, then the rebuild path, the grid's fold,
+    the residency budget and the promote. Sends the kernel counts of the
+    run to the parent."""
+    dev = torch.device(dev_name)
+    on_card = dev.type == "cuda"
+    reset_counts()
+    lines: dict = {}
+    kw = engine_options(dev_name)
+    t0 = time.perf_counter()
+    store = GraphStore.from_dir(root, durable=True, fsync="always",
+                                oracle_k=ORACLE_K, retain_history=True,
+                                compact_threshold=None, device=dev_name)
+    lines["mapped"] = recovery_split(store, time.perf_counter() - t0)
+    g = lines["mapped"]["graphs"]
+    check(g["gnp"]["remapped"] and g["gnp"]["tier"] == "mapped"
+          and g["gnp"]["index_adopted"] and g["gnp"]["replayed_records"] == 0,
+          f"durable: gnp recovered as {g['gnp']}")
+    check(g["gnp"]["digest"] == expect["gnp"]["digest"]
+          and g["gnp"]["version"] == expect["gnp"]["version"],
+          "durable: gnp is not the checkpointed snapshot")
+    check(g["grid"]["remapped"]
+          and g["grid"]["replayed_records"] == len(expect["crash_batches"]),
+          f"durable: grid recovered as {g['grid']}")
+    check(live_digest(store, "grid") == expect["grid"]["digest"],
+          "durable: the grid's live digest is not the killed process's")
+    check(store.oracle("gnp") is not None and store.oracle("grid") is None,
+          "durable: the adopted indexes")
+    check_acked(store, "gnp", expect["gnp"]["batches"], "durable")
+    check_acked(store, "grid", expect["grid"]["batches"]
+                + expect["crash_batches"], "durable")
+    gnp_n = store.current("gnp").n
+    pairs = sample_skewed_pairs(gnp_n, STORE_QUERIES, seed=83, skew=1.3,
+                                repeat_fraction=0.25,
+                                degrees=np.diff(store.current("gnp").csr()[0]))
+    eng = QueryEngine(store=store, **kw)
+    lines["mapped"].update(first_answers(eng, "gnp", pairs, dev))
+    gnp_edges = store.current("gnp").undirected_edges()
+    gnp_csr = build_csr(gnp_n, gnp_edges)
+    truth = native_hops(gnp_n, gnp_edges, pairs, csr=gnp_csr)
+    res, _ = store_wave(eng, pairs, "R[gnp mapped]", "gnp", truth, gnp_edges,
+                        csr=gnp_csr)
+    pal = QueryEngine(store=store, mode="pallas", **kw)
+    res_p, _ = store_wave(pal, pairs, "R[gnp mapped pallas]", "gnp", truth,
+                          gnp_edges, csr=gnp_csr)
+    check(all(r.hops == w.hops for r, w in zip(res, res_p)),
+          "durable: pallas != auto on the mapped graph")
+    eng.close()
+    pal.close()
+    store.close()
+    mapped_counts = counts()
+    print(json.dumps({"phase": "durable_launches", "path": "mapped",
+                      **{k: v for k, v in mapped_counts.items() if v}}),
+          flush=True)
+    if on_card:
+        for name in ("minor_level[minor8]", "pull_dual_batch"):
+            check(mapped_counts[name] > 0,
+                  f"kernel {name} was not launched on the recovered store")
+        check(mapped_counts["msbfs_sweep"] == 0,
+              "durable: the respawn swept though its indexes were adopted")
+    del res, res_p, gnp_csr
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the rebuild path on the same directory, then the fold, the budget
+    t0 = time.perf_counter()
+    store = GraphStore.from_dir(root, durable=True, fsync="always",
+                                mmap_arrays=False, retain_history=True,
+                                compact_threshold=None)
+    lines["rebuild"] = recovery_split(store, time.perf_counter() - t0)
+    g = lines["rebuild"]["graphs"]
+    check(not g["gnp"]["remapped"] and g["gnp"]["tier"] == "hot"
+          and g["gnp"]["digest"] == expect["gnp"]["digest"],
+          f"durable: the rebuilt gnp {g['gnp']}")
+    check(live_digest(store, "grid") == expect["grid"]["digest"],
+          "durable: the rebuilt grid's live digest")
+    eng = QueryEngine(store=store, **kw)
+    lines["rebuild"].update(first_answers(eng, "gnp", pairs, dev))
+    t0 = time.perf_counter()
+    folded = store.compact("grid")
+    lines["rebuild"]["grid_fold_s"] = time.perf_counter() - t0
+    check(folded.digest == expect["grid"]["digest"]
+          and folded.version == expect["grid"]["version"] + 1,
+          "durable: the grid's fold is not the killed process's graph")
+    grid_n = folded.n
+    grid_edges = folded.undirected_edges().copy()
+    grid_pairs = sample_skewed_pairs(grid_n, STORE_QUERIES, seed=89, skew=1.3,
+                                     repeat_fraction=0.25,
+                                     degrees=np.diff(folded.csr()[0]))
+    grid_csr = build_csr(grid_n, grid_edges)
+    grid_truth = native_hops(grid_n, grid_edges, grid_pairs, csr=grid_csr)
+    before = store.memory_stats()
+    store.residency_budget = before["resident_bytes"] - 1
+    rebalanced = store.rebalance()
+    check(rebalanced["demoted"] == ["grid"]
+          and store.current("grid").tier == "cold",
+          f"durable: the budget demoted {rebalanced['demoted']}")
+    store_wave(eng, grid_pairs, "R[grid promoted]", "grid", grid_truth,
+               grid_edges, csr=grid_csr)
+    after = store.memory_stats()
+    check(after["graphs"]["grid"]["tier"] == "hot"
+          and after["graphs"]["grid"]["promotions"] == 1,
+          f"durable: the grid after its wave {after['graphs']['grid']}")
+    print(json.dumps({"phase": "durable_memory", "rebalance": rebalanced,
+                      "before": before, "after": after}), flush=True)
+    eng.close()
+    store.close()
+    rebuild_counts = {k: v - mapped_counts[k] for k, v in counts().items()}
+    print(json.dumps({"phase": "durable_launches", "path": "rebuild",
+                      **{k: v for k, v in rebuild_counts.items() if v}}),
+          flush=True)
+    if on_card:
+        check(rebuild_counts["minor_level[minor8]"] > 0,
+              "kernel minor_level[minor8] was not launched on the rebuilt store")
+    print(json.dumps({"phase": "durable", **lines}), flush=True)
+    conn.send({"counts": counts()})
+
+
+def durable_phase(gnp_n: int, gnp_pairs, gnp_csr, grid=None,
+                  dev_name: str = "cuda") -> dict:
+    """Phase 12 (module docstring): the durable store built, served,
+    updated and checkpointed here; a spawned child acks more and is
+    SIGKILLed; a second spawned child recovers and serves. ``grid``
+    (``(n, edges)``, default phase 11's grid) and ``dev_name="cpu"`` run
+    it small on the CPU. Returns the kernel counts of the build here and
+    of the respawn's run."""
+    import shutil
+
+    if grid is None:
+        grid = (MSBFS_GEOMS[0][1], MSBFS_GEOMS[0][2]())
+    graphs = {"grid": grid}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".chip_durable")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root)
+    ctx = multiprocessing.get_context("spawn")
+    try:
+        reset_counts()
+        csrs = {"gnp": gnp_csr}
+        t0 = time.perf_counter()
+        store = GraphStore(wal_dir=tmp, fsync="always", oracle_k=ORACLE_K,
+                           retain_history=True, compact_threshold=None,
+                           sidecar_layouts=("ell",), device=dev_name)
+        store.add("gnp", gnp_n, pairs=gnp_pairs)
+        for name, (n, edges) in graphs.items():
+            store.add(name, n, edges)
+            csrs[name] = build_csr(n, edges)
+        add_s = time.perf_counter() - t0
+        for name in store.names():
+            check(store.wait_for_index(name, timeout=600),
+                  f"durable: no index for {name}")
+        index_s = time.perf_counter() - t0 - add_s
+        # a first wave on each graph: its tables built and uploaded
+        eng = QueryEngine(store=store, **engine_options(dev_name))
+        for name in store.names():
+            snap = store.current(name)
+            pairs = sample_skewed_pairs(snap.n, BATCH, seed=79, skew=1.3,
+                                        repeat_fraction=0.25,
+                                        degrees=np.diff(csrs[name][0]))
+            edges = snap.undirected_edges()
+            store_wave(eng, pairs, f"D[{name} v1]", name,
+                       native_hops(snap.n, edges, pairs, csr=csrs[name]),
+                       edges, csr=csrs[name])
+        expect: dict = {}
+        added: dict = {name: set() for name in store.names()}
+        deleted: dict = {name: set() for name in store.names()}
+        rng = np.random.default_rng(97)
+        checkpoint = {}
+        for name in store.names():
+            n = store.current(name).n
+            batches = [fresh_batch(rng, n, csrs[name], k_add, k_del,
+                                   added[name], deleted[name])
+                       for k_add, k_del in ((24, 8), (16, 8))]
+            t1 = time.perf_counter()
+            for adds, dels in batches:
+                store.update(name, adds=adds, dels=dels)
+            update_s = time.perf_counter() - t1
+            tracer = Tracer()
+            prev = set_tracer(tracer)
+            t1 = time.perf_counter()
+            try:
+                snap = store.compact(name)
+            finally:
+                set_tracer(prev)
+            compact_s = time.perf_counter() - t1
+            st = store.stats()["graphs"][name]
+            sidecar = os.path.join(tmp, st["durable"]["arrays"])
+            with open(os.path.join(sidecar, "manifest.json")) as f:
+                groups = sorted(json.load(f)["arrays"])
+            check(snap.version == 2 and st["oracle"]["ready"]
+                  and st["oracle"]["index"]["version"] == 2,
+                  f"durable: the {name} checkpoint {st['oracle']}")
+            for group in ("ell.nbr", "oracle.dist", "oracle.landmarks"):
+                check(group in groups, f"durable: {name}'s sidecar lacks {group}")
+            check_acked(store, name, batches, "checkpoint")
+            checkpoint[name] = {
+                "updates_s": update_s, "compact_s": compact_s,
+                "spans_ms": span_ms(tracer),
+                "sidecar_mb": sum(
+                    os.path.getsize(os.path.join(sidecar, f))
+                    for f in os.listdir(sidecar)) / 2 ** 20,
+                "bin_mb": os.path.getsize(
+                    os.path.join(tmp, st["durable"]["bin"])) / 2 ** 20,
+                "groups": groups, "version": snap.version,
+            }
+            expect[name] = {"digest": snap.digest, "version": snap.version,
+                            "batches": batches}
+        eng.close()
+        store.close()
+        build_counts = counts()
+        print(json.dumps({"phase": "durable_checkpoint", "add_s": add_s,
+                          "index_s": index_s, "graphs": checkpoint,
+                          "launches": {k: v for k, v in build_counts.items()
+                                       if v}}), flush=True)
+        if dev_name == "cuda":
+            check(build_counts["msbfs_sweep"] > 0,
+                  "durable: the checkpoint's index was not swept on the card")
+            torch.cuda.empty_cache()
+        del store, eng
+
+        # the crash: a child acks the grid's batches and is SIGKILLed
+        n = graphs["grid"][0]
+        crash = [fresh_batch(rng, n, csrs["grid"], k_add, k_del,
+                             added["grid"], deleted["grid"])
+                 for k_add, k_del in ((12, 4), (8, 4), (6, 2))]
+        parent, child = ctx.Pipe()
+        t0 = time.perf_counter()
+        proc = ctx.Process(target=crash_child,
+                           args=(tmp, crash, child, dev_name), daemon=True)
+        proc.start()
+        acks = []
+        try:
+            check(parent.poll(600), "durable: the crash child never recovered")
+            opened = parent.recv()
+            check(all(opened["recovered"].values())
+                  and all(opened["indexes"].values()),
+                  f"durable: the crash child's recovery {opened}")
+            for _ in crash:
+                check(parent.poll(600), "durable: an ack never came")
+                acks.append(parent.recv())
+            os.kill(proc.pid, signal.SIGKILL)
+        finally:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(60)
+        check(proc.exitcode == -signal.SIGKILL,
+              f"durable: the crash child ended with {proc.exitcode}")
+        expect["grid"]["digest"] = acks[-1]["digest"]
+        expect["grid"]["version"] = acks[-1]["version"]
+        expect["crash_batches"] = crash
+        print(json.dumps({"phase": "durable_crash", "acked": len(acks),
+                          "child_s": time.perf_counter() - t0,
+                          "killed_by": "SIGKILL"}), flush=True)
+
+        # the respawn
+        parent, child = ctx.Pipe()
+        t0 = time.perf_counter()
+        proc = ctx.Process(target=durable_respawn,
+                           args=(tmp, expect, child, dev_name),
+                           daemon=True)
+        proc.start()
+        try:
+            proc.join(900)
+            got = parent.recv() if parent.poll(1) else None
+        finally:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(60)
+        check(proc.exitcode == 0 and got is not None,
+              f"durable: the respawn ended with {proc.exitcode}")
+        print(json.dumps({"phase": "durable_respawn",
+                          "s": time.perf_counter() - t0}), flush=True)
+        return {"build": build_counts, "respawn": got["counts"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2704,6 +3160,14 @@ def main() -> int:
                                             ref_dir.name)
     ref_dir.cleanup()
 
+    # phase 12: the durable store, its crash and its respawn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    durable = durable_phase(n, pairs_all, csr)
+    print(json.dumps({"phase": "durable_total", "s": time.perf_counter() - t0}),
+          flush=True)
+    respawn = durable["respawn"]
+
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -2713,11 +3177,13 @@ def main() -> int:
     for name, (_mode, source, replaces) in MINOR.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=batch_counts[name],
+                            launches_durable=respawn[name],
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
     for name, (_w, _p, source, replaces) in LOCKSTEP.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=lockstep_counts[name],
+                            launches_durable=respawn[name],
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
     for name, (source, replaces, history) in BLOCKED_KERNELS.items():
@@ -2728,6 +3194,9 @@ def main() -> int:
     kernels.append(dict(name="msbfs_sweep", route="cuda", source=MSBFS[0],
                         replaces=MSBFS[1], **MSBFS[2],
                         launches=store_launches["msbfs_sweep"],
+                        launches_durable_checkpoint=durable["build"][
+                            "msbfs_sweep"],
+                        launches_durable=respawn["msbfs_sweep"],
                         **results["msbfs_sweep"], launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),
           flush=True)

@@ -8,8 +8,9 @@ reference's does, the ``blocked`` and ``blocked_finish`` faults degrade
 with the reference's accounting, a CUDA engine fails its tickets on any
 other blocked failure, and the :class:`AdaptiveRouter` makes the
 reference's decisions (explore, learned, the explore cap, unknown
-digests, the sidecar round trip). Every comparison is exact. The store's
-hot-swap and durable-respawn tests come with the store slice."""
+digests, the sidecar round trip). Every comparison is exact. The
+policy's round trip through a durable store is in
+``test_torch_durable.py``."""
 
 import json
 

@@ -4,7 +4,10 @@ on the same ``.bin``, pairs file and stdin stream, sync and
 ``health`` / ``stats`` and bad lines in the stream, ``--inject-faults``
 drives the resilience ladder, ``--stats-json`` writes the engine's
 counters, and SIGTERM drains a subprocess with every queued result
-printed. Every wait has a timeout."""
+printed. Under ``--store DIR --durable`` a stream and its respawn print
+the reference's lines, recovery lines and ``memory`` payloads for each
+``--fsync`` policy, and a server SIGKILLed after its acks comes back
+with every acked update. Every wait has a timeout."""
 
 import io
 import json
@@ -235,3 +238,110 @@ def test_subprocess_sigterm_drains_queued_results(graph_file):
     want = [f"{s} -> {d}: length = {solve_serial(n + 1, edges, s, d).hops}"
             for s, d in queries]
     assert got == want
+
+
+def _store_dir(root, graph_file) -> str:
+    import shutil
+
+    os.makedirs(root, exist_ok=True)
+    shutil.copy(graph_file[0], os.path.join(root, "g.bin"))
+    return str(root)
+
+
+@pytest.mark.parametrize("fsync", ["always", "batch", "off"])
+def test_durable_stream_and_respawn_print_reference_lines(
+        graph_file, tmp_path, capsys, monkeypatch, fsync):
+    """``--store DIR --durable --fsync P``: a stream of updates, a swap and
+    queries, then a second run on the same directory (the respawn), print
+    the reference's lines in both runs, its ``[Store] recovered`` lines on
+    stderr, and its ``memory`` payload; the respawn answers with every
+    acked update."""
+    from bibfs_tpu.serve.cli import main as ref_main
+
+    from bibfs_tpu_torch.serve.cli import main as port_main
+
+    first = ("update add 0 119\n0 119\nupdate del 0 1\nswap\n"
+             "update add 2 90\n2 90\nmemory\n")
+    again = "0 119\n2 90\n0 1\ngraphs\nmemory\n"
+    outs = {}
+    for who, main, extra in (("ref", ref_main, []),
+                             ("port", port_main, ["--device", "cpu"])):
+        d = _store_dir(tmp_path / who, graph_file)
+        runs = []
+        for stream in (first, again):
+            monkeypatch.setattr("sys.stdin", io.StringIO(stream))
+            rc = main(["--store", d, "--durable", "--fsync", fsync,
+                       "--no-path", *extra])
+            cap = capsys.readouterr()
+            memory = [json.loads(ln[len("memory "):])
+                      for ln in cap.out.splitlines()
+                      if ln.startswith("memory ")]
+            runs.append((
+                rc, [ln for ln in cap.out.splitlines()
+                     if not ln.startswith("memory ")],
+                [ln for ln in cap.err.splitlines()
+                 if ln.startswith("[Store] recovered")
+                 or ln.startswith("[Store] serving")],
+                memory,
+            ))
+        outs[who] = runs
+    assert outs["port"] == outs["ref"]
+    (rc1, out1, _e1, _m1), (rc2, out2, err2, mem2) = outs["port"]
+    assert rc1 == rc2 == 0
+    assert "0 -> 119: length = 1" in out2 and "2 -> 90: length = 1" in out2
+    assert err2[0].endswith(f"(durable, fsync={fsync})")
+    assert err2[1] == "[Store] recovered g: v2, 1 WAL record(s) replayed"
+    assert mem2[0]["graphs"]["g"]["tier"] == "mapped"
+
+
+def test_subprocess_sigkill_respawn_serves_every_acked_update(graph_file,
+                                                              tmp_path):
+    """A durable server (``--fsync always``) acks updates on stdin and is
+    SIGKILLed with no drain; a respawn on the same directory recovers them
+    from the WAL and answers with every acked edge."""
+    from bibfs_tpu_torch.solvers.serial import solve_serial
+
+    _g, _p, n, edges, _pairs = graph_file
+    d = _store_dir(tmp_path / "store", graph_file)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    cmd = [sys.executable, "-m", "bibfs_tpu_torch.serve.cli", "--store", d,
+           "--durable", "--fsync", "always", "--device", "cpu", "--no-path"]
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=REPO)
+    acked = [(0, 119), (3, 77), (10, 60)]
+    lines: queue.Queue = queue.Queue()
+
+    def reader():
+        for ln in proc.stdout:
+            lines.put(ln.rstrip("\n"))
+        lines.put(None)
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    try:
+        for u, v in acked:
+            proc.stdin.write(f"update add {u} {v}\n")
+            proc.stdin.flush()
+            reply = lines.get(timeout=120.0)
+            assert reply == f"update g: +{acked.index((u, v)) + 1}/-0 pending"
+        proc.kill()  # SIGKILL after the last ack
+        proc.wait(timeout=60.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30.0)
+        proc.stderr.close()
+    th.join(timeout=30.0)
+    assert proc.returncode == -signal.SIGKILL
+    out = subprocess.run(cmd, input="".join(f"{u} {v}\n" for u, v in acked)
+                         + "memory\n", capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "[Store] recovered g: v1, 3 WAL record(s) replayed" in out.stderr
+    got = [ln for ln in out.stdout.splitlines() if " -> " in ln]
+    assert got == [f"{u} -> {v}: length = 1" for u, v in acked]
+    assert solve_serial(n + 1, edges, 0, 119).hops > 1  # the update shows
+    mem = [ln for ln in out.stdout.splitlines() if ln.startswith("memory ")]
+    assert json.loads(mem[0][len("memory "):])["graphs"]["g"]["tier"] == \
+        "mapped"

@@ -352,18 +352,71 @@ def test_cli_store_and_oracle_commands_print_reference_lines(
 
 def test_cli_durable_flags_and_memory_name_the_durability_slice(
         tmp_path, capsys, monkeypatch):
-    from bibfs_tpu_torch.serve.cli import main
+    """The durability flags, once refused naming the durability slice, now
+    run as the reference's do: each is accepted (exit 0) by both CLIs on a
+    copy of one store directory, the stdin ``memory`` reply carries the
+    reference's payload (tiers and bytes; the budget demotes, ``--no-mmap``
+    leaves the recovered graphs hot), ``memory`` without ``--store`` and
+    ``--durable`` without ``--store`` are refused by both."""
+    import json
+    import shutil
 
-    _write_store_dir(tmp_path)
-    for flag in (["--durable"], ["--fsync", "always"],
-                 ["--residency-budget", "100"], ["--no-mmap"]):
-        assert main(["--store", str(tmp_path), "--device", "cpu",
-                     *flag]) == 2
-        assert "durability slice" in capsys.readouterr().err
-    monkeypatch.setattr("sys.stdin", io.StringIO("memory\n0 5\n"))
-    assert main(["--store", str(tmp_path), "--device", "cpu"]) == 0
-    out = capsys.readouterr().out
-    assert "error invalid: 'memory'" in out and "durability slice" in out
-    assert main([str(tmp_path / "grid.bin"), "--store", str(tmp_path),
-                 "--device", "cpu"]) == 2
+    from bibfs_tpu.serve.cli import main as ref_main
+
+    from bibfs_tpu_torch.serve.cli import main as port_main
+
+    src = tmp_path / "src"
+    src.mkdir()
+    _write_store_dir(src)
+
+    def run(main, root, flags, stream, extra):
+        monkeypatch.setattr("sys.stdin", io.StringIO(stream))
+        rc = main(["--store", str(root), "--no-path", *flags, *extra])
+        return rc, capsys.readouterr()
+
+    def memory(out):
+        got = [json.loads(ln[len("memory "):]) for ln in out.splitlines()
+               if ln.startswith("memory ")]
+        for reply in got:
+            for g in reply["graphs"].values():
+                g.pop("arrays", None)
+        return got
+
+    for flags in (["--durable"], ["--durable", "--fsync", "always"],
+                  ["--durable", "--no-mmap"], ["--fsync", "off"],
+                  ["--residency-budget", "100"], ["--no-mmap"]):
+        outs = {}
+        for who, main, extra in (("ref", ref_main, []),
+                                 ("port", port_main, ["--device", "cpu"])):
+            root = shutil.copytree(src, tmp_path / f"{who}-{len(flags)}"
+                                   f"-{flags[-1].strip('-')}")
+            first = run(main, root, flags, "memory\nupdate add 0 287\n"
+                        "0 287\nmemory\n", extra)
+            again = run(main, root, flags, "0 287\nmemory\n", extra)
+            outs[who] = (first[0], again[0], first[1].out, again[1].out)
+        (rc1, rc2, out1, out2), ref = outs["port"], outs["ref"]
+        assert (rc1, rc2) == (ref[0], ref[1]) == (0, 0), flags
+        assert memory(out1) == memory(ref[2]) and memory(out2) == memory(ref[3])
+        plain = [ln for ln in out1.splitlines() if not ln.startswith("memory")]
+        assert plain == [ln for ln in ref[2].splitlines()
+                         if not ln.startswith("memory")]
+        tiers = {g["tier"] for g in memory(out2)[-1]["graphs"].values()}
+        if "--residency-budget" in flags:
+            assert tiers == {"cold"}
+        elif "--durable" in flags and "--no-mmap" not in flags:
+            assert tiers == {"mapped"}
+        else:
+            assert tiers == {"hot"}
+        # the durable runs answer the respawn with the acked edge
+        if "--durable" in flags:
+            assert "0 -> 287: length = 1" in out2
+    for main, extra in ((ref_main, []), (port_main, ["--device", "cpu"])):
+        monkeypatch.setattr("sys.stdin", io.StringIO("memory\n0 5\n"))
+        assert main([str(src / "grid.bin"), *extra]) == 0
+        assert "error invalid: 'memory' needs --store" in \
+            capsys.readouterr().out
+        assert main([str(src / "grid.bin"), "--durable", *extra]) == 2
+        assert "--durable needs --store" in capsys.readouterr().err
+    assert port_main([str(src / "grid.bin"), "--store", str(src),
+                      "--device", "cpu"]) == 2
     assert "not both" in capsys.readouterr().err

@@ -5,8 +5,12 @@ refused batches) and exact ``solve`` on seeded graphs with adds, deletes
 and disconnection; one update / compaction / swap sequence (a rebase of
 updates that race a compaction, an external swap that races one) run on
 both packages, ending at equal digests, versions and stats; the oracle's
-index lifecycle in the store; the metric families; the durable options,
-which raise ``NotImplementedError`` naming the durability slice."""
+index lifecycle in the store; the metric families; the durable and
+memory-tier options, each accepted or refused as the reference does
+(their behaviour is held to the reference in ``test_torch_durable.py``
+and ``test_torch_memtier.py``)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -325,18 +329,49 @@ def test_store_metric_families_render():
     {"mmap_arrays": True}, {"retain_history": True},
 ])
 def test_durable_options_name_the_durability_slice(kwargs, tmp_path):
-    from bibfs_tpu_torch.store import GraphStore
-
-    with pytest.raises(NotImplementedError, match="durability slice"):
-        GraphStore(**kwargs)
-    with pytest.raises(NotImplementedError, match="durability slice"):
-        GraphStore.from_dir(tmp_path, durable=True)
-    store = GraphStore()
+    """Each durable or memory-tier option, once refused naming the
+    durability slice, now constructs (or refuses) exactly as the
+    reference's does, with the same ``stats()`` flags, the same
+    ``memory_stats()`` and the same ``history`` / ``reconstruct_version``
+    answers on a store; ``from_dir(durable=True)`` recovers; ``analytics``
+    still waits for item 9."""
+    ref, port = _packages()
     n, edges = _gnp(20)
-    store.add("g", n, edges)
-    for call in (lambda: store.history("g"),
-                 lambda: store.reconstruct_version("g", 1)):
-        with pytest.raises(NotImplementedError, match="durability slice"):
-            call()
+    got = {}
+    for pkg in (ref, port):
+        if "wal_dir" in kwargs:
+            kwargs = {"wal_dir": str(tmp_path / pkg.__name__)}
+            os.makedirs(kwargs["wal_dir"])
+        try:
+            store = pkg.GraphStore(compact_threshold=None, **kwargs)
+        except ValueError as e:
+            got[pkg] = ("refused", str(e))
+            continue
+        name = "g"
+        store.add(name, n, edges)
+        st = store.stats()
+        ms = store.memory_stats()
+        for g in ms["graphs"].values():
+            g.pop("arrays")
+        cur = store.reconstruct_version(name, 1)
+        with pytest.raises(ValueError):
+            store.reconstruct_version(name, 2)
+        got[pkg] = (st["durable"], st["retain_history"], st["fsync"],
+                    ms, store.history(name), cur.digest)
+        store.close()
+    assert got[port] == got[ref]
+    if "retain_history" in kwargs:
+        assert got[port][0] == "refused" and "wal_dir" in got[port][1]
+        store = port.GraphStore(retain_history=True, wal_dir=str(tmp_path))
+        store.add("g", n, edges)
+        assert [e["version"] for e in store.history("g")] == [1]
+        store.close()
+    elif "wal_dir" in kwargs:
+        assert got[port][0] is True
+        again = port.GraphStore.from_dir(kwargs["wal_dir"], durable=True)
+        assert again.current("g").digest == got[port][5]
+        assert again.stats()["graphs"]["g"]["durable"]["recovered"] is not None
+        again.close()
+    store = port.GraphStore()
     with pytest.raises(NotImplementedError, match="item 9"):
         store.analytics  # noqa: B018

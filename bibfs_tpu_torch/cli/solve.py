@@ -13,6 +13,14 @@ host runtime (built with ``g++`` at first use; ``--pairs`` runs its
 threaded batch). Without a card and without ``--device cpu`` the dense
 search raises. ``--level-stats`` (one query, any backend) prints one
 ``[Level]`` line per level after the answer, then the meet level.
+
+``--sources S1,S2,...`` (multi-source: the hops from every source to the
+positional dst), ``--kshortest K`` (Yen's K shortest loopless paths) and
+``--weighted`` (delta-stepping over the derived weights of
+``--weight-seed``) ask one typed query of :mod:`bibfs_tpu_torch.query`
+through :func:`bibfs_tpu_torch.solvers.api.solve_query` and print
+``bibfs-solve``'s lines for them: on the card by default (the kinds'
+device rungs), on the host tier with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -66,11 +74,49 @@ def main(argv=None):
                     "only (the dense backend steps its search level by "
                     "level from the host)")
     ap.add_argument("--no-path", action="store_true", help="skip path printing")
+    ap.add_argument("--sources", default=None, metavar="S1,S2,...",
+                    help="multi-source query: hop distance from EVERY "
+                    "listed source to dst, one bitmask-packed msBFS sweep "
+                    "per 64 sources (replaces the positional src: put the "
+                    "dst positional BEFORE this flag, "
+                    "`bibfs-torch-solve g.bin DST --sources S1,S2`)")
+    ap.add_argument("--kshortest", type=int, default=None, metavar="K",
+                    help="the K shortest loopless src->dst paths (Yen's "
+                    "over batched restricted BFS solves), non-decreasing in "
+                    "length")
+    ap.add_argument("--weighted", action="store_true",
+                    help="weighted shortest path by delta-stepping, edge "
+                    "weights derived from the seeded symmetric hash "
+                    "(--weight-seed)")
+    ap.add_argument("--weight-seed", type=int, default=0,
+                    help="weight-derivation seed for --weighted (same seed "
+                    "= same weights on every replica; default 0)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help="device of the dense backend (default cuda; no "
-                    "silent CPU fallback); the serial oracle runs on the "
-                    "host only")
+                    help="device of the dense backend and of the query "
+                    "kinds (default cuda; no silent CPU fallback; cpu runs "
+                    "the kinds on the host tier); the serial oracle runs "
+                    "on the host only")
     args = ap.parse_args(argv)
+    taxonomy = (
+        args.sources is not None or args.kshortest is not None
+        or args.weighted
+    )
+    if taxonomy:
+        if sum((args.sources is not None, args.kshortest is not None,
+                args.weighted)) > 1:
+            ap.error("--sources / --kshortest / --weighted are mutually "
+                     "exclusive query kinds")
+        if args.pairs is not None or args.repeat > 1 or args.level_stats:
+            ap.error("taxonomy queries are single-query (no --pairs / "
+                     "--repeat / --level-stats)")
+        from bibfs_tpu_torch.graph.io import read_graph_bin
+
+        try:
+            n, edges = read_graph_bin(args.graph)
+        except (OSError, ValueError) as e:
+            print(f"Error reading graph: {e}", file=sys.stderr)
+            return 2
+        return _taxonomy_main(ap, args, n, edges)
     if args.mode in BATCH_ONLY:
         if args.pairs is None or args.backend != "dense":
             ap.error("--mode minor/minor8/auto are batch-only: use "
@@ -237,6 +283,76 @@ def _batch_main(args, n, edges):
         f"[Time] {args.backend} batch of {len(results)} searches took "
         f"{batch_s:.9f} seconds ({batch_s / max(len(results), 1):.9f} s/query)"
     )
+    return 0
+
+
+def _taxonomy_main(ap, args, n, edges):
+    """``--sources`` / ``--kshortest`` / ``--weighted``: the typed
+    query kinds (bibfs_tpu_torch/query) through :func:`api.solve_query`
+    on ``--device`` (default the card), with the reference's scrapeable
+    output shapes kept where they apply."""
+    from bibfs_tpu_torch.query import KShortest, MultiSource, Weighted
+    from bibfs_tpu_torch.solvers.api import solve_query
+
+    if args.dst is None:
+        # --sources replaces src only; every kind still needs a dst
+        # (with --sources the one positional argument IS the dst)
+        if args.sources is not None and args.src is not None:
+            args.dst, args.src = args.src, None
+        else:
+            ap.error("taxonomy queries need a destination vertex")
+    if args.sources is not None:
+        if args.src is not None:
+            ap.error("--sources replaces the positional src")
+        try:
+            sources = tuple(
+                int(x) for x in args.sources.split(",") if x.strip()
+            )
+        except ValueError:
+            ap.error(f"--sources must be a comma list of ints, got "
+                     f"{args.sources!r}")
+        q = MultiSource(sources, args.dst)
+    elif args.kshortest is not None:
+        if args.src is None:
+            ap.error("--kshortest needs positional src and dst")
+        q = KShortest(args.src, args.dst, k=args.kshortest)
+    else:
+        if args.src is None:
+            ap.error("--weighted needs positional src and dst")
+        q = Weighted(args.src, args.dst, weight_seed=args.weight_seed)
+    try:
+        res = solve_query(n, edges, q, device=args.device)
+    except (ValueError, RuntimeError, OSError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 2
+    if isinstance(q, MultiSource):
+        for s, hops in zip(q.sources, res.per_source):
+            print(f"{s} -> {q.dst}: "
+                  + (f"length = {hops}" if hops is not None else "no path"))
+        if res.found and res.path and not args.no_path:
+            print(f"Best ({q.sources[res.best]}): Path: "
+                  + " -> ".join(str(v) for v in res.path))
+        print(f"[Time] msbfs {res.sweeps} sweep(s) over {len(q.sources)} "
+              f"sources took {res.time_s:.9f} seconds")
+    elif isinstance(q, KShortest):
+        if not res.found:
+            print("No path found.")
+        for i, (p, hops) in enumerate(zip(res.paths, res.hops), 1):
+            line = f"[{i}] length = {hops}"
+            if not args.no_path:
+                line += "  path: " + " -> ".join(str(v) for v in p)
+            print(line)
+        print(f"[Time] kshortest k={q.k} took {res.time_s:.9f} seconds")
+    else:
+        if res.found:
+            print(f"Weighted distance = {res.dist:g} ({res.hops} edges)")
+            if res.path and not args.no_path:
+                print("Path: " + " -> ".join(str(v) for v in res.path))
+        else:
+            print("No path found.")
+        print(f"[Time] weighted delta-stepping took {res.time_s:.9f} "
+              f"seconds ({res.buckets} buckets, "
+              f"{res.relaxations} relaxations)")
     return 0
 
 

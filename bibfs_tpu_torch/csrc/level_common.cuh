@@ -1,5 +1,6 @@
 // Device code shared by the four level kernels (pull_expand.cu,
-// fused_level.cu): the one first-hit-slot claim (claim_chunked), the
+// fused_level.cu) and the persistent kernels (msbfs.cu, query_device.cu):
+// the one first-hit-slot claim (claim_chunked), the
 // frontier lookups it takes (BitsFront: kernels 1, 4 and unstaged 2;
 // StagedFront, filled by stage_bitmap: staged kernel 2; PairFront: kernel
 // 3) and warp reductions.
@@ -184,6 +185,60 @@ __device__ __forceinline__ T warp_reduce(T x, Op op) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = op(x, __shfl_down_sync(0xffffffffu, x, o));
   return x;
+}
+
+// ---- the persistent kernels' grid barrier (msbfs.cu, query_device.cu) ----
+
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long arrive(unsigned long long* p) {
+  unsigned long long old;
+  asm volatile("atom.add.acq_rel.gpu.global.u64 %0, [%1], 1;"
+               : "=l"(old) : "l"(p) : "memory");
+  return old;
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Every block of a cooperative grid arrives, then all leave; false (and
+// *err set to `code`) when the wait outlasts wait_ns. The arrivals on *bar
+// only grow: a block's ticket says its round, and the round ends when
+// every block of the grid has a ticket in it. The arrival releases the
+// block's writes and the wait acquires every other block's; state the
+// blocks change between barriers is read through L2 (__ldcg), never from
+// a stale L1 line.
+__device__ inline bool grid_barrier(unsigned long long* bar,
+                                    unsigned long long* err,
+                                    unsigned long long code,
+                                    unsigned long long wait_ns) {
+  __shared__ int ok;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    ok = 1;
+    const unsigned long long ticket = arrive(bar);
+    const unsigned long long done = (ticket / gridDim.x + 1) * gridDim.x;
+    if (ticket + 1 != done) {
+      const unsigned long long t0 = now_ns();
+      while (ld_acquire(bar) < done) {
+        if (now_ns() - t0 > wait_ns) {
+          atomicExch(err, code);
+          ok = 0;
+          break;
+        }
+        __nanosleep(32);
+      }
+    }
+  }
+  __syncthreads();
+  return ok != 0;
 }
 
 }  // namespace bibfs

@@ -125,56 +125,16 @@ struct SweepArgs {
   int32_t* flag;      // optional: set to 1 when a level found a new bit
 };
 
-__device__ __forceinline__ u64 ld_acquire(const u64* p) {
-  u64 v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ u64 arrive(u64* p) {
-  u64 old;
-  asm volatile("atom.add.acq_rel.gpu.global.u64 %0, [%1], 1;"
-               : "=l"(old) : "l"(p) : "memory");
-  return old;
-}
-
-__device__ __forceinline__ u64 now_ns() {
-  u64 t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
+using bibfs::arrive;
 
 __device__ __forceinline__ u64 ld_ctl(const u64* p) {
   return *reinterpret_cast<const volatile u64*>(p);
 }
 
-// Every block arrives, then all leave; false (and the error word set) when
-// the wait outlasts kWaitNs. The arrivals only grow: a block's ticket says
-// its round, and the round ends when every block of the grid has a ticket
-// in it. The arrival releases the block's writes and the wait acquires
-// every other block's; the state the levels change is read through L2
-// (__ldcg), never from a stale L1 line.
-__device__ bool grid_barrier(u64* ctl) {
-  __shared__ int ok;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    ok = 1;
-    const u64 ticket = arrive(ctl + kBar);
-    const u64 done = (ticket / gridDim.x + 1) * gridDim.x;
-    if (ticket + 1 != done) {
-      const u64 t0 = now_ns();
-      while (ld_acquire(ctl + kBar) < done) {
-        if (now_ns() - t0 > kWaitNs) {
-          atomicExch(ctl + kErr, (u64)kErrBarrier);
-          ok = 0;
-          break;
-        }
-        __nanosleep(32);
-      }
-    }
-  }
-  __syncthreads();
-  return ok != 0;
+// the shared grid barrier (level_common.cuh) on the working block's
+// arrivals, giving up with kErrBarrier in the error word after kWaitNs
+__device__ __forceinline__ bool grid_barrier(u64* ctl) {
+  return bibfs::grid_barrier(ctl + kBar, ctl + kErr, (u64)kErrBarrier, kWaitNs);
 }
 
 template <int VW>

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pull_expand", "fused_level", "batch_minor", "blocked_expand",
-           "msbfs")
+           "msbfs", "query_device")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+_F = ctypes.c_float
 _ROUND = [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P]
 # extern "C" launchers per source; every pointer and the stream are
 # c_void_p, sizes c_int64, small ints c_int; each returns a cudaError_t
@@ -64,6 +65,12 @@ SIGNATURES = {
     "msbfs": {
         "bibfs_msbfs_sweep": [_P, _P, _I64, _I, _I, _I64, _I, _P, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    },
+    "query_device": {
+        "bibfs_delta_stepping": [_P, _P, _I64, _I, _I, _I, _F, _P, _P, _P, _P,
+                                 _P],
+        "bibfs_restricted_sweep": [_P, _P, _I64, _I, _I, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _P],
     },
 }
 

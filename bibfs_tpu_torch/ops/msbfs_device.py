@@ -441,12 +441,25 @@ def msbfs_plane_graph(g, sources, *, stats: dict | None = None) -> np.ndarray:
     sources = _check_sources(g.n, sources)
     if sources.size == 0:
         return np.zeros((g.n, 0), dtype=np.int16)
-    deg = g.deg[: g.n].to(torch.int64)
-    live = torch.arange(g.width, device=g.device)[None, :] < deg[:, None]
-    col_ind = g.nbr[: g.n][live].contiguous()
-    row_ptr = torch.zeros(g.n + 1, dtype=torch.int64, device=g.device)
-    torch.cumsum(deg, 0, out=row_ptr[1:])
+    row_ptr, col_ind = graph_csr(g)
     return sweep(g.n, row_ptr, col_ind, sources, stats=stats).cpu().numpy()
+
+
+def graph_csr(g):
+    """The CSR of an uploaded plain-ELL table
+    (:class:`~bibfs_tpu_torch.solvers.dense.DeviceGraph`) on its device,
+    ``(row_ptr int64, col_ind int32)``: the live slots in row order, built
+    at the first call and kept in the graph's table cache."""
+    csr = g.tables.get("csr")
+    if csr is None:
+        deg = g.deg[: g.n].to(torch.int64)
+        live = torch.arange(g.width, device=g.device)[None, :] < deg[:, None]
+        col_ind = g.nbr[: g.n][live].contiguous()
+        row_ptr = torch.zeros(g.n + 1, dtype=torch.int64, device=g.device)
+        torch.cumsum(deg, 0, out=row_ptr[1:])
+        csr = (row_ptr, col_ind)
+        g.tables["csr"] = csr
+    return csr
 
 
 # ---- the sweep's least traffic, from a finished plane ----------------------

@@ -1,9 +1,9 @@
 """The typed query/result taxonomy — what replaced the raw ``(s, t)``.
 
-A copy of ``bibfs_tpu/query/types.py`` (backend-free). In this package
-the serving engine answers :class:`PointToPoint` only; the other kinds
-raise ``NotImplementedError`` there until the query-taxonomy slice of
-the port (ROADMAP Queue 1).
+A copy of ``bibfs_tpu/query/types.py`` (backend-free). Both serving
+engines answer every kind here; the whole-graph analytics kinds of
+``QUERY_KINDS`` (``sssp``, ``pagerank``, ``components``, ``triangles``)
+come with a later slice of the port (ROADMAP Queue 1, item 9).
 
 Every layer of the serving stack used to thread one query shape — an
 unweighted point-to-point ``(src, dst)`` hop count plus path — through
@@ -15,24 +15,24 @@ the fields its solvers need, and the engines dispatch on ``kind``
 instead of assuming the tuple:
 
 - :class:`PointToPoint` — the original shape; resolves to a
-  :class:`~bibfs_tpu.solvers.api.BFSResult` through the unchanged
+  :class:`~bibfs_tpu_torch.solvers.api.BFSResult` through the unchanged
   ladder (oracle/cache/mesh/blocked/device/host).
 - :class:`MultiSource` — K sources against one destination, answered
   by ONE bitmask-packed msBFS sweep per 64 sources
-  (:mod:`bibfs_tpu.query.msbfs` — the ``oracle/trees.py`` build
+  (:mod:`bibfs_tpu_torch.query.msbfs` — the ``oracle/trees.py`` build
   primitive promoted to a first-class serving route; seed idea from
   the reference MPI version's bitset frontiers, v2/second_try.cpp).
 - :class:`Weighted` — weighted shortest path via delta-stepping over
-  bucketed frontiers (:mod:`bibfs_tpu.query.weighted`), validated
+  bucketed frontiers (:mod:`bibfs_tpu_torch.query.weighted`), validated
   against a NumPy Dijkstra oracle. Weights are derived per edge from
   a seeded symmetric hash (``weight_seed``) so a weighted query is
   self-describing against any snapshot — no per-query weight arrays
   on the wire.
 - :class:`KShortest` — Yen's algorithm over the repaired-path
-  machinery (:mod:`bibfs_tpu.query.kshortest`), a host-tier kind.
+  machinery (:mod:`bibfs_tpu_torch.query.kshortest`), a host-tier kind.
 - :class:`AsOf` — the time-travel wrapper: any non-AsOf query answered
   against the graph AS OF a historical store version, reconstructed
-  from the WAL + versioned manifests (:mod:`bibfs_tpu.store.history`).
+  from the WAL + versioned manifests (:mod:`bibfs_tpu_torch.store.history`).
 
 ``coerce_query`` keeps the old call sites working: a bare ``(s, d)``
 pair IS a :class:`PointToPoint`. ``QUERY_KINDS`` is the taxonomy the
@@ -127,7 +127,7 @@ class MultiSource(Query):
 @dataclasses.dataclass(frozen=True)
 class Weighted(Query):
     """Weighted shortest path under the seeded symmetric edge-weight
-    hash (:func:`bibfs_tpu.query.weighted.synthetic_weights` — the
+    hash (:func:`bibfs_tpu_torch.query.weighted.synthetic_weights` — the
     same ``weight_seed`` always derives the same weights from the same
     snapshot, so results cache per (snapshot, seed, s, t))."""
 
@@ -169,7 +169,7 @@ class KShortest(Query):
 class AsOf(Query):
     """Time-travel wrapper: answer ``inner`` against the graph as of
     store ``version`` (reconstructed from the WAL + versioned
-    manifests — :mod:`bibfs_tpu.store.history`). ``inner`` may be any
+    manifests — :mod:`bibfs_tpu_torch.store.history`). ``inner`` may be any
     non-AsOf query; nesting wrappers would mean nothing."""
 
     inner: Query

@@ -72,9 +72,20 @@ runs in turn and the pipelined engine
   (``route="oracle"``), and hands the rest a proven upper bound that the
   serial host rung takes as a search cutoff.
 
-The mesh route and the query kinds other than point-to-point come with
-later slices of the port (ROADMAP Queue 1); their options raise
-``NotImplementedError``.
+- **query kinds** — ``submit_query`` takes the typed queries of
+  :mod:`bibfs_tpu_torch.query`: a :class:`PointToPoint` rides the ladder
+  above; ``MultiSource``, ``Weighted``, ``KShortest`` and ``AsOf`` queue
+  for their kind routes (:mod:`bibfs_tpu_torch.serve.routes.taxonomy`) and
+  resolve at the next flush, grouped per kind, each kind down its own
+  ladder (a device rung on the card — the multi-source sweep,
+  delta-stepping, the restricted batch BFS of Yen's iterations — ahead of
+  its host-tier rung), results cached per (snapshot digest, query key) in
+  the kind cache. The counts per kind and route show in
+  ``stats()["query_kinds"]``.
+
+The mesh route and the whole-graph analytics kinds come with later slices
+of the port (ROADMAP Queue 1, items 8 and 9): the mesh option and an
+analytics query raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -90,7 +101,13 @@ import numpy as np
 from bibfs_tpu_torch.obs.dtrace import stage_histogram
 from bibfs_tpu_torch.obs.metrics import REGISTRY, MetricBank, next_instance_label
 from bibfs_tpu_torch.obs.trace import span
-from bibfs_tpu_torch.query.types import PointToPoint, Query, coerce_query
+from bibfs_tpu_torch.query.types import (
+    AsOf,
+    MultiSource,
+    PointToPoint,
+    Query,
+    coerce_query,
+)
 from bibfs_tpu_torch.serve.buckets import (
     DEFAULT_EXEC_CACHE,
     ExecutableCache,
@@ -293,9 +310,12 @@ class _Pending:
     sinking its batch). ``graph`` is the store graph the query is against
     (None on a store-less engine); ``cutoff`` the distance oracle's proven
     upper bound when it gave one (the serial host rung seeds its meet
-    bound with it)."""
+    bound with it); ``query`` the typed query of a ticket of another kind
+    than point-to-point (None for a ``(src, dst)`` ticket, whose ``src`` /
+    ``dst`` are then its pair; else they hold a representative pair for
+    error reporting)."""
 
-    __slots__ = ("src", "dst", "graph", "result", "error", "cutoff")
+    __slots__ = ("src", "dst", "graph", "result", "error", "cutoff", "query")
 
     def __init__(self, src: int, dst: int, graph: str | None = None):
         self.src = src
@@ -304,11 +324,13 @@ class _Pending:
         self.result: BFSResult | None = None
         self.error: BaseException | None = None
         self.cutoff: int | None = None
+        self.query = None
 
 
 @guarded_by("_lock", "_graph", "bucket_key", "_host_solver",
             "host_native_graph", "_serial_solver", "host_backend_resolved",
-            "_blocked_graph", "blocked_bucket_key", "_blocked_meta")
+            "_blocked_graph", "blocked_bucket_key", "_blocked_meta",
+            "_weights", "_wtables")
 class _GraphRuntime:
     """Everything an engine knows about solving one immutable graph
     snapshot: the lazily built and uploaded device graph and its bucket
@@ -337,6 +359,10 @@ class _GraphRuntime:
         self._blocked_graph = None
         self.blocked_bucket_key = None
         self._blocked_meta = None
+        # per weight seed: the CSR-aligned derived weights and the weighted
+        # device rung's uploaded tables (weights_for, weighted_device_tables)
+        self._weights: dict = {}
+        self._wtables: dict = {}
 
     @property
     def graph(self):
@@ -399,6 +425,51 @@ class _GraphRuntime:
                     self.blocked_bucket_key = blocked_bucket_key(bg)
                     self._blocked_graph = g
         return g
+
+    #: memoized weight derivations kept per runtime: each costs one
+    #: float64 per CSR entry (or an uploaded table) and the seed is client
+    #: input, so the memo is bounded (FIFO eviction)
+    WEIGHT_SEEDS_MAX = 8
+
+    def _per_seed(self, memo: dict, seed: int, make):
+        """``make()`` memoized in ``memo`` under ``seed``: at most
+        ``WEIGHT_SEEDS_MAX`` seeds, the oldest evicted first."""
+        got = memo.get(seed)
+        if got is None:
+            with self._lock:
+                got = memo.get(seed)
+                if got is None:
+                    got = make()
+                    while len(memo) >= self.WEIGHT_SEEDS_MAX:
+                        memo.pop(next(iter(memo)))  # insert order: FIFO
+                    memo[seed] = got
+        return got
+
+    def weights_for(self, seed: int, row_ptr, col_ind) -> np.ndarray:
+        """The snapshot's derived edge weights for one ``weight_seed``
+        (:func:`bibfs_tpu_torch.query.weighted.synthetic_weights`),
+        memoized per runtime. Only valid for the snapshot's own CSR (the
+        weighted route derives afresh over an overlay-merged CSR)."""
+        from bibfs_tpu_torch.query.weighted import synthetic_weights
+
+        seed = int(seed)
+        return self._per_seed(
+            self._weights, seed,
+            lambda: synthetic_weights(row_ptr, col_ind, seed))
+
+    def weighted_device_tables(self, seed: int):
+        """The weighted device rung's relaxation tables for one
+        ``weight_seed`` (:func:`bibfs_tpu_torch.solvers.query_device.
+        delta_tables` over the snapshot's serving ELL) on the engine's
+        device, memoized like :meth:`weights_for`: one upload per
+        (snapshot, seed), freed with the runtime on a hot-swap."""
+        from bibfs_tpu_torch.solvers.query_device import delta_tables
+
+        seed = int(seed)
+        return self._per_seed(
+            self._wtables, seed,
+            lambda: delta_tables(self.snapshot.ell(), seed,
+                                 device=self._device))
 
     def get_host_solver(self):
         """The per-query host solver: the native C++ runtime when it
@@ -780,8 +851,17 @@ class QueryEngine:
         REGISTRY.add_collector(_collect_health)
         self._pending: list[_Pending] = []
         self.counters = _engine_counter_bank(self.obs_label)
-        from bibfs_tpu_torch.serve.routes import build_routes
+        from bibfs_tpu_torch.serve.routes import (
+            KindResultCache,
+            QueryKindCells,
+            build_routes,
+        )
 
+        # the query kinds' counts and result cache (serve/routes/
+        # taxonomy.py), minted before the routes so that every family the
+        # kind routes touch renders at zero from construction
+        self._query_cells = QueryKindCells(self.obs_label)
+        self._kind_cache = KindResultCache()
         self.routes, self._ladder = build_routes(self, self._blocked_cfg)
         # adaptive routing (serve/policy.py): the ladder's order learned
         # per graph digest, persisted beside a durable store's checkpoints
@@ -865,6 +945,7 @@ class QueryEngine:
                     # digest keys already make the old entries unreachable;
                     # reclaim their rows now
                     self.dist_cache.invalidate(old_id)
+                    self._kind_cache.invalidate(old_id)
             return new
 
     def _resolve_graph(self, graph) -> tuple:
@@ -977,15 +1058,7 @@ class QueryEngine:
         trivial queries resolve immediately; everything else resolves at
         the next flush (an overfull queue flushes itself at
         ``max_batch``)."""
-        if self._rts_released:
-            raise ValueError("engine is closed")
-        if self._draining:
-            # refused with a structured capacity error (retryable on a
-            # peer); not counted as an engine error
-            raise QueryError(
-                "engine is draining", kind="capacity",
-                query=(int(src), int(dst)),
-            )
+        self._check_open((int(src), int(dst)))
         src, dst = int(src), int(dst)
         name, rt = self._resolve_graph(graph)
         if not (0 <= src < rt.n and 0 <= dst < rt.n):
@@ -1033,18 +1106,86 @@ class QueryEngine:
             raise t.error
         return t.result
 
+    @staticmethod
+    def _query_rep_pair(q: Query) -> tuple[int, int]:
+        """A representative ``(src, dst)`` for a typed query: what error
+        messages and pair-targeted chaos rules key on."""
+        if isinstance(q, AsOf):
+            return QueryEngine._query_rep_pair(q.inner)
+        if isinstance(q, MultiSource):
+            return int(q.sources[0]), int(q.dst)
+        return int(q.src), int(q.dst)
+
+    @staticmethod
+    def _refuse_unported_kind(q: Query) -> None:
+        """The whole-graph analytics kinds come with a later slice."""
+        from bibfs_tpu_torch.serve.routes.taxonomy import ANALYTICS_KINDS
+
+        if q.kind in ANALYTICS_KINDS:
+            raise NotImplementedError(
+                f"query kind {q.kind!r} is not ported yet (ROADMAP Queue 1, "
+                "item 9)"
+            )
+
+    def _check_open(self, query) -> None:
+        """Refuse a submit on a closed engine, and on a draining one with
+        a structured capacity error (retryable on a peer; not counted as
+        an engine error) naming ``query``."""
+        if self._rts_released:
+            raise ValueError("engine is closed")
+        if self._draining:
+            raise QueryError(
+                "engine is draining", kind="capacity", query=query,
+            )
+
     def submit_query(self, q, graph: str | None = None) -> _Pending:
-        """Queue one typed query (:mod:`bibfs_tpu_torch.query.types`): a
-        :class:`PointToPoint` (or a bare pair) takes :meth:`submit`; the
-        other kinds are not ported yet and raise
-        ``NotImplementedError``."""
+        """Submit one typed query (:mod:`bibfs_tpu_torch.query`): a
+        :class:`PointToPoint` (or a bare pair) delegates to :meth:`submit`;
+        ``MultiSource``, ``Weighted``, ``KShortest`` and ``AsOf`` are
+        validated, counted and looked up in the kind cache (per snapshot
+        digest and query key, on a graph with no pending updates), then
+        handed to :meth:`_take_kind`: here they queue for their kind
+        routes and resolve at the next flush, grouped per kind (the
+        flush's multi-source queries share their sweeps). An analytics
+        kind raises ``NotImplementedError`` (ROADMAP item 9)."""
         q = coerce_query(q)
         if isinstance(q, PointToPoint):
+            self._query_cells.cell("pt", "ladder").inc()
             return self.submit(q.src, q.dst, graph)
-        raise NotImplementedError(
-            f"query kind {q.kind!r} is not ported yet (ROADMAP Queue 1, "
-            "item 7)"
-        )
+        self._refuse_unported_kind(q)
+        src, dst = self._query_rep_pair(q)
+        self._check_open((src, dst))
+        name, rt = self._resolve_graph(graph)
+        q.validate(rt.n)
+        t = self._kind_ticket(src, dst, name)
+        t.query = q
+        overlay = self._overlay_pending(name)
+        hit = None
+        if overlay is None:
+            # overlay read, then resolve (the swap-race-safe order of
+            # submit); while updates are pending the cache stands aside
+            rt = self._graph_rt(name)
+            hit = self._kind_cache.lookup(rt.graph_id, q.cache_key())
+            if hit is not None:
+                self._query_cells.cell(q.kind, "cache").inc()
+        return self._take_kind(t, overlay, hit)
+
+    def _kind_ticket(self, src: int, dst: int, name) -> _Pending:
+        """A counted ticket for a typed query."""
+        self._c_queries.inc()
+        return _Pending(src, dst, name)
+
+    def _take_kind(self, t: _Pending, overlay, hit) -> _Pending:
+        """A typed query's ticket after admission: answered from the kind
+        cache's ``hit``, else queued for the next flush (an overfull queue
+        flushes itself at ``max_batch``)."""
+        if hit is not None:
+            t.result = hit
+            return t
+        self._pending.append(t)
+        if len(self._pending) >= self.max_batch:
+            self.flush()
+        return t
 
     def query_one(self, q, graph: str | None = None):
         """Submit and flush one typed query (:meth:`submit_query`)."""
@@ -1139,6 +1280,12 @@ class QueryEngine:
         overlay = self._overlay_pending(name)
         rt = self._pin_rt(name)
         with self._bound(rt), span("flush", queued=len(pend)):
+            tax = [t for t in pend if t.query is not None]
+            if tax:
+                pend = [t for t in pend if t.query is None]
+                self._flush_taxonomy(name, tax, overlay)
+                if not pend:
+                    return
             # dedupe exact repeats within one flush: a batch slot per
             # duplicate would be pure waste
             unique: dict[tuple[int, int], list[_Pending]] = {}
@@ -1164,6 +1311,115 @@ class QueryEngine:
                 self._c_overlay.inc()
                 for t in unique[key]:
                     t.result = res
+
+    # ---- query kinds (serve/routes/taxonomy.py) ------------------------
+    def _flush_taxonomy(self, name, tickets, overlay) -> None:
+        """Resolve this flush's typed tickets against the flush-bound
+        truth: the snapshot's memoized CSR, or the overlay-merged live CSR
+        while edge updates are pending (every kind answers exactly on the
+        live edge set; the kind cache and the device rungs stand aside
+        there). Kinds are grouped, so the multi-source rungs pack the whole
+        flush's sources into shared sweeps."""
+        from bibfs_tpu_torch.serve.routes import KindCtx
+
+        rt = self._current_rt()
+        if overlay is not None:
+            from bibfs_tpu_torch.graph.csr import build_csr
+
+            row_ptr, col_ind = build_csr(rt.n, overlay.merged_edges())
+            ctx = KindCtx(rt.n, row_ptr, col_ind, base=False,
+                          name=name, graph_id=rt.graph_id)
+        else:
+            row_ptr, col_ind = rt.snapshot.csr()
+            ctx = KindCtx(rt.n, row_ptr, col_ind, base=True,
+                          name=name, graph_id=rt.graph_id)
+        groups: dict[str, list[_Pending]] = {}
+        for t in tickets:
+            groups.setdefault(t.query.kind, []).append(t)
+        for kind in sorted(groups):
+            self._flush_kind(kind, groups[kind], rt, ctx)
+
+    def _flush_kind(self, kind, tickets, rt, ctx) -> None:
+        """One kind group down its ladder
+        (:data:`~bibfs_tpu_torch.serve.routes.taxonomy.KIND_LADDERS`: the
+        device rung ahead of the host-tier kind rung): each eligible rung
+        gets a resilient :meth:`~bibfs_tpu_torch.serve.routes.base.Route.
+        attempt`, an ineligible one is skipped (a routing decision), an
+        unavailable one degrades to the next, counted in
+        ``bibfs_route_fallbacks_total``, down to the kind's per-query
+        isolated ``fallback``. A failure a rung may not degrade (a device
+        rung's on a CUDA engine, anything but an injected fault) fails the
+        group's tickets with its :class:`QueryError`. The walk order is the
+        adaptive policy's per-(digest, kind) decision when the engine runs
+        adaptive."""
+        from bibfs_tpu_torch.serve.routes import KIND_LADDERS, KIND_ROUTES
+
+        ladder = KIND_LADDERS[kind]
+        # dedupe identical queries within the flush (cache_key is the
+        # exact-repeat identity)
+        unique: dict[tuple, list[_Pending]] = {}
+        for t in tickets:
+            unique.setdefault(t.query.cache_key(), []).append(t)
+        queries = [unique[k][0].query for k in unique]
+        if self._policy is not None:
+            ladder, _why = self._policy.order(
+                rt.snapshot.digest, len(queries), ladder, kind=kind
+            )
+        results = None
+        used = "host"
+        t0 = time.perf_counter()
+        for i, rung in enumerate(ladder):
+            if rung == "host":
+                break
+            route = self.routes[rung]
+            if not route.kind_eligible(rt, queries, ctx):
+                continue
+            try:
+                results = route.attempt(rt, queries, ctx)
+            except Exception as exc:
+                # a failure the rung may not degrade: the group's tickets
+                # fail, none is answered by a lower rung
+                for key, q in zip(unique, queries):
+                    self._resolve_error(unique[key], to_query_error(
+                        exc, self._query_rep_pair(q)))
+                return
+            if results is not None:
+                used = rung
+                break
+            self._note_fallback(
+                rung, self._next_kind_rung(ladder, i, rt, queries, ctx)
+            )
+        if results is None:
+            results = self.routes[KIND_ROUTES[kind]].fallback(
+                rt, queries, ctx
+            )
+        elapsed = time.perf_counter() - t0
+        if self._policy is not None:
+            # whole-rung wall time (no solver-stamped batch clock here)
+            self._policy.note(
+                rt.snapshot.digest, used, len(queries), elapsed, kind=kind,
+            )
+        cell = self._query_cells.cell(kind, used)
+        for key, res in zip(unique, results):
+            ts = unique[key]
+            if isinstance(res, QueryError):
+                self._resolve_error(ts, res)
+                continue
+            cell.inc(len(ts))
+            if ctx.base:
+                self._kind_cache.put(ctx.graph_id, key, res)
+            for t in ts:
+                t.result = res
+
+    def _next_kind_rung(self, ladder, i: int, rt, queries, ctx) -> str:
+        """The rung a failed kind-ladder step degrades TO (the ``to`` label
+        of the fallback counter; the kind ladder's :meth:`_next_rung`)."""
+        for name in ladder[i + 1:]:
+            if name == "host" or self.routes[name].kind_eligible(
+                rt, queries, ctx
+            ):
+                return name
+        return "host"
 
     def _next_rung(self, i: int, rt, pairs, ladder=None) -> str:
         """The rung a failed ladder step actually degrades TO (the ``to``
@@ -1621,6 +1877,13 @@ class QueryEngine:
             c["device_queries"] + c["host_queries"] + c["overlay_queries"]
             + c["mesh_queries"] + c["blocked_queries"]
         )
+        kinds = self._query_cells.snapshot()
+        # typed queries a solver rung resolved (anything but the kind
+        # cache) count as solved for the dispatch-free figure
+        solved += sum(
+            v for kind, routes in kinds.items() if kind != "pt"
+            for route, v in routes.items() if route != "cache"
+        )
         return {
             **c,
             "solver_dispatch_free": c["queries"] - solved,
@@ -1631,6 +1894,8 @@ class QueryEngine:
                 }
                 for route, acc in sorted(self._stage_acc.items())
             },
+            "query_kinds": kinds,
+            "kind_cache": self._kind_cache.stats(),
             "ladder": list(self._ladder),
             "routes": {
                 name: route.stats() for name, route in self.routes.items()

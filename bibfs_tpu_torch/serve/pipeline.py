@@ -348,13 +348,7 @@ class PipelinedQueryEngine(QueryEngine):
         answers and cache hits (on an idle engine) resolve before
         returning; everything else resolves when the flusher's batch lands
         (depth, deadline or drain, whichever comes first)."""
-        if self._draining:
-            if self._closed:
-                raise RuntimeError("engine is closed")
-            raise QueryError(
-                "engine is draining", kind="capacity",
-                query=(int(src), int(dst)),
-            )
+        self._check_open((int(src), int(dst)))
         src, dst = int(src), int(dst)
         name, rt = self._resolve_graph(graph)
         if not (0 <= src < rt.n and 0 <= dst < rt.n):
@@ -436,6 +430,44 @@ class PipelinedQueryEngine(QueryEngine):
         """Submit one query and block for its result (the deadline or the
         queue depth decides when it flushes)."""
         return self.submit(src, dst, graph).wait()
+
+    def _check_open(self, query) -> None:
+        if self._draining:
+            if self._closed:
+                raise RuntimeError("engine is closed")
+            raise QueryError(
+                "engine is draining", kind="capacity", query=query,
+            )
+
+    def _kind_ticket(self, src: int, dst: int, name) -> QueryTicket:
+        t = QueryTicket(src, dst, self, name)
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("engine is closed")
+            self._c_queries.inc()
+        return t
+
+    def _take_kind(self, t: QueryTicket, overlay, hit) -> QueryTicket:
+        """The typed submit (:meth:`QueryEngine.submit_query`), pipelined:
+        a point-to-point query rides the background flusher; the other
+        kinds resolve ON THE SUBMITTING THREAD through the same kind-route
+        machinery (breakers, retries, fallbacks, the kind cache), under the
+        host-solve lock, and return a ticket that is already done — the
+        pipeline stays for the batch-shaped work it overlaps."""
+        if hit is None:
+            rt = self._pin_rt(t.graph)
+            # the host-solve lock also covers the kind solves: their
+            # fallbacks share the runtime's serial machinery with the
+            # flusher's host rung
+            with self._host_solve_lock, self._bound(rt):
+                self._flush_taxonomy(t.graph, [t], overlay)
+            t.t_done = time.perf_counter()
+        else:
+            self._finish_ticket(t, hit)
+        self.latency.record(t.t_done - t.t_submit)
+        with self._cv:
+            self._cv.notify_all()  # wake any wait() already parked
+        return t
 
     def query_one(self, q, graph: str | None = None):
         """Submit one typed query and block for its result."""

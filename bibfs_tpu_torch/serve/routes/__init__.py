@@ -6,8 +6,11 @@ blocked tile rung ahead of device when the engine has one
 (``blocked -> device -> host``), and ``serial`` reached per query
 through the host isolator. ``oracle`` (submit-time consult) and
 ``overlay`` (exact base + delta answering) sit outside the ladder. The
-mesh, query-kind and analytics routes of the JAX package come with their
-slices of the port (ROADMAP Queue 1).
+query-kind routes (:mod:`bibfs_tpu_torch.serve.routes.taxonomy` and
+:mod:`bibfs_tpu_torch.serve.routes.taxonomy_device`) ride every engine,
+dispatched by kind at flush time down their own ladders. The mesh and
+analytics routes of the JAX package come with their slices of the port
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -18,16 +21,38 @@ from bibfs_tpu_torch.serve.routes.device import DeviceRoute
 from bibfs_tpu_torch.serve.routes.host import HostRoute, SerialRoute
 from bibfs_tpu_torch.serve.routes.oracle import OracleRoute
 from bibfs_tpu_torch.serve.routes.overlay import OverlayRoute
+from bibfs_tpu_torch.serve.routes.taxonomy import (
+    KIND_LADDERS,
+    KIND_ROUTES,
+    AsOfRoute,
+    KindCtx,
+    KindResultCache,
+    KShortestRoute,
+    MsbfsRoute,
+    QueryKindCells,
+    WeightedRoute,
+    build_taxonomy_routes,
+)
+from bibfs_tpu_torch.serve.routes.taxonomy_device import (
+    KShortestDeviceRoute,
+    MsbfsDeviceRoute,
+    WeightedDeviceRoute,
+    build_taxonomy_device_routes,
+)
 
 __all__ = ["Route", "BlockedConfig", "BlockedRoute", "DeviceRoute",
            "HostRoute", "OracleRoute", "OverlayRoute", "SerialRoute",
-           "build_routes"]
+           "KIND_LADDERS", "KIND_ROUTES", "AsOfRoute", "KindCtx",
+           "KindResultCache", "KShortestRoute", "KShortestDeviceRoute",
+           "MsbfsRoute", "MsbfsDeviceRoute", "QueryKindCells",
+           "WeightedRoute", "WeightedDeviceRoute", "build_routes",
+           "build_taxonomy_device_routes", "build_taxonomy_routes"]
 
 
 def build_routes(engine, blocked_cfg=None):
     """The engine's route set and fallback ladder: ``(routes, ladder)``,
     ``ladder`` the ordered batch rungs (``host`` terminal); ``oracle``,
-    ``overlay`` and ``serial`` sit outside it. The device rung carries the
+    ``overlay``, ``serial`` and the query-kind routes sit outside it. The device rung carries the
     engine's retry policy and circuit breaker; ``blocked_cfg`` adds the
     blocked rung ahead of device, with a retry policy and breaker of its
     own."""
@@ -42,6 +67,9 @@ def build_routes(engine, blocked_cfg=None):
         "host": HostRoute(engine),
         "serial": SerialRoute(engine),
     }
+    # the query-kind routes ride every engine: dispatched by kind at flush
+    # time, never from the point-to-point ladder below
+    routes.update(build_taxonomy_routes(engine, engine.obs_label))
     ladder = ("device", "host")
     if blocked_cfg is not None:
         routes["blocked"] = BlockedRoute(

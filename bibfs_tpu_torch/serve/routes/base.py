@@ -19,9 +19,10 @@ failure policy that wraps it:
   batch results, or None when the route is unavailable (breaker open /
   retries exhausted) — the caller degrades down the fallback ladder and
   counts the degrade in ``bibfs_route_fallbacks_total``. A failure the
-  engine may not degrade (``engine._may_degrade``: on a CUDA engine
-  anything but an injected fault) is neither retried nor fed to the
-  breaker: it raises to the engine, which fails the batch's tickets.
+  route may not degrade (``may_degrade``; for a route on the engine's
+  device, ``engine._may_degrade``: on a CUDA engine anything but an
+  injected fault) is neither retried nor fed to the breaker: it raises to
+  the engine, which fails the batch's tickets.
 
 The engines keep the orchestration (ticket resolution, banking, the
 pipelined finish worker); routes own *how a batch solves* and *when
@@ -47,6 +48,8 @@ class Route:
 
     name: str = "route"
     is_dispatch = False
+    #: a host-tier route (NumPy on every engine) degrades on any failure
+    host_tier = False
 
     def __init__(self, engine, *, retry=None, breaker=None):
         self.engine = engine
@@ -79,12 +82,14 @@ class Route:
         return self.finish(out, fin, t0, pairs)
 
     # ---- the resilient synchronous wrapper ---------------------------
-    def attempt(self, rt, pairs) -> list[BFSResult] | None:
+    def attempt(self, rt, pairs, *extra) -> list[BFSResult] | None:
         """Bounded retries with backoff behind the route breaker.
         Returns the batch results, or None when the route is
         unavailable (breaker open / retries exhausted) and the caller
-        should degrade down the ladder; raises a failure the engine may
-        not degrade. The fault-free fast path is one
+        should degrade down the ladder; raises a failure the route may
+        not degrade (:meth:`may_degrade`). ``extra`` rides to
+        :meth:`solve` (the query-kind routes take their flush context
+        there). The fault-free fast path is one
         ``allow()``/``record_success()`` pair per batch."""
         breaker = self.breaker
         retry = self.retry
@@ -94,9 +99,9 @@ class Route:
         try:
             while True:
                 try:
-                    results = self.solve(rt, pairs)
+                    results = self.solve(rt, pairs, *extra)
                 except Exception as exc:
-                    if not self.engine._may_degrade(exc):
+                    if not self.may_degrade(exc):
                         hard = exc
                         break
                     if breaker is not None:
@@ -130,6 +135,13 @@ class Route:
         if breaker is not None:
             breaker.release()
         raise hard
+
+    def may_degrade(self, exc: BaseException) -> bool:
+        """Whether a failure of this route may degrade down its ladder:
+        always for a host-tier route (:attr:`host_tier`), else the
+        engine's rule (``engine._may_degrade``: on a CUDA engine only an
+        injected fault)."""
+        return self.host_tier or self.engine._may_degrade(exc)
 
     def _note_retry(self) -> None:
         self.engine._res_cells.retry_cell(self.name).inc()

@@ -139,3 +139,49 @@ def solve_many(
             if isinstance(r, QueryError) and r.kind != "invalid":
                 raise r
     return results
+
+
+def solve_query(n: int, edges: np.ndarray, query, *, backend=None,
+                device=None, **kwargs):
+    """Solve ONE typed query (:mod:`bibfs_tpu_torch.query`) over an inline
+    graph on ``device`` (default ``cuda``; ``"cpu"`` asks for the host
+    tier): the single-shot counterpart of a serving engine's
+    ``submit_query``. A :class:`~bibfs_tpu_torch.query.PointToPoint` goes
+    through :func:`solve` with ``backend`` (default the dense search on the
+    card, or the serial host oracle given ``device="cpu"``; the dense
+    backend runs on ``device``, a host backend refuses ``cuda``). The other
+    kinds run their device rungs on the card
+    (:func:`bibfs_tpu_torch.solvers.query_device.solve_query_device`) and
+    their NumPy host implementations (:mod:`bibfs_tpu_torch.query.host`)
+    given ``device="cpu"``. ``AsOf`` needs a store to resolve its version
+    against: use a store-backed engine's ``submit_query``."""
+    import torch
+
+    from bibfs_tpu_torch.query.host import solve_query_csr
+    from bibfs_tpu_torch.query.types import AsOf, PointToPoint, coerce_query
+
+    q = coerce_query(query)
+    host = device is not None and torch.device(device).type == "cpu"
+    if isinstance(q, PointToPoint):
+        if backend is None:
+            backend = "serial" if host else "dense"
+        if backend == "dense":
+            kwargs["device"] = device
+        elif device is not None and not host:
+            raise ValueError(f"backend {backend!r} runs on the host only")
+        return solve(backend, n, edges, q.src, q.dst, **kwargs)
+    if isinstance(q, AsOf):
+        raise ValueError(
+            "AsOf queries resolve against a store's version history; "
+            "serve them through QueryEngine(store=...).submit_query"
+        )
+    from bibfs_tpu_torch.graph.csr import build_csr, canonical_pairs
+
+    pairs = canonical_pairs(n, edges)
+    row_ptr, col_ind = build_csr(n, pairs=pairs)
+    q.validate(n)
+    if host:
+        return solve_query_csr(n, row_ptr, col_ind, q)
+    from bibfs_tpu_torch.solvers.query_device import solve_query_device
+
+    return solve_query_device(n, pairs, row_ptr, col_ind, q, device=device)

@@ -256,6 +256,38 @@ is unavailable. Phases:
    beside the upload to the card, the first answer and the first flush of
    256 pairs.
 
+13. The query kinds (run after phase 12). Its inputs are made at the start
+   of the run: an update batch of each graph (24 adds, 8 deletes), the
+   seeded query streams, and four spawned workers computing the host kind
+   rung's answers (NumPy delta-stepping and Yen's on each graph's second
+   version) beside phases 1-12. The two kernels of ``csrc/query_device.cu``
+   are held to their plain twins on the card, exactly, with one ``step``
+   line each (kernel ms, the twin's, passes or levels, launches, the bound
+   and a ``torch.sparse.mm`` yardstick): ``delta_stepping_kernel`` on 4
+   seeded gnp-deg8-s20 pairs and on grid-500x500's 0 -> 249999 at weight
+   seed 0, which must read the reference's 2663.0 over 1014 edges, 532
+   buckets and 2,964,583 relaxations, every path of its weight and valid;
+   ``restricted_sweep_kernel`` on Yen's first iteration of a gnp pair and
+   of a grid pair 100 hops apart, the batched tails the host solver's.
+   Then a ``GraphStore(wal_dir=..., retain_history=True)`` under
+   ``.chip_durable/`` holds both graphs, each batch acked and compacted
+   (versions 1 and 2). With every count set to 0, the synchronous engine
+   serves 1,000 queries of the mix ``pt=0.5, msbfs=0.2, weighted=0.15,
+   kshortest=0.1, asof=0.05`` (16 sources, k = 3, as-of versions 1 and 2)
+   on gnp in waves of 100, the pipelined engine 300 more, and an engine on
+   the grid 64 ``MultiSource`` queries of 32 shared sources and 16
+   ``Weighted``: every answer equals the native host solver's hops on the
+   version asked (point-to-point, as-of, each source of a multi-source
+   query) or the host kind rung's (weighted distances, with a path of that
+   weight; k-shortest path lists), the device rungs resolve queries of
+   their kinds, no ticket is lost and ``msbfs_sweep``, ``delta_stepping``
+   and ``restricted_sweep`` launch. An engine built under
+   ``BIBFS_FAULTS=weighted_device:p=1`` serves 8 of the grid's weighted
+   queries on the host rung, the fallback counted, every answer the device
+   rung's. One ``{"phase": "query_kinds", ...}`` line per wave (kinds,
+   routes, kind cache, wall, latency percentiles, fallbacks), and
+   ``query_kinds_total`` splits the phase's seconds.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
 JSON line.
@@ -295,6 +327,7 @@ from bibfs_tpu_torch.oracle import build_index, multi_source_bfs
 from bibfs_tpu_torch.serve import PipelinedQueryEngine, QueryEngine
 from bibfs_tpu_torch.serve.loadgen import sample_skewed_pairs
 from bibfs_tpu_torch.solvers import dense
+from bibfs_tpu_torch.solvers import query_device as qd
 from bibfs_tpu_torch.solvers.api import validate_path
 from bibfs_tpu_torch.solvers.native import NativeGraph, solve_batch_native_graph
 from bibfs_tpu_torch.solvers.serial import solve_serial_csr
@@ -421,6 +454,8 @@ def reset_counts() -> None:
     be.blocked_level.launches = 0
     be.blocked_fold.launches = 0
     md.msbfs_levels.launches = 0
+    qd.delta_stepping.launches = 0
+    qd.restricted_sweep.launches = 0
 
 
 def counts() -> dict:
@@ -431,6 +466,8 @@ def counts() -> dict:
     out["blocked_level"] = be.blocked_level.launches
     out["blocked_fold"] = be.blocked_fold.launches
     out["msbfs_sweep"] = md.msbfs_levels.launches
+    out["delta_stepping"] = qd.delta_stepping.launches
+    out["restricted_sweep"] = qd.restricted_sweep.launches
     return out
 
 
@@ -2973,6 +3010,690 @@ def durable_phase(gnp_n: int, gnp_pairs, gnp_csr, grid=None,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phase 13: the query kinds ---------------------------------------------
+# the kinds' two device programs: the XLA while_loops of the reference's
+# device delta-stepping and batched restricted BFS (neither is a Pallas
+# kernel)
+QUERY_KERNELS = {
+    "delta_stepping": ("bibfs_tpu_torch/csrc/query_device.cu",
+                       "bibfs_tpu/solvers/query_device.py:50"),
+    "restricted_sweep": ("bibfs_tpu_torch/csrc/query_device.cu",
+                         "bibfs_tpu/solvers/query_device.py:226"),
+}
+KIND_MIX = "pt=0.5,msbfs=0.2,weighted=0.15,kshortest=0.1,asof=0.05"
+KIND_QUERIES = {"sync": 1000, "pipelined": 300}
+KIND_WAVE = 100  # queries a synchronous query_many serves (one flush)
+KIND_SEEDS = {"sync": 131, "pipelined": 137, "grid": 139, "batch": 149,
+              "pairs": 151}
+KIND_BATCH = (24, 8)  # adds and deletes of the update batch of each graph
+KIND_REF_WORKERS = 4
+# the grid's weighted pair and the reference's own numbers for it
+# (bibfs_tpu's delta_stepping_device on the CPU, weight seed 0)
+GRID_PAIR = (0, 249999)
+GRID_WANT = {"dist": 2663.0, "hops": 1014, "buckets": 532,
+             "relaxations": 2964583}
+GRID_HOPS = 100  # hops of the restricted sweep's grid pair
+DELTA_FLOOR_PATH = 2_000  # a path's vertices: a delta solve of empty passes
+GRID_FAULTED = 8  # weighted grid queries of the faulted wave
+
+_KIND_REF: dict = {}
+
+
+def edges_after(n: int, pairs: np.ndarray, adds, dels) -> np.ndarray:
+    """The canonical pairs (both directions, row-major) of ``pairs`` with
+    the undirected ``adds`` added and ``dels`` deleted."""
+    codes = pairs[:, 0].astype(np.int64) * n + pairs[:, 1]
+    both = lambda es: np.asarray(  # noqa: E731
+        [u * n + v for u, v in es] + [v * n + u for u, v in es],
+        dtype=np.int64)
+    codes = np.union1d(codes[~np.isin(codes, both(dels))], both(adds))
+    return np.stack([codes // n, codes % n], axis=1)
+
+
+def kind_ref_init(graph_dir: str) -> None:
+    """A host-reference worker: the graphs as of their second version."""
+    for name in ("gnp", "grid"):
+        z = np.load(os.path.join(graph_dir, f"{name}.npz"))
+        _KIND_REF[name] = (int(z["n"]), z["row_ptr"], z["col_ind"], {})
+
+
+def kind_ref(name: str, q):
+    """The port's host kind rung's answer to one query on ``name`` as of
+    its second version: delta-stepping (``(found, dist)``) or Yen's
+    (``(found, paths)``)."""
+    from bibfs_tpu_torch.query.kshortest import yen_k_shortest
+    from bibfs_tpu_torch.query.weighted import delta_stepping, synthetic_weights
+
+    n, rp, ci, weights = _KIND_REF[name]
+    if q.kind == "weighted":
+        seed = int(q.weight_seed)
+        if seed not in weights:
+            weights[seed] = synthetic_weights(rp, ci, seed)
+        r = delta_stepping(n, rp, ci, weights[seed], q.src, q.dst)
+        return r.found, r.dist
+    r = yen_k_shortest(n, rp, ci, q.src, q.dst, q.k)
+    return r.found, r.paths
+
+
+def kind_prep(gnp_n: int, gnp_pairs, gnp_csr, ref_dir: str, grid=None,
+              workers: int = KIND_REF_WORKERS) -> dict:
+    """Phase 13's inputs, made at the start of the run: each graph's update
+    batch and its second version's CSR, the seeded query streams, and a
+    pool of spawned workers computing the host kind rung's answers to the
+    weighted and k-shortest queries (NumPy minutes that overlap phases
+    1-12). ``grid`` (``(n, edges)``, default phase 11's) runs it small."""
+    from concurrent.futures import ProcessPoolExecutor
+
+    from bibfs_tpu_torch.query import MultiSource, Weighted
+    from bibfs_tpu_torch.serve.loadgen import parse_query_mix, sample_query_mix
+
+    if grid is None:
+        grid = (MSBFS_GEOMS[0][1], MSBFS_GEOMS[0][2]())
+    gn = grid[0]
+    gpairs = canonical_pairs(gn, grid[1])
+    graphs = {"gnp": (gnp_n, gnp_pairs, gnp_csr),
+              "grid": (gn, gpairs, build_csr(gn, pairs=gpairs))}
+    rng = np.random.default_rng(KIND_SEEDS["batch"])
+    prep: dict = {"graphs": {}, "queries": {}}
+    for name, (n, pairs, csr) in graphs.items():
+        adds, dels = fresh_batch(rng, n, csr, *KIND_BATCH, set(), set())
+        v2 = edges_after(n, pairs, adds, dels)
+        csr2 = build_csr(n, pairs=v2)
+        np.savez(os.path.join(ref_dir, f"{name}.npz"), n=n, row_ptr=csr2[0],
+                 col_ind=csr2[1])
+        prep["graphs"][name] = dict(n=n, pairs=pairs, csr=csr, batch=(adds, dels),
+                                    pairs2=v2, csr2=csr2)
+    mix = parse_query_mix(KIND_MIX)
+    for wave, q in KIND_QUERIES.items():
+        prep["queries"][wave] = sample_query_mix(
+            gnp_n, q, mix, seed=KIND_SEEDS[wave], ms_sources=16, k=3,
+            weight_seed=0, versions=(1, 2))
+    grng = np.random.default_rng(KIND_SEEDS["grid"])
+    shared = tuple(int(x) for x in grng.choice(gn, 32, replace=False))
+    prep["queries"]["grid"] = (
+        [MultiSource(shared, int(grng.integers(gn))) for _ in range(64)]
+        + [Weighted(*(int(x) for x in grng.choice(gn, 2, replace=False)))
+           for _ in range(16)])
+    tasks = {("gnp", q.cache_key()): ("gnp", q)
+             for wave in KIND_QUERIES for q in prep["queries"][wave]
+             if q.kind in ("weighted", "kshortest")}
+    tasks.update({("grid", q.cache_key()): ("grid", q)
+                  for q in prep["queries"]["grid"] if q.kind == "weighted"})
+    pool = ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=kind_ref_init, initargs=(ref_dir,))
+    prep["refs"] = {key: pool.submit(kind_ref, *task)
+                    for key, task in tasks.items()}
+    prep["pool"] = pool
+    return prep
+
+
+def yen_first_cands(n: int, csr, s: int, d: int) -> list:
+    """The spur candidates of Yen's first iteration from ``s`` to ``d``
+    (``yen_k_shortest``'s construction with one accepted path)."""
+    from bibfs_tpu_torch.query.kshortest import bfs_restricted
+
+    first = bfs_restricted(n, *csr, s, d)
+    check(first is not None, f"restricted sweep: no path {s}->{d}")
+    return [(first[i], set(first[:i]), {(first[i], first[i + 1])})
+            for i in range(len(first) - 1)]
+
+
+def delta_pass_bytes(tgt, wts, s: int, d: int, delta: float) -> int:
+    """The bytes the passes of one delta-stepping solve need, counted on
+    its twin's passes: each in-bucket vertex's distance (4 B) and its live
+    slots (8 B a target and weight: the class test reads the weight), each
+    relaxed slot's target distance (4 B), and each distance a pass lowers
+    (4 B written)."""
+    deg = (tgt < tgt.shape[0]).sum(dim=1)
+    acc = torch.zeros((), dtype=torch.int64, device=tgt.device)
+    relaxed = 0
+
+    def on_pass(frontier, old, new, cnt):
+        nonlocal relaxed
+        acc.add_(4 * frontier.sum() + 8 * (deg * frontier).sum()
+                 + 4 * (new < old).sum())
+        relaxed += cnt
+
+    qd.delta_stepping_plain(tgt, wts, s, d, delta, on_pass=on_pass)
+    return int(acc) + 4 * relaxed
+
+
+def delta_floor(n: int, dev) -> float:
+    """``delta_stepping_kernel``'s cost a pass when a pass does almost
+    nothing: a path of :data:`DELTA_FLOOR_PATH` vertices among ``n`` (the
+    grid's vertex count, so its block count and table rows), end to end,
+    a vertex or two a bucket: the barriers, the scan of the table's rows
+    and a few dependent loads. Checked against the path's weight. Returns
+    microseconds a pass."""
+    from bibfs_tpu_torch.graph.csr import build_ell
+    from bibfs_tpu_torch.query.weighted import path_weight, synthetic_weights
+
+    last = DELTA_FLOOR_PATH - 1
+    pairs = canonical_pairs(n, np.stack(
+        [np.arange(last), np.arange(1, DELTA_FLOOR_PATH)], 1))
+    rp, ci = build_csr(n, pairs=pairs)
+    w = synthetic_weights(rp, ci, 0)
+    tables = qd.delta_tables(build_ell(n, pairs=pairs), 0, device=dev)
+    stats: dict = {}
+    res = qd.delta_stepping_device(n, rp, ci, w, tables, 0, last, stats=stats)
+    check(res.path == list(range(DELTA_FLOOR_PATH))
+          and path_weight(rp, ci, w, res.path) == res.dist,
+          f"delta floor: {res.hops} hops, weight {res.dist}")
+    delta = float(w.mean())
+    ms = time_launch(lambda: qd.delta_stepping(*tables, 0, last, delta),
+                     reps=3)
+    us = ms * 1e3 / stats["passes"]
+    print(json.dumps({"phase": "delta_floor", "n": n, "path": last + 1,
+                      "passes": stats["passes"], "ms": ms,
+                      "us_per_pass": us}), flush=True)
+    return us
+
+
+def delta_check(geometry: str, n: int, graph_pairs, csr, pairs, dev,
+                on_card: bool, want=None, us_per_pass=None) -> dict:
+    """``delta_stepping_kernel`` against its plain twin on the card for
+    each pair (weight seed 0): the distance vectors equal, the buckets,
+    relaxations and passes equal, the path of that weight and valid; one
+    ``step`` line each, its bound the bytes the passes need
+    (:func:`delta_pass_bytes`), beside the whole table read and written
+    every pass (``dense_bound_ms``) and, given the kernel's cost a near
+    empty pass (:func:`delta_floor`), that cost times the passes
+    (``barrier_floor_ms``). Returns the last pair's numbers."""
+    from bibfs_tpu_torch.graph.csr import build_ell
+    from bibfs_tpu_torch.query.weighted import path_weight, synthetic_weights
+
+    rp, ci = csr
+    w = synthetic_weights(rp, ci, 0)
+    delta = float(w.mean())
+    tgt, wts = qd.delta_tables(build_ell(n, pairs=graph_pairs), 0, device=dev)
+    n_pad, width = tgt.shape
+    adj_w = torch.sparse_csr_tensor(
+        torch.from_numpy(rp), torch.from_numpy(ci.astype(np.int64)),
+        torch.from_numpy(w.astype(np.float32)), size=(n, n)).to(dev)
+    line: dict = {}
+    for s, d in pairs:
+        stats: dict = {}
+        before = qd.delta_stepping.launches
+        res = qd.delta_stepping_device(n, rp, ci, w, (tgt, wts), s, d,
+                                       stats=stats)
+        check(qd.delta_stepping.launches - before == int(on_card),
+              f"delta_stepping {geometry} {s}->{d}: "
+              f"{qd.delta_stepping.launches - before} launches a solve")
+        got, info = qd.delta_stepping(tgt, wts, s, d, delta)
+        (twin, tinfo), plain_ms = timed_once(
+            lambda: qd.delta_stepping_plain(tgt, wts, s, d, delta), on_card)
+        check(torch.equal(got, twin),
+              f"delta_stepping {geometry} {s}->{d}: kernel != twin")
+        for key in ("buckets", "relaxations", "passes"):
+            check(info[key] == tinfo[key] == stats[key],
+                  f"delta_stepping {geometry} {s}->{d}: {key} "
+                  f"{info[key]} / twin {tinfo[key]}")
+        check(res.found, f"delta_stepping {geometry} {s}->{d}: no path")
+        check(path_weight(rp, ci, w, res.path) == res.dist
+              and validate_path(csr, res.path, s, d, hops=res.hops),
+              f"delta_stepping {geometry} {s}->{d}: bad path")
+        if want is not None:
+            got_want = {"dist": res.dist, "hops": res.hops,
+                        "buckets": res.buckets,
+                        "relaxations": res.relaxations}
+            check(got_want == want,
+                  f"delta_stepping {geometry} {s}->{d}: {got_want} != {want}")
+        # the bytes the passes need, a few operations a relaxation; beside
+        # it every pass reading the whole table (8 B a slot) and the
+        # distances, and writing them
+        b_ms, b_by = bound_ms(delta_pass_bytes(tgt, wts, s, d, delta),
+                              4 * info["relaxations"])
+        dense_ms, dense_by = bound_ms(
+            (n_pad * width * 8 + n_pad * 8) * info["passes"],
+            4 * n_pad * width * info["passes"])
+        line = dict(passes=info["passes"], buckets=info["buckets"],
+                    relaxations=info["relaxations"], dist=res.dist,
+                    hops=res.hops, bound_ms=b_ms, bound_by=b_by,
+                    dense_bound_ms=dense_ms, dense_bound_by=dense_by,
+                    max_abs_err=float((got - twin).abs().max()),
+                    launches_per_solve=stats["launches"])
+        if on_card:
+            x = torch.zeros(n, 1, device=dev)
+            x[s] = 1.0
+            line.update(
+                ms=time_launch(lambda: qd.delta_stepping(tgt, wts, s, d, delta)),
+                plain_ms=plain_ms,
+                # a yardstick, not the same function: one pass as a
+                # weighted sparse product with the frontier column
+                library_ms=time_launch(lambda: torch.sparse.mm(adj_w, x)))
+            line["over_bound"] = line["ms"] / b_ms
+            line["over_dense_bound"] = line["ms"] / dense_ms
+            if us_per_pass is not None:
+                line["barrier_floor_ms"] = us_per_pass * info["passes"] / 1e3
+            step_line("delta_stepping", geometry, f"{s}->{d}", line["ms"],
+                      width=width, **{k: v for k, v in line.items()
+                                      if k != "ms"})
+    del tgt, wts, adj_w
+    return line
+
+
+def restricted_check(geometry: str, n: int, csr, s: int, d: int, dev,
+                     on_card: bool, tail_every: int = 1) -> dict:
+    """``restricted_sweep_kernel`` against its plain twin on Yen's first
+    iteration from ``s`` to ``d``: the planes equal entry for entry, the
+    levels equal, the batched tails the host solver's (every
+    ``tail_every``-th candidate: each is a host BFS); one ``step``
+    line."""
+    from bibfs_tpu_torch.query.kshortest import _spur_batch_host, descend_min_id
+
+    rp, ci = csr
+    cands = yen_first_cands(n, csr, s, d)
+    b = qd._pad_candidates(len(cands))
+    seed, blocked = qd.seed_candidates(n, rp, ci, cands, b, dev)
+    rpd, cid = md.upload_csr(rp, ci, dev)
+    got = seed.clone()
+    before = qd.restricted_sweep.launches
+    st = qd.restricted_sweep(rpd, cid, got, blocked, d)
+    check(qd.restricted_sweep.launches - before == int(on_card),
+          f"restricted_sweep {geometry}: "
+          f"{qd.restricted_sweep.launches - before} launches an iteration")
+    twin = seed.clone()
+    st2, plain_ms = timed_once(lambda: qd.restricted_sweep_plain(
+        rpd, cid, twin, blocked, d), on_card)
+    check(torch.equal(got, twin),
+          f"restricted_sweep {geometry} {s}->{d}: kernel != twin")
+    check((st["levels"], st["run"]) == (st2["levels"], st2["run"]),
+          f"restricted_sweep {geometry}: levels {st} / twin {st2}")
+    plane = got[:, : len(cands)].cpu().numpy()
+    some = list(range(0, len(cands), tail_every))
+    tails = []
+    for j in some:
+        spur, _bn, be = cands[j]
+        col = np.where(plane[:, j] >= qd.INF32, -1, plane[:, j])
+        tails.append(descend_min_id(rp, ci, col, spur, d, banned_edges=be))
+    check(tails == _spur_batch_host(n, rp, ci, d, [cands[j] for j in some]),
+          f"restricted_sweep {geometry} {s}->{d}: tails != host")
+    by_level = md.frontier_bytes(
+        rp, ci, np.where(plane >= qd.INF32, -1, plane).astype(np.int16))
+    b_ms = frontier_ms(int(by_level.sum()))
+    line = dict(candidates=len(cands), padded=b, levels=st["levels"],
+                run=st["run"], bound_ms=b_ms, bound_by="bytes",
+                max_abs_err=int((got.long() - twin.long()).abs().max()),
+                launches_per_iteration=1)
+    if on_card:
+        work = seed.clone()
+        line.update(
+            ms=time_launch(lambda: qd.restricted_sweep(rpd, cid, work, blocked, d),
+                           lambda: work.copy_(seed)),
+            plain_ms=plain_ms)
+        adj = torch.sparse_csr_tensor(
+            rpd, cid.to(torch.int64), torch.ones(cid.numel(), device=dev),
+            size=(n, n))
+        plane01 = (seed[:, : len(cands)] == 1).float()
+        # a yardstick: one level as a sparse product with the 0/1 plane
+        line["library_ms"] = time_launch(lambda: torch.sparse.mm(adj, plane01))
+        line["over_bound"] = line["ms"] / b_ms
+        step_line("restricted_sweep", geometry, f"{s}->{d}", line["ms"],
+                  **{k: v for k, v in line.items() if k != "ms"})
+    return line
+
+
+def solve_query_check(n: int, pairs, csr, lv, dev, on_card: bool) -> dict:
+    """``solve_query`` on ``dev`` (the card is its default and the CLI's)
+    for one query of each device kind on the grid, against its host tier
+    (``device="cpu"``): the multi-source and k-shortest answers equal, the
+    weighted pair the reference's numbers (or, cut small, the host's
+    distance) over a valid path of that weight. Prints one line and
+    returns it: each kind's ms and the kernels' launches."""
+    import dataclasses
+
+    from bibfs_tpu_torch.query import KShortest, MultiSource, Weighted
+    from bibfs_tpu_torch.query.weighted import path_weight, synthetic_weights
+    from bibfs_tpu_torch.solvers.api import solve_query
+
+    near = int(np.flatnonzero(lv == min(10, int(lv.max())))[0])
+    srcs = tuple(int(x) for x in np.flatnonzero(lv == int(lv.max()) // 2)[:8])
+    wq = GRID_PAIR if n > GRID_PAIR[1] else (0, n - 1)
+    line: dict = {"phase": "solve_query", "geometry": "grid-500x500"}
+
+    def fields(res):
+        out = dataclasses.asdict(res)
+        out.pop("time_s")
+        return out
+
+    before = counts()
+    for kind, q in (("msbfs", MultiSource(srcs, near)),
+                    ("kshortest", KShortest(0, near, k=3)),
+                    ("weighted", Weighted(*wq))):
+        t0 = time.perf_counter()
+        got = solve_query(n, pairs, q, device=dev)
+        line[f"{kind}_ms"] = (time.perf_counter() - t0) * 1e3
+        if kind != "weighted":
+            want = solve_query(n, pairs, q, device="cpu")
+            check(fields(got) == fields(want),
+                  f"solve_query {kind}: device tier != host tier")
+            continue
+        w = synthetic_weights(*csr, 0)
+        check(got.found and path_weight(*csr, w, got.path) == got.dist
+              and validate_path(csr, got.path, *wq, hops=got.hops),
+              f"solve_query weighted {wq}: bad path")
+        if wq == GRID_PAIR:
+            got_want = {"dist": got.dist, "hops": got.hops,
+                        "buckets": got.buckets,
+                        "relaxations": got.relaxations}
+            check(got_want == GRID_WANT,
+                  f"solve_query weighted: {got_want} != {GRID_WANT}")
+        else:
+            want = solve_query(n, pairs, q, device="cpu")
+            check(got.dist == want.dist, "solve_query weighted: distance")
+    after = counts()
+    line["launches"] = {k: after[k] - before[k] for k in QUERY_KERNELS}
+    line["launches"]["msbfs_sweep"] = (after["msbfs_sweep"]
+                                       - before["msbfs_sweep"])
+    if on_card:
+        for name, got in line["launches"].items():
+            check(got > 0, f"solve_query launched no {name}")
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def timed_once(fn, on_card: bool):
+    """``fn()`` and its ms between two CUDA events (None off the card): a
+    plain twin's time from its one checked run (the slowest twins take
+    seconds a run)."""
+    if not on_card:
+        return fn(), None
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def percentiles_ms(lats) -> dict:
+    a = np.asarray(lats, dtype=np.float64) * 1e3
+    return {f"p{p}": float(np.percentile(a, p)) for p in (50, 95, 99)}
+
+
+def kind_truth(prep, name: str, queries) -> dict:
+    """What every answer must be: ``(found, hops)`` of point-to-point and
+    as-of queries and of each source of a multi-source query by the native
+    host solver on the version asked; the host kind rung's weighted and
+    k-shortest answers from the reference workers."""
+    gr = prep["graphs"][name]
+    n = gr["n"]
+    want_pairs: dict = {1: [], 2: []}
+    for q in queries:
+        if q.kind == "pt":
+            want_pairs[2].append((q.src, q.dst))
+        elif q.kind == "asof":
+            want_pairs[int(q.version)].append((q.inner.src, q.inner.dst))
+        elif q.kind == "msbfs":
+            want_pairs[2].extend((s, q.dst) for s in q.sources)
+    hops: dict = {}
+    for v, pairs in want_pairs.items():
+        if not pairs:
+            continue
+        pairs = list(dict.fromkeys(pairs))
+        ps = gr["pairs"] if v == 1 else gr["pairs2"]
+        csr = gr["csr"] if v == 1 else gr["csr2"]
+        trivial = [p for p in pairs if p[0] == p[1]]
+        pairs = [p for p in pairs if p[0] != p[1]]
+        got = native_hops(n, ps, pairs, csr) if pairs else []
+        hops.update({(v, p): h for p, h in zip(pairs, got)})
+        hops.update({(v, p): (True, 0) for p in trivial})
+    return hops
+
+
+def check_kind_answers(prep, name: str, queries, results, hops, wave: str):
+    """Every answer equal to the truth of :func:`kind_truth` (weighted:
+    the same distance and a path of that weight; k-shortest: the host
+    rung's path lists; multi-source: ``per_source`` and ``best``)."""
+    from bibfs_tpu_torch.query.weighted import path_weight, synthetic_weights
+
+    gr = prep["graphs"][name]
+    weights: dict = {}
+    for q, r in zip(queries, results):
+        check(not isinstance(r, BaseException), f"{wave}: {q} failed: {r}")
+        if q.kind in ("pt", "asof"):
+            v, p = (2, q) if q.kind == "pt" else (int(q.version), q.inner)
+            want = hops[(v, (p.src, p.dst))]
+            check((r.found, r.hops) == want, f"{wave}: {q} {r.hops} != {want}")
+            if r.found:
+                csr = gr["csr"] if v == 1 else gr["csr2"]
+                check(validate_path(csr, r.path, p.src, p.dst, hops=r.hops),
+                      f"{wave}: {q} invalid path")
+        elif q.kind == "msbfs":
+            per = tuple(hops[(2, (s, q.dst))] for s in q.sources)
+            per = tuple(h if f else None for f, h in per)
+            check(r.per_source == per, f"{wave}: {q} per_source")
+            best = min((i for i, h in enumerate(per) if h is not None),
+                       key=lambda i: per[i], default=None)
+            check(r.best == best, f"{wave}: {q} best {r.best} != {best}")
+            if r.found:
+                check(validate_path(gr["csr2"], r.path, q.sources[best], q.dst,
+                                    hops=r.hops), f"{wave}: {q} invalid path")
+        else:
+            want = prep["refs"][(name, q.cache_key())].result()
+            if q.kind == "weighted":
+                check((r.found, r.dist) == want, f"{wave}: {q} {r.dist} != {want}")
+                if r.found:
+                    rp, ci = gr["csr2"]
+                    seed = int(q.weight_seed)
+                    if seed not in weights:
+                        weights[seed] = synthetic_weights(rp, ci, seed)
+                    check(path_weight(rp, ci, weights[seed], r.path) == r.dist,
+                          f"{wave}: {q} path weight")
+            else:
+                check((r.found, r.paths) == want, f"{wave}: {q} paths")
+
+
+def kind_wave(eng, queries, wave: str, graph: str, waves: int = 1) -> tuple:
+    """Serve ``queries`` through ``eng`` in ``waves`` calls of
+    ``query_many``; returns the results and the line it prints."""
+    before = eng.stats()["query_kinds"]
+    lats: list = []
+    res: list = []
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    t0 = time.perf_counter()
+    size = -(-len(queries) // waves)
+    try:
+        for i in range(0, len(queries), size):
+            t1 = time.perf_counter()
+            if isinstance(eng, PipelinedQueryEngine):
+                tickets = [eng.submit_query(q) for q in queries[i:i + size]]
+                res += [t.wait(timeout=600) for t in tickets]
+                lats += [t.t_done - t.t_submit for t in tickets]
+            else:
+                got = eng.query_many(queries[i:i + size], return_errors=True)
+                res += got
+                lats += [time.perf_counter() - t1] * len(got)
+    finally:
+        wall = time.perf_counter() - t0
+        set_tracer(prev)
+    st = eng.stats()
+    routes = {k: {r: c - before.get(k, {}).get(r, 0) for r, c in v.items()
+                  if c - before.get(k, {}).get(r, 0)}
+              for k, v in st["query_kinds"].items()}
+    kinds: dict = {}
+    for q in queries:
+        kinds[q.kind] = kinds.get(q.kind, 0) + 1
+    line = {"phase": "query_kinds", "wave": wave, "graph": graph,
+            "queries": len(queries), "kinds": kinds,
+            "routes": {k: v for k, v in routes.items() if v},
+            "kind_cache": st["kind_cache"], "wall_ms": wall * 1e3,
+            "queries_per_s": len(queries) / wall,
+            "latency_ms": percentiles_ms(lats),
+            "spans_ms": span_ms(tracer),
+            "fallbacks": {k: v for k, v in
+                          st["resilience"]["fallbacks"].items() if v}}
+    print(json.dumps(line), flush=True)
+    return res, line
+
+
+def query_kinds_phase(prep, dev_name: str = "cuda",
+                      results: dict | None = None) -> dict:
+    """Phase 13 (module docstring) from :func:`kind_prep`'s inputs; on
+    ``dev_name="cpu"`` (a rehearsal at a small size) the engines' device
+    rungs are forced and nothing is timed. Returns the kernels' launches
+    in the serving waves."""
+    import shutil
+
+    dev = torch.device(dev_name)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    gnp, grid = prep["graphs"]["gnp"], prep["graphs"]["grid"]
+    # 1. the kernels against their twins, on the graphs' first versions
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(KIND_SEEDS["pairs"])
+    linked = np.flatnonzero(np.diff(gnp["csr"][0]) > 0)
+    gpairs = [tuple(int(x) for x in rng.choice(linked, 2, replace=False))
+              for _ in range(4)]
+    gn = grid["n"]
+    grid_pair = GRID_PAIR if gn > GRID_PAIR[1] else (0, gn - 1)
+    us_per_pass = delta_floor(gn, dev) if on_card else None
+    delta_check("gnp-deg8-s20", gnp["n"], gnp["pairs"], gnp["csr"], gpairs,
+                dev, on_card)
+    line = delta_check("grid-500x500", gn, grid["pairs"], grid["csr"],
+                       [grid_pair], dev, on_card,
+                       want=GRID_WANT if grid_pair == GRID_PAIR else None,
+                       us_per_pass=us_per_pass)
+    rline = restricted_check("gnp-deg8-s20", gnp["n"], gnp["csr"], *gpairs[0],
+                             dev, on_card)
+    lv = multi_source_bfs(gn, *grid["csr"], np.array([0]))[:, 0]
+    far = np.flatnonzero(lv == min(GRID_HOPS, int(lv.max())))
+    gline = restricted_check("grid-500x500", gn, grid["csr"], 0, int(far[0]),
+                             dev, on_card, tail_every=10)
+    solve_query_check(gn, grid["pairs"], grid["csr"], lv, dev, on_card)
+    if results is not None and on_card:
+        results["delta_stepping"] = {
+            k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "dense_bound_ms", "barrier_floor_ms",
+                                 "library_ms", "max_abs_err", "passes",
+                                 "launches_per_solve")}
+        results["restricted_sweep"] = {
+            **{k: gline[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms", "max_abs_err", "candidates",
+                                     "levels", "launches_per_iteration")},
+            "gnp_ms": rline["ms"], "gnp_plain_ms": rline["plain_ms"],
+            "gnp_bound_ms": rline["bound_ms"]}
+    kernels_s = time.perf_counter() - t0
+    torch.cuda.empty_cache() if on_card else None
+
+    # 2. serving: a durable store holding both graphs, one batch acked and
+    # compacted on each (versions 1 and 2)
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".chip_durable")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=root)
+    store = GraphStore(wal_dir=tmp, retain_history=True, device=dev_name)
+    engines: list = []
+    try:
+        store.add("gnp", gnp["n"], pairs=gnp["pairs"])
+        store.add("grid", gn, pairs=grid["pairs"])
+        for name, gr in (("gnp", gnp), ("grid", grid)):
+            store.update(name, *gr["batch"])
+            store.compact(name)
+            check([e["version"] for e in store.history(name)] == [1, 2],
+                  f"query kinds: {name} history {store.history(name)}")
+            got = store.current(name).csr()
+            check(all(np.array_equal(a, b) for a, b in zip(got, gr["csr2"])),
+                  f"query kinds: {name} version 2 differs from its batch")
+        store_s = time.perf_counter() - t0
+        force = not on_card
+
+        def engine(cls, graph, **kw):
+            eng = cls(store=store, graph=graph, device=dev_name,
+                      **({"device_batches": True} if force else {}), **kw)
+            if force:  # the CPU's calibrated crossovers keep them off
+                eng.routes["msbfs_device"].min_sources = 1
+                eng.routes["weighted_device"].min_batch = 1
+                eng.routes["kshortest_device"].min_k = 2
+            engines.append(eng)
+            return eng
+
+        t0 = time.perf_counter()
+        truth = kind_truth(prep, "gnp", [q for w in KIND_QUERIES
+                                         for q in prep["queries"][w]])
+        gtruth = kind_truth(prep, "grid", prep["queries"]["grid"])
+        truth_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for fut in prep["refs"].values():
+            fut.result()
+        refs_wait_s = time.perf_counter() - t0
+        reset_counts()
+        sync = engine(QueryEngine, "gnp")
+        qs = prep["queries"]["sync"]
+        res, sline = kind_wave(sync, qs, "K[sync]", "gnp-deg8-s20",
+                               waves=len(qs) // KIND_WAVE)
+        check_kind_answers(prep, "gnp", qs, res, truth, "K[sync]")
+        pipe = engine(PipelinedQueryEngine, "gnp")
+        qs = prep["queries"]["pipelined"]
+        res, pline = kind_wave(pipe, qs, "K[pipelined]", "gnp-deg8-s20")
+        check_kind_answers(prep, "gnp", qs, res, truth, "K[pipelined]")
+        gsync = engine(QueryEngine, "grid")
+        qs = prep["queries"]["grid"]
+        gres, gwline = kind_wave(gsync, qs, "K[grid]", "grid-500x500")
+        check_kind_answers(prep, "grid", qs, gres, gtruth, "K[grid]")
+        launches = counts()
+        print(json.dumps({"phase": "query_kinds_launches", **launches}),
+              flush=True)
+        for eng, wave in ((sync, "K[sync]"), (pipe, "K[pipelined]"),
+                          (gsync, "K[grid]")):
+            engine_clean(eng, wave)
+        served = {}
+        for eng in (sync, pipe, gsync):
+            for kind, routes in eng.stats()["query_kinds"].items():
+                for route, c in routes.items():
+                    served[(kind, route)] = served.get((kind, route), 0) + c
+        for kind in ("msbfs", "weighted", "kshortest"):
+            check(served.get((kind, f"{kind}_device"), 0) > 0,
+                  f"query kinds: no {kind} query on {kind}_device")
+        total = sum(c for (k, r), c in served.items() if k != "pt")
+        typed = sum(1 for w in KIND_QUERIES for q in prep["queries"][w]
+                    if q.kind != "pt") + len(prep["queries"]["grid"])
+        check(total == typed, f"query kinds: {total} of {typed} typed "
+              "queries resolved")
+        if on_card:
+            for name in ("msbfs_sweep", "delta_stepping", "restricted_sweep"):
+                check(launches[name] > 0,
+                      f"kernel {name} was not launched by the query kinds")
+        # the weighted device rung faulted: the host rung answers
+        qs = [q for q in prep["queries"]["grid"]
+              if q.kind == "weighted"][:GRID_FAULTED]
+        os.environ["BIBFS_FAULTS"] = "weighted_device:p=1"
+        try:
+            faulted = engine(QueryEngine, "grid")
+        finally:
+            del os.environ["BIBFS_FAULTS"]
+        check(faulted._faults is not None, "the fault plan was not read")
+        fres, fline = kind_wave(faulted, qs, "K[grid, weighted_device "
+                                "faulted]", "grid-500x500")
+        check_kind_answers(prep, "grid", qs, fres, gtruth, "K[faulted]")
+        dev_res = [r for q, r in zip(prep["queries"]["grid"], gres)
+                   if q.kind == "weighted"][:GRID_FAULTED]
+        check([r.dist for r in fres] == [r.dist for r in dev_res],
+              "faulted wave: host rung != device rung")
+        fst = faulted.stats()
+        check(fst["resilience"]["fallbacks"].get("weighted_device->weighted",
+                                                  0) >= 1,
+              "faulted wave: no weighted_device->weighted fallback counted")
+        check(fst["query_kinds"].get("weighted") == {"weighted": len(qs)},
+              f"faulted wave: {fst['query_kinds']}")
+        line = {"phase": "query_kinds_total", "kernels_s": kernels_s,
+                "store_s": store_s, "truth_s": truth_s,
+                "refs_wait_s": refs_wait_s,
+                "s": time.perf_counter() - t_phase}
+        print(json.dumps(line), flush=True)
+        return launches
+    finally:
+        for eng in engines:
+            eng.close()
+        store.close()
+        prep["pool"].shutdown(cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3011,6 +3732,13 @@ def main() -> int:
     print(json.dumps({"phase": "graph", "name": "gnp-deg8-s20", "n": n,
                       "edges": int(edges.shape[0]), "width": g.width,
                       "build_s": time.perf_counter() - t0}), flush=True)
+    # phase 13's inputs and its host references, computed beside phases 1-12
+    t0 = time.perf_counter()
+    kind_dir = tempfile.TemporaryDirectory()
+    kinds = kind_prep(n, pairs_all, csr, kind_dir.name)
+    print(json.dumps({"phase": "query_kinds_prep",
+                      "s": time.perf_counter() - t0,
+                      "references": len(kinds["refs"])}), flush=True)
 
     # phase 2: kernels against their plain versions
     results: dict = {}
@@ -3168,6 +3896,11 @@ def main() -> int:
           flush=True)
     respawn = durable["respawn"]
 
+    # phase 13: the query kinds
+    torch.cuda.empty_cache()
+    kind_launches = query_kinds_phase(kinds, results=results)
+    kind_dir.cleanup()
+
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -3198,6 +3931,10 @@ def main() -> int:
                             "msbfs_sweep"],
                         launches_durable=respawn["msbfs_sweep"],
                         **results["msbfs_sweep"], launch_floor_ms=floor_ms))
+    for name, (source, replaces) in QUERY_KERNELS.items():
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces, launches=kind_launches[name],
+                            **results[name], launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,7 +5,7 @@ distance and executable caches, and the synchronous ``QueryEngine`` and
 ``solve_many`` — every ``BFSResult`` field except ``time_s`` and the
 engine counters equal the reference engine's in every batch mode, layout
 and ``device_batches`` setting. Then the reference's own engine cases run
-against the port, the option of a later slice raises
+against the port, the option and the query kinds of later slices raise
 ``NotImplementedError`` and the store options refuse what the
 reference refuses, a CUDA engine whose kernels do not build raises
 from its constructor, and (on a card only) a device flush equals the CPU
@@ -748,26 +748,45 @@ def test_unported_options_raise(option, value):
 
 
 def test_unported_query_kinds_and_pipelined_raise():
-    from bibfs_tpu_torch.query.types import MultiSource, Weighted
+    """The query kinds are ported (``MultiSource`` and ``Weighted`` answer
+    as the serial oracle says); the whole-graph analytics kinds come with a
+    later slice and raise ``NotImplementedError`` naming ROADMAP item 9 in
+    both engines, counting no query; ``solve_many(pipelined=True)`` serves
+    through the pipelined engine."""
+    from bibfs_tpu_torch.graph.csr import build_csr
+    from bibfs_tpu_torch.query.types import MultiSource, Query, Weighted
     from bibfs_tpu_torch.solvers.api import solve_many
+    from bibfs_tpu_torch.solvers.serial import solve_serial_csr
+
+    class _Sssp(Query):
+        kind = "sssp"
+
+        def validate(self, n):
+            pass
+
+        def cache_key(self):
+            return ("sssp",)
 
     n, edges = GRAPHS["skiplink"]
+    rp, ci = build_csr(n, edges)
     eng = _engine(n, edges)
-    for q in (MultiSource((0, 1), 5), Weighted(0, 5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit_query(q)
-        with pytest.raises(NotImplementedError):
-            eng.query_many([q], return_errors=True)
-    assert eng.counters["queries"] == 0
-    # the pipelined engine is ported: it refuses the same query kinds, and
-    # solve_many(pipelined=True) serves through it
+    ms = eng.query_one(MultiSource((0, 1), 5))
+    assert ms.per_source == tuple(
+        solve_serial_csr(n, rp, ci, s, 5).hops for s in (0, 1))
+    assert eng.query_one(Weighted(0, 5)).found
+    with pytest.raises(NotImplementedError, match="item 9"):
+        eng.submit_query(_Sssp())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.query_many([_Sssp()], return_errors=True)
+    assert eng.counters["queries"] == 2
     from bibfs_tpu_torch.serve import PipelinedQueryEngine
 
     with PipelinedQueryEngine(n, edges, device="cpu") as pipe:
-        for q in (MultiSource((0, 1), 5), Weighted(0, 5)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                pipe.submit_query(q)
-        assert pipe.counters["queries"] == 0
+        assert pipe.query_one(MultiSource((0, 1), 5)).per_source == \
+            ms.per_source
+        with pytest.raises(NotImplementedError, match="item 9"):
+            pipe.submit_query(_Sssp())
+        assert pipe.counters["queries"] == 1
     got = solve_many(n, edges, [(0, 1)], pipelined=True, device="cpu")
     assert _fields(got[0]) == _fields(eng.query(0, 1))
 

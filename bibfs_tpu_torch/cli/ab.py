@@ -31,6 +31,19 @@ each split by :func:`build_split` into the device sweeps, the copies
 (CSR uploads, sources, planes back), the NumPy landmark scoring and the
 index's construction; ``same_results`` compares landmarks and planes.
 
+With ``--kinds GEOM`` (``grid-500x500`` and ``gnp-deg8-s20``, the graphs
+of ``chip_smoke.py`` phase 13, or ``grid-RxC`` / ``gnp-deg8-sK`` cut
+small) it times the query kinds' two kernels instead, on inputs built once
+and uploaded by each checkout's own ``query_device``: per turn, three runs
+(median) of ``delta_stepping`` (weight seed 0, the mean weight as delta)
+on phase 13's pairs (the grid's 0 -> n - 1; four seeded gnp pairs) and of
+``restricted_sweep`` on Yen's first iteration (the grid's 0 -> the first
+vertex 100 levels out; the first gnp pair), from its seeded plane (and,
+where the checkout takes them, its seeded entries); host clock around the
+call and a synchronize. ``same_results`` compares the distances,
+``buckets``, ``relaxations`` and ``passes``, and the planes with
+``levels`` and ``run``; each checkout's last status words are kept.
+
 The host-bound modes' times drift by tens of percent from process to
 process and over minutes; run in turns within one process, both
 checkouts see the same drift. A card is used unless ``--device cpu``.
@@ -211,6 +224,130 @@ def _oracle_ab(snaps, geom: str, k: int, rounds: int, dev, sync) -> dict:
     return line
 
 
+#: the query-kind A/B's graphs, as chip_smoke.py phase 13 (or cut small:
+#: grid-RxC, gnp-deg8-sK)
+KIND_GRAPHS = ("grid-500x500", "gnp-deg8-s20")
+KIND_PAIR_SEED = 151  # phase 13's gnp pairs
+KIND_GRID_HOPS = 100  # the restricted sweep's grid pair
+
+
+def _kind_graph(snap, geom: str):
+    """``(n, canonical pairs, row_ptr, col_ind)`` of a --kinds geometry."""
+    gen = snap[f"{PKG}.graph.generate"]
+    csr = snap[f"{PKG}.graph.csr"]
+    kind, _, shape = geom.partition("-")
+    if kind == "grid":
+        rows, cols = (int(x) for x in shape.split("x"))
+        n, edges = rows * cols, gen.grid_graph(rows, cols, perforation=0.02,
+                                               seed=1)
+    elif kind == "gnp" and shape.startswith("deg8-s"):
+        n = 1 << int(shape[len("deg8-s"):])
+        edges = gen.gnp_random_graph(n, 8 / n, seed=7)
+    else:
+        raise ValueError(f"--kinds: no geometry {geom!r}")
+    pairs = csr.canonical_pairs(n, edges)
+    return (n, pairs, *csr.build_csr(n, pairs=pairs))
+
+
+def _kind_pairs(geom: str, n: int, rp, ci, lv) -> tuple:
+    """Phase 13's delta pairs and the restricted sweep's pair."""
+    if geom.startswith("grid"):
+        far = np.flatnonzero(lv == min(KIND_GRID_HOPS, int(lv.max())))
+        return [(0, n - 1)], (0, int(far[0]))
+    rng = np.random.default_rng(KIND_PAIR_SEED)
+    linked = np.flatnonzero(np.diff(rp) > 0)
+    pairs = [tuple(int(x) for x in rng.choice(linked, 2, replace=False))
+             for _ in range(4)]
+    return pairs, pairs[0]
+
+
+def _kinds_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
+    """The query kinds' kernels of both checkouts in turns (module
+    docstring)."""
+    import inspect
+
+    change = snaps["change"]
+    sys.modules.update(change)
+    n, pairs, rp, ci = _kind_graph(change, geom)
+    kshort = change[f"{PKG}.query.kshortest"]
+    weighted = change[f"{PKG}.query.weighted"]
+    ell = change[f"{PKG}.graph.csr"].build_ell(n, pairs=pairs)
+    w = weighted.synthetic_weights(rp, ci, 0)
+    delta = float(w.mean())
+    lv = change[f"{PKG}.oracle"].multi_source_bfs(n, rp, ci, np.array([0]))[:, 0]
+    dpairs, (s0, d0) = _kind_pairs(geom, n, rp, ci, lv)
+    first = kshort.bfs_restricted(n, rp, ci, s0, d0)
+    cands = [(first[i], set(first[:i]), {(first[i], first[i + 1])})
+             for i in range(len(first) - 1)]
+    rpd = torch.from_numpy(rp).to(dev)
+    cid = torch.from_numpy(ci.astype(np.int32)).to(dev)
+    runs = {}
+    for who, snap in snaps.items():
+        sys.modules.update(snap)
+        qd = snap[f"{PKG}.solvers.query_device"]
+        tables = qd.delta_tables(ell, 0, device=dev)
+        b = qd._pad_candidates(len(cands))
+        seed, blocked = qd.seed_candidates(n, rp, ci, cands, b, dev)
+        kw = {}
+        if "seeds" in inspect.signature(qd.restricted_sweep).parameters:
+            kw["seeds"] = qd.seed_entries(qd.candidate_seeds(n, rp, ci, cands),
+                                          dev)
+        runs[who] = (qd, tables, seed, blocked, kw)
+    times = {(w_, k): [] for w_ in snaps for k in ("delta", "restricted")}
+    status = {w_: {} for w_ in snaps}
+    same = True
+
+    def timed(fn, reset=None):
+        ts = []
+        for _ in range(3):
+            if reset is not None:
+                reset()
+            sync()
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            ts.append(time.perf_counter() - t0)
+        return out, float(np.median(ts)) * 1e3
+
+    for rnd in range(rounds):
+        order = ("parent", "change") if rnd % 2 == 0 else ("change", "parent")
+        outs: dict = {}
+        for who in order:
+            sys.modules.update(snaps[who])
+            qd, (tgt, wts), seed, blocked, kw = runs[who]
+            got = []
+            for s, d in dpairs:
+                (dist, info), ms = timed(
+                    lambda: qd.delta_stepping(tgt, wts, s, d, delta))
+                times[(who, "delta")].append(ms)
+                got.append((dist.cpu(), {k: info[k] for k in
+                                         ("buckets", "relaxations", "passes")}))
+                status[who]["delta_stepping"] = info
+            work = seed.clone()
+            st, ms = timed(
+                lambda: qd.restricted_sweep(rpd, cid, work, blocked, d0, **kw),
+                lambda: work.copy_(seed))
+            times[(who, "restricted")].append(ms)
+            status[who]["restricted_sweep"] = st
+            outs[who] = (got, work.cpu(), (st["levels"], st["run"]))
+        pa, ch = outs["parent"], outs["change"]
+        same &= (all(torch.equal(x[0], y[0]) and x[1] == y[1]
+                     for x, y in zip(pa[0], ch[0]))
+                 and torch.equal(pa[1], ch[1]) and pa[2] == ch[2])
+    line = {"geometry": geom, "n": n, "rounds": rounds,
+            "delta_pairs": [list(p) for p in dpairs],
+            "restricted_pair": [s0, d0], "candidates": len(cands),
+            "same_results": bool(same)}
+    for (who, k), v in times.items():
+        name = "delta_stepping" if k == "delta" else "restricted_sweep"
+        line[f"{who}/{name}"] = {
+            "median_ms": float(np.median(v)),
+            "p25_ms": float(np.percentile(v, 25)),
+            "p75_ms": float(np.percentile(v, 75)), "solves": len(v),
+            "status": status[who][name]}
+    return line
+
+
 #: the blocked A/B's grids: (rows, columns), as chip_smoke.py phase 10
 BLOCKED_GRIDS = {"grid-128x1024": (128, 1024), "grid-64x64": (64, 64)}
 
@@ -280,6 +417,9 @@ def main(argv=None) -> int:
                     help="time the oracle's index build on this graph")
     ap.add_argument("--k", type=int, default=64,
                     help="landmarks of the --oracle index")
+    ap.add_argument("--kinds", metavar="GEOM",
+                    help="time the query kinds' kernels on this graph "
+                         f"({', '.join(KIND_GRAPHS)}, grid-RxC, gnp-deg8-sK)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -292,12 +432,16 @@ def main(argv=None) -> int:
 
     saved = {m: mod for m, mod in sys.modules.items() if _ours(m)}
     snaps = {"change": _load(None), "parent": _load(args.parent.resolve())}
-    if args.blocked or args.oracle:
+    if args.blocked or args.oracle or args.kinds:
         try:
-            line = (_blocked_ab(snaps, args.blocked, args.batch or 256,
-                                args.rounds, dev, sync) if args.blocked
-                    else _oracle_ab(snaps, args.oracle, args.k, args.rounds,
-                                    dev, sync))
+            if args.blocked:
+                line = _blocked_ab(snaps, args.blocked, args.batch or 256,
+                                   args.rounds, dev, sync)
+            elif args.oracle:
+                line = _oracle_ab(snaps, args.oracle, args.k, args.rounds,
+                                  dev, sync)
+            else:
+                line = _kinds_ab(snaps, args.kinds, args.rounds, dev, sync)
         finally:
             _restore(saved)
         card = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"

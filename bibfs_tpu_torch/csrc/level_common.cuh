@@ -3,7 +3,8 @@
 // the one first-hit-slot claim (claim_chunked), the
 // frontier lookups it takes (BitsFront: kernels 1, 4 and unstaged 2;
 // StagedFront, filled by stage_bitmap: staged kernel 2; PairFront: kernel
-// 3) and warp reductions.
+// 3), warp reductions, the persistent kernels' grid barrier and the parking
+// of their one-block stretches.
 //
 // Tables are slot-major: nbr_t[j * stride + v] is the j-th neighbour of
 // vertex row v. A row's live slots are a prefix of length min(deg[v],
@@ -239,6 +240,69 @@ __device__ inline bool grid_barrier(unsigned long long* bar,
   }
   __syncthreads();
   return ok != 0;
+}
+
+// ---- one-block stretches of the persistent kernels (query_device.cu) ----
+// A persistent kernel may run a stretch of narrow passes in block 0 alone,
+// with __syncthreads between them, while the other blocks park on an epoch
+// word. Block 0 ends the stretch by storing epoch + 2 (the grid resumes:
+// the state it publishes before the store is theirs) or epoch + 1 (the
+// kernel is done: they leave). While the stretch runs, block 0 bumps a beat
+// word every pass; a parked block gives up (*err set to `code`) only after
+// wait_ns without a beat, so a long stretch is no timeout.
+
+constexpr unsigned long long kParkGaveUp = ~0ull;
+
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The wait of a parked block (all threads call it): returns the epoch block
+// 0 stored, or kParkGaveUp. `seen` is the epoch the stretch began at.
+__device__ inline unsigned long long park(const unsigned long long* epoch,
+                                          unsigned long long seen,
+                                          const unsigned long long* beat,
+                                          unsigned long long* err,
+                                          unsigned long long code,
+                                          unsigned long long wait_ns) {
+  __shared__ unsigned long long got;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long t0 = now_ns(), last = ld_relaxed(beat);
+    unsigned ns = 32;
+    for (;;) {
+      const unsigned long long e = ld_acquire(epoch);
+      if (e != seen) {
+        got = e;
+        break;
+      }
+      const unsigned long long b = ld_relaxed(beat);
+      if (b != last) {
+        last = b;
+        t0 = now_ns();
+      } else if (now_ns() - t0 > wait_ns) {
+        atomicExch(err, code);
+        got = kParkGaveUp;
+        break;
+      }
+      __nanosleep(ns);
+      if (ns < 1024) ns <<= 1;
+    }
+  }
+  __syncthreads();
+  return got;
+}
+
+// Block 0's thread 0 ends a stretch: every write of the block before this
+// call (the caller's __syncthreads and this fence order them) is visible to
+// a block that reads the new epoch.
+__device__ __forceinline__ void unpark(unsigned long long* epoch,
+                                       unsigned long long value) {
+  __threadfence();
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(epoch), "l"(value)
+               : "memory");
 }
 
 }  // namespace bibfs

@@ -67,10 +67,11 @@ SIGNATURES = {
                               _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     },
     "query_device": {
-        "bibfs_delta_stepping": [_P, _P, _I64, _I, _I, _I, _F, _P, _P, _P, _P,
-                                 _P],
-        "bibfs_restricted_sweep": [_P, _P, _I64, _I, _I, _P, _P, _P, _P, _P,
-                                   _P, _P, _P, _P],
+        "bibfs_delta_stepping": [_P, _P, _I64, _I, _I, _I, _I, _F, _I64,
+                                 _I64, _P, _P, _P, _I64, _P, _P, _P],
+        "bibfs_restricted_sweep": [_P, _P, _I64, _I, _I, _I, _I64, _I64, _I,
+                                   _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
+                                   _P, _I64, _P, _P, _P],
     },
 }
 

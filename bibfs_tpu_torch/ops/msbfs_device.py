@@ -205,14 +205,15 @@ def lanes_per_vertex(n: int, nnz: int) -> int:
     return min(32, 1 << max(0, math.ceil(math.log2(mean)) if mean > 1 else 0))
 
 
-def _ctl_block(dev: torch.device) -> torch.Tensor:
-    """The kernel's working block for ``dev`` and its current stream:
-    zeroed once here, and left zero by every launch that ends."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+def _ctl_block(dev: torch.device, length: int = _CTL_LEN) -> torch.Tensor:
+    """A persistent kernel's working block of ``length`` int64 words for
+    ``dev`` and its current stream: zeroed once here, and left zero by
+    every launch that ends."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream, length)
     with _ctl_lock:
         ctl = _ctl_blocks.get(key)
         if ctl is None:
-            ctl = torch.zeros(_CTL_LEN, dtype=torch.int64, device=dev)
+            ctl = torch.zeros(length, dtype=torch.int64, device=dev)
             _ctl_blocks[key] = ctl
     return ctl
 

@@ -9,13 +9,17 @@ mirrors the reference's XLA ``while_loop`` step by step:
   :func:`delta_stepping`): the bucket relaxation loop of
   :mod:`bibfs_tpu_torch.query.weighted` over the serving ELL table — light
   edges (weight <= delta) relaxed to a fixpoint per bucket, heavy edges once
-  per settled bucket, every pass a pull over the whole table (each row takes
-  the min of ``dist[nbr] + w`` over its in-bucket neighbours). On the card
-  ``delta_stepping_kernel`` runs every pass in one cooperative launch with
-  grid barriers between them; on the CPU :func:`delta_stepping_plain` runs
-  the same passes as torch ops. Both return the reference's distance vector
-  bit for bit, its bucket count and its relaxation count. The path descends
-  on the host over the CSR weights (:func:`_descend_weighted`).
+  per settled bucket, each pass the reference's pull over the whole table
+  (each row takes the min of ``dist[nbr] + w`` over its in-bucket
+  neighbours). On the card ``delta_stepping_kernel`` runs every pass in one
+  cooperative launch, each pass pushing only from the in-bucket vertices
+  the pass before changed (a bucket's first pass from all its members, the
+  heavy pass from the member list), narrow passes in one block alone and
+  wide ones across the grid; on the CPU :func:`delta_stepping_plain` runs
+  the reference's passes as torch ops. Both return the reference's
+  distance vector bit for bit, its bucket, relaxation and pass counts. The
+  path descends on the host over the CSR weights
+  (:func:`_descend_weighted`).
 - **restricted batch BFS** (:func:`restricted_batch_dists` /
   :func:`restricted_batch_paths` over :func:`restricted_sweep`): every
   spur candidate of one Yen iteration is a column of one int32 ``[n, B]``
@@ -23,7 +27,9 @@ mirrors the reference's XLA ``while_loop`` step by step:
   folded into the level-1 seeding on the host (every banned edge leaves the
   spur vertex), and each column frozen after the level that stamps its
   ``dst``. On the card ``restricted_sweep_kernel`` runs every level in one
-  cooperative launch over the CSR (32 candidates a uint32 word); on the
+  cooperative launch over the CSR (32 candidates a uint32 word), seeded
+  from index lists of the seeded entries (:func:`seed_entries`), sparse
+  levels pushed from the frontier's list and dense ones pulled; on the
   CPU :func:`restricted_sweep_plain` runs the reference's levels as torch
   ops. The plane equals the reference's entry for entry. Paths descend
   through the same canonical min-id rule as the host rung
@@ -37,6 +43,7 @@ Launches count in ``delta_stepping.launches`` and
 
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -51,10 +58,24 @@ F_INF = np.float32(3e38)
 #: unreachable in the restricted-BFS int32 planes
 INF32 = 1 << 30
 
-# the kernels' [6] int64 status words, and the error word of a barrier
-# that timed out
-_STATUS_LEN = 6
-_ERR_BARRIER = 2
+# the kernels' [8] int64 status words, their [64] int64 working block, and
+# the error words of a barrier that timed out and of a pass or level past
+# the caller's limit
+_STATUS_LEN = 8
+_CTL_LEN = 64
+_ERR_BARRIER, _ERR_DEPTH = 2, 3
+
+#: threads of a block of either kernel
+KERNEL_THREADS = 512
+
+#: a delta-stepping pass whose entries (the changed list, plus the far list
+#: on a bucket's first pass or the member list on its heavy pass) number at
+#: most this many runs in one block alone: four chunks of a block's threads
+DELTA_SOLO_CAP = 4 * KERNEL_THREADS
+
+#: the most passes a delta-stepping solve may run (a guard: the kernel sets
+#: its depth error past it)
+MAX_PASSES = 1 << 62
 
 
 def _status(name: str, status: torch.Tensor, ctl: torch.Tensor,
@@ -65,9 +86,41 @@ def _status(name: str, status: torch.Tensor, ctl: torch.Tensor,
     if err == _ERR_BARRIER:
         ctl.zero_()  # blocks that gave up left it mid-count
         raise RuntimeError(f"{name}: a grid barrier timed out")
+    if err == _ERR_DEPTH:
+        raise RuntimeError(f"{name}: past its pass or level limit")
     if err:
         raise RuntimeError(f"{name}: error word {err}")
     return got
+
+
+def _pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def ring_len(n: int) -> int:
+    """Entries of one of the kernels' list rings: a power of two >= n."""
+    return _pow2(max(1, n))
+
+
+def ctl_block(dev: torch.device) -> torch.Tensor:
+    """The kernels' working block for ``dev`` and its current stream (zero
+    between launches: every launch that ends leaves it so)."""
+    from bibfs_tpu_torch.ops.msbfs_device import _ctl_block
+
+    return _ctl_block(dev, _CTL_LEN)
+
+
+def delta_lanes(width: int) -> int:
+    """Threads that share a row of a ``width``-slot table in
+    ``delta_stepping_kernel``: a power of two, each lane loading up to two
+    chunks of four slots (1 on a grid, 4 on gnp-deg8-s20's 27 slots)."""
+    return min(32, _pow2(-(-int(width) // 8)))
+
+
+def sweep_solo_cap(lanes: int) -> int:
+    """A restricted level whose frontier has at most this many vertices
+    runs in one block alone: one row for each lane group of the block."""
+    return KERNEL_THREADS // int(lanes)
 
 
 # ---- device delta-stepping ---------------------------------------------------
@@ -162,34 +215,41 @@ def check_delta(tgt, wts, src: int, dst: int) -> None:
     _cuda.check_cuda(tgt.device, tgt=tgt, wts=wts)
 
 
-def delta_stepping(tgt, wts, src: int, dst: int, delta: float):
+def delta_stepping(tgt, wts, src: int, dst: int, delta: float, *,
+                   max_passes: int | None = None):
     """Single-source delta-stepping to ``dst`` over the tables of
-    :func:`delta_tables` with the f32 bucket width ``delta``. On the card
-    one launch of ``delta_stepping_kernel`` and one host read; on the CPU
+    :func:`delta_tables` (a symmetric table: every edge in both rows under
+    one weight) with the f32 bucket width ``delta``. On the card one launch
+    of ``delta_stepping_kernel`` and one host read; on the CPU
     :func:`delta_stepping_plain`. Returns ``(dist, info)`` (``float32
     [n_pad]`` on the tables' device; ``buckets``, ``relaxations``,
-    ``passes``, and on the card ``grid``)."""
+    ``passes``, and on the card ``grid`` (blocks), ``solo_passes`` (run by
+    one block alone, :data:`DELTA_SOLO_CAP`) and ``grid_passes``). A solve
+    past ``max_passes`` (default :data:`MAX_PASSES`) raises."""
     if not tgt.is_cuda:
         return delta_stepping_plain(tgt, wts, src, dst, delta)
-    from bibfs_tpu_torch.ops.msbfs_device import _ctl_block
-
     check_delta(tgt, wts, src, dst)
     n_pad, width = tgt.shape
     dev = tgt.device
     dist = torch.empty((2, n_pad), dtype=torch.float32, device=dev)
+    rl = ring_len(n_pad)
+    rings = torch.empty((6, rl), dtype=torch.int32, device=dev)
     status = torch.empty(_STATUS_LEN, dtype=torch.int64, device=dev)
-    ctl = _ctl_block(dev)
+    ctl = ctl_block(dev)
     _cuda.launch(
         "query_device", "bibfs_delta_stepping", tgt.data_ptr(),
-        wts.data_ptr(), n_pad, width, int(src), int(dst),
-        float(np.float32(delta)), dist[0].data_ptr(), dist[1].data_ptr(),
+        wts.data_ptr(), n_pad, width, delta_lanes(width), int(src), int(dst),
+        float(np.float32(delta)), DELTA_SOLO_CAP,
+        MAX_PASSES if max_passes is None else int(max_passes),
+        dist[0].data_ptr(), dist[1].data_ptr(), rings.data_ptr(), rl,
         ctl.data_ptr(), status.data_ptr(),
     )
     _cuda.count_launch(delta_stepping)
-    cur, buckets, relaxed, passes, _err, grid = _status(
+    cur, buckets, relaxed, passes, _err, grid, solo, gridp = _status(
         "delta_stepping_kernel", status, ctl, 4)
     return dist[cur], {"buckets": buckets, "relaxations": relaxed,
-                       "passes": passes, "grid": grid}
+                       "passes": passes, "grid": grid, "solo_passes": solo,
+                       "grid_passes": gridp}
 
 
 delta_stepping.launches = 0
@@ -314,7 +374,8 @@ def check_sweep(row_ptr, col_ind, dist, blocked, dst: int) -> None:
                      blocked=blocked)
 
 
-def restricted_sweep(row_ptr, col_ind, dist, blocked, dst: int) -> dict:
+def restricted_sweep(row_ptr, col_ind, dist, blocked, dst: int, *,
+                     seeds=None, max_level: int | None = None) -> dict:
     """The restricted batch BFS over the CSR ``row_ptr int64 [n + 1]`` /
     ``col_ind int32`` from the seeded plane ``dist`` (``int32 [n, B]``: 0 at
     each column's spur, 1 at its allowed first hops, :data:`INF32`
@@ -322,40 +383,62 @@ def restricted_sweep(row_ptr, col_ind, dist, blocked, dst: int) -> dict:
     column) and the shared target ``dst``. Stamps ``dist`` in place. On the
     card one launch of ``restricted_sweep_kernel`` and one host read; on the
     CPU :func:`restricted_sweep_plain`. Returns ``levels`` (the last level
-    that stamped), ``run`` (levels run) and, on the card, ``grid``."""
+    that stamped), ``run`` (levels run) and, on the card, ``grid`` (blocks),
+    ``dense_levels`` (pulled), ``sparse_levels`` (pushed), ``solo_levels``
+    (run by one block alone, :func:`sweep_solo_cap`) and ``grid_levels``.
+
+    The kernel reads the seeded entries, not the planes: ``seeds`` is
+    :func:`seed_entries`'s pair for this plane (without it the wrapper
+    lists them from the planes, one more host read). A level above
+    ``max_level`` (default ``n + 1``, which no sweep reaches) raises."""
     if not dist.is_cuda:
         return restricted_sweep_plain(row_ptr, col_ind, dist, blocked, dst)
-    from bibfs_tpu_torch.ops.msbfs_device import _ctl_block
+    from bibfs_tpu_torch.ops.msbfs_device import DENSE_SHARE, lanes_per_vertex
 
     check_sweep(row_ptr, col_ind, dist, blocked, dst)
     n, b = dist.shape
     dev = dist.device
+    if seeds is None:
+        seeds = _plane_entries(dist, blocked)
+    entries, n_hops = seeds
+    _cuda.check_dtype(torch.int32, seeds=entries)
+    _cuda.check_cuda(dev, seeds=entries)
     wp = -(-b // 32)
+    nnz = col_ind.numel()
+    lanes = lanes_per_vertex(n, nnz)
     words = torch.empty((4, n, wp), dtype=torch.int32, device=dev)
+    mark = torch.empty(n, dtype=torch.int32, device=dev)
+    rl = ring_len(n)
+    rings = torch.empty((3, rl), dtype=torch.int32, device=dev)
     status = torch.empty(_STATUS_LEN, dtype=torch.int64, device=dev)
-    ctl = _ctl_block(dev)
+    ctl = ctl_block(dev)
     _cuda.launch(
         "query_device", "bibfs_restricted_sweep", row_ptr.data_ptr(),
-        col_ind.data_ptr(), n, b, int(dst), dist.data_ptr(),
-        blocked.data_ptr(), *(w.data_ptr() for w in words), ctl.data_ptr(),
-        status.data_ptr(),
+        col_ind.data_ptr(), n, b, lanes, int(dst),
+        math.ceil(nnz * DENSE_SHARE), sweep_solo_cap(lanes),
+        n + 1 if max_level is None else int(max_level), dist.data_ptr(),
+        entries.data_ptr(), entries.shape[0], int(n_hops),
+        *(w.data_ptr() for w in words), mark.data_ptr(), rings.data_ptr(), rl,
+        ctl.data_ptr(), status.data_ptr(),
     )
     _cuda.count_launch(restricted_sweep)
-    last, run, _err, grid = _status("restricted_sweep_kernel", status, ctl,
-                                    2)[:4]
-    return {"levels": last, "run": run, "grid": grid}
+    last, run, _err, grid, dense, sparse, solo, gridl = _status(
+        "restricted_sweep_kernel", status, ctl, 2)
+    return {"levels": last, "run": run, "grid": grid, "dense_levels": dense,
+            "sparse_levels": sparse, "solo_levels": solo,
+            "grid_levels": gridl}
 
 
 restricted_sweep.launches = 0
 
 
-def seed_candidates(n: int, row_ptr, col_ind, cands, b: int, device):
-    """The seeded plane and the banned-node plane of one Yen iteration's
-    candidates (``(spur, banned_nodes, banned_edges)`` triples), both
-    ``[n, b]`` on ``device``: ``dist`` int32 with 0 at each spur and 1 at
-    its allowed first hops (:func:`~bibfs_tpu_torch.query.kshortest.
-    first_hops`: banned targets and banned spur edges folded out), and
-    ``blocked`` int8."""
+def candidate_seeds(n: int, row_ptr, col_ind, cands) -> dict:
+    """The seeded entries of one Yen iteration's candidates (``(spur,
+    banned_nodes, banned_edges)`` triples) as int64 index arrays: the first
+    hops ``hop_r``/``hop_c`` (:func:`~bibfs_tpu_torch.query.kshortest.
+    first_hops`: banned targets and banned spur edges folded out), the
+    spurs ``spur_r`` (candidate ``j``'s in column ``j``) and the banned
+    nodes ``ban_r``/``ban_c``."""
     from bibfs_tpu_torch.query.kshortest import first_hops
 
     mask = np.zeros(n, dtype=bool)
@@ -372,17 +455,57 @@ def seed_candidates(n: int, row_ptr, col_ind, cands, b: int, device):
         hop_c.append(np.full(len(hops), j, dtype=np.int64))
         ban_r.append(rows)
         ban_c.append(np.full(rows.size, j, dtype=np.int64))
+    cat = lambda parts: np.concatenate(parts) if parts else np.zeros(  # noqa: E731
+        0, np.int64)
+    return {"hop_r": cat(hop_r), "hop_c": cat(hop_c),
+            "spur_r": np.asarray(spur_r, dtype=np.int64),
+            "ban_r": cat(ban_r), "ban_c": cat(ban_c)}
 
-    def idx(parts):
-        return torch.from_numpy(np.concatenate(parts)).to(device)
+
+def seed_planes(seeds: dict, n: int, b: int, device):
+    """The seeded plane and the banned-node plane of :func:`candidate_seeds`'
+    entries, both ``[n, b]`` on ``device``: ``dist`` int32 with 0 at each
+    spur and 1 at its allowed first hops, :data:`INF32` elsewhere, and
+    ``blocked`` int8."""
+    def idx(key):
+        return torch.from_numpy(seeds[key]).to(device)
 
     dist = torch.full((n, b), INF32, dtype=torch.int32, device=device)
-    dist[idx(hop_r), idx(hop_c)] = 1
-    dist[torch.tensor(spur_r, dtype=torch.int64, device=device),
-         torch.arange(len(cands), device=device)] = 0
+    dist[idx("hop_r"), idx("hop_c")] = 1
+    dist[idx("spur_r"),
+         torch.arange(seeds["spur_r"].size, device=device)] = 0
     blocked = torch.zeros((n, b), dtype=torch.int8, device=device)
-    blocked[idx(ban_r), idx(ban_c)] = 1
+    blocked[idx("ban_r"), idx("ban_c")] = 1
     return dist, blocked
+
+
+def seed_entries(seeds: dict, device) -> tuple:
+    """:func:`candidate_seeds`' entries as ``restricted_sweep_kernel``
+    reads them: ``(entries, n_hops)``, ``entries`` int32 ``[m, 2]`` rows of
+    ``(vertex, column)`` on ``device``, the ``n_hops`` first hops first,
+    then the spurs and the banned nodes."""
+    rows = np.concatenate([seeds["hop_r"], seeds["spur_r"], seeds["ban_r"]])
+    cols = np.concatenate([seeds["hop_c"],
+                           np.arange(seeds["spur_r"].size, dtype=np.int64),
+                           seeds["ban_c"]])
+    entries = np.stack([rows, cols], axis=1).astype(np.int32)
+    return (torch.from_numpy(entries).to(device), int(seeds["hop_r"].size))
+
+
+def _plane_entries(dist, blocked) -> tuple:
+    """:func:`seed_entries` listed from the seeded planes (a host read)."""
+    hops = torch.nonzero(dist == 1)
+    rest = torch.cat([torch.nonzero(dist == 0), torch.nonzero(blocked != 0)])
+    return (torch.cat([hops, rest]).to(torch.int32).contiguous(),
+            hops.shape[0])
+
+
+def seed_candidates(n: int, row_ptr, col_ind, cands, b: int, device):
+    """The seeded plane and the banned-node plane of one Yen iteration's
+    candidates, both ``[n, b]`` on ``device`` (:func:`seed_planes` of
+    :func:`candidate_seeds`)."""
+    return seed_planes(candidate_seeds(n, row_ptr, col_ind, cands), n, b,
+                       device)
 
 
 def restricted_batch_dists(g, row_ptr, col_ind, dst: int, cands, *,
@@ -401,9 +524,10 @@ def restricted_batch_dists(g, row_ptr, col_ind, dst: int, cands, *,
         raise ValueError("batched restricted BFS is plain-ELL only")
     b_pad = _pad_candidates(len(cands))
     rp, ci = graph_csr(g)
-    dist, blocked = seed_candidates(g.n, row_ptr, col_ind, cands, b_pad,
-                                    g.device)
-    st = restricted_sweep(rp, ci, dist, blocked, int(dst))
+    seeds = candidate_seeds(g.n, row_ptr, col_ind, cands)
+    dist, blocked = seed_planes(seeds, g.n, b_pad, g.device)
+    st = restricted_sweep(rp, ci, dist, blocked, int(dst),
+                          seeds=seed_entries(seeds, g.device))
     if stats is not None:
         stats.update(st)
     return dist[:, : len(cands)].cpu().numpy()

@@ -3163,9 +3163,9 @@ def delta_floor(n: int, dev) -> float:
     """``delta_stepping_kernel``'s cost a pass when a pass does almost
     nothing: a path of :data:`DELTA_FLOOR_PATH` vertices among ``n`` (the
     grid's vertex count, so its block count and table rows), end to end,
-    a vertex or two a bucket: the barriers, the scan of the table's rows
-    and a few dependent loads. Checked against the path's weight. Returns
-    microseconds a pass."""
+    a vertex or two a bucket: every pass runs in one block, a few
+    dependent loads and the block's syncs. Checked against the path's
+    weight. Returns microseconds a pass."""
     from bibfs_tpu_torch.graph.csr import build_ell
     from bibfs_tpu_torch.query.weighted import path_weight, synthetic_weights
 
@@ -3185,7 +3185,8 @@ def delta_floor(n: int, dev) -> float:
                      reps=3)
     us = ms * 1e3 / stats["passes"]
     print(json.dumps({"phase": "delta_floor", "n": n, "path": last + 1,
-                      "passes": stats["passes"], "ms": ms,
+                      "passes": stats["passes"],
+                      "solo_passes": stats.get("solo_passes"), "ms": ms,
                       "us_per_pass": us}), flush=True)
     return us
 
@@ -3249,7 +3250,10 @@ def delta_check(geometry: str, n: int, graph_pairs, csr, pairs, dev,
             4 * n_pad * width * info["passes"])
         line = dict(passes=info["passes"], buckets=info["buckets"],
                     relaxations=info["relaxations"], dist=res.dist,
-                    hops=res.hops, bound_ms=b_ms, bound_by=b_by,
+                    hops=res.hops, solo_passes=info.get("solo_passes"),
+                    grid_passes=info.get("grid_passes"),
+                    solo_cap=qd.DELTA_SOLO_CAP, lanes=qd.delta_lanes(width),
+                    bound_ms=b_ms, bound_by=b_by,
                     dense_bound_ms=dense_ms, dense_bound_by=dense_by,
                     max_abs_err=float((got - twin).abs().max()),
                     launches_per_solve=stats["launches"])
@@ -3285,11 +3289,13 @@ def restricted_check(geometry: str, n: int, csr, s: int, d: int, dev,
     rp, ci = csr
     cands = yen_first_cands(n, csr, s, d)
     b = qd._pad_candidates(len(cands))
-    seed, blocked = qd.seed_candidates(n, rp, ci, cands, b, dev)
+    seeds = qd.candidate_seeds(n, rp, ci, cands)
+    seed, blocked = qd.seed_planes(seeds, n, b, dev)
+    entries = qd.seed_entries(seeds, dev)
     rpd, cid = md.upload_csr(rp, ci, dev)
     got = seed.clone()
     before = qd.restricted_sweep.launches
-    st = qd.restricted_sweep(rpd, cid, got, blocked, d)
+    st = qd.restricted_sweep(rpd, cid, got, blocked, d, seeds=entries)
     check(qd.restricted_sweep.launches - before == int(on_card),
           f"restricted_sweep {geometry}: "
           f"{qd.restricted_sweep.launches - before} launches an iteration")
@@ -3313,14 +3319,20 @@ def restricted_check(geometry: str, n: int, csr, s: int, d: int, dev,
         rp, ci, np.where(plane >= qd.INF32, -1, plane).astype(np.int16))
     b_ms = frontier_ms(int(by_level.sum()))
     line = dict(candidates=len(cands), padded=b, levels=st["levels"],
-                run=st["run"], bound_ms=b_ms, bound_by="bytes",
+                run=st["run"], dense_levels=st.get("dense_levels"),
+                sparse_levels=st.get("sparse_levels"),
+                solo_levels=st.get("solo_levels"),
+                grid_levels=st.get("grid_levels"),
+                solo_cap=qd.sweep_solo_cap(md.lanes_per_vertex(n, len(ci))),
+                bound_ms=b_ms, bound_by="bytes",
                 max_abs_err=int((got.long() - twin.long()).abs().max()),
                 launches_per_iteration=1)
     if on_card:
         work = seed.clone()
         line.update(
-            ms=time_launch(lambda: qd.restricted_sweep(rpd, cid, work, blocked, d),
-                           lambda: work.copy_(seed)),
+            ms=time_launch(lambda: qd.restricted_sweep(
+                rpd, cid, work, blocked, d, seeds=entries),
+                lambda: work.copy_(seed)),
             plain_ms=plain_ms)
         adj = torch.sparse_csr_tensor(
             rpd, cid.to(torch.int64), torch.ones(cid.numel(), device=dev),
@@ -3569,11 +3581,14 @@ def query_kinds_phase(prep, dev_name: str = "cuda",
             k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "dense_bound_ms", "barrier_floor_ms",
                                  "library_ms", "max_abs_err", "passes",
+                                 "solo_passes", "grid_passes", "solo_cap",
                                  "launches_per_solve")}
         results["restricted_sweep"] = {
             **{k: gline[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "library_ms", "max_abs_err", "candidates",
-                                     "levels", "launches_per_iteration")},
+                                     "levels", "dense_levels", "solo_levels",
+                                     "grid_levels", "solo_cap",
+                                     "launches_per_iteration")},
             "gnp_ms": rline["ms"], "gnp_plain_ms": rline["plain_ms"],
             "gnp_bound_ms": rline["bound_ms"]}
     kernels_s = time.perf_counter() - t0

@@ -152,6 +152,38 @@ def test_ab_blocked_times_blocked_batches_of_both_checkouts(capsys):
     assert sys.modules["bibfs_tpu_torch.solvers.dense"] is dense
 
 
+@pytest.mark.parametrize("geom", ["grid-20x20", "gnp-deg8-s10"])
+def test_ab_kinds_times_both_checkouts_kernels(geom, capsys):
+    """``cli/ab.py --kinds`` against this very checkout as the parent (a
+    small grid and gnp graph, CPU): both checkouts' delta-stepping and
+    restricted sweeps agree (distances, counts, planes, levels), each is
+    timed in turns, and the modules it swapped are put back."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from bibfs_tpu_torch.cli import ab
+    from bibfs_tpu_torch.solvers import query_device
+
+    root = Path(ab.__file__).resolve().parents[2]
+    assert ab.main([str(root), "--kinds", geom, "--rounds", "2",
+                    "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["same_results"] is True and out["card"] == "cpu"
+    assert out["geometry"] == geom
+    pairs = 1 if geom.startswith("grid") else 4
+    assert len(out["delta_pairs"]) == pairs and out["candidates"] >= 1
+    for who in ("parent", "change"):
+        row = out[f"{who}/delta_stepping"]
+        assert row["solves"] == 2 * pairs and row["median_ms"] > 0
+        assert row["status"]["passes"] >= 2
+        row = out[f"{who}/restricted_sweep"]
+        assert row["solves"] == 2 and row["status"]["run"] >= 1
+    assert sys.modules["bibfs_tpu_torch.solvers.query_device"] is query_device
+    with pytest.raises(ValueError, match="no geometry"):
+        ab.main([str(root), "--kinds", "ring-9", "--device", "cpu"])
+
+
 def test_ab_build_split_parts_sum_to_the_build():
     """``cli/ab.py``'s ``build_split`` (what ``--oracle`` and
     ``chip_smoke.py`` phase 11 time) on a small grid on the CPU: the index

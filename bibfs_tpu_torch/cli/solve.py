@@ -11,7 +11,12 @@ line. The batch-only modes ``minor``, ``minor8`` and ``auto`` need
 ``--backend serial`` the host oracle and ``--backend native`` the C++
 host runtime (built with ``g++`` at first use; ``--pairs`` runs its
 threaded batch). Without a card and without ``--device cpu`` the dense
-search raises. ``--level-stats`` (one query, any backend) prints one
+search raises. ``--backend sharded --devices N`` runs the vertex-sharded
+search on N ranks spawned on this host (one card each over NCCL when
+there are N cards, else all on one card over staged gloo; ``--device
+cpu``: gloo ranks on the host), with ``--mode``, ``--layout``,
+``--unroll`` and ``--pairs`` (its queries one after another).
+``--level-stats`` (one query, any backend but ``sharded``) prints one
 ``[Level]`` line per level after the answer, then the meet level.
 
 ``--sources S1,S2,...`` (multi-source: the hops from every source to the
@@ -41,13 +46,18 @@ def main(argv=None):
     ap.add_argument("src", type=int, nargs="?", default=None)
     ap.add_argument("dst", type=int, nargs="?", default=None)
     ap.add_argument("--pairs", default=None, metavar="FILE",
-                    help='batch mode (dense/native backends): a file of '
-                    '"src dst" lines solved as one batch (native: the '
-                    "threaded host batch); replaces the positional src/dst")
+                    help='batch mode (dense/sharded/native backends): a '
+                    'file of "src dst" lines solved as one batch (native: '
+                    "the threaded host batch; sharded: one query after "
+                    "another); replaces the positional src/dst")
     ap.add_argument("--backend", default="dense",
-                    choices=["serial", "dense", "native"],
-                    help="the dense device search (default), the serial "
+                    choices=["serial", "dense", "sharded", "native"],
+                    help="the dense device search (default), the "
+                    "vertex-sharded search over --devices ranks, the serial "
                     "host oracle or the native C++ host runtime")
+    ap.add_argument("--devices", type=int, default=None, metavar="N",
+                    help="ranks of --backend sharded (default: every card; "
+                    "one rank with --device cpu)")
     ap.add_argument("--mode", default="sync",
                     choices=sorted(DENSE_MODES) + list(BATCH_ONLY),
                     help="dense schedule (default sync): sync/alt/beamer/"
@@ -92,10 +102,11 @@ def main(argv=None):
                     help="weight-derivation seed for --weighted (same seed "
                     "= same weights on every replica; default 0)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help="device of the dense backend and of the query "
-                    "kinds (default cuda; no silent CPU fallback; cpu runs "
-                    "the kinds on the host tier); the serial oracle runs "
-                    "on the host only")
+                    help="device of the dense and sharded backends and of "
+                    "the query kinds (default cuda; no silent CPU fallback; "
+                    "cpu runs the kinds on the host tier and the sharded "
+                    "ranks over gloo); the serial oracle runs on the host "
+                    "only")
     args = ap.parse_args(argv)
     taxonomy = (
         args.sources is not None or args.kshortest is not None
@@ -117,6 +128,9 @@ def main(argv=None):
             print(f"Error reading graph: {e}", file=sys.stderr)
             return 2
         return _taxonomy_main(ap, args, n, edges)
+    if args.devices is not None and (args.backend != "sharded"
+                                     or args.devices < 1):
+        ap.error("--devices N (N >= 1) applies to --backend sharded only")
     if args.mode in BATCH_ONLY:
         if args.pairs is None or args.backend != "dense":
             ap.error("--mode minor/minor8/auto are batch-only: use "
@@ -127,8 +141,8 @@ def main(argv=None):
                      "minor or sync")
     if args.pairs is not None:
         if args.backend == "serial":
-            ap.error("--pairs batch mode is supported by --backend dense "
-                     "and native")
+            ap.error("--pairs batch mode is supported by --backend dense, "
+                     "sharded and native")
         if args.src is not None or args.dst is not None:
             ap.error("--pairs replaces the positional src/dst arguments")
     elif args.src is None or args.dst is None:
@@ -146,7 +160,10 @@ def main(argv=None):
     if host and (
         args.layout != "ell" or args.mode != "sync" or args.unroll != 1
     ):
-        ap.error("--mode/--layout/--unroll apply to --backend dense only")
+        ap.error("--mode/--layout/--unroll apply to the device backends "
+                 "(dense, sharded) only")
+    if args.level_stats and args.backend == "sharded":
+        ap.error("--level-stats is not supported by --backend sharded")
     if host and args.device == "cuda":
         ap.error(f"--backend {args.backend} runs on the host and cannot "
                  "run on cuda")
@@ -212,6 +229,13 @@ def _solve(args, n, edges):
         if args.repeat > 1:
             return timed_repeats(run, run, args.repeat, force=None)[1]
         return run()
+    if args.backend == "sharded":
+        from bibfs_tpu_torch.solvers.sharded import solve_sharded
+
+        return solve_sharded(n, edges, args.src, args.dst,
+                             num_devices=args.devices, mode=args.mode,
+                             layout=args.layout, unroll=args.unroll,
+                             device=args.device, repeats=args.repeat)
     from bibfs_tpu_torch.solvers.dense import (
         DeviceGraph,
         solve_dense_graph,
@@ -252,6 +276,12 @@ def _batch_main(args, n, edges):
                                                     repeats=args.repeat)
             else:
                 results = solve_batch_native_graph(g, pairs)
+        elif args.backend == "sharded":
+            from bibfs_tpu_torch.solvers.sharded import solve_batch_sharded
+
+            results = solve_batch_sharded(
+                n, edges, pairs, num_devices=args.devices, mode=args.mode,
+                layout=args.layout, device=args.device, repeats=args.repeat)
         else:
             from bibfs_tpu_torch.solvers.dense import (
                 DeviceGraph,

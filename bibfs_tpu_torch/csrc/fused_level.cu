@@ -57,6 +57,13 @@
 // counts, maxima and sums are order-free integers, so any grid size and
 // either instantiation of the single-side kernel give the same result.
 //
+// A shard of a vertex-sharded search (bibfs_tpu_torch/solvers/sharded.py)
+// launches the same kernels over its own rows: the table holds global ids
+// in [0, id_space) (the sentinel is id_space), the input bitmaps span the
+// id space, local row v is global vertex row_offset + v (the meet key's
+// id), and the next bitmaps are written for the local tiles only. A single
+// device passes id_space = n_rows and row_offset = 0.
+//
 // The level kernels read the state row and return at once when the
 // search has stopped; the fold applies the round to the state under the
 // same test and clears the accumulators. A host can so launch several
@@ -153,10 +160,10 @@ __device__ __forceinline__ void flush_tally(int (&t)[6], unsigned long long key,
 // The lock-step round: both sides claim from one read of each row.
 __global__ void __launch_bounds__(kBlock) fused_dual_kernel(
     const int32_t* __restrict__ nbr_t, int64_t stride, int wp, int64_t n_rows,
-    const int32_t* __restrict__ deg, uint32_t* bits, int64_t nw_pad,
-    int32_t* dist_s, int32_t* dist_t, int32_t* par_s, int32_t* par_t,
-    const int32_t* __restrict__ state, int32_t* acc,
-    unsigned long long* meet) {
+    int64_t id_space, int64_t row_offset, const int32_t* __restrict__ deg,
+    uint32_t* bits, int64_t nw_pad, int32_t* dist_s, int32_t* dist_t,
+    int32_t* par_s, int32_t* par_t, const int32_t* __restrict__ state,
+    int32_t* acc, unsigned long long* meet) {
   if (!search_active(state)) return;  // the same answer for every thread
   const int32_t lvl_s = state[kLvlS];
   const int32_t lvl_t = state[kLvlT];
@@ -185,7 +192,7 @@ __global__ void __launch_bounds__(kBlock) fused_dual_kernel(
         const int32_t dg = row.dg;
         int32_t p_s = -1, p_t = -1;
         got = claim_chunked(nbr_t, stride, min(dg, wp), v,
-                            BitsFront{in_s, in_t, (uint32_t)n_rows}, want,
+                            BitsFront{in_s, in_t, (uint32_t)id_space}, want,
                             &p_s, &p_t);
         if (got & 1u) {
           d_s = lvl_s + 1;
@@ -202,7 +209,7 @@ __global__ void __launch_bounds__(kBlock) fused_dual_kernel(
           t[5] += dg;
         }
       }
-      key = umin64(key, meet_key(d_s, d_t, v));
+      key = umin64(key, meet_key(d_s, d_t, row_offset + v));
     }
     const unsigned ws = __ballot_sync(0xffffffffu, got & 1u);
     const unsigned wt = __ballot_sync(0xffffffffu, got & 2u);
@@ -221,7 +228,8 @@ __global__ void __launch_bounds__(kBlock) fused_dual_kernel(
 template <bool kStaged>
 __global__ void __launch_bounds__(kStaged ? kStagedBlock : kBlock)
 fused_single_kernel(const int32_t* __restrict__ nbr_t, int64_t stride, int wp,
-                    int64_t n_rows, const int32_t* __restrict__ deg,
+                    int64_t n_rows, int64_t id_space, int64_t row_offset,
+                    const int32_t* __restrict__ deg,
                     uint32_t* bits, int64_t nw_pad, int32_t* dist_s,
                     int32_t* dist_t, int32_t* par_s, int32_t* par_t,
                     const int32_t* __restrict__ state, int32_t* acc,
@@ -259,11 +267,11 @@ fused_single_kernel(const int32_t* __restrict__ nbr_t, int64_t stride, int wp,
         int32_t p = -1, unused = -1;
         if constexpr (kStaged) {
           got = claim_chunked(nbr_t, stride, min(dg, wp), v,
-                              StagedFront{(uint32_t)n_rows}, 1u, &p, &unused);
+                              StagedFront{(uint32_t)id_space}, 1u, &p, &unused);
         } else {
           got = claim_chunked(nbr_t, stride, min(dg, wp), v,
-                              BitsFront{in, nullptr, (uint32_t)n_rows}, 1u, &p,
-                              &unused);
+                              BitsFront{in, nullptr, (uint32_t)id_space}, 1u,
+                              &p, &unused);
         }
         if (got) {
           d_a = lvl + 1;
@@ -273,7 +281,7 @@ fused_single_kernel(const int32_t* __restrict__ nbr_t, int64_t stride, int wp,
           t[4] += dg;
         }
       }
-      key = umin64(key, meet_key(d_a, d_p, v));
+      key = umin64(key, meet_key(d_a, d_p, row_offset + v));
     }
     const unsigned w = __ballot_sync(0xffffffffu, got);
     if (lane == 0) out[tile] = w;
@@ -316,10 +324,10 @@ __global__ void fold_round_kernel(int32_t* state, int32_t* acc,
 
 namespace {
 
-typedef void (*RoundKernel)(const int32_t*, int64_t, int, int64_t,
-                            const int32_t*, uint32_t*, int64_t, int32_t*,
-                            int32_t*, int32_t*, int32_t*, const int32_t*,
-                            int32_t*, unsigned long long*);
+typedef void (*RoundKernel)(const int32_t*, int64_t, int, int64_t, int64_t,
+                            int64_t, const int32_t*, uint32_t*, int64_t,
+                            int32_t*, int32_t*, int32_t*, int32_t*,
+                            const int32_t*, int32_t*, unsigned long long*);
 
 // Blocks of `kernel` the card holds at once with `dyn` bytes of dynamic
 // shared memory each: SMs x resident blocks per SM, queried at the first
@@ -372,9 +380,10 @@ int resident_blocks(RoundKernel kernel, int block, size_t dyn, Resident* r,
 // tiles), each warp striding over the tiles.
 int launch_round(RoundKernel kernel, int block, size_t dyn, Resident* r,
                  const void* nbr_t, int64_t stride, int wp, int64_t n_rows,
-                 const void* deg, void* bits, int64_t nw_pad, void* dist_s,
-                 void* dist_t, void* par_s, void* par_t, const void* state,
-                 void* acc, void* meet, void* stream) {
+                 int64_t id_space, int64_t row_offset, const void* deg,
+                 void* bits, int64_t nw_pad, void* dist_s, void* dist_t,
+                 void* par_s, void* par_t, const void* state, void* acc,
+                 void* meet, void* stream) {
   if (n_rows <= 0) return (int)cudaGetLastError();
   const int64_t tiles = (n_rows + 31) / 32;
   const int64_t warps = block / 32;
@@ -384,8 +393,9 @@ int launch_round(RoundKernel kernel, int block, size_t dyn, Resident* r,
   if (e != 0) return e;
   if (grid > resident) grid = resident;
   kernel<<<(unsigned)grid, block, dyn, (cudaStream_t)stream>>>(
-      (const int32_t*)nbr_t, stride, wp, n_rows, (const int32_t*)deg,
-      (uint32_t*)bits, nw_pad, (int32_t*)dist_s, (int32_t*)dist_t,
+      (const int32_t*)nbr_t, stride, wp, n_rows, id_space, row_offset,
+      (const int32_t*)deg, (uint32_t*)bits, nw_pad, (int32_t*)dist_s,
+      (int32_t*)dist_t,
       (int32_t*)par_s, (int32_t*)par_t, (const int32_t*)state, (int32_t*)acc,
       (unsigned long long*)meet);
   return (int)cudaGetLastError();
@@ -393,24 +403,27 @@ int launch_round(RoundKernel kernel, int block, size_t dyn, Resident* r,
 
 }  // namespace
 
-// Kernel 1.
+// Kernel 1. `bits` holds 4 rows of nw_pad words over the id space.
 extern "C" int bibfs_fused_dual(const void* nbr_t, int64_t stride, int wp,
-                                int64_t n_rows, const void* deg, void* bits,
+                                int64_t n_rows, int64_t id_space,
+                                int64_t row_offset, const void* deg, void* bits,
                                 int64_t nw_pad, void* dist_s, void* dist_t,
                                 void* par_s, void* par_t, const void* state,
                                 void* acc, void* meet, void* stream) {
   static Resident r;
   return launch_round(&fused_dual_kernel, kBlock, 0, &r, nbr_t, stride, wp,
-                      n_rows, deg, bits, nw_pad, dist_s, dist_t, par_s, par_t,
-                      state, acc, meet, stream);
+                      n_rows, id_space, row_offset, deg, bits, nw_pad,
+                      dist_s, dist_t, par_s, par_t, state, acc, meet, stream);
 }
 
 // Kernel 2. staged = 1 copies the active bitmap (nw_pad * 4 bytes) into
 // shared memory first and takes 1024-thread blocks; staged = 0 reads it
 // through __ldg.
 extern "C" int bibfs_fused_single(const void* nbr_t, int64_t stride, int wp,
-                                  int64_t n_rows, const void* deg, void* bits,
-                                  int64_t nw_pad, void* dist_s, void* dist_t,
+                                  int64_t n_rows, int64_t id_space,
+                                  int64_t row_offset, const void* deg,
+                                  void* bits, int64_t nw_pad, void* dist_s,
+                                  void* dist_t,
                                   void* par_s, void* par_t, const void* state,
                                   void* acc, void* meet, int staged,
                                   void* stream) {
@@ -419,12 +432,13 @@ extern "C" int bibfs_fused_single(const void* nbr_t, int64_t stride, int wp,
     if (nw_pad % 4 != 0) return (int)cudaErrorInvalidValue;
     return launch_round(&fused_single_kernel<true>, kStagedBlock,
                         (size_t)nw_pad * 4, &rs, nbr_t, stride, wp, n_rows,
-                        deg, bits, nw_pad, dist_s, dist_t, par_s, par_t,
-                        state, acc, meet, stream);
+                        id_space, row_offset, deg, bits, nw_pad, dist_s,
+                        dist_t, par_s, par_t, state, acc, meet, stream);
   }
   return launch_round(&fused_single_kernel<false>, kBlock, 0, &r, nbr_t,
-                      stride, wp, n_rows, deg, bits, nw_pad, dist_s, dist_t,
-                      par_s, par_t, state, acc, meet, stream);
+                      stride, wp, n_rows, id_space, row_offset, deg, bits,
+                      nw_pad, dist_s, dist_t, par_s, par_t, state, acc, meet,
+                      stream);
 }
 
 extern "C" int bibfs_fold_round(void* state, void* acc, void* meet, int alt,

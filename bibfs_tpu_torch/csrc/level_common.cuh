@@ -9,8 +9,10 @@
 // Tables are slot-major: nbr_t[j * stride + v] is the j-th neighbour of
 // vertex row v. A row's live slots are a prefix of length min(deg[v],
 // width), so a claim bounded by the degree never reads a dead slot (which
-// holds the sentinel id, the table's row count). On a tiered base table a
-// hub row's degree exceeds the width and the bound is the width.
+// holds the sentinel id, the id space: the table's row count on one
+// device, the global vertex count on a shard of a vertex-sharded search).
+// On a tiered base table a hub row's degree exceeds the width and the bound
+// is the width.
 //
 // Frontiers are bitmaps of uint32 words: one bit per vertex (bit u & 31 of
 // word u >> 5) per side, or, for the dual pull kernel, one pair row of 2

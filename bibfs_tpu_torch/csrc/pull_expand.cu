@@ -73,9 +73,13 @@ using namespace bibfs;
 
 namespace {
 
-// What a launch reads and writes. `front` holds n_ids vertices (a bitmap,
-// or the pair row); the next frontier goes to `out`, written for `tiles`
-// warp tiles (rows past n_rows write zero bits).
+// What a launch reads and writes. `front` holds the n_ids vertices of the
+// id space (a bitmap, or the pair row): the table's rows are n_rows local
+// rows whose live slots hold ids in [0, n_ids) (a shard of a
+// vertex-sharded search gathers from the global frontier; a single device
+// has n_ids = n_rows). The next frontier goes to `out`, written for
+// `tiles` warp tiles of the local rows (rows past n_rows write zero
+// bits).
 struct PullArgs {
   const int32_t* nbr_t;
   int64_t stride;
@@ -304,31 +308,31 @@ int launch_pull(void (*kernel)(PullArgs), const PullArgs& a, void* stream) {
 
 }  // namespace
 
-// Kernel 4. `bits` holds words_in words (32 vertices each); `out` takes
-// `tiles` words.
+// Kernel 4. `bits` holds the n_ids vertices of the id space (32 a word);
+// `out` takes `tiles` words.
 extern "C" int bibfs_pull(const void* nbr_t, int64_t stride, int wp,
-                          int64_t n_rows, const void* deg, const void* bits,
-                          int64_t words_in, const void* vis, void* nf,
+                          int64_t n_rows, int64_t n_ids, const void* deg,
+                          const void* bits, const void* vis, void* nf,
                           void* pc, void* out, int64_t tiles, void* stream) {
   const PullArgs a{(const int32_t*)nbr_t, stride, wp, n_rows,
                    (const int32_t*)deg, (const uint32_t*)bits,
-                   (uint32_t)(words_in * 32), (const uint8_t*)vis, nullptr,
+                   (uint32_t)n_ids, (const uint8_t*)vis, nullptr,
                    (uint8_t*)nf, (int32_t*)pc, nullptr, nullptr,
                    (uint32_t*)out, tiles};
   return launch_pull(&pull_kernel, a, stream);
 }
 
-// Kernel 3. `pair` holds words_in words (16 vertices each); `out` takes
-// 2 * tiles words.
+// Kernel 3. `pair` holds the n_ids vertices of the id space (16 a word);
+// `out` takes 2 * tiles words.
 extern "C" int bibfs_pull_dual(const void* nbr_t, int64_t stride, int wp,
-                               int64_t n_rows, const void* deg,
-                               const void* pair, int64_t words_in,
-                               const void* vis_s, const void* vis_t,
-                               void* nf_s, void* pc_s, void* nf_t, void* pc_t,
-                               void* out, int64_t tiles, void* stream) {
+                               int64_t n_rows, int64_t n_ids, const void* deg,
+                               const void* pair, const void* vis_s,
+                               const void* vis_t, void* nf_s, void* pc_s,
+                               void* nf_t, void* pc_t, void* out,
+                               int64_t tiles, void* stream) {
   const PullArgs a{(const int32_t*)nbr_t, stride, wp, n_rows,
                    (const int32_t*)deg, (const uint32_t*)pair,
-                   (uint32_t)(words_in * 16), (const uint8_t*)vis_s,
+                   (uint32_t)n_ids, (const uint8_t*)vis_s,
                    (const uint8_t*)vis_t, (uint8_t*)nf_s, (int32_t*)pc_s,
                    (uint8_t*)nf_t, (int32_t*)pc_t, (uint32_t*)out, tiles};
   return launch_pull(&pull_dual_kernel, a, stream);

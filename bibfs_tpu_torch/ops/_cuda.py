@@ -33,14 +33,15 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ROUND = [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P]
+_ROUND = [_P, _I64, _I, _I64, _I64, _I64, _P, _P, _I64, _P, _P, _P, _P, _P,
+          _P, _P]
 # extern "C" launchers per source; every pointer and the stream are
 # c_void_p, sizes c_int64, small ints c_int; each returns a cudaError_t
 SIGNATURES = {
     "pull_expand": {
-        "bibfs_pull": [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P, _P,
+        "bibfs_pull": [_P, _I64, _I, _I64, _I64, _P, _P, _P, _P, _P, _P,
                        _I64, _P],
-        "bibfs_pull_dual": [_P, _I64, _I, _I64, _P, _P, _I64, _P, _P, _P,
+        "bibfs_pull_dual": [_P, _I64, _I, _I64, _I64, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P, _I64, _P],
         "bibfs_pull_batch": [_P, _I64, _I, _I64, _P, _P, _P, _I64, _P, _I64,
                              _P, _P, _P, _P, _P],

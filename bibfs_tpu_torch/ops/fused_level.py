@@ -24,6 +24,15 @@ leaves the passive side's bitmap in place. A round whose search has
 stopped does nothing, so a host may launch several rounds between reads
 of the state.
 
+A shard of the vertex-sharded search
+(:mod:`bibfs_tpu_torch.solvers.sharded`) runs the round kernels over its
+own rows with ``id_space`` (the global row count: the bitmaps span it, the
+table's slots are global ids, the sentinel is ``id_space``) and
+``row_offset`` (the global id of local row 0, which the meet key carries);
+the next bitmaps are written for the local rows' words only, and the
+caller gathers them. One device passes neither (``id_space = n_rows``,
+``row_offset = 0``).
+
 The functional forms :func:`fused_dual_level` / :func:`fused_single_level`
 keep the JAX contract (a uint8 dual row in and out: bit 0 source side,
 bit 1 target side) and pack and unpack around one round.
@@ -67,10 +76,11 @@ S = {k: i for i, k in enumerate(STATE_SLOTS)}
 _BIG64 = (1 << 63) - 1
 
 
-def prepare_fused_tables(nbr, deg) -> tuple:
+def prepare_fused_tables(nbr, deg, id_space: int | None = None) -> tuple:
     """``(nbr_t, deg)``: the one table of all four kernels
-    (:func:`sentinel_transposed_table`) and the degree row, unpadded."""
-    return sentinel_transposed_table(nbr, deg), deg
+    (:func:`sentinel_transposed_table`, sentinel ``id_space``) and the
+    degree row, unpadded."""
+    return sentinel_transposed_table(nbr, deg, id_space), deg
 
 
 def new_frontier(src: int, dst: int, n_rows: int, device) -> torch.Tensor:
@@ -119,60 +129,67 @@ def decode_meet(key: int) -> tuple[int, int]:
     return key >> 32, key & 0xFFFFFFFF
 
 
-def _fold_side(acc, key, side: int, nf, deg, d_a, d_b):
+def _fold_side(acc, key, side: int, nf, deg, d_a, d_b, row_offset: int = 0):
     """Plain accumulation of one side's round reductions and the meet
-    candidates of ``(d_a, d_b)``, as the kernels' atomics do."""
+    candidates of ``(d_a, d_b)`` (global ids from ``row_offset``), as the
+    kernels' atomics do."""
     nd = torch.where(nf, deg, 0)
     acc[side] += nf.sum(dtype=torch.int32)
     acc[2 + side] = torch.maximum(acc[2 + side], nd.max())
     acc[4 + side] += nd.sum(dtype=torch.int32)
     both = (d_a < INF32) & (d_b < INF32)
-    ids = torch.arange(d_a.shape[0], device=d_a.device)
+    ids = row_offset + torch.arange(d_a.shape[0], device=d_a.device)
     cand = torch.where(both, ((d_a + d_b).long() << 32) | ids, _BIG64).min()
     cur = key[0]
     new = torch.where(cur == NO_MEET, cand, torch.minimum(cur, cand))
     key[0] = torch.where(cand == _BIG64, cur, new)
 
 
-def _claim_side(nbr_t, bits, side: int, lvl: int, dist, par):
-    """Plain claim of one side from its bitmap at level ``lvl``: updates
-    ``dist``/``par`` in place, writes the next bitmap into the other parity
-    and returns the new frontier ``bool[n_rows]``."""
+def _claim_side(nbr_t, bits, side: int, lvl: int, dist, par, id_space: int):
+    """Plain claim of one side from its bitmap (over ``id_space``
+    vertices) at level ``lvl``: updates ``dist``/``par`` in place, writes
+    the next bitmap's words of the local rows into the other parity and
+    returns the new frontier ``bool[n_rows]``."""
     n_rows = dist.shape[0]
-    front = unpack_bits(bits[side, lvl & 1], n_rows)
+    front = unpack_bits(bits[side, lvl & 1], id_space)
     hit = gather_bits(front, nbr_t, n_rows) > 0
     nf, p = claim_plain(hit, nbr_t[:, :n_rows], dist >= INF32)
     dist.copy_(torch.where(nf, lvl + 1, dist))
     par.copy_(torch.where(nf, p, par))
-    bits[side, (lvl + 1) & 1] = pack_bits(nf, bits.shape[2])
+    tiles = -(-n_rows // 32)
+    bits[side, (lvl + 1) & 1, :tiles] = pack_bits(nf, tiles)
     return nf
 
 
 def fused_dual_round_plain(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
-                           state, acc, key):
+                           state, acc, key, *, id_space: int | None = None,
+                           row_offset: int = 0):
     """Plain twin of :func:`fused_dual_round` (reads the state on the
     host)."""
     st = state.tolist()
     if not active(st):
         return
-    nf_s = _claim_side(nbr_t, bits, 0, st[S["lvl_s"]], dist_s, par_s)
-    nf_t = _claim_side(nbr_t, bits, 1, st[S["lvl_t"]], dist_t, par_t)
-    _fold_side(acc, key, 0, nf_s, deg2, dist_s, dist_t)
-    _fold_side(acc, key, 1, nf_t, deg2, dist_s, dist_t)
+    ids = nbr_t.shape[1] if id_space is None else id_space
+    nf_s = _claim_side(nbr_t, bits, 0, st[S["lvl_s"]], dist_s, par_s, ids)
+    nf_t = _claim_side(nbr_t, bits, 1, st[S["lvl_t"]], dist_t, par_t, ids)
+    _fold_side(acc, key, 0, nf_s, deg2, dist_s, dist_t, row_offset)
+    _fold_side(acc, key, 1, nf_t, deg2, dist_s, dist_t, row_offset)
 
 
 def check_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t, state, acc,
-                key) -> None:
+                key, *, id_space: int | None = None) -> None:
     """Validate the buffers of a round on the card (shapes, dtypes, one
-    device, contiguous). A search checks its buffers once and then
-    launches with ``checked=True``."""
+    device, contiguous): the bitmaps span ``id_space`` vertices (default
+    the table's rows). A search checks its buffers once and then launches
+    with ``checked=True``."""
     _check_table(nbr_t)
     n_rows = nbr_t.shape[1]
     rows = (deg2, dist_s, dist_t, par_s, par_t)
     if any(r.shape[0] != n_rows for r in rows):
         raise ValueError("deg/dist/par rows must match the table's rows")
-    if bits.shape != (2, 2, frontier_words(n_rows)):
-        raise ValueError("bits must be [2, 2, frontier_words(n_rows)] "
+    ids = n_rows if id_space is None else id_space
+    if ids < n_rows or bits.shape != (2, 2, frontier_words(ids)):
+        raise ValueError("bits must be [2, 2, frontier_words(id_space)] "
                          "(new_frontier)")
     if state.shape[0] < len(STATE_SLOTS) or acc.shape[0] < 6 or key.shape[0] < 1:
         raise ValueError("state/acc/key are too short")
@@ -186,15 +203,18 @@ def check_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t, state, acc,
 
 
 def _launch_round(fn: str, checked: bool, nbr_t, deg2, bits, dist_s, dist_t,
-                  par_s, par_t, state, acc, key, *flags: int) -> None:
+                  par_s, par_t, state, acc, key, *flags: int,
+                  id_space: int | None = None, row_offset: int = 0) -> None:
     """Launch one round kernel; ``flags`` are the launcher's trailing ints
     (the single-side kernel's ``staged``)."""
     if not checked:
         check_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t, state,
-                    acc, key)
+                    acc, key, id_space=id_space)
+    ids = nbr_t.shape[1] if id_space is None else id_space
     _cuda.launch(
         "fused_level", fn, nbr_t.data_ptr(), nbr_t.stride(0), nbr_t.shape[0],
-        nbr_t.shape[1], deg2.data_ptr(), bits.data_ptr(), bits.shape[2],
+        nbr_t.shape[1], ids, row_offset, deg2.data_ptr(), bits.data_ptr(),
+        bits.shape[2],
         dist_s.data_ptr(), dist_t.data_ptr(), par_s.data_ptr(),
         par_t.data_ptr(), state.data_ptr(), acc.data_ptr(), key.data_ptr(),
         *flags,
@@ -213,18 +233,22 @@ def _single_round_unstaged(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
 
 
 def fused_dual_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t, state,
-                     acc, key, *, checked: bool = False) -> None:
+                     acc, key, *, id_space: int | None = None,
+                     row_offset: int = 0, checked: bool = False) -> None:
     """One lock-step round for both sides, in place: claims the next
     frontiers into the other parity of ``bits`` and into dist/par, and
     accumulates counts, max degrees, degree sums and the meet vote into
     ``acc``/``key``. Does nothing when the state says the search has
-    stopped. ``checked`` skips the validation a caller has already run
-    (:func:`check_round`)."""
+    stopped. ``id_space`` / ``row_offset`` place the table's rows in a
+    global id space (a shard; the module docstring). ``checked`` skips the
+    validation a caller has already run (:func:`check_round`)."""
     if not nbr_t.is_cuda:
         return fused_dual_round_plain(nbr_t, deg2, bits, dist_s, dist_t,
-                                      par_s, par_t, state, acc, key)
+                                      par_s, par_t, state, acc, key,
+                                      id_space=id_space, row_offset=row_offset)
     _launch_round("bibfs_fused_dual", checked, nbr_t, deg2, bits, dist_s,
-                  dist_t, par_s, par_t, state, acc, key)
+                  dist_t, par_s, par_t, state, acc, key, id_space=id_space,
+                  row_offset=row_offset)
     _cuda.count_launch(fused_dual_round)
 
 
@@ -238,7 +262,8 @@ def _alt_side(st: list) -> int:
 
 
 def fused_single_round_plain(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
-                             state, acc, key):
+                             state, acc, key, *, id_space: int | None = None,
+                             row_offset: int = 0):
     """Plain twin of :func:`fused_single_round`."""
     st = state.tolist()
     if not active(st):
@@ -246,22 +271,29 @@ def fused_single_round_plain(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
     side = _alt_side(st)
     dist_a, dist_p = (dist_s, dist_t) if side == 0 else (dist_t, dist_s)
     par_a = par_s if side == 0 else par_t
-    nf = _claim_side(nbr_t, bits, side, st[S["lvl_s"] + side], dist_a, par_a)
-    _fold_side(acc, key, side, nf, deg2, dist_a, dist_p)
+    ids = nbr_t.shape[1] if id_space is None else id_space
+    nf = _claim_side(nbr_t, bits, side, st[S["lvl_s"] + side], dist_a, par_a,
+                     ids)
+    _fold_side(acc, key, side, nf, deg2, dist_a, dist_p, row_offset)
 
 
 def fused_single_round(nbr_t, deg2, bits, dist_s, dist_t, par_s, par_t,
-                       state, acc, key, *, checked: bool = False) -> None:
+                       state, acc, key, *, id_space: int | None = None,
+                       row_offset: int = 0, checked: bool = False) -> None:
     """One alt round, in place, for the side the state picks (the smaller
     frontier): the other side's bitmap stays where it is and its rows are
     only read (for the meet vote). The kernel stages the active bitmap in
-    shared memory when :func:`stage_fits`."""
+    shared memory when :func:`stage_fits`. ``id_space`` / ``row_offset``
+    as in :func:`fused_dual_round`."""
     if not nbr_t.is_cuda:
         return fused_single_round_plain(nbr_t, deg2, bits, dist_s, dist_t,
-                                        par_s, par_t, state, acc, key)
+                                        par_s, par_t, state, acc, key,
+                                        id_space=id_space,
+                                        row_offset=row_offset)
     _launch_round("bibfs_fused_single", checked, nbr_t, deg2, bits, dist_s,
                   dist_t, par_s, par_t, state, acc, key,
-                  int(stage_fits(bits.shape[2])))
+                  int(stage_fits(bits.shape[2])), id_space=id_space,
+                  row_offset=row_offset)
     _cuda.count_launch(fused_single_round)
 
 
@@ -340,14 +372,19 @@ def fused_dual_level(dual_row, nbr_t, deg2, dist_s, dist_t, par_s, par_t,
     (the contract of the JAX ``fused_dual_level``): returns ``(dual_next,
     dist_s', dist_t', par_s', par_t', cnt_s, cnt_t, md_s, md_t, degsum_s,
     degsum_t, meet_val, meet_idx)`` with the scalars as ints; the inputs
-    are left untouched."""
+    are left untouched. ``dual_row`` spans the id space (the global row
+    of a shard, whose table holds global ids), the dist and par rows and
+    ``dual_next`` the table's rows; ``meet_idx`` is a local row, as the
+    reference's."""
     dev = nbr_t.device
     ds, dt, ps, pt = (x.clone() for x in (dist_s, dist_t, par_s, par_t))
     n_rows = ds.shape[0]
-    bits = _bits_of_row(dual_row, lvl_s - 1, lvl_t - 1, n_rows)
+    ids = dual_row.shape[0]
+    bits = _bits_of_row(dual_row, lvl_s - 1, lvl_t - 1, ids)
     state = _level_state(lvl_s, lvl_t, 1, dev)
     acc, key = new_scratch(dev)
-    fused_dual_round(nbr_t, deg2, bits, ds, dt, ps, pt, state, acc, key)
+    fused_dual_round(nbr_t, deg2, bits, ds, dt, ps, pt, state, acc, key,
+                     id_space=ids)
     out = _row_of_bits(bits, lvl_s, lvl_t, n_rows)
     return (out, ds, dt, ps, pt, *acc.tolist(), *decode_meet(int(key[0])))
 

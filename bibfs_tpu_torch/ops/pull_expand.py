@@ -8,8 +8,13 @@ of the dense search (modes ``pallas`` and ``pallas_alt``).
   the single-side form.
 
 The table is the TPU kernels' slot-major table without their padding:
-``nbr_t int32[width, n_rows]``, dead slots holding the sentinel id
-``n_rows`` (:func:`sentinel_transposed_table`). The kernels bound row
+``nbr_t int32[width, n_rows]``, dead slots holding the sentinel id, the
+id space (:func:`sentinel_transposed_table`). On one device the id space
+is ``n_rows``; a shard of the vertex-sharded search
+(:mod:`bibfs_tpu_torch.solvers.sharded`) holds its own rows, whose slots
+are global ids, and passes ``id_space`` (the global row count, the
+frontier's length): the reference's ``id_space``. Parents are table
+entries, so they are global ids as they are. The kernels bound row
 ``v`` by ``min(deg[v], width)``, so they never read a dead slot; on a
 tiered base table a hub row's degree exceeds the width and the whole row
 is live. The frontier comes in as bitmaps (:mod:`.bitmap`) and the
@@ -79,27 +84,30 @@ from bibfs_tpu_torch.ops.minor_level import pack_sides
 CHUNK = 8  # table slots per chunk of independent loads (kChunk in the kernels)
 
 
-def sentinel_transposed_table(nbr, deg):
+def sentinel_transposed_table(nbr, deg, id_space: int | None = None):
     """The table of all four kernels: the ``[n_rows, width]`` ELL table
-    with its dead slots masked to the sentinel id ``n_rows`` (whose
-    frontier value reads 0), transposed to slot-major ``int32[width,
-    n_rows]``. The CUDA kernels take any row count and width, so nothing is
-    padded."""
+    with its dead slots masked to the sentinel id ``id_space`` (default
+    ``n_rows``; whose frontier value reads 0), transposed to slot-major
+    ``int32[width, n_rows]``. The CUDA kernels take any row count and
+    width, so nothing is padded."""
     n_rows, width = nbr.shape
     mask = torch.arange(width, device=nbr.device)[None, :] < deg[:, None]
-    return torch.where(mask, nbr.to(torch.int32), n_rows).T.contiguous()
+    sent = n_rows if id_space is None else id_space
+    return torch.where(mask, nbr.to(torch.int32), sent).T.contiguous()
 
 
-def prepare_pallas_tables(nbr, deg) -> tuple:
+def prepare_pallas_tables(nbr, deg, id_space: int | None = None) -> tuple:
     """The pull kernels' table as a one-element tuple ``(nbr_t,)``
     (:func:`sentinel_transposed_table`)."""
-    return (sentinel_transposed_table(nbr, deg),)
+    return (sentinel_transposed_table(nbr, deg, id_space),)
 
 
-def live_slots(nbr_t) -> torch.Tensor:
+def live_slots(nbr_t, id_space: int | None = None) -> torch.Tensor:
     """Each row's live slots, ``int32[n_rows]``: the slots below the
-    sentinel, which is ``min(deg, width)`` for the row's degree."""
-    return (nbr_t < nbr_t.shape[1]).sum(dim=0, dtype=torch.int32)
+    sentinel ``id_space`` (default the row count), which is ``min(deg,
+    width)`` for the row's degree."""
+    sent = nbr_t.shape[1] if id_space is None else id_space
+    return (nbr_t < sent).sum(dim=0, dtype=torch.int32)
 
 
 def gather_bits(front, nbr_t, n_rows: int):
@@ -135,10 +143,14 @@ def _live_vals(front, nbr_t, deg, n_rows: int):
     return torch.where(live, gather_bits(front, nbr_t, n_rows), 0)
 
 
-def pull_single_plain(nbr_t, deg, bits, visited):
+def _id_space(nbr_t, id_space):
+    return nbr_t.shape[1] if id_space is None else int(id_space)
+
+
+def pull_single_plain(nbr_t, deg, bits, visited, *, id_space=None):
     """Plain twin of :func:`pull_single`."""
     n_rows = visited.shape[0]
-    front = unpack_bits(bits, bits.shape[0] * 32)
+    front = unpack_bits(bits, _id_space(nbr_t, id_space))
     hit = _live_vals(front, nbr_t, deg, n_rows) > 0
     nf, pc = claim_plain(hit, nbr_t[:, :n_rows], ~visited)
     return nf, pc, pack_bits(nf, frontier_words(n_rows))
@@ -157,7 +169,8 @@ def check_pull(nbr_t, deg, n_rows: int) -> None:
 
 
 def _check_launch(nbr_t, deg, front, words: int, **rows) -> None:
-    """Validate one launch's inputs (a caller that did not check them)."""
+    """Validate one launch's inputs (a caller that did not check them):
+    the frontier row holds ``words`` words, the id space's."""
     n_rows = next(iter(rows.values())).shape[0]
     check_pull(nbr_t, deg, n_rows)
     if any(r.shape[0] != n_rows for r in rows.values()):
@@ -168,11 +181,11 @@ def _check_launch(nbr_t, deg, front, words: int, **rows) -> None:
     _cuda.check_cuda(nbr_t.device, front=front, **rows)
 
 
-def _launch_single(nbr_t, deg, bits, visited, checked: bool):
+def _launch_single(nbr_t, deg, bits, visited, id_space: int, checked: bool):
     n_rows = visited.shape[0]
     if not checked:
         visited = visited.to(torch.bool).contiguous()
-        _check_launch(nbr_t, deg, bits, frontier_words(nbr_t.shape[1]),
+        _check_launch(nbr_t, deg, bits, frontier_words(id_space),
                       visited=visited)
     dev = nbr_t.device
     nf = torch.empty(n_rows, dtype=torch.bool, device=dev)
@@ -180,21 +193,24 @@ def _launch_single(nbr_t, deg, bits, visited, checked: bool):
     out = torch.empty(frontier_words(n_rows), dtype=torch.int32, device=dev)
     _cuda.launch(
         "pull_expand", "bibfs_pull", nbr_t.data_ptr(), nbr_t.stride(0),
-        nbr_t.shape[0], n_rows, deg.data_ptr(), bits.data_ptr(),
-        bits.shape[0], visited.data_ptr(), nf.data_ptr(), pc.data_ptr(),
-        out.data_ptr(), out.shape[0],
+        nbr_t.shape[0], n_rows, id_space, deg.data_ptr(), bits.data_ptr(),
+        visited.data_ptr(), nf.data_ptr(), pc.data_ptr(), out.data_ptr(),
+        out.shape[0],
     )
     return nf, pc, out
 
 
-def pull_single(nbr_t, deg, bits, visited, *, checked: bool = False):
+def pull_single(nbr_t, deg, bits, visited, *, id_space: int | None = None,
+                checked: bool = False):
     """One side's ``(next_frontier bool[n_rows], parent int32[n_rows],
     next_bits int32[frontier_words(n_rows)])`` for ``n_rows =
     len(visited)`` table rows, from the frontier bitmap ``bits`` over the
-    table's ids. ``checked`` skips the validation (:func:`check_pull`)."""
+    id space (``id_space`` vertices, default the table's rows).
+    ``checked`` skips the validation (:func:`check_pull`)."""
     if not nbr_t.is_cuda:
-        return pull_single_plain(nbr_t, deg, bits, visited)
-    out = _launch_single(nbr_t, deg, bits, visited, checked)
+        return pull_single_plain(nbr_t, deg, bits, visited, id_space=id_space)
+    out = _launch_single(nbr_t, deg, bits, visited,
+                         _id_space(nbr_t, id_space), checked)
     _cuda.count_launch(pull_single)
     return out
 
@@ -208,10 +224,10 @@ def pack_front(fr_s, fr_t, n_ids: int):
     return pack_pairs(fr_s, fr_t, 2 * frontier_words(n_ids))
 
 
-def pull_dual_plain(nbr_t, deg, pair, vis_s, vis_t):
+def pull_dual_plain(nbr_t, deg, pair, vis_s, vis_t, *, id_space=None):
     """Plain twin of :func:`pull_dual`."""
     n_rows = vis_s.shape[0]
-    fr_s, fr_t = unpack_pairs(pair, pair.shape[0] * 16)
+    fr_s, fr_t = unpack_pairs(pair, _id_space(nbr_t, id_space))
     vals = _live_vals(fr_s.to(torch.uint8) | (fr_t.to(torch.uint8) << 1),
                       nbr_t, deg, n_rows)
     rows = nbr_t[:, :n_rows]
@@ -220,12 +236,13 @@ def pull_dual_plain(nbr_t, deg, pair, vis_s, vis_t):
     return nf_s, pc_s, nf_t, pc_t, pack_front(nf_s, nf_t, n_rows)
 
 
-def _launch_dual(nbr_t, deg, pair, vis_s, vis_t, checked: bool):
+def _launch_dual(nbr_t, deg, pair, vis_s, vis_t, id_space: int,
+                 checked: bool):
     n_rows = vis_s.shape[0]
     if not checked:
         vis_s = vis_s.to(torch.bool).contiguous()
         vis_t = vis_t.to(torch.bool).contiguous()
-        _check_launch(nbr_t, deg, pair, 2 * frontier_words(nbr_t.shape[1]),
+        _check_launch(nbr_t, deg, pair, 2 * frontier_words(id_space),
                       vis_s=vis_s, vis_t=vis_t)
     dev = nbr_t.device
     nf_s = torch.empty(n_rows, dtype=torch.bool, device=dev)
@@ -236,22 +253,25 @@ def _launch_dual(nbr_t, deg, pair, vis_s, vis_t, checked: bool):
     out = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
     _cuda.launch(
         "pull_expand", "bibfs_pull_dual", nbr_t.data_ptr(), nbr_t.stride(0),
-        nbr_t.shape[0], n_rows, deg.data_ptr(), pair.data_ptr(),
-        pair.shape[0], vis_s.data_ptr(), vis_t.data_ptr(), nf_s.data_ptr(),
-        pc_s.data_ptr(), nf_t.data_ptr(), pc_t.data_ptr(), out.data_ptr(),
-        tiles,
+        nbr_t.shape[0], n_rows, id_space, deg.data_ptr(), pair.data_ptr(),
+        vis_s.data_ptr(), vis_t.data_ptr(), nf_s.data_ptr(), pc_s.data_ptr(),
+        nf_t.data_ptr(), pc_t.data_ptr(), out.data_ptr(), tiles,
     )
     return nf_s, pc_s, nf_t, pc_t, out
 
 
-def pull_dual(nbr_t, deg, pair, vis_s, vis_t, *, checked: bool = False):
+def pull_dual(nbr_t, deg, pair, vis_s, vis_t, *, id_space: int | None = None,
+              checked: bool = False):
     """Both sides' ``(nf_s, pc_s, nf_t, pc_t, next_pair)`` from the pair
-    row of both frontiers (:func:`pack_front`, over the table's ids); the
-    next frontier comes back as the pair row over the ``len(vis_s)``
-    rows. ``checked`` skips the validation (:func:`check_pull`)."""
+    row of both frontiers (:func:`pack_front`, over the id space of
+    ``id_space`` vertices, default the table's rows); the next frontier
+    comes back as the pair row over the ``len(vis_s)`` rows. ``checked``
+    skips the validation (:func:`check_pull`)."""
     if not nbr_t.is_cuda:
-        return pull_dual_plain(nbr_t, deg, pair, vis_s, vis_t)
-    out = _launch_dual(nbr_t, deg, pair, vis_s, vis_t, checked)
+        return pull_dual_plain(nbr_t, deg, pair, vis_s, vis_t,
+                               id_space=id_space)
+    out = _launch_dual(nbr_t, deg, pair, vis_s, vis_t,
+                       _id_space(nbr_t, id_space), checked)
     _cuda.count_launch(pull_dual)
     return out
 
@@ -472,21 +492,26 @@ pull_dual_batch.launches = 0
 def run_pull(tables: tuple, frontier, visited):
     """Single-side raw kernel pass: ``(next_frontier, parent_candidate)``
     over the table's rows ``[0, len(visited))`` from a ``bool`` frontier
-    row (packed here). Each row is bounded by its live slots
-    (:func:`live_slots`), which is ``min(deg, width)``."""
+    row over the id space (packed here; its length is the id space). Each
+    row is bounded by its live slots (:func:`live_slots`), which is
+    ``min(deg, width)``."""
     (nbr_t,) = tables
-    bits = pack_bits(frontier, frontier_words(frontier.shape[0]))
-    nf, pc, _ = pull_single(nbr_t, live_slots(nbr_t), bits, visited)
+    ids = frontier.shape[0]
+    bits = pack_bits(frontier, frontier_words(ids))
+    nf, pc, _ = pull_single(nbr_t, live_slots(nbr_t, ids), bits, visited,
+                            id_space=ids)
     return nf, pc
 
 
 def run_pull_dual(tables: tuple, fr_s, fr_t, vis_s, vis_t):
     """Both sides' raw kernel pass: ``(nf_s, pc_s, nf_t, pc_t)`` from two
-    ``bool`` frontier rows (packed here into the pair row)."""
+    ``bool`` frontier rows over the id space (packed here into the pair
+    row)."""
     (nbr_t,) = tables
+    ids = fr_s.shape[0]
     nf_s, pc_s, nf_t, pc_t, _ = pull_dual(
-        nbr_t, live_slots(nbr_t), pack_front(fr_s, fr_t, fr_s.shape[0]),
-        vis_s, vis_t)
+        nbr_t, live_slots(nbr_t, ids), pack_front(fr_s, fr_t, ids),
+        vis_s, vis_t, id_space=ids)
     return nf_s, pc_s, nf_t, pc_t
 
 

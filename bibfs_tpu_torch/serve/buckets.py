@@ -17,8 +17,9 @@ mask by ``deg``.
 
 :class:`ExecutableCache` is the accounting side: the engine notes the
 (bucket shape, resolved mode, batch bucket) of every device dispatch.
-Multi-device placement keys and the fine-ladder dp table come with the
-multi-GPU slice (ROADMAP Queue 1).
+:func:`dp_aligned_ell` is the data-parallel batch's table (rows on a fine
+ladder, width on the geometric rung) and :func:`repad_rows` the mesh
+route's shard-divisibility pad.
 """
 
 from __future__ import annotations
@@ -85,6 +86,44 @@ def placement_bucket_key(base_key: tuple, *, kind: str, shards: int,
     program thus never counts as a hit on a device executable of the same
     padded vertex shape."""
     return base_key + ((kind, int(shards)) + tuple(extra),)
+
+
+#: row alignment of the data-parallel batch's replicated table
+#: (:func:`dp_aligned_ell`), the reference's
+DP_ROW_ALIGN = 1024
+
+
+def dp_aligned_ell(n: int, edges: np.ndarray | None = None, *,
+                   pairs: np.ndarray | None = None,
+                   row_align: int = DP_ROW_ALIGN) -> EllGraph:
+    """The data-parallel batch's (queries sharded, graph replicated)
+    table: rows aligned to the fine ``row_align`` ladder, not the
+    geometric row rung (a rank's batch planes scale with the rows), and
+    the width bucketed to its geometric rung; the reference's table."""
+    g = build_ell(n, edges, pairs=pairs, pad_multiple=max(int(row_align), 8))
+    w = bucket_width(g.width)
+    if w == g.width:
+        return g
+    nbr = np.zeros((g.n_pad, w), dtype=np.int32)
+    nbr[:, : g.width] = g.nbr
+    return EllGraph(n=g.n, n_pad=g.n_pad, width=w, num_edges=g.num_edges,
+                    nbr=nbr, deg=g.deg, overflow=g.overflow)
+
+
+def repad_rows(g: EllGraph, multiple: int) -> EllGraph:
+    """Re-pad an ELL table's rows up to a multiple (isolated degree-0
+    rows): the shard-divisibility fix for a mesh whose size does not
+    divide the table's rows."""
+    mult = max(int(multiple), 1)
+    if g.n_pad % mult == 0:
+        return g
+    rows = -(-g.n_pad // mult) * mult
+    nbr = np.zeros((rows, g.width), dtype=np.int32)
+    nbr[: g.n_pad] = g.nbr
+    deg = np.zeros(rows, dtype=np.int32)
+    deg[: g.n_pad] = g.deg
+    return EllGraph(n=g.n, n_pad=rows, width=g.width, num_edges=g.num_edges,
+                    nbr=nbr, deg=deg, overflow=g.overflow)
 
 
 def bucketed_ell(

@@ -400,6 +400,89 @@ def _refill_capped(g, pairs, out):
     return tuple(outs)
 
 
+def _dp_slice(pairs, mesh):
+    """This rank's slice of the batch: ``b_loc = pad_batch(ceil(B /
+    size))`` queries a rank in rank order, as the reference shards the
+    lane-padded batch axis (a rank past the end gets none)."""
+    b_loc = pad_batch(-(-len(pairs) // mesh.size))
+    return pairs[mesh.rank * b_loc:(mesh.rank + 1) * b_loc]
+
+
+def dp_batch_dispatch(g, pairs, mesh, dt8: bool = False,
+                      stats: dict | None = None):
+    """The data-parallel batch on this rank (every rank calls it with the
+    same ``pairs``): the graph ``g`` is this rank's replica, the rank runs
+    :func:`batch_dispatch` on its lane-padded slice of the queries
+    (:func:`_dp_slice`) on its own device, with no collective; under
+    ``dt8`` the finish decodes the slot parents and re-solves the
+    int8-capped queries through the int32 planes on the same rank.
+    Returns ``(local_pairs, thunk, finish)``, the contract of
+    :func:`batch_dispatch` over the local slice (``thunk`` None for a rank
+    with no query)."""
+    local = _dp_slice(pairs, mesh)
+    if not len(local):
+        return local, None, lambda out: out
+    return batch_dispatch(g, local, dt8=dt8, stats=stats)
+
+
+def _dp_results(g, pairs, mesh, dt8: bool, repeats: int | None):
+    """Run this rank's slice (timed ``repeats`` times, or once), then
+    gather every rank's results in rank order. ``time_s`` is the batch's
+    wall clock over the whole mesh: every rank waits for the slowest."""
+    import time as _time
+
+    from bibfs_tpu_torch.solvers.dense import _materialize_batch
+    from bibfs_tpu_torch.solvers.timing import force_scalar, timed_batch_repeats
+
+    stats = {"host_syncs": 0}
+    local, thunk, finish = dp_batch_dispatch(g, pairs, mesh, dt8, stats)
+
+    def run():
+        out = thunk() if thunk is not None else None
+        force_scalar(out)
+        mesh.barrier()
+        return out
+
+    mesh.barrier()
+    times = None
+    if repeats is None:
+        t0 = _time.perf_counter()
+        out = run()
+        elapsed = _time.perf_counter() - t0
+    else:
+        times, out = timed_batch_repeats(run, repeats, force=None)
+        elapsed = float(np.median(times))
+    mine = ([] if thunk is None else
+            _materialize_batch(finish(out), len(local), elapsed,
+                               mode="minor8" if dt8 else "minor",
+                               host_syncs=stats["host_syncs"]))
+    results = [r for part in mesh.all_gather_object(mine) for r in part]
+    for r in results:
+        r.time_s = elapsed
+    return times, results
+
+
+def solve_batch_dp(g, pairs, mesh, *, dt8: bool = False) -> list:
+    """The data-parallel batch (:func:`dp_batch_dispatch`), called by every
+    rank: one :class:`BFSResult` per pair on every rank, each equal to the
+    query's result in a one-device batch; ``time_s`` is the whole batch's
+    wall clock."""
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    if pairs.size and not ((0 <= pairs).all() and (pairs < g.n).all()):
+        raise ValueError(f"src/dst out of range for n={g.n}")
+    return _dp_results(g, pairs, mesh, dt8, None)[1]
+
+
+def time_batch_dp(g, pairs, mesh, *, repeats: int = 5, dt8: bool = False):
+    """The ``dense.time_batch_graph`` protocol over the data-parallel
+    batch: a warm-up, then ``repeats`` timed runs of the whole mesh's
+    batch; the results carry the median."""
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    if pairs.size and not ((0 <= pairs).all() and (pairs < g.n).all()):
+        raise ValueError(f"src/dst out of range for n={g.n}")
+    return _dp_results(g, pairs, mesh, dt8, repeats)
+
+
 def _padded_queries(pairs, b_pad: int, device):
     srcs = np.zeros(b_pad, np.int32)
     dsts = np.zeros(b_pad, np.int32)

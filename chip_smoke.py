@@ -272,7 +272,7 @@ is unavailable. Phases:
    Then a ``GraphStore(wal_dir=..., retain_history=True)`` under
    ``.chip_durable/`` holds both graphs, each batch acked and compacted
    (versions 1 and 2). With every count set to 0, the synchronous engine
-   serves 1,000 queries of the mix ``pt=0.5, msbfs=0.2, weighted=0.15,
+   serves 400 queries of the mix ``pt=0.5, msbfs=0.2, weighted=0.15,
    kshortest=0.1, asof=0.05`` (16 sources, k = 3, as-of versions 1 and 2)
    on gnp in waves of 100, the pipelined engine 300 more, and an engine on
    the grid 64 ``MultiSource`` queries of 32 shared sources and 16
@@ -286,7 +286,41 @@ is unavailable. Phases:
    queries on the host rung, the fallback counted, every answer the device
    rung's. One ``{"phase": "query_kinds", ...}`` line per wave (kinds,
    routes, kind cache, wall, latency percentiles, fallbacks), and
-   ``query_kinds_total`` splits the phase's seconds.
+   ``query_kinds_total`` splits the phase's seconds and says how the host
+   references went (``refs_report``: the seconds until the last was done,
+   and per kind the workers' wall and CPU seconds). ``kind_refs_main()``
+   times the references alone.
+
+14. The vertex-sharded search and the data-parallel batch (run after
+   phase 13) on phase 3's gnp-deg8-s20 and phase 4's rmat-s20-ef16, not
+   cut: kernels 1, 3 and 4 at a shard's geometry of 4 ranks (the local
+   rows, their slots global ids, the global frontier, ``row_offset`` of
+   rank 1 on gnp and rank 3 on rmat), each exactly against its twin with
+   a ``step`` line (``"step": "shard"``: ms, the twin's, the bytes bound);
+   then the one-device dense search's raw outputs of phase 3's pairs in
+   every mode and of phase 4's in ``sync`` and ``beamer`` (2 pairs a mode
+   timed), and its ``minor8`` batch of 512 seeded gnp pairs (timed). Both host graphs are written
+   once to a temporary directory and 4 ranks spawned
+   (``parallel.mesh.launch``: one card each over NCCL where there are 4
+   cards, else all on this card over staged gloo) map them, keep their own
+   rows and run: one round's exchange timed (bytes packed and as bools,
+   the gather's and the reductions' ms, each rank's peer access), every
+   (mode, pair) solved (the mode that ran, hops against the oracle, a path
+   ``validate_path`` accepts, all six raw outputs, ``sharded.RAW_FIELDS``,
+   equal to the dense search's, parent rows by digest), 2 pairs a
+   mode timed (5 searches each) beside the dense search, one gnp pair's
+   ``fused`` and ``sync`` searches profiled on every rank
+   (``sharded.profile_search``: wall, rounds, the card's busy ms, NCCL's
+   kernels' ms, the host's ms inside the collective calls; one
+   ``sharded_profile`` line each), and the
+   data-parallel ``minor8`` batch (128 queries a rank, the median of 3)
+   equal to the one-device batch. On one shared card the gnp exchange is
+   also timed on 4 gloo ranks on the host's CPU (``cpu_gloo_*_ms``: what
+   gloo alone takes beside the staged one). The phase checks
+   the transport it asked for, that kernels 1, 3, 4, the fold and the
+   ``minor8`` level launched on the ranks, and prints one line with its
+   seconds, its transport and a digest of every answer (the same on one
+   card and on four). ``shard_main()`` runs this phase alone.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
@@ -310,7 +344,12 @@ import numpy as np
 import torch
 
 from bibfs_tpu_torch.cli.ab import build_split
-from bibfs_tpu_torch.graph.csr import build_csr, canonical_pairs
+from bibfs_tpu_torch.graph.csr import (
+    build_csr,
+    build_ell,
+    build_tiered,
+    canonical_pairs,
+)
 from bibfs_tpu_torch.graph.blocked import build_blocked
 from bibfs_tpu_torch.graph.generate import gnp_random_graph, grid_graph, rmat_graph
 from bibfs_tpu_torch.ops import _cuda
@@ -3021,7 +3060,11 @@ QUERY_KERNELS = {
                          "bibfs_tpu/solvers/query_device.py:226"),
 }
 KIND_MIX = "pt=0.5,msbfs=0.2,weighted=0.15,kshortest=0.1,asof=0.05"
-KIND_QUERIES = {"sync": 1000, "pipelined": 300}
+# the synchronous waves cut from 1,000: the host references of the typed
+# queries (Yen's ~12 s each, delta-stepping's ~3 s) must finish beside
+# phases 1-12; at 1,000 + 300 they take ~500 s of 4 workers alone
+# (kind_refs_main), as long as those phases, and ran past them
+KIND_QUERIES = {"sync": 400, "pipelined": 300}
 KIND_WAVE = 100  # queries a synchronous query_many serves (one flush)
 KIND_SEEDS = {"sync": 131, "pipelined": 137, "grid": 139, "batch": 149,
               "pairs": 151}
@@ -3060,28 +3103,50 @@ def kind_ref_init(graph_dir: str) -> None:
 def kind_ref(name: str, q):
     """The port's host kind rung's answer to one query on ``name`` as of
     its second version: delta-stepping (``(found, dist)``) or Yen's
-    (``(found, paths)``)."""
+    (``(found, paths)``); then the worker's wall and CPU seconds for it."""
     from bibfs_tpu_torch.query.kshortest import yen_k_shortest
     from bibfs_tpu_torch.query.weighted import delta_stepping, synthetic_weights
 
+    t0, c0 = time.perf_counter(), time.process_time()
     n, rp, ci, weights = _KIND_REF[name]
     if q.kind == "weighted":
         seed = int(q.weight_seed)
         if seed not in weights:
             weights[seed] = synthetic_weights(rp, ci, seed)
         r = delta_stepping(n, rp, ci, weights[seed], q.src, q.dst)
-        return r.found, r.dist
-    r = yen_k_shortest(n, rp, ci, q.src, q.dst, q.k)
-    return r.found, r.paths
+        out = (r.found, r.dist)
+    else:
+        r = yen_k_shortest(n, rp, ci, q.src, q.dst, q.k)
+        out = (r.found, r.paths)
+    return out, time.perf_counter() - t0, time.process_time() - c0
+
+
+def refs_report(prep) -> dict:
+    """How the host references went: their count and workers, the
+    seconds from the pool's start until the last was done, and per kind
+    the count and the workers' wall and CPU seconds (wall well above CPU:
+    the workers waited for cores)."""
+    kinds: dict = {}
+    for key, fut in prep["refs"].items():
+        _out, wall, cpu = fut.result()
+        k = kinds.setdefault(prep["ref_kind"][key], {"n": 0, "wall_s": 0.0,
+                                                     "cpu_s": 0.0})
+        k["n"] += 1
+        k["wall_s"] += wall
+        k["cpu_s"] += cpu
+    return {"references": len(prep["refs"]), "workers": prep["workers"],
+            "refs_done_s": max(prep["ref_done"]) - prep["ref_t0"],
+            "by_kind": kinds}
 
 
 def kind_prep(gnp_n: int, gnp_pairs, gnp_csr, ref_dir: str, grid=None,
-              workers: int = KIND_REF_WORKERS) -> dict:
+              workers: int = KIND_REF_WORKERS, sizes=KIND_QUERIES) -> dict:
     """Phase 13's inputs, made at the start of the run: each graph's update
-    batch and its second version's CSR, the seeded query streams, and a
-    pool of spawned workers computing the host kind rung's answers to the
-    weighted and k-shortest queries (NumPy minutes that overlap phases
-    1-12). ``grid`` (``(n, edges)``, default phase 11's) runs it small."""
+    batch and its second version's CSR, the seeded query streams (``sizes``:
+    queries a wave), and a pool of spawned workers computing the host kind
+    rung's answers to the weighted and k-shortest queries (NumPy minutes
+    that overlap phases 1-12). ``grid`` (``(n, edges)``, default phase
+    11's) runs it small."""
     from concurrent.futures import ProcessPoolExecutor
 
     from bibfs_tpu_torch.query import MultiSource, Weighted
@@ -3104,7 +3169,7 @@ def kind_prep(gnp_n: int, gnp_pairs, gnp_csr, ref_dir: str, grid=None,
         prep["graphs"][name] = dict(n=n, pairs=pairs, csr=csr, batch=(adds, dels),
                                     pairs2=v2, csr2=csr2)
     mix = parse_query_mix(KIND_MIX)
-    for wave, q in KIND_QUERIES.items():
+    for wave, q in sizes.items():
         prep["queries"][wave] = sample_query_mix(
             gnp_n, q, mix, seed=KIND_SEEDS[wave], ms_sources=16, k=3,
             weight_seed=0, versions=(1, 2))
@@ -3115,16 +3180,21 @@ def kind_prep(gnp_n: int, gnp_pairs, gnp_csr, ref_dir: str, grid=None,
         + [Weighted(*(int(x) for x in grng.choice(gn, 2, replace=False)))
            for _ in range(16)])
     tasks = {("gnp", q.cache_key()): ("gnp", q)
-             for wave in KIND_QUERIES for q in prep["queries"][wave]
+             for wave in sizes for q in prep["queries"][wave]
              if q.kind in ("weighted", "kshortest")}
     tasks.update({("grid", q.cache_key()): ("grid", q)
                   for q in prep["queries"]["grid"] if q.kind == "weighted"})
     pool = ProcessPoolExecutor(
         workers, mp_context=multiprocessing.get_context("spawn"),
         initializer=kind_ref_init, initargs=(ref_dir,))
+    prep.update(pool=pool, workers=workers, ref_t0=time.perf_counter(),
+                ref_done=[],
+                ref_kind={k: f"{g}:{q.kind}" for k, (g, q) in tasks.items()})
     prep["refs"] = {key: pool.submit(kind_ref, *task)
                     for key, task in tasks.items()}
-    prep["pool"] = pool
+    for fut in prep["refs"].values():
+        fut.add_done_callback(
+            lambda _f: prep["ref_done"].append(time.perf_counter()))
     return prep
 
 
@@ -3484,7 +3554,7 @@ def check_kind_answers(prep, name: str, queries, results, hops, wave: str):
                 check(validate_path(gr["csr2"], r.path, q.sources[best], q.dst,
                                     hops=r.hops), f"{wave}: {q} invalid path")
         else:
-            want = prep["refs"][(name, q.cache_key())].result()
+            want = prep["refs"][(name, q.cache_key())].result()[0]
             if q.kind == "weighted":
                 check((r.found, r.dist) == want, f"{wave}: {q} {r.dist} != {want}")
                 if r.found:
@@ -3538,6 +3608,10 @@ def kind_wave(eng, queries, wave: str, graph: str, waves: int = 1) -> tuple:
             "spans_ms": span_ms(tracer),
             "fallbacks": {k: v for k, v in
                           st["resilience"]["fallbacks"].items() if v}}
+    if isinstance(eng, PipelinedQueryEngine):  # one wave per engine
+        line.update(flushes={k: st["pipeline"][k] for k in (
+            "flushes", "depth_flushes", "deadline_flushes", "drain_flushes")},
+            overlap=st["overlap"])
     print(json.dumps(line), flush=True)
     return res, line
 
@@ -3697,7 +3771,7 @@ def query_kinds_phase(prep, dev_name: str = "cuda",
               f"faulted wave: {fst['query_kinds']}")
         line = {"phase": "query_kinds_total", "kernels_s": kernels_s,
                 "store_s": store_s, "truth_s": truth_s,
-                "refs_wait_s": refs_wait_s,
+                "refs_wait_s": refs_wait_s, **refs_report(prep),
                 "s": time.perf_counter() - t_phase}
         print(json.dumps(line), flush=True)
         return launches
@@ -3707,6 +3781,428 @@ def query_kinds_phase(prep, dev_name: str = "cuda",
         store.close()
         prep["pool"].shutdown(cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---- phase 14: the vertex-sharded search and the data-parallel batch ------
+SHARD_RANKS = 4
+# the kernels of the sharded path, each held to its twin at a shard's
+# geometry (local rows, global ids, a nonzero row offset)
+SHARD_KERNELS = ("fused_dual_round", "pull_dual", "pull_single")
+SHARD_RMAT_MODES = ("sync", "beamer")
+SHARD_TIMED = 2  # pairs a mode timed on the ranks, 5 searches each
+# modes whose gnp search is profiled on every rank (where a round's time
+# goes: the card busy or waiting, the collectives' kernels and calls)
+SHARD_PROFILED = ("fused", "sync")
+DP_QUERIES = 512  # the data-parallel minor8 batch: 128 queries a rank
+
+
+def shard_kernel_phase(host, n: int, geometry: str, rank: int, seed: int,
+                       results: dict | None, names=SHARD_KERNELS) -> None:
+    """Kernels 1, 3 and 4 at rank ``rank``'s shard of ``SHARD_RANKS``:
+    the local rows of the host graph on this card (their slots global
+    ids, the dead ones at the sentinel ``n_pad``), a seeded mid-search
+    state with the global frontier, ``row_offset = rank * n_loc``; each
+    exactly against its twin, one ``step`` line with its ms, the twin's
+    and the bytes bound, into ``results[name]["sharded"]`` when given."""
+    dev = torch.device("cuda")
+    n_pad = host.n_pad
+    n_loc = n_pad // SHARD_RANKS
+    off = rank * n_loc
+    cu = lambda a: torch.as_tensor(np.array(a)).to(dev)  # noqa: E731
+    nbr_t, deg = fl.prepare_fused_tables(cu(host.nbr[off:off + n_loc]),
+                                         cu(host.deg[off:off + n_loc]),
+                                         id_space=n_pad)
+    rng = np.random.default_rng(seed)
+    ds, frs, ps = mid_search(rng, n, n_pad, 2)
+    dt, frt, pt = mid_search(rng, n, n_pad, 3)
+    fr_s, fr_t = cu(frs), cu(frt)
+    loc = slice(off, off + n_loc)
+    base = dict(dist_s=cu(ds[loc]), dist_t=cu(dt[loc]), par_s=cu(ps[loc]),
+                par_t=cu(pt[loc]))
+    vis_s, vis_t = base["dist_s"] < INF32, base["dist_t"] < INF32
+    dual = pack_dual(fr_s, fr_t).contiguous()
+    words_in = 4 * ((n_pad + 31) // 32)  # a global bitmap, per side
+    words_out = 4 * ((n_loc + 31) // 32)  # the next one, the local rows
+    want_s = (~vis_s).to(torch.uint8)
+    want_t = (~vis_t).to(torch.uint8)
+    geom = f"{geometry}/shard{rank}of{SHARD_RANKS}"
+    meta = dict(n_loc=n_loc, id_space=n_pad, row_offset=off)
+    kw = dict(id_space=n_pad)
+    pulls = {
+        "pull_single": ((nbr_t, deg, bm.pack_bits(fr_s, bm.frontier_words(n_pad)),
+                         vis_s), want_s, 1),
+        "pull_dual": ((nbr_t, deg, pe.pack_front(fr_s, fr_t, n_pad), vis_s,
+                       vis_t), want_s | (want_t << 1), 2),
+    }
+    for name, (args, want, k) in pulls.items():
+        if name not in names:
+            continue
+        wrapper, plain = KERNELS[name][:2]
+        ref = plain(*args, **kw)
+        got = wrapper(*args, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        check(err == 0, f"{name} at {geom} differs from its plain version")
+        sl = slots_needed(nbr_t, n_loc, dual, want)
+        nbytes = k * (words_in + words_out + 6 * n_loc) + 4 * sl
+        b, by = bound_ms(nbytes, 4 * sl)
+        ms = time_launch(lambda: wrapper(*args, **kw))
+        pms = time_launch(lambda: plain(*args, **kw), reps=5)
+        step_line(name, geom, "shard", ms, bound_ms=b, plain_ms=pms, **meta)
+        if results is not None:
+            results[name]["sharded"] = dict(geometry=geom, max_abs_err=err,
+                                            ms=ms, plain_ms=pms, bound_ms=b,
+                                            bound_by=by, **meta)
+    if "fused_dual_round" not in names:
+        return
+    st0 = torch.tensor([2, 3, INF32, -1, int(frs.sum()), int(frt.sum()),
+                        0, 0, 5, 7, 9, 11], dtype=torch.int32)
+
+    def fresh():
+        acc, key = fl.new_scratch(dev)
+        return dict(bits=fl._bits_of_row(dual, 2, 3, n_pad),
+                    **{k: v.clone() for k, v in base.items()},
+                    state=st0.to(dev), acc=acc, key=key)
+
+    def run(fn, b):
+        fn(nbr_t, deg, b["bits"], b["dist_s"], b["dist_t"], b["par_s"],
+           b["par_t"], b["state"], b["acc"], b["key"], id_space=n_pad,
+           row_offset=off)
+
+    wrapper, plain = KERNELS["fused_dual_round"][:2]
+    p, kk = fresh(), fresh()
+    run(plain, p)
+    run(wrapper, kk)
+    torch.cuda.synchronize()
+    outs = ("bits", "dist_s", "dist_t", "par_s", "par_t", "acc", "key")
+    err = max_abs_err([kk[o] for o in outs], [p[o] for o in outs])
+    check(err == 0, f"fused_dual_round at {geom} differs from its plain version")
+    sl = slots_needed(nbr_t, n_loc, dual, want_s | (want_t << 1))
+    new = [int((kk[d] != base[d]).sum()) for d in ("dist_s", "dist_t")]
+    nbytes = 8 * n_loc + 2 * (words_in + words_out) + 4 * sl + 12 * sum(new)
+    b, by = bound_ms(nbytes, 4 * sl)
+    work = fresh()
+
+    def prep(w=work):
+        for key in base:
+            w[key].copy_(base[key])
+        w["state"].copy_(st0)
+        w["acc"].zero_()
+        w["key"].fill_(fl.NO_MEET)
+
+    ms = time_launch(lambda: run(wrapper, work), prep)
+    pms = time_launch(lambda: run(plain, work), prep, reps=5)
+    step_line("fused_dual_round", geom, "shard", ms, bound_ms=b, plain_ms=pms,
+              **meta)
+    if results is not None:
+        results["fused_dual_round"]["sharded"] = dict(
+            geometry=geom, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b,
+            bound_by=by, **meta)
+
+
+def shard_reference(graph: dict, modes, dev, dp_pairs=None) -> dict:
+    """The one-device dense search's raw outputs of every (mode, pair) of
+    ``graph`` on this process's device (parent rows as digests of their
+    first ``n`` entries), its median ms over the first ``SHARD_TIMED``
+    pairs of each mode (5 searches each), and the one-device ``minor8``
+    batch of ``dp_pairs`` with its median ms (3 batches)."""
+    host, n = graph["host"], graph["n"]
+    g = (dense.DeviceGraph.from_tiered(host, dev) if graph["tiered"]
+         else dense.DeviceGraph.from_ell(host, dev))
+    ref = {}
+    for mode in modes:
+        for s, d in graph["pairs"]:
+            o = raw(g, s, d, mode)
+            ref[mode, s, d] = (int(o[0]), int(o[1]), row_digest(o[2], n),
+                               row_digest(o[3], n), int(o[4]), int(o[5]))
+        ref["ms", mode] = float(np.median([
+            dense.time_search(g, s, d, repeats=5, mode=mode)[1].time_s
+            for s, d in graph["pairs"][:SHARD_TIMED]])) * 1e3
+    if dp_pairs is not None:
+        times, res = dense.time_batch_graph(g, dp_pairs, repeats=3,
+                                            mode="minor8")
+        ref["dp"] = [fields(r) for r in res]
+        ref["dp_ms"] = float(np.median(times)) * 1e3
+    del g
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def row_digest(row, n: int) -> str:
+    import hashlib
+
+    a = row.cpu().numpy() if isinstance(row, torch.Tensor) else np.asarray(row)
+    return hashlib.sha256(np.ascontiguousarray(a[:n]).tobytes()).hexdigest()
+
+
+def shard_phase(gnp: dict, rmat: dict, results: dict | None,
+                dev_name: str = "cuda") -> dict:
+    """Phase 14 (module docstring). ``gnp`` and ``rmat`` are dicts of the
+    host graph (``host``), its ``name``, ``n``, the CSR (``csr``), the
+    seeded pairs and their oracle answers (``want``) and ``tiered``; ``dev_name="cpu"``
+    rehearses the phase on gloo ranks (no kernel is launched or timed).
+    Returns the rank launches of the phase's path, summed over the
+    ranks."""
+    from bibfs_tpu_torch.parallel.collectives import frontier_exchange_bytes
+    from bibfs_tpu_torch.parallel.mesh import launch
+    from bibfs_tpu_torch.solvers import sharded as sh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev_name)
+    on_card = dev.type == "cuda"
+    if on_card:
+        t0 = time.perf_counter()
+        shard_kernel_phase(gnp["host"], gnp["n"], gnp["name"], 1, 81,
+                           results)
+        shard_kernel_phase(rmat["host"], rmat["n"], rmat["name"], 3, 82,
+                           None, names=("pull_dual", "pull_single"))
+        print(json.dumps({"phase": "sharded_kernels_vs_plain", "ok": True,
+                          "s": time.perf_counter() - t0}), flush=True)
+    modes = tuple(sh.SHARDED_MODES)
+    dp_pairs = batch_pairs(np.random.default_rng(91), gnp["n"], gnp["csr"],
+                           DP_QUERIES)
+    t0 = time.perf_counter()
+    ref = {"gnp": shard_reference(gnp, modes, dev, dp_pairs),
+           "rmat": shard_reference(rmat, SHARD_RMAT_MODES, dev)}
+    ref_s = time.perf_counter() - t0
+    jobs, keys = [], []
+    for name, graph, gmodes in (("gnp", gnp, modes),
+                                ("rmat", rmat, SHARD_RMAT_MODES)):
+        jobs.append(dict(kind="exchange", graph=name))
+        keys.append(("exchange", name))
+        for mode in gmodes:
+            for s, d in graph["pairs"]:
+                jobs.append(dict(kind="solve", graph=name, src=s, dst=d,
+                                 mode=mode, raw="digest"))
+                keys.append(("solve", name, mode, s, d))
+            for s, d in graph["pairs"][:SHARD_TIMED]:
+                jobs.append(dict(kind="solve", graph=name, src=s, dst=d,
+                                 mode=mode, repeats=5))
+                keys.append(("timed", name, mode, s, d))
+    for mode in SHARD_PROFILED:
+        s, d = gnp["pairs"][0]
+        jobs.append(dict(kind="profile", graph="gnp", src=s, dst=d,
+                         mode=mode, repeats=5))
+        keys.append(("profile", mode))
+    jobs.append(dict(kind="dp", graph="gnp", pairs=dp_pairs, dt8=True,
+                     repeats=3))
+    keys.append(("dp",))
+    with tempfile.TemporaryDirectory(prefix="chip-shard-") as tmp:
+        t0 = time.perf_counter()
+        paths = {name: sh.save_host_graph(graph["host"], os.path.join(tmp, name))
+                 for name, graph in (("gnp", gnp), ("rmat", rmat))}
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = launch(sh.sharded_jobs, SHARD_RANKS, paths, jobs,
+                     device=dev.type, timeout_s=900)
+        ranks_s = time.perf_counter() - t0
+    cpu_ex = None
+    if out["transport"] == "gloo-staged":
+        # the same exchange on 4 gloo ranks on the host's CPU, no card:
+        # what gloo itself takes on this host beside the staged one
+        bare = sh.build_host_graph(gnp["host"].n_pad, np.array([[0, 1]]),
+                                   SHARD_RANKS)
+        cpu_ex = launch(sh.sharded_jobs, SHARD_RANKS, {"g": bare},
+                        [dict(kind="exchange", graph="g")], device="cpu",
+                        timeout_s=300)["results"][0]
+    got = dict(zip(keys, out["results"]))
+    transport = out["transport"]
+    want_transport = ("nccl" if on_card and torch.cuda.device_count()
+                      >= SHARD_RANKS else "gloo-staged" if on_card else "gloo")
+    check(transport == want_transport,
+          f"sharded: transport {transport}, expected {want_transport}")
+    answers = []
+    for name, graph, gmodes in (("gnp", gnp, modes),
+                                ("rmat", rmat, SHARD_RMAT_MODES)):
+        ex = got["exchange", name]
+        print(json.dumps({"phase": "sharded_exchange",
+                          "geometry": graph["name"],
+                          "transport": transport, "ranks": SHARD_RANKS,
+                          "bytes_packed_per_side": frontier_exchange_bytes(
+                              ex["n_loc"]),
+                          "bytes_bool_per_side": ex["n_loc"],
+                          **{k: ex[k] for k in ("n_loc", "bytes_packed",
+                                                "bytes_bool", "gather_ms",
+                                                "reduce_ms")},
+                          **({"cpu_gloo_gather_ms": cpu_ex["gather_ms"],
+                              "cpu_gloo_reduce_ms": cpu_ex["reduce_ms"]}
+                             if cpu_ex and name == "gnp" else {}),
+                          "peer_access": [r["peer_access"]
+                                          for r in out["ranks"]]}),
+              flush=True)
+        for mode in gmodes:
+            ran = sh.resolve_sharded_mode(mode, (1,) if graph["tiered"] else ())
+            times, syncs = [], []
+            for (s, d), w in zip(graph["pairs"], graph["want"]):
+                o = got["solve", name, mode, s, d]
+                res = o[7]
+                check(o[0] == ran, f"sharded {name} {mode}: ran {o[0]}")
+                check(res.found == w.found and res.hops == w.hops,
+                      f"sharded {name} {mode} {s}->{d}: hops {res.hops} != "
+                      f"oracle {w.hops}")
+                if res.found:
+                    check(validate_path(graph["csr"], res.path, s, d,
+                                        hops=res.hops),
+                          f"sharded {name} {mode} {s}->{d}: invalid path")
+                r = ref[name][mode, s, d]
+                for i, field in enumerate(sh.RAW_FIELDS):
+                    check(o[1 + i] == r[i],
+                          f"sharded {name} {mode} {s}->{d}: {field} "
+                          "differs from the dense search")
+                answers.append([name, mode, s, d, *o[:7], res.path])
+            for s, d in graph["pairs"][:SHARD_TIMED]:
+                t = got["timed", name, mode, s, d]
+                check(t.hops == got["solve", name, mode, s, d][7].hops,
+                      f"sharded {name} {mode}: timed answer differs")
+                times.append(t.time_s)
+                syncs.append(t.host_syncs)
+            print(json.dumps({"phase": "sharded_solve",
+                              "geometry": graph["name"],
+                              "mode": mode, "ran": ran,
+                              "transport": transport,
+                              "median_search_ms": float(np.median(times)) * 1e3,
+                              "dense_median_search_ms": ref[name]["ms", mode],
+                              "host_syncs_per_solve": float(np.mean(syncs))}),
+                  flush=True)
+    for mode in SHARD_PROFILED:
+        ranks = got["profile", mode]
+        print(json.dumps({"phase": "sharded_profile", "geometry": gnp["name"],
+                          "mode": mode, "transport": transport,
+                          "ranks": ranks}), flush=True)
+    dp = got["dp",]
+    check([fields(r) for r in dp] == ref["gnp"]["dp"],
+          "data-parallel minor8 batch differs from the one-device batch")
+    check({r.mode for r in dp} == {"minor8"}, "data-parallel batch mode")
+    answers.append(["dp", [fields(r) for r in dp]])
+    print(json.dumps({"phase": "sharded_dp_batch", "geometry": gnp["name"],
+                      "queries": len(dp_pairs),
+                      "lanes_per_rank": bmin.pad_batch(
+                          -(-len(dp_pairs) // SHARD_RANKS)),
+                      "batch_ms": dp[0].time_s * 1e3,
+                      "one_device_batch_ms": ref["gnp"]["dp_ms"],
+                      "transport": transport}), flush=True)
+    launches: dict = {}
+    for job_counts in out["launches"]:
+        for k, v in job_counts.items():
+            launches[k] = launches.get(k, 0) + v
+    print(json.dumps({"phase": "sharded_launches", **launches}), flush=True)
+    if on_card:
+        for k in (*SHARD_KERNELS, "fold_round", "minor_level[minor8]"):
+            check(launches.get(k, 0) > 0,
+                  f"kernel {k} was not launched on the sharded path")
+    import hashlib
+
+    digest = hashlib.sha256(json.dumps(answers, default=str).encode()
+                            ).hexdigest()
+    print(json.dumps({"phase": "sharded_total", "transport": transport,
+                      "ranks": SHARD_RANKS, "answers": len(answers),
+                      "digest": digest, "reference_s": ref_s,
+                      "save_s": save_s, "ranks_s": ranks_s,
+                      "s": time.perf_counter() - t_phase}), flush=True)
+    return launches
+
+
+def shard_graphs(with_rmat: bool = True) -> tuple[dict, dict | None]:
+    """Phase 14's two graphs built on the host alone (for running the
+    phase by itself, :func:`shard_main`): gnp-deg8-s20 and rmat-s20-ef16
+    (None without ``with_rmat``), with the pairs and oracle answers of
+    phases 3 and 4."""
+    n = 1 << 20
+    edges = gnp_random_graph(n, 8 / n, seed=7)
+    p = canonical_pairs(n, edges)
+    csr = build_csr(n, pairs=p)
+    pairs = seeded_pairs(np.random.default_rng(7), np.arange(n), 8)
+    gnp = dict(host=build_ell(n, pairs=p), name="gnp-deg8-s20", n=n,
+               csr=csr, pairs=pairs, want=oracle(n, csr, pairs), tiered=False)
+    if not with_rmat:
+        return gnp, None
+    n2, e2 = rmat_graph(20, edge_factor=16, seed=7)
+    p2 = canonical_pairs(n2, e2)
+    csr2 = build_csr(n2, pairs=p2)
+    linked = np.flatnonzero(np.diff(csr2[0]) > 0)
+    pairs2 = seeded_pairs(np.random.default_rng(7), linked, 8)
+    rmat = dict(host=build_tiered(n2, pairs=p2), name="rmat-s20-ef16", n=n2,
+                csr=csr2, pairs=pairs2, want=oracle(n2, csr2, pairs2),
+                tiered=True)
+    return gnp, rmat
+
+
+def kind_refs_main(sync: int = KIND_QUERIES["sync"],
+                   pipelined: int = KIND_QUERIES["pipelined"],
+                   workers: int = KIND_REF_WORKERS) -> int:
+    """Phase 13's host references alone, nothing else running: the gnp
+    graph of phase 3 and phase 11's grid, the typed queries of waves of
+    ``sync`` and ``pipelined`` queries, ``workers`` processes; prints
+    :func:`refs_report` and the wall. ``python3 -c 'import chip_smoke;
+    chip_smoke.kind_refs_main(1000, 300)'`` from the root of a checkout
+    (no card needed)."""
+    t0 = time.perf_counter()
+    n = 1 << 20
+    edges = gnp_random_graph(n, 8 / n, seed=7)
+    pairs = canonical_pairs(n, edges)
+    csr = build_csr(n, pairs=pairs)
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as ref_dir:
+        t0 = time.perf_counter()
+        prep = kind_prep(n, pairs, csr, ref_dir, workers=workers,
+                         sizes={"sync": sync, "pipelined": pipelined})
+        prep_s = time.perf_counter() - t0
+        for fut in prep["refs"].values():
+            fut.result()
+        print(json.dumps({"phase": "kind_refs_alone", "sync": sync,
+                          "pipelined": pipelined, "graph_s": build_s,
+                          "prep_s": prep_s, **refs_report(prep),
+                          "cores": os.cpu_count(),
+                          "wall_s": time.perf_counter() - t0}), flush=True)
+        prep["pool"].shutdown()
+    return 0
+
+
+def shard_main(profile_only: bool = False) -> int:
+    """Phase 14 alone, at full size, on every card there is (four for
+    NCCL, else one shared): ``python3 -c 'import chip_smoke, sys;
+    sys.exit(chip_smoke.shard_main())'`` from the root of a checkout.
+    ``profile_only`` builds gnp alone and runs its exchange and
+    profiles (the phase's ``sharded_exchange`` and ``sharded_profile``
+    lines) on the ranks, nothing else."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    print(json.dumps({"phase": "build", "nvcc_s": _cuda.build(),
+                      "total_s": time.perf_counter() - t0}), flush=True)
+    t0 = time.perf_counter()
+    gnp, rmat = shard_graphs(with_rmat=not profile_only)
+    print(json.dumps({"phase": "shard_graphs",
+                      "s": time.perf_counter() - t0}), flush=True)
+    if profile_only:
+        from bibfs_tpu_torch.parallel.mesh import launch
+        from bibfs_tpu_torch.solvers import sharded as sh
+
+        s, d = gnp["pairs"][0]
+        jobs = [dict(kind="exchange", graph="gnp")] + [
+            dict(kind="profile", graph="gnp", src=s, dst=d, mode=mode,
+                 repeats=5) for mode in SHARD_PROFILED]
+        out = launch(sh.sharded_jobs, SHARD_RANKS, {"gnp": gnp["host"]},
+                     jobs, timeout_s=600)
+        print(json.dumps({"phase": "sharded_exchange",
+                          "geometry": gnp["name"], "ranks": SHARD_RANKS,
+                          **out["results"][0]}), flush=True)
+        for mode, ranks in zip(SHARD_PROFILED, out["results"][1:]):
+            print(json.dumps({"phase": "sharded_profile",
+                              "geometry": gnp["name"], "mode": mode,
+                              "transport": out["transport"], "ranks": ranks}),
+                  flush=True)
+        return 0
+    results = {name: {} for name in SHARD_KERNELS}
+    shard_phase(gnp, rmat, results)
+    print(json.dumps({"kernels_sharded": results}), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -3742,7 +4238,8 @@ def main() -> int:
     edges = gnp_random_graph(n, 8 / n, seed=7)
     pairs_all = canonical_pairs(n, edges)
     csr = build_csr(n, pairs=pairs_all)
-    g = dense.DeviceGraph.build(n, edges, layout="ell", device=dev, pairs=pairs_all)
+    gnp_host = build_ell(n, pairs=pairs_all)  # kept for phase 14's ranks
+    g = dense.DeviceGraph.from_ell(gnp_host, dev)
     torch.cuda.synchronize()
     print(json.dumps({"phase": "graph", "name": "gnp-deg8-s20", "n": n,
                       "edges": int(edges.shape[0]), "width": g.width,
@@ -3835,7 +4332,8 @@ def main() -> int:
     n2, e2 = rmat_graph(20, edge_factor=16, seed=7)
     p2 = canonical_pairs(n2, e2)
     csr2 = build_csr(n2, pairs=p2)
-    g2 = dense.DeviceGraph.build(n2, e2, layout="tiered", device=dev, pairs=p2)
+    rmat_host = build_tiered(n2, pairs=p2)  # kept for phase 14's ranks
+    g2 = dense.DeviceGraph.from_tiered(rmat_host, dev)
     torch.cuda.synchronize()
     print(json.dumps({"phase": "graph", "name": "rmat-s20-ef16", "n": n2,
                       "edges": int(e2.shape[0]), "width": g2.width,
@@ -3916,16 +4414,27 @@ def main() -> int:
     kind_launches = query_kinds_phase(kinds, results=results)
     kind_dir.cleanup()
 
+    # phase 14: the vertex-sharded search and the data-parallel batch
+    torch.cuda.empty_cache()
+    shard_launches = shard_phase(
+        dict(host=gnp_host, name="gnp-deg8-s20", n=n, csr=csr, pairs=pairs,
+             want=want, tiered=False),
+        dict(host=rmat_host, name="rmat-s20-ef16", n=n2, csr=csr2,
+             pairs=pairs2, want=want2, tiered=True),
+        results)
+
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=main_counts[name],
+                            launches_sharded=shard_launches.get(name, 0),
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
     for name, (_mode, source, replaces) in MINOR.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=batch_counts[name],
                             launches_durable=respawn[name],
+                            launches_data_parallel=shard_launches.get(name, 0),
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
     for name, (_w, _p, source, replaces) in LOCKSTEP.items():

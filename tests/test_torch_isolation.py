@@ -75,3 +75,37 @@ def test_chip_smoke_without_cuda_fails_without_output():
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_spawned_ranks_load_no_jax():
+    """The spawned ranks of the sharded search and of the data-parallel
+    batch (``parallel.mesh.launch``) import neither JAX nor the JAX
+    package, after a solve in every mode and a batch."""
+    code = (
+        "import json\n"
+        "import numpy as np\n"
+        "from bibfs_tpu_torch.parallel.mesh import launch\n"
+        "from bibfs_tpu_torch.solvers import sharded as sh\n"
+        "e = np.array([[i, i + 1] for i in range(39)])\n"
+        "jobs = [dict(kind='solve', graph='g', src=0, dst=39, mode=m)\n"
+        "        for m in sh.SHARDED_MODES]\n"
+        "jobs.append(dict(kind='dp', graph='g', pairs=[(0, 39)], dt8=True))\n"
+        "out = launch(sh.sharded_jobs, 2, {'g': sh.build_host_graph(40, e, 2)},\n"
+        "             jobs, device='cpu', timeout_s=120)\n"
+        "assert all(r.hops == 39 for r in out['results'][:-1])\n"
+        "print(json.dumps(out['ranks']))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=180, env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr
+    import json
+
+    ranks = json.loads(out.stdout.strip().splitlines()[-1])
+    assert [r["rank"] for r in ranks] == [0, 1]
+    for r in ranks:
+        assert r["transport"] == "gloo"
+        assert "torch" in r["modules"] and "bibfs_tpu_torch" in r["modules"]
+        bad = [m for m in r["modules"] if _forbidden(m)]
+        assert not bad, (r["rank"], bad)

@@ -16,8 +16,18 @@ search on N ranks spawned on this host (one card each over NCCL when
 there are N cards, else all on one card over staged gloo; ``--device
 cpu``: gloo ranks on the host), with ``--mode``, ``--layout``,
 ``--unroll`` and ``--pairs`` (its queries one after another).
-``--level-stats`` (one query, any backend but ``sharded``) prints one
-``[Level]`` line per level after the answer, then the meet level.
+``--backend sharded2d --grid RxC`` runs the 2D block-partitioned search
+on an R x C grid of ranks (default: the squarest grid of ``--devices``),
+``--mode sync`` or ``alt``, with ``--pairs``.
+``--level-stats`` (one query, the serial, native and dense backends)
+prints one ``[Level]`` line per level after the answer, then the meet
+level.
+
+``--checkpoint FILE`` runs one query of a device backend (dense, sharded,
+sharded2d) in chunks of ``--chunk K`` rounds (default 8), writing the
+search's state to FILE after every chunk; ``--resume`` continues the
+search in FILE on any of the three (the file format is ``bibfs-solve``'s,
+so either tool resumes the other's).
 
 ``--sources S1,S2,...`` (multi-source: the hops from every source to the
 positional dst), ``--kshortest K`` (Yen's K shortest loopless paths) and
@@ -51,16 +61,37 @@ def main(argv=None):
                     "the threaded host batch; sharded: one query after "
                     "another); replaces the positional src/dst")
     ap.add_argument("--backend", default="dense",
-                    choices=["serial", "dense", "sharded", "native"],
+                    choices=["serial", "dense", "sharded", "sharded2d",
+                             "native"],
                     help="the dense device search (default), the "
-                    "vertex-sharded search over --devices ranks, the serial "
-                    "host oracle or the native C++ host runtime")
+                    "vertex-sharded search over --devices ranks, the 2D "
+                    "block-partitioned search over a --grid of ranks, the "
+                    "serial host oracle or the native C++ host runtime")
     ap.add_argument("--devices", type=int, default=None, metavar="N",
-                    help="ranks of --backend sharded (default: every card; "
-                    "one rank with --device cpu)")
-    ap.add_argument("--mode", default="sync",
+                    help="ranks of --backend sharded / sharded2d (default: "
+                    "every card; one rank with --device cpu; sharded2d "
+                    "factorizes it into the squarest grid unless --grid is "
+                    "given)")
+    ap.add_argument("--grid", default=None, metavar="RxC",
+                    help="grid of --backend sharded2d (e.g. 2x2): the "
+                    "adjacency blocked over R x C ranks, so a level's "
+                    "frontier traffic scales as n/C + n/R instead of n")
+    ap.add_argument("--checkpoint", default=None, metavar="FILE",
+                    help="device backends (dense/sharded/sharded2d): run the "
+                    "search in chunks and write its state to FILE after "
+                    "every chunk (atomic .npz); with --resume, continue the "
+                    "search in FILE (portable across the three backends)")
+    ap.add_argument("--chunk", type=int, default=None, metavar="K",
+                    help="rounds per chunk of the checkpointed search "
+                    "(default 8); implies chunked execution even without "
+                    "--checkpoint")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume the search in --checkpoint FILE (src/dst "
+                    "must match its fingerprint)")
+    ap.add_argument("--mode", default=None,
                     choices=sorted(DENSE_MODES) + list(BATCH_ONLY),
-                    help="dense schedule (default sync): sync/alt/beamer/"
+                    help="dense schedule (default sync; with --resume the "
+                    "checkpoint's): sync/alt/beamer/"
                     "beamer_alt/sync_unfused as torch ops, pallas/pallas_alt "
                     "on the pull kernels, fused/fused_alt as one level "
                     "kernel per round with the state on the device; "
@@ -108,6 +139,9 @@ def main(argv=None):
                     "ranks over gloo); the serial oracle runs on the host "
                     "only")
     args = ap.parse_args(argv)
+    # None: sync everywhere but --resume, where it keeps the file's mode
+    mode = args.mode or "sync"
+    args.mode_given = args.mode
     taxonomy = (
         args.sources is not None or args.kshortest is not None
         or args.weighted
@@ -128,9 +162,27 @@ def main(argv=None):
             print(f"Error reading graph: {e}", file=sys.stderr)
             return 2
         return _taxonomy_main(ap, args, n, edges)
-    if args.devices is not None and (args.backend != "sharded"
-                                     or args.devices < 1):
-        ap.error("--devices N (N >= 1) applies to --backend sharded only")
+    if args.devices is not None and (
+            args.backend not in ("sharded", "sharded2d") or args.devices < 1):
+        ap.error("--devices N (N >= 1) applies to --backend sharded / "
+                 "sharded2d only")
+    rows = cols = None
+    if args.grid is not None:
+        if args.backend != "sharded2d":
+            ap.error("--grid only applies to --backend sharded2d")
+        try:
+            rows, cols = (int(x) for x in args.grid.lower().split("x"))
+            if rows < 1 or cols < 1:
+                raise ValueError
+        except ValueError:
+            ap.error(f"--grid must look like 2x4, got {args.grid!r}")
+    if args.backend == "sharded2d":
+        if mode not in ("sync", "alt"):
+            ap.error("--backend sharded2d supports --mode sync/alt only "
+                     "(pull-only 2D partition)")
+        if args.layout != "ell":
+            ap.error("--backend sharded2d has its own block layout; "
+                     "--layout does not apply")
     if args.mode in BATCH_ONLY:
         if args.pairs is None or args.backend != "dense":
             ap.error("--mode minor/minor8/auto are batch-only: use "
@@ -142,28 +194,47 @@ def main(argv=None):
     if args.pairs is not None:
         if args.backend == "serial":
             ap.error("--pairs batch mode is supported by --backend dense, "
-                     "sharded and native")
+                     "sharded, sharded2d and native")
         if args.src is not None or args.dst is not None:
             ap.error("--pairs replaces the positional src/dst arguments")
     elif args.src is None or args.dst is None:
         ap.error("src and dst are required (or use --pairs FILE)")
-    if args.unroll > 1 and args.pairs is not None:
-        ap.error("--unroll is single-query only (no --pairs)")
+    checkpointed = (args.checkpoint is not None or args.chunk is not None
+                    or args.resume)
+    if checkpointed:
+        if args.backend not in ("dense", "sharded", "sharded2d"):
+            ap.error("--checkpoint/--chunk/--resume need a device backend "
+                     "(dense/sharded/sharded2d); host backends finish in "
+                     "one shot")
+        if args.pairs is not None or args.repeat > 1:
+            ap.error("--checkpoint/--chunk are single-query (no --pairs / "
+                     "--repeat)")
+        if args.resume and args.checkpoint is None:
+            ap.error("--resume needs --checkpoint FILE to resume from")
+        if args.chunk is not None and args.chunk < 1:
+            ap.error("--chunk must be >= 1")
+    if args.unroll > 1 and (args.pairs is not None or checkpointed):
+        ap.error("--unroll is single-query only (no --pairs / "
+                 "--checkpoint / --chunk / --resume)")
     if args.unroll < 1:
         ap.error("--unroll must be >= 1")
     if args.repeat < 1:
         ap.error("--repeat must be >= 1")
-    if args.level_stats and (args.pairs is not None or args.repeat > 1):
+    if args.level_stats and (args.pairs is not None or args.repeat > 1
+                             or checkpointed):
         ap.error("--level-stats is single-query only (no --pairs / "
-                 "--repeat)")
+                 "--checkpoint / --repeat)")
     host = args.backend in ("serial", "native")
     if host and (
-        args.layout != "ell" or args.mode != "sync" or args.unroll != 1
+        args.layout != "ell" or mode != "sync" or args.unroll != 1
     ):
         ap.error("--mode/--layout/--unroll apply to the device backends "
-                 "(dense, sharded) only")
-    if args.level_stats and args.backend == "sharded":
-        ap.error("--level-stats is not supported by --backend sharded")
+                 "(dense, sharded, sharded2d) only")
+    if args.level_stats and args.backend in ("sharded", "sharded2d"):
+        ap.error(f"--level-stats is not supported by --backend "
+                 f"{args.backend}")
+    if args.unroll > 1 and args.backend == "sharded2d":
+        ap.error("--unroll applies to the dense/sharded backends only")
     if host and args.device == "cuda":
         ap.error(f"--backend {args.backend} runs on the host and cannot "
                  "run on cuda")
@@ -175,8 +246,11 @@ def main(argv=None):
     except (OSError, ValueError) as e:
         print(f"Error reading graph: {e}", file=sys.stderr)
         return 2
+    args.mode, args.rows, args.cols = mode, rows, cols
     if args.pairs is not None:
         return _batch_main(args, n, edges)
+    if checkpointed:
+        return _checkpoint_main(args, n, edges)
     try:
         res = _solve(args, n, edges)
     except (ValueError, RuntimeError, OSError) as e:
@@ -229,6 +303,13 @@ def _solve(args, n, edges):
         if args.repeat > 1:
             return timed_repeats(run, run, args.repeat, force=None)[1]
         return run()
+    if args.backend == "sharded2d":
+        from bibfs_tpu_torch.solvers.sharded2d import solve_sharded2d
+
+        return solve_sharded2d(n, edges, args.src, args.dst, rows=args.rows,
+                               cols=args.cols, num_devices=args.devices,
+                               mode=args.mode, device=args.device,
+                               repeats=args.repeat)
     if args.backend == "sharded":
         from bibfs_tpu_torch.solvers.sharded import solve_sharded
 
@@ -276,6 +357,13 @@ def _batch_main(args, n, edges):
                                                     repeats=args.repeat)
             else:
                 results = solve_batch_native_graph(g, pairs)
+        elif args.backend == "sharded2d":
+            from bibfs_tpu_torch.solvers.sharded2d import solve_batch_sharded2d
+
+            results = solve_batch_sharded2d(
+                n, edges, pairs, rows=args.rows, cols=args.cols,
+                num_devices=args.devices, mode=args.mode, device=args.device,
+                repeats=args.repeat)
         elif args.backend == "sharded":
             from bibfs_tpu_torch.solvers.sharded import solve_batch_sharded
 
@@ -313,6 +401,52 @@ def _batch_main(args, n, edges):
         f"[Time] {args.backend} batch of {len(results)} searches took "
         f"{batch_s:.9f} seconds ({batch_s / max(len(results), 1):.9f} s/query)"
     )
+    return 0
+
+
+def _checkpoint_main(args, n, edges):
+    """``--checkpoint/--chunk/--resume``: one query in chunks on the dense
+    search, a 1D mesh or a 2D grid (:mod:`bibfs_tpu_torch.solvers.
+    checkpoint`), printing the answer lines and the checkpoint line."""
+    from bibfs_tpu_torch.solvers import checkpoint as ck
+
+    chunk = args.chunk if args.chunk is not None else 8
+    mode = args.mode_given if args.resume else args.mode
+    try:
+        if args.backend == "dense":
+            from bibfs_tpu_torch.solvers.dense import DeviceGraph
+
+            g = DeviceGraph.build(n, edges, layout=args.layout,
+                                  device=args.device)
+            if args.resume:
+                res = ck.resume(args.checkpoint, g, src=args.src,
+                                dst=args.dst, mode=mode, chunk=chunk)
+            else:
+                res = ck.solve_checkpointed(g, args.src, args.dst, mode=mode,
+                                            chunk=chunk, path=args.checkpoint)
+        else:
+            res = ck.checkpoint_on_mesh(
+                n, edges, args.src, args.dst,
+                substrate="2d" if args.backend == "sharded2d" else "1d",
+                num_devices=args.devices, rows=args.rows, cols=args.cols,
+                mode=mode, layout=args.layout, chunk=chunk,
+                path=args.checkpoint, resume_from=args.resume,
+                device=args.device)
+    except (ValueError, RuntimeError, OSError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 2
+    if res.found:
+        print(f"Shortest path length = {res.hops}")
+        if res.path and not args.no_path:
+            print("Path: " + " -> ".join(str(v) for v in res.path))
+    else:
+        print("No path found.")
+    print(f"[Time] {args.backend} bidirectional BFS took {res.time_s:.9f} "
+          "seconds")
+    print(f"[TEPS] {res.teps:.3e} traversed edges/second "
+          f"({res.edges_scanned} edges)")
+    if args.checkpoint:
+        print(f"[Checkpoint] {args.checkpoint} (chunk={chunk} levels)")
     return 0
 
 

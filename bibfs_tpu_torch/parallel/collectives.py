@@ -6,6 +6,9 @@
 | ``psum`` / ``pmax``            | :func:`sum_allreduce` / :func:`max_allreduce` |
 | ``pmin`` pair (value, then id) | :func:`global_min_and_argmin` (one MIN of a 64-bit key) |
 | ``all_gather`` of packed words | :func:`all_gather_bits`, :func:`all_gather_bits_dual` |
+| ``all_gather`` over axis ``r``  | :func:`all_gather_rows` (a 2D grid's row axis) |
+| ``pmax`` over axis ``c``        | :func:`max_allreduce_cols` (a 2D grid's column axis) |
+| ``ppermute`` by ``_transpose_perm`` | :func:`transpose_permute` (point-to-point sends) |
 
 The frontier crosses the wire packed 32 vertices to a word, each shard's
 ``ceil(n_loc / 32)`` words in the bit order of
@@ -132,6 +135,34 @@ def global_min_and_argmin(local_min, local_arg, mesh):
     key = (local_min.to(torch.int64) << 32) + (local_arg.to(torch.int64) + 2**31)
     g = mesh.all_reduce(key, "min")
     return (g >> 32).to(torch.int32), ((g & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def all_gather_rows(words, grid) -> torch.Tensor:
+    """The packed words of every rank on this rank's row axis of a 2D grid
+    (:class:`~.mesh.Mesh2D`; the ranks of its column), stacked in row
+    order: ``[R, *words.shape]``. A rank ships ``words`` once."""
+    return grid.row_axis.all_gather(words)
+
+
+def max_allreduce_cols(x, grid) -> torch.Tensor:
+    """Max across this rank's column axis of a 2D grid (the ranks of its
+    row)."""
+    return grid.col_axis.all_reduce(x, "max")
+
+
+def transpose_perm(R: int, C: int) -> tuple:
+    """The reference's fixed ``ppermute`` pairs (``sharded2d.
+    _transpose_perm``): fold slice ``s = r C + c`` moves to the rank whose
+    column gather needs it, grid ``(s % R, s // R)``, linear ``(s % R) C +
+    s // R``."""
+    return tuple((s, (s % R) * C + s // R) for s in range(R * C))
+
+
+def transpose_permute(words, grid) -> torch.Tensor:
+    """The 2D search's transpose: this rank's packed owned slice sent to
+    its :func:`transpose_perm` target over the whole grid, point to point
+    (each rank ships its ``words`` once and receives one slice)."""
+    return grid.world.permute(words, transpose_perm(grid.R, grid.C))
 
 
 def on_shards(mesh, calls: list) -> list:

@@ -1,5 +1,6 @@
-"""1D device meshes as ``torch.distributed`` process groups: the
-counterpart of ``bibfs_tpu/parallel/mesh.py`` (its 1D half).
+"""Device meshes as ``torch.distributed`` process groups: the counterpart
+of ``bibfs_tpu/parallel/mesh.py`` (its 1D and 2D meshes; the multi-host
+job of the reference's pod comes later).
 
 The JAX package runs one SPMD program under ``shard_map`` from a single
 controller. Here a mesh is a process group with one rank per device, each
@@ -21,6 +22,15 @@ A failed NCCL start raises; nothing swaps it for gloo. The process group
 and the launcher both have a timeout, and a rank that raises or dies makes
 the launcher terminate the others and raise, so no call hangs on a lost
 rank.
+
+:func:`make_2d_mesh` is a rank's view of an ``R x C`` grid over the same
+ranks (rank ``r C + c`` at row ``r``, column ``c``): besides the world it
+holds two sub-groups, the row axis (the ``R`` ranks of its column, the
+reference's ``r`` axis) and the column axis (the ``C`` ranks of its row,
+the ``c`` axis). Every rank creates every sub-group, in the same order.
+:func:`launch` runs one call on ranks that end with it; a
+:class:`~bibfs_tpu_torch.parallel.pool.MeshPool` keeps its ranks up across
+calls. Both join the group through :func:`_join`.
 """
 
 from __future__ import annotations
@@ -50,12 +60,16 @@ class Mesh:
     helper of :mod:`bibfs_tpu_torch.parallel.collectives` is made of."""
 
     def __init__(self, rank: int, size: int, device, backend: str,
-                 staged: bool = False):
+                 staged: bool = False, group=None, ranks=None):
         self.rank = int(rank)
         self.size = int(size)
         self.device = torch.device(device)
         self.backend = backend
         self.staged = bool(staged)
+        # a sub-group (None: the world) and the world ranks of its members
+        # in group order; each group keeps its own pinned buffers
+        self.group = group
+        self.ranks = list(range(self.size)) if ranks is None else list(ranks)
         self._pinned: dict = {}
 
     @property
@@ -84,12 +98,12 @@ class Mesh:
         if not self.staged:
             out = torch.empty((self.size * x.numel(),), dtype=x.dtype,
                               device=x.device)
-            dist.all_gather_into_tensor(out, x.view(-1))
+            dist.all_gather_into_tensor(out, x.view(-1), group=self.group)
             return out.view(self.size, *x.shape)
         src = self._host("in", (x.numel(),), x.dtype)
         src.copy_(x.view(-1))  # waits for the stream that made x
         out = self._host("out", (self.size * x.numel(),), x.dtype)
-        dist.all_gather_into_tensor(out, src)
+        dist.all_gather_into_tensor(out, src, group=self.group)
         return out.to(x.device, non_blocking=True).view(self.size, *x.shape)
 
     def all_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
@@ -99,12 +113,46 @@ class Mesh:
         if self.size == 1:
             return out
         if not self.staged:
-            dist.all_reduce(out, op=_REDUCE_OPS[op])
+            dist.all_reduce(out, op=_REDUCE_OPS[op], group=self.group)
             return out
         buf = self._host("red", tuple(out.shape), out.dtype)
         buf.copy_(out)
-        dist.all_reduce(buf, op=_REDUCE_OPS[op])
+        dist.all_reduce(buf, op=_REDUCE_OPS[op], group=self.group)
         return buf.to(x.device, non_blocking=True)
+
+    def permute(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """The reference's ``ppermute`` over this group: ``perm`` holds
+        ``(source, target)`` group ranks, each rank at most once on each
+        side; this rank sends ``x`` to its target and returns what its
+        source sent (zeros where no rank sends to it). Point-to-point
+        sends through :func:`torch.distributed.batch_isend_irecv`, so each
+        rank ships exactly its ``x`` once (a rank mapped to itself
+        copies)."""
+        x = x.contiguous()
+        dst = next((t for s, t in perm if s == self.rank), None)
+        src = next((s for s, t in perm if t == self.rank), None)
+        if src is None and dst is None:
+            return torch.zeros_like(x)
+        if src == self.rank and dst == self.rank:
+            return x.clone()
+        if self.staged:
+            send = self._host("p2p_in", tuple(x.shape), x.dtype)
+            send.copy_(x)
+            recv = self._host("p2p_out", tuple(x.shape), x.dtype)
+        else:
+            send, recv = x, torch.empty_like(x)
+        ops = []
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, send, self.ranks[dst],
+                                  group=self.group))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, recv, self.ranks[src],
+                                  group=self.group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if src is None:
+            return torch.zeros_like(x)
+        return recv.to(x.device, non_blocking=True) if self.staged else recv
 
     def barrier(self) -> None:
         """Return once every rank has reached this point and this rank's
@@ -119,8 +167,47 @@ class Mesh:
         out = [None] * self.size
         if self.size == 1:
             return [obj]
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.group)
         return out
+
+
+class Mesh2D:
+    """This rank's view of an ``R x C`` grid (module docstring): its world
+    :class:`Mesh` (``rank = row * C + col``), and the two axes as
+    sub-group meshes, ``row_axis`` (the ranks of its column, indexed by
+    row: the reference's ``r`` axis, which the frontier is gathered over)
+    and ``col_axis`` (the ranks of its row, indexed by column: the ``c``
+    axis, which parent candidates are max-reduced over). Whole-grid
+    collectives go through the world mesh."""
+
+    def __init__(self, world: Mesh, rows: int, cols: int, row_axis: Mesh,
+                 col_axis: Mesh):
+        self.world = world
+        self.R = int(rows)
+        self.C = int(cols)
+        self.row_axis = row_axis
+        self.col_axis = col_axis
+
+    rank = property(lambda self: self.world.rank)
+    size = property(lambda self: self.world.size)
+    device = property(lambda self: self.world.device)
+    staged = property(lambda self: self.world.staged)
+    transport = property(lambda self: self.world.transport)
+    row = property(lambda self: self.world.rank // self.C)
+    col = property(lambda self: self.world.rank % self.C)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"Mesh2D({self.R}x{self.C}, rank {self.rank} at "
+                f"({self.row}, {self.col}), {self.device}, {self.transport})")
+
+    def all_gather(self, x):
+        return self.world.all_gather(x)
+
+    def all_reduce(self, x, op: str):
+        return self.world.all_reduce(x, op)
+
+    def barrier(self) -> None:
+        self.world.barrier()
 
 
 class DistributedContext:
@@ -150,6 +237,7 @@ class DistributedContext:
 
 
 _JOINED: DistributedContext | None = None
+_GRIDS: dict = {}  # (rows, cols) -> this rank's Mesh2D, its groups made once
 
 
 def placement(num_ranks: int, device="cuda") -> tuple[list, str, bool]:
@@ -238,6 +326,44 @@ def make_1d_mesh(num_devices: int | None = None) -> Mesh:
                 _JOINED.staged)
 
 
+def make_2d_mesh(rows: int, cols: int) -> Mesh2D:
+    """This rank's view of a ``rows x cols`` grid over every rank of the
+    joined process group (``rows * cols`` must be its size): the world,
+    and the row-axis and column-axis sub-groups (:class:`Mesh2D`). Every
+    rank must call it with the same shape: each call on a new shape
+    creates all ``cols + rows`` sub-groups, the row-axis groups (one per
+    column) first, in the same order on every rank; a shape is made once
+    per process group."""
+    if _JOINED is None:
+        raise RuntimeError("no process group: call init_distributed (or run "
+                           "under launch()) first")
+    rows, cols = int(rows), int(cols)
+    size = _JOINED.process_count
+    if rows < 1 or cols < 1 or rows * cols != size:
+        raise ValueError(f"requested {rows}x{cols} mesh, have {size} devices")
+    if (rows, cols) in _GRIDS:
+        return _GRIDS[rows, cols]
+    world = make_1d_mesh()
+    me = world.rank
+    r, c = divmod(me, cols)
+    axes = {}
+    for col in range(cols):  # the row axis of each column
+        members = [row * cols + col for row in range(rows)]
+        grp = dist.new_group(members)
+        if col == c:
+            axes["row"] = Mesh(r, rows, world.device, world.backend,
+                               world.staged, group=grp, ranks=members)
+    for row in range(rows):  # the column axis of each row
+        members = [row * cols + col for col in range(cols)]
+        grp = dist.new_group(members)
+        if row == r:
+            axes["col"] = Mesh(c, cols, world.device, world.backend,
+                               world.staged, group=grp, ranks=members)
+    grid = _GRIDS[rows, cols] = Mesh2D(world, rows, cols, axes["row"],
+                                       axes["col"])
+    return grid
+
+
 def rank_info(mesh) -> list:
     """Every rank's placement (a rank body for :func:`launch`): its
     index, device, transport, whether its card reaches each other rank's
@@ -256,17 +382,33 @@ def rank_info(mesh) -> list:
     return mesh.all_gather_object(info)
 
 
-def _rank_main(rank: int, size: int, tmp: str, devices: list, backend: str,
-               staged: bool, timeout_s: float, fn, args) -> None:
-    """One spawned rank: one intra-op thread (the ranks share the host's
-    cores), join the group through the rendezvous file, run ``fn(mesh,
-    *args)``, and rank 0 writes the value for the launcher."""
+def _join(rank: int, size: int, tmp: str, devices: list, backend: str,
+          staged: bool, timeout_s: float) -> Mesh:
+    """A spawned rank's set-up, for :func:`launch` and the rank pool: one
+    intra-op thread (the ranks share the host's cores), join the group
+    through the rendezvous file in ``tmp``, and return the 1D mesh."""
     torch.set_num_threads(1)
     init_distributed(f"file://{os.path.join(tmp, 'rendezvous')}", size, rank,
                      device=devices[rank], backend=backend, staged=staged,
                      timeout_s=timeout_s)
+    return make_1d_mesh()
+
+
+def _leave() -> None:
+    """Leave the process group (and forget its grids)."""
+    global _JOINED
+    _GRIDS.clear()
+    _JOINED = None
+    dist.destroy_process_group()
+
+
+def _rank_main(rank: int, size: int, tmp: str, devices: list, backend: str,
+               staged: bool, timeout_s: float, fn, args) -> None:
+    """One spawned rank of :func:`launch`: join (:func:`_join`), run
+    ``fn(mesh, *args)``, and rank 0 writes the value for the launcher."""
+    mesh = _join(rank, size, tmp, devices, backend, staged, timeout_s)
     try:
-        out = fn(make_1d_mesh(), *args)
+        out = fn(mesh, *args)
         if rank == 0:
             with open(os.path.join(tmp, "result.pkl.tmp"), "wb") as f:
                 pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -274,7 +416,7 @@ def _rank_main(rank: int, size: int, tmp: str, devices: list, backend: str,
                        os.path.join(tmp, "result.pkl"))
         dist.barrier()
     finally:
-        dist.destroy_process_group()
+        _leave()
 
 
 def launch(fn, num_ranks: int, *args, device="cuda",

@@ -23,7 +23,11 @@ queries resolve and print) and exits 0.
 
 ``--blocked`` adds the blocked tile rung ahead of the device rung
 (``blocked -> device -> host``), and ``--adaptive`` orders the ladder per
-graph from measured route latencies.
+graph from measured route latencies. ``--mesh N|auto`` adds the mesh rung
+ahead of both: a pool of N ranks on this host (one card each, or sharing
+one; gloo ranks with ``--device cpu``) serves above-crossover flushes,
+data-parallel or vertex-sharded (``serve/routes/mesh.py``);
+``--mesh-shard-min-n`` sets the vertex-sharded crossover.
 
 ``--store DIR`` serves a whole
 :class:`~bibfs_tpu_torch.store.GraphStore` instead of one ``.bin``: every
@@ -273,6 +277,21 @@ def main(argv=None):
                     "its crossover constants come from calibration.json "
                     "(the platform's blocked block), else 128 queries and a "
                     "waste cap of 128")
+    ap.add_argument("--mesh", default=None, metavar="DEVICES",
+                    help='enable route="mesh": serve batches from a pool of '
+                    "DEVICES ranks on this host (serve/routes/mesh.py): "
+                    "data-parallel flushes (queries sharded, no collective) "
+                    "for throughput, the 1D vertex-sharded search with the "
+                    "packed frontier exchange for mesh-scale graphs. 'auto' "
+                    "takes every card (one rank with --device cpu). "
+                    "Below-crossover traffic (calibration.json, the "
+                    "platform's mesh block) goes to the single-device rungs; "
+                    "the mesh rung has its own breaker and retry policy")
+    ap.add_argument("--mesh-shard-min-n", type=int, default=None,
+                    metavar="N",
+                    help="the mesh rung's vertex-sharded crossover: graphs "
+                    "of N vertices or more route sharded (default: the "
+                    "calibrated constant, else 2^20)")
     ap.add_argument("--adaptive", action="store_true",
                     help="adaptive routing: learn a per-graph route order "
                     "from measured per-route latencies and sampled level "
@@ -306,6 +325,15 @@ def main(argv=None):
                     help="device of the batched search (default cuda; no "
                     "silent CPU fallback)")
     args = ap.parse_args(argv)
+    if args.mesh is not None and args.mesh != "auto":
+        try:
+            if int(args.mesh) < 1:
+                raise ValueError
+        except ValueError:
+            ap.error(f"--mesh takes a device count >= 1 or 'auto', got "
+                     f"{args.mesh!r}")
+    if args.mesh_shard_min_n is not None and args.mesh is None:
+        ap.error("--mesh-shard-min-n applies to --mesh only")
 
     if args.store is not None:
         if args.graph is not None:
@@ -374,6 +402,12 @@ def _build_engine(args, n, edges, store):
         cache_entries=args.cache_entries,
         device=args.device,
     )
+    if args.mesh is not None:
+        from bibfs_tpu_torch.serve.routes import MeshConfig
+
+        kwargs["mesh"] = MeshConfig(
+            devices=None if args.mesh == "auto" else int(args.mesh),
+            shard_min_n=args.mesh_shard_min_n)
     if args.blocked:
         kwargs["blocked"] = True
     if args.adaptive:

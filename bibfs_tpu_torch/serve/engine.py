@@ -23,8 +23,9 @@ batches for the card:
   :class:`~bibfs_tpu_torch.serve.cache.DistanceCache`; repeated sources
   (and their reverse twins) answer later queries on the host with no
   dispatch.
-- **resilience** — the ladder ``device -> host`` (``blocked -> device
-  -> host`` with ``blocked=``) with bounded retries and a circuit breaker
+- **resilience** — the ladder ``device -> host`` (``mesh ->`` ahead with
+  ``mesh=``, ``blocked ->`` ahead of device with ``blocked=``) with bounded
+  retries and a circuit breaker
   on each dispatch rung, and per-query isolation on the host rung
   (``serial`` as each singleton's last chance). Every
   degrade is counted in ``bibfs_route_fallbacks_total`` and
@@ -37,6 +38,12 @@ batches for the card:
   instead of being re-solved on the host; the blocked rung follows the
   same rule. An engine on the CPU keeps the JAX package's ladder, which
   degrades on any failure.
+- **mesh route** — ``mesh=`` adds the mesh rung ahead of the others
+  (:mod:`bibfs_tpu_torch.serve.routes.mesh`): above its crossovers a flush
+  runs on a pool of ranks that stay up across flushes
+  (:class:`~bibfs_tpu_torch.parallel.pool.MeshPool`), data-parallel over
+  replicas or vertex-sharded over a 1D mesh; the engine's threads never
+  enter a collective.
 - **blocked route** — ``blocked=`` adds the tile rung
   (:mod:`bibfs_tpu_torch.serve.routes.blocked`): above its crossover, on
   a graph whose tile structure is compact, a flush advances as int8
@@ -83,9 +90,9 @@ runs in turn and the pipelined engine
   the kind cache. The counts per kind and route show in
   ``stats()["query_kinds"]``.
 
-The mesh route and the whole-graph analytics kinds come with later slices
-of the port (ROADMAP Queue 1, items 8 and 9): the mesh option and an
-analytics query raise ``NotImplementedError``.
+The whole-graph analytics kinds come with a later slice of the port
+(ROADMAP Queue 1, item 9): an analytics query raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -133,9 +140,6 @@ from bibfs_tpu_torch.utils.platform import resolve_device
 
 #: the batch layouts a flush can take besides the dense modes
 BATCH_LAYOUT_MODES = ("auto", "minor", "minor8")
-
-#: constructor options of later slices -> the ROADMAP Queue 1 item
-_UNPORTED = {"mesh": 8}
 
 
 def _solve_serial_cutoff_checked(n, row_ptr, col_ind, s, d, cutoff):
@@ -212,7 +216,8 @@ class _ResilienceCells:
     """The per-engine resilience registry cells, every one minted at
     construction so a scrape shows the families at zero from the start."""
 
-    def __init__(self, label: str, *, blocked: bool = False):
+    def __init__(self, label: str, *, mesh: bool = False,
+                 blocked: bool = False):
         errors = REGISTRY.counter(
             "bibfs_errors_total",
             "Per-ticket query failures by taxonomy kind",
@@ -256,6 +261,11 @@ class _ResilienceCells:
             # the blocked rung's two exits: the device rung, or straight
             # to the host when device is ineligible
             pairs = [("blocked", "device"), ("blocked", "host")] + pairs
+        if mesh:
+            # the mesh rung's exits: the next dispatch rung, or the host
+            pairs = [("mesh", "device"), ("mesh", "host")] + pairs
+            if blocked:
+                pairs = [("mesh", "blocked")] + pairs
         self.fallbacks = {
             (a, b): fallbacks.labels(**{"engine": label, "from": a, "to": b})
             for a, b in pairs
@@ -264,6 +274,10 @@ class _ResilienceCells:
         self._retry_cells = {
             "device": retries.labels(engine=label, route="device"),
         }
+        if mesh:
+            self._retry_cells["mesh"] = retries.labels(
+                engine=label, route="mesh"
+            )
         if blocked:
             self._retry_cells["blocked"] = retries.labels(
                 engine=label, route="blocked"
@@ -330,7 +344,7 @@ class _Pending:
 @guarded_by("_lock", "_graph", "bucket_key", "_host_solver",
             "host_native_graph", "_serial_solver", "host_backend_resolved",
             "_blocked_graph", "blocked_bucket_key", "_blocked_meta",
-            "_weights", "_wtables")
+            "_weights", "_wtables", "mesh_shipped")
 class _GraphRuntime:
     """Everything an engine knows about solving one immutable graph
     snapshot: the lazily built and uploaded device graph and its bucket
@@ -363,6 +377,9 @@ class _GraphRuntime:
         # device rung's uploaded tables (weights_for, weighted_device_tables)
         self._weights: dict = {}
         self._wtables: dict = {}
+        # (pool, "1d" | "dp") -> (pool generation, key, host graph): the
+        # mesh route's graphs shipped to a rank pool (mesh_graph, dp_graph)
+        self.mesh_shipped: dict = {}
 
     @property
     def graph(self):
@@ -425,6 +442,48 @@ class _GraphRuntime:
                     self.blocked_bucket_key = blocked_bucket_key(bg)
                     self._blocked_graph = g
         return g
+
+    def mesh_graph(self, route) -> tuple:
+        """The mesh route's vertex-sharded graph of this snapshot on the
+        route's rank pool: the serving ELL re-padded to the mesh size
+        (:func:`~bibfs_tpu_torch.serve.buckets.repad_rows`), shipped at the
+        first mesh-routed flush. Returns ``(pool key, host graph)``."""
+        from bibfs_tpu_torch.serve.buckets import repad_rows
+
+        return self._ship(route.pool, "1d", lambda: repad_rows(
+            self.snapshot.ell(), route.ndev))
+
+    def dp_graph(self, route) -> tuple:
+        """The mesh route's data-parallel replica table of this snapshot,
+        on the fine row ladder (:func:`~bibfs_tpu_torch.serve.buckets.
+        dp_aligned_ell`), shipped at the first dp-routed flush. Returns
+        ``(pool key, host graph)``."""
+        from bibfs_tpu_torch.serve.buckets import dp_aligned_ell
+
+        return self._ship(route.pool, "dp", lambda: dp_aligned_ell(
+            self.n, pairs=self.snapshot.pairs))
+
+    def _ship(self, pool, what: str, build) -> tuple:
+        """Ship ``build()`` to ``pool`` once per pool generation (a respawn
+        forgets every graph): saved into the pool's directory and
+        registered on the ranks as a ``graph`` descriptor; the snapshot's
+        retirement releases it there, so a hot swap ships the next
+        snapshot's and frees this one's."""
+        with self._lock:
+            have = self.mesh_shipped.get((id(pool), what))
+            if have is not None and have[0] == pool.generation:
+                return have[1], have[2]
+            import uuid
+
+            from bibfs_tpu_torch.solvers.sharded import save_host_graph
+
+            host = build()
+            key = f"{self.snapshot.digest[:16]}-{what}-{uuid.uuid4().hex[:8]}"
+            path = save_host_graph(host, os.path.join(pool.workdir, key))
+            pool.graph(key, path)
+            self.mesh_shipped[id(pool), what] = (pool.generation, key, host)
+        self.snapshot.on_retire(lambda _s: pool.release(key, path))
+        return key, host
 
     #: memoized weight derivations kept per runtime: each costs one
     #: float64 per CSR entry (or an uploaded table) and the seed is client
@@ -625,8 +684,18 @@ class QueryEngine:
         ``AdaptiveRouter`` to share one across engines or to persist it at
         a ``path``.
         Default None: the static ladder.
-    mesh : an option of a later slice of the port; passing it raises
-        ``NotImplementedError``.
+    mesh : enable ``route="mesh"`` (:mod:`bibfs_tpu_torch.serve.routes.
+        mesh`): a rank count, ``"auto"`` (every card; one rank on the CPU)
+        or a :class:`~bibfs_tpu_torch.serve.routes.MeshConfig`. The
+        constructor starts a pool of that many ranks on the engine's device
+        (NCCL with a card each, staged gloo for ranks sharing a card, gloo
+        on the CPU; ``MeshConfig(pool=...)`` shares a running one), and the
+        mesh rung leads the ladder (``mesh -> device -> host``) with its own
+        circuit breaker and retry policy. Below-crossover flushes (the
+        platform's ``mesh`` calibration block, else the defaults) go on to
+        the single-device rungs, counted in
+        ``bibfs_mesh_crossover_reroutes_total``. ``close()`` closes the
+        engine's own pool. Default None: no mesh rung.
     """
 
     _OBS_PREFIX = "sync"
@@ -666,13 +735,6 @@ class QueryEngine:
         from bibfs_tpu_torch.solvers.batch_minor import small_batch_threshold
         from bibfs_tpu_torch.solvers.dense import DENSE_MODES
 
-        given = {"mesh": mesh}
-        for opt, item in _UNPORTED.items():
-            if given[opt] is not None and given[opt] is not False:
-                raise NotImplementedError(
-                    f"QueryEngine({opt}=...) is not ported yet "
-                    f"(ROADMAP Queue 1, item {item})"
-                )
         if layout not in ("ell", "tiered"):
             raise ValueError(
                 f"unknown layout {layout!r} (expected 'ell' or 'tiered')"
@@ -737,163 +799,191 @@ class QueryEngine:
             from bibfs_tpu_torch.ops import _cuda
 
             sources = _mode_sources(mode, self._blocked_cfg is not None)
+            if mesh is not None:  # the ranks launch these (fused: both)
+                sources += ("batch_minor", "pull_expand", "fused_level")
             for source in sources + (("msbfs",) if oracle_k else ()):
                 _cuda.lib(source)
-        # the store pin comes after every check that can raise: a raise
-        # past it would leak the pin and the snapshot would never retire
-        self._store = store
-        if store is not None:
-            self._default_name = (
-                store.default_graph() if graph is None else str(graph)
-            )
-            try:
-                snap = store.acquire(self._default_name)  # the engine's pin
-            except KeyError as e:
-                raise ValueError(str(e)) from e
-        else:
-            snap = GraphSnapshot.build(n, edges, pairs=pairs)
-            self._default_name = None
-        self.mode = mode
-        self.layout = layout
-        self.flush_threshold = (
-            small_batch_threshold(self._device.type)
-            if flush_threshold is None else int(flush_threshold)
-        )
-        self.max_batch = bucket_batch(max_batch)
-        self._host_backend = host_backend
-        # one runtime per served graph name; a hot-swap replaces it at the
-        # next resolution while bound flushes finish on the old one
-        self._rt_lock = threading.RLock()
-        self._flush_tls = threading.local()
-        self._rts_released = False
-        self._runtimes: dict = {
-            self._default_name: _GraphRuntime(
-                snap, layout=layout, device=self._device,
-                host_backend=host_backend, graph_id=graph_id,
-            )
-        }
-        self.obs_label = (
-            next_instance_label(self._OBS_PREFIX) if obs_label is None
-            else obs_label
-        )
-        # the engine-local oracle over the inline graph (a store-backed
-        # engine reads the store's per-graph oracles at submit time)
-        self._oracle = None
-        if oracle_k is not None:
-            from bibfs_tpu_torch.oracle import DistanceOracle, build_index
+        # the mesh config and its pool (started here, after every check
+        # above and before the store pin: a bad rank count or a failed
+        # NCCL start raises without leaking a pin)
+        self._mesh_cfg = None
+        self._mesh_pool = None
+        self._mesh_pool_owned = False
+        mesh_pre = None
+        if mesh is not None:
+            from bibfs_tpu_torch.serve.routes import MeshConfig, mesh_prebuild
 
-            row_ptr, col_ind = snap.csr()
-            self._oracle = DistanceOracle(
-                build_index(
-                    snap.n, row_ptr, col_ind, int(oracle_k),
-                    digest=snap.digest, version=snap.version,
-                    device=self._device,
-                ),
-                metrics_label=self.obs_label,
-            )
-        self.dist_cache = (
-            DistanceCache(entries=cache_entries, metrics_label=self.obs_label)
-            if dist_cache is None else dist_cache
-        )
-        self.exec_cache = (
-            DEFAULT_EXEC_CACHE if exec_cache is None else exec_cache
-        )
-        self._device_batches = device_batches
-        # resilience: fault plan (None = zero-cost), device retry policy,
-        # device-route circuit breaker, health state machine
-        self._faults = FaultPlan.from_env() if faults is None else faults
-        self._retry = RetryPolicy() if retry is None else retry
-        self._res_cells = _ResilienceCells(
-            self.obs_label, blocked=self._blocked_cfg is not None
-        )
-        self._breaker = CircuitBreaker() if breaker is None else breaker
-        # a weakly bound listener: a breaker shared across engines keeps
-        # every live engine's gauge exact without pinning dead engines
-        # (returning False unsubscribes)
-        cells_ref = weakref.ref(self._res_cells)
+            self._mesh_cfg = MeshConfig.coerce(mesh)
+            mesh_pre = mesh_prebuild(self._mesh_cfg, self._device)
+            self._mesh_pool, self._mesh_pool_owned = mesh_pre
+        from bibfs_tpu_torch.solvers.batch_minor import small_batch_threshold
 
-        def _on_breaker_transition(state):
-            cells = cells_ref()
-            if cells is None:
-                return False
-            cells.on_breaker_transition(state)
-            return True
-
-        self._breaker.add_listener(_on_breaker_transition)
-        self._res_cells.breaker_gauge.set(
-            BREAKER_STATE_CODES[self._breaker.state]
-        )
-        self._health_window_s = health_window_s
-        self.health = HealthMonitor(
-            breaker=self._breaker,
-            window_s=health_window_s,
-            gauge=self._res_cells.health_gauge,
-        )
-        # drain gate (begin_drain/end_drain): while set, NEW submits are
-        # refused with a kind='capacity' QueryError but everything
-        # already queued still resolves
-        self._draining = False
-        self.health.set_ready()
-        # render-time health refresh (breaker windows elapse and error
-        # windows age out with no event), weakly bound like the listener
-        self_ref = weakref.ref(self)
-
-        def _collect_health():
-            eng = self_ref()
-            if eng is None:
-                return False
-            eng.health.state()
-            eng._res_cells.breaker_gauge.set(
-                BREAKER_STATE_CODES[eng._breaker.state]
-            )
-            return True
-
-        REGISTRY.add_collector(_collect_health)
-        self._pending: list[_Pending] = []
-        self.counters = _engine_counter_bank(self.obs_label)
-        from bibfs_tpu_torch.serve.routes import (
-            KindResultCache,
-            QueryKindCells,
-            build_routes,
-        )
-
-        # the query kinds' counts and result cache (serve/routes/
-        # taxonomy.py), minted before the routes so that every family the
-        # kind routes touch renders at zero from construction
-        self._query_cells = QueryKindCells(self.obs_label)
-        self._kind_cache = KindResultCache()
-        self.routes, self._ladder = build_routes(self, self._blocked_cfg)
-        # adaptive routing (serve/policy.py): the ladder's order learned
-        # per graph digest, persisted beside a durable store's checkpoints
-        # so that a respawn serves its first flush on the learned route
-        self._policy = None
-        if adaptive:
-            from bibfs_tpu_torch.serve.policy import (
-                POLICY_SIDECAR,
-                AdaptiveRouter,
-            )
-
-            if isinstance(adaptive, bool):
-                wal_dir = getattr(store, "wal_dir", None)
-                self._policy = AdaptiveRouter(
-                    label=self.obs_label, routes=self._ladder,
-                    path=(None if wal_dir is None
-                          else os.path.join(wal_dir, POLICY_SIDECAR)),
+        try:
+            # the store pin comes after every check that can raise: a raise
+            # past it would leak the pin and the snapshot would never retire
+            self._store = store
+            if store is not None:
+                self._default_name = (
+                    store.default_graph() if graph is None else str(graph)
                 )
+                try:
+                    # the engine's pin
+                    snap = store.acquire(self._default_name)
+                except KeyError as e:
+                    raise ValueError(str(e)) from e
             else:
-                self._policy = adaptive
-        # direct cell handles for the per-query submit path
-        self._c_queries = self.counters.cell("queries")
-        self._c_trivial = self.counters.cell("trivial")
-        self._c_oracle = self.counters.cell("oracle_served")
-        self._c_cache_served = self.counters.cell("cache_served")
-        self._c_host_queries = self.counters.cell("host_queries")
-        self._c_overlay = self.counters.cell("overlay_queries")
-        # the per-query stage histogram, minted so it renders at zero; the
-        # pipelined engine records into it (the synchronous engine has no
-        # stages of its own)
-        self._stage_cells = stage_histogram()
-        self._stage_acc: dict = {}
+                snap = GraphSnapshot.build(n, edges, pairs=pairs)
+                self._default_name = None
+            self.mode = mode
+            self.layout = layout
+            self.flush_threshold = (
+                small_batch_threshold(self._device.type)
+                if flush_threshold is None else int(flush_threshold)
+            )
+            self.max_batch = bucket_batch(max_batch)
+            self._host_backend = host_backend
+            # one runtime per served graph name; a hot-swap replaces it at the
+            # next resolution while bound flushes finish on the old one
+            self._rt_lock = threading.RLock()
+            self._flush_tls = threading.local()
+            self._rts_released = False
+            self._runtimes: dict = {
+                self._default_name: _GraphRuntime(
+                    snap, layout=layout, device=self._device,
+                    host_backend=host_backend, graph_id=graph_id,
+                )
+            }
+            self.obs_label = (
+                next_instance_label(self._OBS_PREFIX) if obs_label is None
+                else obs_label
+            )
+            # the engine-local oracle over the inline graph (a store-backed
+            # engine reads the store's per-graph oracles at submit time)
+            self._oracle = None
+            if oracle_k is not None:
+                from bibfs_tpu_torch.oracle import DistanceOracle, build_index
+
+                row_ptr, col_ind = snap.csr()
+                self._oracle = DistanceOracle(
+                    build_index(
+                        snap.n, row_ptr, col_ind, int(oracle_k),
+                        digest=snap.digest, version=snap.version,
+                        device=self._device,
+                    ),
+                    metrics_label=self.obs_label,
+                )
+            self.dist_cache = (
+                DistanceCache(entries=cache_entries,
+                              metrics_label=self.obs_label)
+                if dist_cache is None else dist_cache
+            )
+            self.exec_cache = (
+                DEFAULT_EXEC_CACHE if exec_cache is None else exec_cache
+            )
+            self._device_batches = device_batches
+            # resilience: fault plan (None = zero-cost), device retry policy,
+            # device-route circuit breaker, health state machine
+            self._faults = FaultPlan.from_env() if faults is None else faults
+            self._retry = RetryPolicy() if retry is None else retry
+            self._res_cells = _ResilienceCells(
+                self.obs_label, mesh=self._mesh_cfg is not None,
+                blocked=self._blocked_cfg is not None
+            )
+            self._breaker = CircuitBreaker() if breaker is None else breaker
+            # a weakly bound listener: a breaker shared across engines keeps
+            # every live engine's gauge exact without pinning dead engines
+            # (returning False unsubscribes)
+            cells_ref = weakref.ref(self._res_cells)
+
+            def _on_breaker_transition(state):
+                cells = cells_ref()
+                if cells is None:
+                    return False
+                cells.on_breaker_transition(state)
+                return True
+
+            self._breaker.add_listener(_on_breaker_transition)
+            self._res_cells.breaker_gauge.set(
+                BREAKER_STATE_CODES[self._breaker.state]
+            )
+            self._health_window_s = health_window_s
+            self.health = HealthMonitor(
+                breaker=self._breaker,
+                window_s=health_window_s,
+                gauge=self._res_cells.health_gauge,
+            )
+            # drain gate (begin_drain/end_drain): while set, NEW submits are
+            # refused with a kind='capacity' QueryError but everything
+            # already queued still resolves
+            self._draining = False
+            self.health.set_ready()
+            # render-time health refresh (breaker windows elapse and error
+            # windows age out with no event), weakly bound like the listener
+            self_ref = weakref.ref(self)
+
+            def _collect_health():
+                eng = self_ref()
+                if eng is None:
+                    return False
+                eng.health.state()
+                eng._res_cells.breaker_gauge.set(
+                    BREAKER_STATE_CODES[eng._breaker.state]
+                )
+                return True
+
+            REGISTRY.add_collector(_collect_health)
+            self._pending: list[_Pending] = []
+            self.counters = _engine_counter_bank(self.obs_label)
+            from bibfs_tpu_torch.serve.routes import (
+                KindResultCache,
+                QueryKindCells,
+                build_routes,
+            )
+
+            # the query kinds' counts and result cache (serve/routes/
+            # taxonomy.py), minted before the routes so that every family the
+            # kind routes touch renders at zero from construction
+            self._query_cells = QueryKindCells(self.obs_label)
+            self._kind_cache = KindResultCache()
+            self.routes, self._ladder = build_routes(
+                self, self._mesh_cfg, mesh_pre, self._blocked_cfg
+            )
+            # adaptive routing (serve/policy.py): the ladder's order learned
+            # per graph digest, persisted beside a durable store's checkpoints
+            # so that a respawn serves its first flush on the learned route
+            self._policy = None
+            if adaptive:
+                from bibfs_tpu_torch.serve.policy import (
+                    POLICY_SIDECAR,
+                    AdaptiveRouter,
+                )
+
+                if isinstance(adaptive, bool):
+                    wal_dir = getattr(store, "wal_dir", None)
+                    self._policy = AdaptiveRouter(
+                        label=self.obs_label, routes=self._ladder,
+                        path=(None if wal_dir is None
+                              else os.path.join(wal_dir, POLICY_SIDECAR)),
+                    )
+                else:
+                    self._policy = adaptive
+            # direct cell handles for the per-query submit path
+            self._c_queries = self.counters.cell("queries")
+            self._c_trivial = self.counters.cell("trivial")
+            self._c_oracle = self.counters.cell("oracle_served")
+            self._c_cache_served = self.counters.cell("cache_served")
+            self._c_host_queries = self.counters.cell("host_queries")
+            self._c_overlay = self.counters.cell("overlay_queries")
+            # the per-query stage histogram, minted so it renders at zero; the
+            # pipelined engine records into it (the synchronous engine has no
+            # stages of its own)
+            self._stage_cells = stage_histogram()
+            self._stage_acc: dict = {}
+        except BaseException:
+            # close a pool this engine owns: nothing else would
+            if self._mesh_pool_owned:
+                self._mesh_pool.close()
+            raise
 
     def _note_stage(self, route: str, stage: str, dur_s: float,
                     n: int = 1, record: bool = True) -> None:
@@ -1487,6 +1577,13 @@ class QueryEngine:
             target=_sample, name="bibfs-policy-sample", daemon=True
         ).start()
 
+    def _note_crossover(self) -> None:
+        """A below-crossover batch skipped the mesh rung: a routing
+        decision, counted apart from failures."""
+        mesh = self.routes.get("mesh")
+        if mesh is not None:
+            mesh.cells.reroutes.inc()
+
     def _flush_ladder(self, pairs, unique) -> None:
         """Walk the fallback ladder for one chunk: each eligible rung gets
         a resilient :meth:`~bibfs_tpu_torch.serve.routes.base.Route.
@@ -1505,6 +1602,8 @@ class QueryEngine:
                 break
             route = self.routes[name]
             if not route.eligible(rt, pairs):
+                if name == "mesh":
+                    self._note_crossover()
                 continue
             try:
                 results = route.attempt(rt, pairs)
@@ -1849,6 +1948,10 @@ class QueryEngine:
             rts = list(self._runtimes.values())
         for rt in rts:
             rt.snapshot.release()
+        if self._mesh_pool_owned:
+            # after the runtimes: their graphs' release descriptors go
+            # first, then the ranks shut down
+            self._mesh_pool.close()
         if self._policy is not None:
             try:
                 self._policy.save()  # best-effort: a full disk must not

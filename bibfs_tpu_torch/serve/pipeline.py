@@ -682,6 +682,8 @@ class PipelinedQueryEngine(QueryEngine):
                     break
                 route = self.routes[rung]
                 if not route.eligible(rt, pairs):
+                    if rung == "mesh":
+                        self._note_crossover()
                     continue
                 if route.breaker is None or route.breaker.allow():
                     if self._launch_dispatch(route, rt, pairs, unique):
@@ -793,7 +795,7 @@ class PipelinedQueryEngine(QueryEngine):
                     if not self._may_degrade(e):
                         # the kernel's or the card's failure: answered on
                         # no other rung (the flusher fails the batch)
-                        breaker.release()
+                        route.hard_failure(e)
                         claimed = False
                         raise
                     self._record_error(e)
@@ -864,7 +866,7 @@ class PipelinedQueryEngine(QueryEngine):
         except Exception as e:
             if not self._may_degrade(e):
                 # the caller fails the batch's tickets
-                route.breaker.release()
+                route.hard_failure(e)
                 raise
             # a degradable failure after the launch: the batch is off the
             # flusher, so recover it here through the host ladder

@@ -21,8 +21,9 @@ failure policy that wraps it:
   counts the degrade in ``bibfs_route_fallbacks_total``. A failure the
   route may not degrade (``may_degrade``; for a route on the engine's
   device, ``engine._may_degrade``: on a CUDA engine anything but an
-  injected fault) is neither retried nor fed to the breaker: it raises to
-  the engine, which fails the batch's tickets.
+  injected fault) is not retried and reaches the breaker only through
+  the route's ``hard_failure`` (a released claim, except the mesh route's
+  dead pool): it raises to the engine, which fails the batch's tickets.
 
 The engines keep the orchestration (ticket resolution, banking, the
 pipelined finish worker); routes own *how a batch solves* and *when
@@ -130,10 +131,9 @@ class Route:
             if breaker is not None:
                 breaker.record_failure()
             raise
-        # a failure of the kernel or the card: the breaker only ever opens
-        # on degradable faults, so its claim is released uncounted
-        if breaker is not None:
-            breaker.release()
+        # a failure of the kernel or the card: the route decides what its
+        # breaker makes of it (hard_failure)
+        self.hard_failure(hard)
         raise hard
 
     def may_degrade(self, exc: BaseException) -> bool:
@@ -142,6 +142,14 @@ class Route:
         engine's rule (``engine._may_degrade``: on a CUDA engine only an
         injected fault)."""
         return self.host_tier or self.engine._may_degrade(exc)
+
+    def hard_failure(self, exc: BaseException) -> None:
+        """The breaker's side of a failure the route may not degrade (the
+        engine fails the batch's tickets): by default its claim is
+        released uncounted, so the breaker only opens on degradable
+        faults; the mesh route counts a dead pool."""
+        if self.breaker is not None:
+            self.breaker.release()
 
     def _note_retry(self) -> None:
         self.engine._res_cells.retry_cell(self.name).inc()

@@ -78,6 +78,8 @@ BACKEND_MODULES = {
     "serial": "bibfs_tpu_torch.solvers.serial",
     "dense": "bibfs_tpu_torch.solvers.dense",
     "native": "bibfs_tpu_torch.solvers.native",
+    "sharded": "bibfs_tpu_torch.solvers.sharded",
+    "sharded2d": "bibfs_tpu_torch.solvers.sharded2d",
 }
 
 

@@ -253,10 +253,15 @@ def save_host_graph(g, path: str) -> str:
 
 
 def load_host_graph(path: str):
-    """The graph :func:`save_host_graph` wrote, its arrays mapped
+    """The graph :func:`save_host_graph` (or :meth:`~bibfs_tpu_torch.
+    solvers.sharded2d.Sharded2DHost.save`) wrote, its arrays mapped
     read-only."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
+    if meta["kind"] == "blocks2d":
+        from bibfs_tpu_torch.solvers.sharded2d import Sharded2DHost
+
+        return Sharded2DHost.load(path)
 
     def arr(name):
         return np.load(os.path.join(path, f"{name}.npy"), mmap_mode="r")
@@ -750,90 +755,210 @@ def time_batch_sharded(g: ShardedGraph, pairs, *, repeats: int = 5,
 
 # ---- single-controller calls --------------------------------------------------
 
+class RankJobs:
+    """One rank's graphs and its job loop: the body of the
+    single-controller calls (:func:`sharded_jobs` under
+    :func:`~bibfs_tpu_torch.parallel.mesh.launch`) and of every rank of a
+    :class:`~bibfs_tpu_torch.parallel.pool.MeshPool`, which keeps one
+    across calls. Graphs are registered by key (a host graph, or a
+    directory :func:`save_host_graph` or :meth:`~bibfs_tpu_torch.solvers.
+    sharded2d.Sharded2DHost.save` wrote); the rank builds what a job needs
+    from one on demand (its 1D shard, its data-parallel replica, its 2D
+    block) and keeps it until :meth:`release`."""
+
+    def __init__(self, mesh, graphs: dict | None = None):
+        self.mesh = mesh
+        self.sources: dict = dict(graphs or {})
+        self.hosts: dict = {}
+        self.built: dict = {}  # (key, what) -> shard / replica / 2D block
+
+    def add(self, key, graph) -> None:
+        """Register ``graph`` (a host graph or a directory) under ``key``."""
+        self.release(key)
+        self.sources[key] = graph
+
+    def release(self, key) -> None:
+        """Forget ``key`` and everything built from it."""
+        self.sources.pop(key, None)
+        self.hosts.pop(key, None)
+        for k in [k for k in self.built if k[0] == key]:
+            del self.built[k]
+
+    def host(self, key):
+        if key not in self.hosts:
+            src = self.sources[key]
+            self.hosts[key] = load_host_graph(src) if isinstance(src, str) \
+                else src
+        return self.hosts[key]
+
+    def shard(self, key) -> ShardedGraph:
+        if (key, "1d") not in self.built:
+            self.built[key, "1d"] = ShardedGraph(self.host(key), self.mesh)
+        return self.built[key, "1d"]
+
+    def replica(self, key):
+        if (key, "dp") not in self.built:
+            from bibfs_tpu_torch.solvers.dense import DeviceGraph
+
+            h = self.host(key)
+            self.built[key, "dp"] = (
+                DeviceGraph.from_tiered(h, self.mesh.device)
+                if isinstance(h, TieredEllGraph)
+                else DeviceGraph.from_ell(h, self.mesh.device))
+        return self.built[key, "dp"]
+
+    def blocks(self, key):
+        """This rank's 2D block of ``key`` (blocks built for a grid that
+        covers every rank), on that grid."""
+        if (key, "2d") not in self.built:
+            from bibfs_tpu_torch.parallel.mesh import make_2d_mesh
+            from bibfs_tpu_torch.solvers.sharded2d import Sharded2DGraph
+
+            h = self.host(key)
+            self.built[key, "2d"] = Sharded2DGraph(h, make_2d_mesh(h.R, h.C))
+        return self.built[key, "2d"]
+
+    def graph_for(self, key, substrate: str):
+        """The graph a checkpoint job runs on: ``"1d"`` the shard, ``"2d"``
+        the block."""
+        return self.blocks(key) if substrate == "2d" else self.shard(key)
+
+    def run(self, jobs: list, info: bool = True) -> dict:
+        """Run ``jobs`` in order (:func:`sharded_jobs` lists the kinds).
+        Returns ``{"results": [...], "launches": [...], "transport": ...}``
+        and, with ``info``, every rank's placement after the jobs
+        (:func:`~bibfs_tpu_torch.parallel.mesh.rank_info`) under
+        ``"ranks"``."""
+        results, launches = [], []
+        for job in jobs:
+            before = kernel_launches()
+            results.append(self._job(job))
+            after = kernel_launches()
+            mine = {k: after[k] - before[k] for k in after}
+            launches.append({k: sum(d[k] for d in
+                                    self.mesh.all_gather_object(mine))
+                             for k in mine})
+        out = {"results": results, "launches": launches,
+               "transport": self.mesh.transport}
+        if info:
+            from bibfs_tpu_torch.parallel.mesh import rank_info
+
+            out["ranks"] = rank_info(self.mesh)
+        return out
+
+    def _job(self, job: dict):
+        from bibfs_tpu_torch.solvers import sharded2d as s2
+        from bibfs_tpu_torch.solvers.batch_minor import (
+            solve_batch_dp,
+            time_batch_dp,
+        )
+
+        key, kind = job.get("graph"), job["kind"]
+        reps = job.get("repeats", 1)
+        if kind == "call":
+            import importlib
+
+            mod, name = job["fn"].split(":")
+            return getattr(importlib.import_module(mod), name)(
+                self, **job.get("args", {}))
+        if kind == "dp":
+            if reps > 1:
+                return time_batch_dp(self.replica(key), job["pairs"],
+                                     self.mesh, repeats=reps,
+                                     dt8=job.get("dt8", False))[1]
+            return solve_batch_dp(self.replica(key), job["pairs"], self.mesh,
+                                  dt8=job.get("dt8", False))
+        if kind in ("checkpoint", "resume"):
+            from bibfs_tpu_torch.solvers import checkpoint as ck
+
+            g = self.graph_for(key, job.get("substrate", "1d"))
+            kw = dict(chunk=job.get("chunk", 8),
+                      max_chunks=job.get("max_chunks"))
+            if kind == "resume":
+                return ck.resume(job["path"], g, src=int(job["src"]),
+                                 dst=int(job["dst"]), mode=job.get("mode"),
+                                 **kw)
+            return ck.solve_checkpointed(g, int(job["src"]), int(job["dst"]),
+                                         mode=job.get("mode", "sync"),
+                                         path=job.get("path"), **kw)
+        if kind in ("solve2d", "batch2d", "exchange2d"):
+            g = self.blocks(key)
+            mode = job.get("mode", "sync")
+            if kind == "exchange2d":
+                return exchange2d_ms(g, job.get("reps", 25))
+            if kind == "batch2d":
+                if reps > 1:
+                    return s2.time_batch_sharded2d(g, job["pairs"],
+                                                   repeats=reps, mode=mode)[1]
+                return s2.solve_batch_sharded2d_graph(g, job["pairs"],
+                                                      mode=mode)
+            src, dst = int(job["src"]), int(job["dst"])
+            if job.get("raw"):
+                return s2.raw_sharded2d(g, src, dst, mode)
+            if reps > 1:
+                return s2.time_search_2d(g, src, dst, repeats=reps,
+                                         mode=mode)[1]
+            return s2.solve_sharded2d_graph(g, src, dst, mode=mode)
+        g = self.shard(key)
+        if kind == "solve" and job.get("raw"):
+            return _raw_job(g, job)
+        if kind == "exchange":
+            return exchange_ms(g, job.get("reps", 25))
+        if kind == "profile":
+            return profile_search(g, int(job["src"]), int(job["dst"]),
+                                  mode=job.get("mode", "fused"),
+                                  repeats=job.get("repeats", 5))
+        if kind == "solve" and reps > 1:
+            return time_search(g, int(job["src"]), int(job["dst"]),
+                               repeats=reps, mode=job.get("mode", "sync"),
+                               unroll=job.get("unroll", 1))[1]
+        if kind == "solve":
+            return solve_sharded_graph(
+                g, int(job["src"]), int(job["dst"]),
+                mode=job.get("mode", "sync"), unroll=job.get("unroll", 1),
+                push_cap=job.get("push_cap"))
+        if kind == "batch" and reps > 1:
+            return time_batch_sharded(g, job["pairs"], repeats=reps,
+                                      mode=job.get("mode", "sync"))[1]
+        if kind == "batch":
+            return solve_batch_sharded_graph(g, job["pairs"],
+                                             mode=job.get("mode", "sync"))
+        raise ValueError(f"unknown job kind {kind!r}")
+
+
 def sharded_jobs(mesh, graphs: dict, jobs: list) -> dict:
     """The rank body of the single-controller calls (run under
-    :func:`~bibfs_tpu_torch.parallel.mesh.launch`): shard each host graph
-    of ``graphs`` (a graph, or a directory :func:`save_host_graph` wrote),
-    then run ``jobs`` in order, each a dict with ``kind`` ``"solve"``
-    (``graph``, ``src``, ``dst``, ``mode``, ``unroll``, ``push_cap``,
-    ``repeats``: the median of that many timed searches; ``raw``:
-    :func:`_raw_job`'s outputs in place of the result), ``"batch"``
-    (``graph``, ``pairs``, ``mode``, ``repeats``), ``"dp"`` (``graph``,
-    ``pairs``, ``dt8``, ``repeats``: the data-parallel batch over a
-    replicated copy), ``"exchange"`` (``graph``, ``reps``:
-    :func:`exchange_ms`) or ``"profile"`` (``graph``, ``src``, ``dst``,
-    ``mode``, ``repeats``: :func:`profile_search`).
+    :func:`~bibfs_tpu_torch.parallel.mesh.launch`): register ``graphs`` (a
+    host graph or a directory each) and run ``jobs`` in order
+    (:class:`RankJobs`), each a dict with ``kind``:
+
+    - ``"solve"`` (``graph``, ``src``, ``dst``, ``mode``, ``unroll``,
+      ``push_cap``, ``repeats``: the median of that many timed searches;
+      ``raw``: :func:`_raw_job`'s outputs in place of the result),
+      ``"batch"`` (``graph``, ``pairs``, ``mode``, ``repeats``),
+      ``"exchange"`` (``graph``, ``reps``: :func:`exchange_ms`) or
+      ``"profile"`` (``graph``, ``src``, ``dst``, ``mode``, ``repeats``:
+      :func:`profile_search`), on the 1D shard;
+    - ``"dp"`` (``graph``, ``pairs``, ``dt8``, ``repeats``): the
+      data-parallel batch over a replicated copy;
+    - ``"solve2d"`` / ``"batch2d"`` / ``"exchange2d"``: the same on the 2D
+      block of a :class:`~bibfs_tpu_torch.solvers.sharded2d.Sharded2DHost`
+      graph (``raw``: :func:`~bibfs_tpu_torch.solvers.sharded2d.
+      raw_sharded2d`'s outputs);
+    - ``"checkpoint"`` (``graph``, ``substrate`` ``"1d"`` or ``"2d"``,
+      ``src``, ``dst``, ``mode``, ``chunk``, ``path``, ``max_chunks``) and
+      ``"resume"`` (the same, ``mode`` None keeping the file's):
+      :mod:`~bibfs_tpu_torch.solvers.checkpoint` on the ranks, rank 0
+      writing the file;
+    - ``"call"`` (``fn`` ``"module:function"``, ``args``): ``function(rank
+      jobs, **args)`` on every rank, a probe's hook (its graphs through
+      this rank's :class:`RankJobs`).
+
     Returns ``{"results": [...], "launches": [...], "transport": ...,
-    "ranks": [...]}``: per job its result (a :class:`BFSResult` or a list
-    of them) and the kernel launches it made, summed over the ranks; then
-    every rank's placement after the jobs (:func:`~bibfs_tpu_torch.
-    parallel.mesh.rank_info`)."""
-    from bibfs_tpu_torch.solvers.batch_minor import solve_batch_dp, time_batch_dp
-
-    hosts = {key: load_host_graph(v) if isinstance(v, str) else v
-             for key, v in graphs.items()}
-    shards: dict = {}
-    replicas: dict = {}
-    results, launches = [], []
-    for job in jobs:
-        key = job["graph"]
-        before = kernel_launches()
-        if job["kind"] == "dp":
-            if key not in replicas:
-                from bibfs_tpu_torch.solvers.dense import DeviceGraph
-
-                h = hosts[key]
-                replicas[key] = (DeviceGraph.from_tiered(h, mesh.device)
-                                 if isinstance(h, TieredEllGraph)
-                                 else DeviceGraph.from_ell(h, mesh.device))
-            if job.get("repeats", 1) > 1:
-                out = time_batch_dp(replicas[key], job["pairs"], mesh,
-                                    repeats=job["repeats"],
-                                    dt8=job.get("dt8", False))[1]
-            else:
-                out = solve_batch_dp(replicas[key], job["pairs"], mesh,
-                                     dt8=job.get("dt8", False))
-        else:
-            if key not in shards:
-                shards[key] = ShardedGraph(hosts[key], mesh)
-            g = shards[key]
-            if job["kind"] == "solve" and job.get("raw"):
-                out = _raw_job(g, job)
-            elif job["kind"] == "exchange":
-                out = exchange_ms(g, job.get("reps", 25))
-            elif job["kind"] == "profile":
-                out = profile_search(g, int(job["src"]), int(job["dst"]),
-                                     mode=job.get("mode", "fused"),
-                                     repeats=job.get("repeats", 5))
-            elif job["kind"] == "solve" and job.get("repeats", 1) > 1:
-                out = time_search(g, int(job["src"]), int(job["dst"]),
-                                  repeats=job["repeats"],
-                                  mode=job.get("mode", "sync"),
-                                  unroll=job.get("unroll", 1))[1]
-            elif job["kind"] == "solve":
-                out = solve_sharded_graph(
-                    g, int(job["src"]), int(job["dst"]),
-                    mode=job.get("mode", "sync"),
-                    unroll=job.get("unroll", 1),
-                    push_cap=job.get("push_cap"))
-            elif job["kind"] == "batch" and job.get("repeats", 1) > 1:
-                out = time_batch_sharded(g, job["pairs"],
-                                         repeats=job["repeats"],
-                                         mode=job.get("mode", "sync"))[1]
-            elif job["kind"] == "batch":
-                out = solve_batch_sharded_graph(g, job["pairs"],
-                                                mode=job.get("mode", "sync"))
-            else:
-                raise ValueError(f"unknown job kind {job['kind']!r}")
-        after = kernel_launches()
-        mine = {k: after[k] - before[k] for k in after}
-        launches.append({k: sum(d[k] for d in mesh.all_gather_object(mine))
-                         for k in mine})
-        results.append(out)
-    from bibfs_tpu_torch.parallel.mesh import rank_info
-
-    return {"results": results, "launches": launches,
-            "transport": mesh.transport, "ranks": rank_info(mesh)}
+    "ranks": [...]}``: per job its result and the kernel launches it
+    made, summed over the ranks; then every rank's placement after the
+    jobs."""
+    return RankJobs(mesh, graphs).run(jobs)
 
 
 def _raw_job(g: ShardedGraph, job: dict) -> tuple:
@@ -889,6 +1014,43 @@ def exchange_ms(g: ShardedGraph, reps: int = 25) -> dict:
         reduce_ms=timed(lambda: (mesh.all_reduce(sums, "sum"),
                                  mesh.all_reduce(mins, "min"))),
     )
+
+
+def exchange2d_ms(g, reps: int = 25) -> dict:
+    """What one ``sync`` round of the 2D search exchanges on this rank of
+    a grid: the bytes by exchange (both sides' planes:
+    :func:`~bibfs_tpu_torch.solvers.sharded2d.frontier_exchange_bytes_2d`
+    doubled) and the median wall ms of the transpose, the row-axis gather
+    and the column-axis max, each after a barrier, the device
+    synchronized."""
+    from bibfs_tpu_torch.parallel.collectives import (
+        all_gather_rows,
+        max_allreduce_cols,
+        transpose_permute,
+    )
+    from bibfs_tpu_torch.solvers.sharded2d import frontier_exchange_bytes_2d
+
+    mesh, dev = g.mesh, g.device
+    words = torch.zeros(2, g.n_loc // 32, dtype=torch.int32, device=dev)
+    cand = torch.zeros(2, g.n_pad // g.R, dtype=torch.int32, device=dev)
+
+    def timed(fn) -> float:
+        out = []
+        for _ in range(reps + 2):
+            mesh.barrier()
+            t0 = time.perf_counter()
+            fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out.append(time.perf_counter() - t0)
+        return float(np.median(out[2:])) * 1e3
+
+    by = frontier_exchange_bytes_2d(g.n_pad, g.R, g.C)
+    return dict(grid=[g.R, g.C], n_loc=g.n_loc, transport=mesh.transport,
+                bytes_per_side=by,
+                transpose_ms=timed(lambda: transpose_permute(words, mesh)),
+                gather_ms=timed(lambda: all_gather_rows(words, mesh)),
+                fold_ms=timed(lambda: max_allreduce_cols(cand, mesh)))
 
 
 def _busy_us(spans) -> float:

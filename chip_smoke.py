@@ -40,8 +40,10 @@ is unavailable. Phases:
    (kernel ms, the twin's ms, the bound on the packed state, the bound of
    the int planes the kernel read before, an estimate of the dist and
    parent sectors the claims touch, the level launches of one batch).
-4. Tiered: RMAT scale 20, edge factor 16 (about 15.7M edges); the
-   kernels against their plain versions at its base table (kernels 3 and
+4. Tiered: RMAT scale 20, edge factor 16 (about 15.7M edges; its host
+   graph built by a child process started with the run, ``rmat_prep``,
+   beside phases 1-8; its ``graph`` line adds the child's build and the
+   wait for it); the kernels against their plain versions at its base table (kernels 3 and
    4 timed there too), then modes
    sync, pallas, pallas_alt and fused (which runs as pallas); oracle hops
    and pallas == sync exactly. Then batch routing on it: ``auto`` with
@@ -272,9 +274,9 @@ is unavailable. Phases:
    Then a ``GraphStore(wal_dir=..., retain_history=True)`` under
    ``.chip_durable/`` holds both graphs, each batch acked and compacted
    (versions 1 and 2). With every count set to 0, the synchronous engine
-   serves 400 queries of the mix ``pt=0.5, msbfs=0.2, weighted=0.15,
+   serves 200 queries of the mix ``pt=0.5, msbfs=0.2, weighted=0.15,
    kshortest=0.1, asof=0.05`` (16 sources, k = 3, as-of versions 1 and 2)
-   on gnp in waves of 100, the pipelined engine 300 more, and an engine on
+   on gnp in waves of 100, the pipelined engine 150 more, and an engine on
    the grid 64 ``MultiSource`` queries of 32 shared sources and 16
    ``Weighted``: every answer equals the native host solver's hops on the
    version asked (point-to-point, as-of, each source of a multi-source
@@ -298,7 +300,7 @@ is unavailable. Phases:
    rank 1 on gnp and rank 3 on rmat), each exactly against its twin with
    a ``step`` line (``"step": "shard"``: ms, the twin's, the bytes bound);
    then the one-device dense search's raw outputs of phase 3's pairs in
-   every mode and of phase 4's in ``sync`` and ``beamer`` (2 pairs a mode
+   every mode and of phase 4's in ``sync`` and ``beamer`` (1 pair a mode
    timed), and its ``minor8`` batch of 512 seeded gnp pairs (timed). Both host graphs are written
    once to a temporary directory and 4 ranks spawned
    (``parallel.mesh.launch``: one card each over NCCL where there are 4
@@ -307,7 +309,7 @@ is unavailable. Phases:
    the gather's and the reductions' ms, each rank's peer access), every
    (mode, pair) solved (the mode that ran, hops against the oracle, a path
    ``validate_path`` accepts, all six raw outputs, ``sharded.RAW_FIELDS``,
-   equal to the dense search's, parent rows by digest), 2 pairs a
+   equal to the dense search's, parent rows by digest), 1 pair a
    mode timed (5 searches each) beside the dense search, one gnp pair's
    ``fused`` and ``sync`` searches profiled on every rank
    (``sharded.profile_search``: wall, rounds, the card's busy ms, NCCL's
@@ -321,6 +323,50 @@ is unavailable. Phases:
    ``minor8`` level launched on the ranks, and prints one line with its
    seconds, its transport and a digest of every answer (the same on one
    card and on four). ``shard_main()`` runs this phase alone.
+
+15. Serving from a rank pool, the 2D search and checkpoints (run after
+   phase 14, on phase 3's gnp-deg8-s20 and phase 14's saved host graph):
+   one ``parallel.pool.MeshPool`` of 4 ranks for the whole phase
+   (``mesh_pool``: its transport and spawn seconds). On the ranks first (a
+   ``call`` job, before the counts are zeroed), each rank holds kernels
+   1, 3 and 4 at its own shard (``row_offset``) and minor_level at each dp
+   wave's slice (128 queries: both instantiations; 256: ``minor8``, which
+   the waves take) exactly against their twins and timed (``"step":
+   "shard"`` lines of each rank; the level's ms a rank and slice in the
+   kernels line's ``mesh_ranks``). With the ranks' counts
+   zeroed, engines over one ``GraphStore`` of gnp: the dp sub-path
+   (``MeshConfig(shard_min_n=n + 1)``, the default dp crossover of 512
+   queries) in a warm-up wave and synchronous waves of 512 and 1024, and
+   one pipelined wave of 1024, every answer (found, hops, path) equal to
+   a one-device engine's on the same pairs and (found, hops) to the
+   native host solver's (``mesh_dp`` lines: the mesh's flush ms beside
+   the one-device engine's); one wave of 64 below the crossover, counted
+   as a reroute and served by the device rung (``mesh_reroute``); the
+   vertex-sharded sub-path (``shard_min_n=0``) in ``fused`` (16 queries),
+   ``pallas`` (16) and ``pallas_alt`` (8), the queries one after another
+   on the ranks (``mesh_sharded``: ms a query, the exchange bytes packed
+   and as bools); a hot swap between two waves of the same 512 pairs on
+   the pipelined engine over a second store graph, G(2^17, 8/2^17) (a
+   compaction of gnp-deg8-s20 is ~25 s of host code), 64 of them joined
+   by an edge in the swapped snapshot, with 0 stale answers
+   (``mesh_swap``). Then the 2D search on
+   a 2x2 grid of the ranks: phase 3's 9 pairs in ``sync`` and ``alt``
+   equal to the dense search on every field but the path (the 2D parent
+   is the max over the blocks' first hits), each path valid, 2 pairs a
+   mode timed beside the dense search (``mesh_2d``), and one round's
+   exchanges timed with the 2D and 1D bytes a side
+   (``mesh_2d_exchange``). Then a ``pallas`` checkpointed search of
+   phase 3's first pair stopped after one chunk on this card and resumed
+   on this card, on the 1D pool and on the 2x2 grid, each equal to the
+   one-shot search (``mesh_checkpoint``: the snapshot's MB, the seconds
+   of the stopped chunk). ``mesh_launches`` (the ranks' counts: kernels
+   1, 3, 4, the fold and ``minor_level[minor8]`` must have launched),
+   then each dp wave's pairs sent once more as one dp job
+   (``mesh_dp_split``: the ranks' batch clock against the job's round
+   trip), and ``mesh_total`` (seconds, spawn seconds, the flush ms, a
+   digest of the answers). ``shard_main()`` runs phases 14 and 15 alone,
+   rmat-s20 built by :func:`rmat_prep`'s child beside gnp's build.
+   ``main()``'s ``done`` line holds each phase's seconds (``phases_s``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
@@ -896,7 +942,8 @@ def minor_state(g, rows: int, b: int, dt8: bool, seed: int):
 
 
 def minor_kernel_phase(g, geometry: str, seed: int, results: dict | None,
-                       bpairs=None):
+                       bpairs=None, lanes: int | None = None,
+                       modes=None) -> dict:
     """The batch-minor level (both instantiations) against its packed plain
     twin on one seeded mid-search state at the batch geometry of ``BATCH``
     queries (``batch_minor._minor_geometry``): the packed frontier and
@@ -907,11 +954,18 @@ def minor_kernel_phase(g, geometry: str, seed: int, results: dict | None,
     twin's ms over 5, the bound on the packed state, the bound of the
     int planes the kernel read before (``bound_ms_int_planes``), an
     estimate of the dist and parent sectors the claims touch, and the
-    level launches of one batch of ``bpairs``."""
+    level launches of one batch of ``bpairs``. With ``lanes`` (and no
+    ``results``), the check runs at ``pad_batch(lanes)`` queries for the
+    instantiations of ``modes`` (default both) and the kernel is timed
+    too: returns ``{name: {lanes, max_abs_err, ms}}``."""
     nbr_t = dense._kernel_table(g.tables, g.nbr, g.deg)
     n_tab = nbr_t.shape[1]
-    b = bmin.pad_batch(BATCH if results is not None else BATCH // 2)
+    b = bmin.pad_batch(lanes if lanes is not None else
+                       BATCH if results is not None else BATCH // 2)
+    out = {}
     for name, (mode, *_src) in MINOR.items():
+        if modes is not None and mode not in modes:
+            continue
         dt8 = mode == "minor8"
         n_pad2, _wp, tc, _b = bmin._minor_geometry(g, b, dt8)
         dual, (ds, dt, ps, pt), active = minor_state(g, n_pad2, b, dt8, seed)
@@ -929,6 +983,13 @@ def minor_kernel_phase(g, geometry: str, seed: int, results: dict | None,
         err = max_abs_err(list(got) + work_k, list(want) + work_p)
         check(err == 0, f"{name} differs from its plain twin at {geometry}")
         if results is None:
+            if lanes is not None:
+                out[name] = dict(lanes=b, max_abs_err=err, ms=time_launch(
+                    lambda: ml.minor_level(nbr_t, g.deg, front, *work_k,
+                                           lvl, active, key, checked=True),
+                    lambda: [x.copy_(y) for x, y in zip(work_k, base)],
+                    reps=5))
+            del front, base, work_k, work_p, got, want, ds, dt, ps, pt
             continue
         e = ds.element_size()
         inf = ml.plane_inf(ds.dtype)
@@ -988,6 +1049,7 @@ def minor_kernel_phase(g, geometry: str, seed: int, results: dict | None,
                              bound_ms=b_ms, bound_by=by)
         del front, base, work_k, work_p, got, want, ds, dt, ps, pt
         torch.cuda.empty_cache()
+    return out
 
 
 def batch_pairs(rng, n: int, csr, k: int) -> np.ndarray:
@@ -2148,6 +2210,43 @@ def host_sweeps(out_dir: str) -> None:
             json.dump({"host_sweep_ms": ms, "frontier_bytes": levels}, f)
 
 
+def rmat_prep(out_dir: str) -> None:
+    """Phase 4's graph, rmat-s20-ef16, built on the host in a child process
+    started with the run (its minute of NumPy overlaps phases 1-8): the
+    tiered host graph (``sharded.save_host_graph``), the CSR and the edge
+    count, saved into ``out_dir`` for :func:`rmat_load`."""
+    from bibfs_tpu_torch.solvers.sharded import save_host_graph
+
+    t0 = time.perf_counter()
+    n2, e2 = rmat_graph(20, edge_factor=16, seed=7)
+    p2 = canonical_pairs(n2, e2)
+    row_ptr, col_ind = build_csr(n2, pairs=p2)
+    save_host_graph(build_tiered(n2, pairs=p2), os.path.join(out_dir, "host"))
+    np.save(os.path.join(out_dir, "row_ptr.npy"), row_ptr)
+    np.save(os.path.join(out_dir, "col_ind.npy"), col_ind)
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump({"n": int(n2), "edges": int(e2.shape[0]),
+                   "build_s": time.perf_counter() - t0}, f)
+
+
+def rmat_load(proc, out_dir: str) -> tuple:
+    """Wait for :func:`rmat_prep` and map what it saved: ``(n, edges,
+    csr, host graph, its build seconds, the wait)``."""
+    from bibfs_tpu_torch.solvers.sharded import load_host_graph
+
+    t0 = time.perf_counter()
+    proc.join(timeout=600)
+    check(proc.exitcode == 0, f"rmat-s20 build failed (exit {proc.exitcode})")
+    wait_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "meta.json")) as f:
+        meta = json.load(f)
+    csr = (np.load(os.path.join(out_dir, "row_ptr.npy")),
+           np.load(os.path.join(out_dir, "col_ind.npy")))
+    return (meta["n"], meta["edges"], csr,
+            load_host_graph(os.path.join(out_dir, "host")), meta["build_s"],
+            wait_s)
+
+
 def msbfs_phase(geometry: str, n: int, csr, mid_level: int, seed: int,
                 ref_dir: str, results: dict | None, host_build: bool) -> None:
     """Phase 11's kernel checks on one graph (module docstring): per K, the
@@ -3060,11 +3159,12 @@ QUERY_KERNELS = {
                          "bibfs_tpu/solvers/query_device.py:226"),
 }
 KIND_MIX = "pt=0.5,msbfs=0.2,weighted=0.15,kshortest=0.1,asof=0.05"
-# the synchronous waves cut from 1,000: the host references of the typed
-# queries (Yen's ~12 s each, delta-stepping's ~3 s) must finish beside
-# phases 1-12; at 1,000 + 300 they take ~500 s of 4 workers alone
-# (kind_refs_main), as long as those phases, and ran past them
-KIND_QUERIES = {"sync": 400, "pipelined": 300}
+# the waves cut from 1,000 + 300, then from 400 + 300: the host references
+# of the typed queries (Yen's ~12-17 s each, delta-stepping's ~3 s) run
+# beside phases 1-12 on 4 of the host's cores; at 1,000 + 300 they take
+# ~500 s of 4 workers alone (kind_refs_main) and ran past those phases,
+# at 400 + 300 ~360 s, slowing the phases' own host work
+KIND_QUERIES = {"sync": 200, "pipelined": 150}
 KIND_WAVE = 100  # queries a synchronous query_many serves (one flush)
 KIND_SEEDS = {"sync": 131, "pipelined": 137, "grid": 139, "batch": 149,
               "pairs": 151}
@@ -3789,7 +3889,7 @@ SHARD_RANKS = 4
 # geometry (local rows, global ids, a nonzero row offset)
 SHARD_KERNELS = ("fused_dual_round", "pull_dual", "pull_single")
 SHARD_RMAT_MODES = ("sync", "beamer")
-SHARD_TIMED = 2  # pairs a mode timed on the ranks, 5 searches each
+SHARD_TIMED = 1  # pairs a mode timed on the ranks, 5 searches each
 # modes whose gnp search is profiled on every rank (where a round's time
 # goes: the card busy or waiting, the collectives' kernels and calls)
 SHARD_PROFILED = ("fused", "sync")
@@ -3937,13 +4037,14 @@ def row_digest(row, n: int) -> str:
 
 
 def shard_phase(gnp: dict, rmat: dict, results: dict | None,
-                dev_name: str = "cuda") -> dict:
+                dev_name: str = "cuda", save_dir: str | None = None) -> dict:
     """Phase 14 (module docstring). ``gnp`` and ``rmat`` are dicts of the
     host graph (``host``), its ``name``, ``n``, the CSR (``csr``), the
     seeded pairs and their oracle answers (``want``) and ``tiered``; ``dev_name="cpu"``
     rehearses the phase on gloo ranks (no kernel is launched or timed).
     Returns the rank launches of the phase's path, summed over the
-    ranks."""
+    ranks. ``save_dir`` keeps the saved host graphs there (``gnp``,
+    ``rmat``) for phase 15."""
     from bibfs_tpu_torch.parallel.collectives import frontier_exchange_bytes
     from bibfs_tpu_torch.parallel.mesh import launch
     from bibfs_tpu_torch.solvers import sharded as sh
@@ -3988,7 +4089,8 @@ def shard_phase(gnp: dict, rmat: dict, results: dict | None,
     jobs.append(dict(kind="dp", graph="gnp", pairs=dp_pairs, dt8=True,
                      repeats=3))
     keys.append(("dp",))
-    with tempfile.TemporaryDirectory(prefix="chip-shard-") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip-shard-") as scratch:
+        tmp = save_dir or scratch
         t0 = time.perf_counter()
         paths = {name: sh.save_host_graph(graph["host"], os.path.join(tmp, name))
                  for name, graph in (("gnp", gnp), ("rmat", rmat))}
@@ -4107,25 +4209,460 @@ def shard_graphs(with_rmat: bool = True) -> tuple[dict, dict | None]:
     """Phase 14's two graphs built on the host alone (for running the
     phase by itself, :func:`shard_main`): gnp-deg8-s20 and rmat-s20-ef16
     (None without ``with_rmat``), with the pairs and oracle answers of
-    phases 3 and 4."""
+    phases 3 and 4. rmat-s20 is built by :func:`rmat_prep`'s child beside
+    gnp's build; its dict keeps the directory the child saved it in
+    (``dir``), which its mapped host graph reads."""
+    if with_rmat:
+        rmat_dir = tempfile.TemporaryDirectory()
+        proc = multiprocessing.get_context("spawn").Process(
+            target=rmat_prep, args=(rmat_dir.name,), daemon=True)
+        proc.start()
     n = 1 << 20
     edges = gnp_random_graph(n, 8 / n, seed=7)
     p = canonical_pairs(n, edges)
     csr = build_csr(n, pairs=p)
     pairs = seeded_pairs(np.random.default_rng(7), np.arange(n), 8)
     gnp = dict(host=build_ell(n, pairs=p), name="gnp-deg8-s20", n=n,
-               csr=csr, pairs=pairs, want=oracle(n, csr, pairs), tiered=False)
+               csr=csr, pairs=pairs, want=oracle(n, csr, pairs), tiered=False,
+               edges=edges, pairs_all=p)
     if not with_rmat:
         return gnp, None
-    n2, e2 = rmat_graph(20, edge_factor=16, seed=7)
-    p2 = canonical_pairs(n2, e2)
-    csr2 = build_csr(n2, pairs=p2)
+    n2, _edges, csr2, host2, _build_s, _wait_s = rmat_load(proc,
+                                                           rmat_dir.name)
     linked = np.flatnonzero(np.diff(csr2[0]) > 0)
     pairs2 = seeded_pairs(np.random.default_rng(7), linked, 8)
-    rmat = dict(host=build_tiered(n2, pairs=p2), name="rmat-s20-ef16", n=n2,
-                csr=csr2, pairs=pairs2, want=oracle(n2, csr2, pairs2),
-                tiered=True)
+    rmat = dict(host=host2, name="rmat-s20-ef16", n=n2, csr=csr2,
+                pairs=pairs2, want=oracle(n2, csr2, pairs2), tiered=True,
+                dir=rmat_dir)
     return gnp, rmat
+
+
+# ---- phase 15: serving from a rank pool, the 2D search, checkpoints ------
+
+MESH_DP = (512, 1024)  # the synchronous dp waves' batch (the pipelined: 1024)
+MESH_SHARDED = (("fused", 16), ("pallas", 16), ("pallas_alt", 8))
+MESH_REROUTE = 64  # a below-crossover wave
+MESH_SWAP = 512  # the hot swap's pairs, served before and after the swap
+MESH_SWAP_N = 1 << 17  # the swapped graph's vertices (gnp, degree 8)
+MESH_SWAP_ADDS = 64  # of them joined by a new edge in the swapped snapshot
+MESH_2D_TIMED = 2  # pairs a 2D mode timed, 3 searches each
+MESH_KERNELS = ("fused_dual_round", "fold_round", "pull_dual", "pull_single",
+                "minor_level[minor8]")
+
+
+def mesh_rank_check(rj, key: str, seed: int) -> list:
+    """Run on every rank of phase 15's pool (a ``call`` job): kernels 1, 3
+    and 4 at this rank's shard of ``key`` (its rows, ``row_offset``), and
+    minor_level over the rank's replica at each dp wave's slice
+    (``MESH_DP[i] // SHARD_RANKS`` queries: both instantiations at the
+    first, minor8, which the waves take, at the others), each exactly
+    against its twin (a difference exits the rank, which fails the pool's
+    wait) and timed. Returns every rank's step results."""
+    host = rj.host(key)
+    rank = rj.mesh.rank
+    results = {name: {} for name in SHARD_KERNELS}
+    shard_kernel_phase(host, host.n, "gnp-deg8-s20/pool", rank, seed + rank,
+                       results)
+    mine = {name: dict(results[name].get("sharded", {}), rank=rank)
+            for name in SHARD_KERNELS}
+    for i, b in enumerate(MESH_DP):
+        got = minor_kernel_phase(
+            rj.replica(key), f"gnp-deg8-s20/pool-rank{rank}",
+            seed + 16 + 4 * i + rank, None, lanes=b // SHARD_RANKS,
+            modes=None if i == 0 else ("minor8",))
+        for name, r in got.items():
+            mine.setdefault(name, []).append(dict(r, rank=rank))
+        torch.cuda.empty_cache()
+    return rj.mesh.all_gather_object(mine)
+
+
+def fresh_pairs(rng, n: int, k: int) -> list:
+    """``k`` seeded pairs with ``src != dst`` (none resolves inline)."""
+    out = [(int(a), int(b)) for a, b in rng.integers(0, n, size=(2 * k, 2))
+           if a != b]
+    return out[:k]
+
+
+def mesh_truth(n, edges, csr, pairs, results, wave: str) -> None:
+    """Every answer's (found, hops) equals the native host solver's; 8
+    paths ``validate_path`` accepts."""
+    truth = native_hops(n, edges, pairs, csr)
+    for (s, d), r, w in zip(pairs, results, truth):
+        check((r.found, r.hops) == w,
+              f"mesh wave {wave} {s}->{d}: {(r.found, r.hops)} != {w}")
+    for i in np.random.default_rng(61).choice(len(pairs), min(8, len(pairs)),
+                                              replace=False):
+        (s, d), r = pairs[i], results[i]
+        if r.found:
+            check(validate_path(csr, r.path, s, d, hops=r.hops),
+                  f"mesh wave {wave} {s}->{d}: invalid path")
+
+
+def mesh_delta(eng, before: dict) -> dict:
+    """The mesh route's counters since ``before`` (an earlier
+    ``mesh_counters``)."""
+    now = mesh_counters(eng)
+    return {k: (now[k] - before[k] if isinstance(now[k], (int, float))
+                else {kk: now[k][kk] - before[k][kk] for kk in now[k]})
+            for k in now}
+
+
+def mesh_counters(eng) -> dict:
+    st = eng.stats()
+    m = st["routes"]["mesh"]
+    return dict(mesh_queries=st["mesh_queries"],
+                device_queries=st["device_queries"],
+                host_queries=st["host_queries"], batches=dict(m["batches"]),
+                exchange=dict(m["exchange_bytes"]),
+                reroutes=m["crossover_reroutes"])
+
+
+def mesh_phase(gnp: dict, gnp_dir: str, dev_name: str = "cuda") -> dict:
+    """Phase 15 (module docstring). ``gnp`` is phase 14's dict plus its
+    edges (``edges``) and canonical pairs (``pairs_all``); ``gnp_dir`` the
+    directory phase 14 saved its host graph in. ``dev_name="cpu"``
+    rehearses the phase on gloo ranks at a small size (the dp crossover's
+    graph floor lowered to the graph, no kernel launched or timed).
+    Returns the ranks' launches and the kernel checks."""
+    from bibfs_tpu_torch.parallel.collectives import frontier_exchange_bytes
+    from bibfs_tpu_torch.parallel.pool import MeshPool
+    from bibfs_tpu_torch.serve.routes import MeshConfig
+    from bibfs_tpu_torch.solvers import checkpoint as ck
+    from bibfs_tpu_torch.solvers.sharded2d import (
+        Sharded2DHost,
+        frontier_exchange_bytes_2d,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev_name)
+    on_card = dev.type == "cuda"
+    n, csr, host, edges = gnp["n"], gnp["csr"], gnp["host"], gnp["edges"]
+    rng = np.random.default_rng(157)
+    answers: list = []
+    want_transport = ("nccl" if on_card and torch.cuda.device_count()
+                      >= SHARD_RANKS else "gloo-staged" if on_card else "gloo")
+    base_cfg = dict(dp_min_n=None if on_card else 0)
+    opts = dict(cache_entries=0, max_batch=1024, device=dev,
+                flush_threshold=32, device_batches=None if on_card else True)
+    pool = MeshPool(SHARD_RANKS, dev.type, timeout_s=600)
+    store = GraphStore(compact_threshold=None)
+    engines: list = []
+
+    def engine(cls=QueryEngine, graph="gnp", **kw):
+        eng = cls(store=store, graph=graph, **{**opts, **kw})
+        engines.append(eng)
+        return eng
+
+    try:
+        check(pool.transport == want_transport,
+              f"mesh: pool transport {pool.transport}, expected "
+              f"{want_transport}")
+        print(json.dumps({"phase": "mesh_pool", "ranks": pool.ranks,
+                          "transport": pool.transport,
+                          "spawn_s": pool.spawn_s}), flush=True)
+        pool.graph("gnp", gnp_dir)
+        checks = None
+        if on_card:  # on the ranks, before the counts are zeroed
+            t0 = time.perf_counter()
+            checks = pool.call("jobs", [dict(
+                kind="call", fn="chip_smoke:mesh_rank_check",
+                args=dict(key="gnp", seed=151))])["results"][0]
+            print(json.dumps({"phase": "mesh_kernels_vs_plain", "ok": True,
+                              "ranks": len(checks),
+                              "s": time.perf_counter() - t0}), flush=True)
+        pool.counts(reset=True)
+        t0 = time.perf_counter()
+        store.add("gnp", n, edges, pairs=gnp["pairs_all"])
+        store_s = time.perf_counter() - t0
+        one = engine()
+        # ---- the data-parallel sub-path: dp crossover, the default batch
+        dp_eng = engine(mesh=MeshConfig(pool=pool, shard_min_n=n + 1,
+                                        **base_cfg))
+        cross = dp_eng.routes["mesh"].stats()["crossover"]
+        flushes = []
+        for wave, b in (("D0 warm-up", MESH_DP[0]),
+                        *((f"D[{b}]", b) for b in MESH_DP)):
+            pairs = fresh_pairs(rng, n, b)
+            before = mesh_counters(dp_eng)
+            t0 = time.perf_counter()
+            got = dp_eng.query_many(pairs)
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = one.query_many(pairs)
+            one_wall = time.perf_counter() - t0
+            if on_card:
+                torch.cuda.empty_cache()
+            check([fields(r)[:3] for r in got] == [fields(r)[:3]
+                                                   for r in want],
+                  f"mesh dp wave {wave}: answers differ from the one-device "
+                  "engine's")
+            mesh_truth(n, edges, csr, pairs, got, wave)
+            delta = mesh_delta(dp_eng, before)
+            check(delta["mesh_queries"] == b and delta["batches"]["dp"] == 1,
+                  f"mesh dp wave {wave}: routed {delta}")
+            engine_clean(dp_eng, wave)
+            line = {"phase": "mesh_dp", "wave": wave, "queries": b,
+                    "flush_ms": got[0].time_s * 1e3,
+                    "one_device_flush_ms": want[0].time_s * 1e3,
+                    "one_device_mode": want[0].mode, "wall_ms": wall * 1e3,
+                    "one_device_wall_ms": one_wall * 1e3,
+                    "lanes_per_rank": bmin.pad_batch(-(-b // SHARD_RANKS)),
+                    "transport": pool.transport, "crossover": cross}
+            print(json.dumps(line), flush=True)
+            if "warm" not in wave:
+                flushes.append(dict(line, pairs=pairs, answers=[
+                    fields(r)[:2] for r in got]))
+            answers.append([wave, [fields(r)[:3] for r in got]])
+        # the queue flushes at the wave's depth: one batch of the wave
+        pipe = engine(PipelinedQueryEngine, max_wait_ms=None,
+                      flush_threshold=MESH_DP[-1],
+                      mesh=MeshConfig(pool=pool, shard_min_n=n + 1,
+                                      **base_cfg))
+        pairs = fresh_pairs(rng, n, MESH_DP[-1])
+        t0 = time.perf_counter()
+        got = pipe.query_many(pairs)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = one.query_many(pairs)
+        one_wall = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.empty_cache()
+        check([fields(r)[:3] for r in got] == [fields(r)[:3] for r in want],
+              "mesh pipelined dp wave: answers differ from the one-device "
+              "engine's")
+        check(pipe.stats()["mesh_queries"] == len(pairs),
+              "mesh pipelined dp wave: not every query served on the mesh")
+        engine_clean(pipe, "P[dp]")
+        print(json.dumps({"phase": "mesh_dp", "wave": "P[1024]",
+                          "queries": len(pairs),
+                          "flush_ms": got[0].time_s * 1e3,
+                          "one_device_flush_ms": want[0].time_s * 1e3,
+                          "wall_ms": wall * 1e3,
+                          "one_device_wall_ms": one_wall * 1e3}), flush=True)
+        answers.append(["P", [fields(r)[:3] for r in got]])
+        # ---- below the crossover: a routing decision, counted
+        pairs = fresh_pairs(rng, n, MESH_REROUTE)
+        before = mesh_counters(dp_eng)
+        got = dp_eng.query_many(pairs)
+        mesh_truth(n, edges, csr, pairs, got, "reroute")
+        delta = mesh_delta(dp_eng, before)
+        check(delta["reroutes"] == 1 and delta["mesh_queries"] == 0
+              and delta["device_queries"] == len(pairs),
+              f"mesh reroute wave: {delta}")
+        print(json.dumps({"phase": "mesh_reroute", "queries": len(pairs),
+                          **delta}), flush=True)
+        # ---- the vertex-sharded sub-path, one query after another
+        linked = np.flatnonzero(np.diff(csr[0]) > 0)
+        for mode, k in MESH_SHARDED:
+            eng = engine(mesh=MeshConfig(pool=pool, shard_min_n=0, mode=mode))
+            pairs = seeded_pairs(np.random.default_rng(163), linked, k)[:k]
+            before = mesh_counters(eng)
+            t0 = time.perf_counter()
+            got = eng.query_many(pairs)
+            wall = time.perf_counter() - t0
+            mesh_truth(n, edges, csr, pairs, got, f"S[{mode}]")
+            delta = mesh_delta(eng, before)
+            check(delta["mesh_queries"] == len(pairs)
+                  and delta["batches"]["sharded"] >= 1,
+                  f"mesh sharded wave {mode}: routed {delta}")
+            engine_clean(eng, f"S[{mode}]")
+            print(json.dumps({"phase": "mesh_sharded", "mode": mode,
+                              "queries": len(pairs), "wall_ms": wall * 1e3,
+                              "ms_per_query": wall * 1e3 / len(pairs),
+                              "exchange_bytes": delta["exchange"],
+                              "transport": pool.transport}), flush=True)
+            answers.append([mode, [fields(r)[:3] for r in got]])
+        for eng in engines:
+            if eng is not one:
+                eng.close()
+        # ---- a hot swap between two halves of a wave, on a graph of at
+        # most 2^17 vertices (a compaction of gnp-deg8-s20 alone takes
+        # ~25 s of host code, PERF.md)
+        ns = min(n, MESH_SWAP_N)
+        es = gnp_random_graph(ns, 8 / ns, seed=167)
+        store.add("swap", ns, es)
+        pipe = engine(PipelinedQueryEngine, max_wait_ms=None,
+                      flush_threshold=MESH_SWAP, graph="swap",
+                      mesh=MeshConfig(pool=pool, shard_min_n=ns + 1,
+                                      **base_cfg))
+        pairs = fresh_pairs(rng, ns, MESH_SWAP)
+        old = native_hops(ns, es, pairs)
+        got_old = pipe.query_many(pairs)
+        check([(r.found, r.hops) for r in got_old] == old,
+              "mesh swap: pre-swap answers differ from the host solver's")
+        adds = np.array(pairs[:MESH_SWAP_ADDS], dtype=np.int64)
+        t0 = time.perf_counter()
+        store.update("swap", adds=adds)
+        store.compact("swap")
+        swap_s = time.perf_counter() - t0
+        edges2 = np.concatenate([np.asarray(es, np.int64), adds])
+        new = native_hops(ns, edges2, pairs)
+        got_new = pipe.query_many(pairs)
+        stale = sum((r.found, r.hops) != w for r, w in zip(got_new, new))
+        changed = sum(a != b for a, b in zip(old, new))
+        check(stale == 0, f"mesh swap: {stale} stale answers")
+        check(changed >= MESH_SWAP_ADDS // 2,
+              f"mesh swap: the update changed only {changed} answers")
+        st = pipe.stats()
+        check(st["mesh_queries"] == 2 * len(pairs),
+              "mesh swap: not every query served on the mesh")
+        print(json.dumps({"phase": "mesh_swap", "n": ns,
+                          "queries": 2 * len(pairs),
+                          "changed": changed, "stale": stale,
+                          "swap_s": swap_s,
+                          "versions": st["graph"]["version"]}), flush=True)
+        answers.append(["swap", [(r.found, r.hops) for r in got_new]])
+        pipe.close()
+        one.close()
+        # ---- the 2D block-partitioned search on a 2x2 grid of the ranks
+        t0 = time.perf_counter()
+        blocks = Sharded2DHost.build(n, edges, 2, 2, pairs=gnp["pairs_all"])
+        build2d_s = time.perf_counter() - t0
+        pool.graph("gnp2d", blocks.save(os.path.join(
+            os.path.dirname(gnp_dir), "gnp2d")))
+        pairs = gnp["pairs"]
+        jobs = [dict(kind="exchange2d", graph="gnp2d", reps=10)]
+        jobs += [dict(kind="solve2d", graph="gnp2d", src=s, dst=d, mode=m)
+                 for m in ("sync", "alt") for s, d in pairs]
+        jobs += [dict(kind="solve2d", graph="gnp2d", src=s, dst=d, mode=m,
+                      repeats=3) for m in ("sync", "alt")
+                 for s, d in pairs[:MESH_2D_TIMED]]
+        t0 = time.perf_counter()
+        out = pool.call("jobs", jobs)["results"]
+        ranks2d_s = time.perf_counter() - t0
+        ex2d, out = out[0], out[1:]
+        g = dense.DeviceGraph.from_ell(host, dev)
+        k = 0
+        for m in ("sync", "alt"):
+            for s, d in pairs:
+                # all but the path: the 2D parent is the max over the
+                # blocks' first hits, the dense one the row's first hit
+                r = out[k]
+                w = fields(dense.solve_dense_graph(g, s, d, mode=m))
+                k += 1
+                check(fields(r)[:2] + fields(r)[3:] == w[:2] + w[3:],
+                      f"2D {m} {s}->{d} differs from the dense search")
+                if r.found:
+                    check(validate_path(csr, r.path, s, d, hops=r.hops),
+                          f"2D {m} {s}->{d}: invalid path")
+                answers.append(["2d", m, s, d, fields(r)[:3]])
+        timed = out[k:]
+        for i, m in enumerate(("sync", "alt")):
+            ts = [t.time_s for t in timed[i * MESH_2D_TIMED:
+                                          (i + 1) * MESH_2D_TIMED]]
+            dms = [dense.time_search(g, s, d, repeats=3, mode=m)[1].time_s
+                   for s, d in pairs[:MESH_2D_TIMED]] if on_card else []
+            print(json.dumps({
+                "phase": "mesh_2d", "mode": m, "grid": [2, 2],
+                "median_search_ms": float(np.median(ts)) * 1e3,
+                "dense_median_search_ms": (float(np.median(dms)) * 1e3
+                                           if dms else None),
+                "transport": pool.transport}), flush=True)
+        n_loc1 = host.n_pad // SHARD_RANKS
+        print(json.dumps({
+            "phase": "mesh_2d_exchange", "grid": [2, 2],
+            "bytes_per_side_2d": frontier_exchange_bytes_2d(blocks.n_pad, 2,
+                                                            2),
+            "bytes_per_side_1d": frontier_exchange_bytes(n_loc1),
+            "transpose_ms": ex2d["transpose_ms"],
+            "gather_ms": ex2d["gather_ms"], "fold_ms": ex2d["fold_ms"],
+            "build_s": build2d_s, "ranks_s": ranks2d_s,
+            "transport": pool.transport}), flush=True)
+        # ---- checkpoint: stopped on one card, resumed on all three
+        s, d = pairs[0]
+        one_shot = dense.solve_dense_graph(g, s, d, mode="pallas")
+        ck_dir = os.path.join(os.path.dirname(gnp_dir), "ckpt")
+        os.makedirs(ck_dir, exist_ok=True)
+        path0 = os.path.join(ck_dir, "stopped.ckpt")
+        t0 = time.perf_counter()
+        stopped = ck.solve_checkpointed(g, s, d, mode="pallas", chunk=1,
+                                        path=path0, max_chunks=1)
+        chunk_s = time.perf_counter() - t0
+        check(stopped is None, "checkpoint: the stopped search finished")
+        t0 = time.perf_counter()
+        ck.solve_checkpointed(g, s, d, mode="pallas", chunk=1)
+        nofile_s = time.perf_counter() - t0
+        copies = {}
+        for where in ("card", "1d", "2d"):
+            copies[where] = os.path.join(ck_dir, f"{where}.ckpt")
+            with open(path0, "rb") as f, open(copies[where], "wb") as o:
+                o.write(f.read())
+        t0 = time.perf_counter()
+        res = {"card": ck.resume(copies["card"], g, src=s, dst=d, chunk=2)}
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["1d"], res["2d"] = pool.call("jobs", [
+            dict(kind="resume", graph="gnp", substrate="1d", src=s, dst=d,
+                 path=copies["1d"], chunk=2),
+            dict(kind="resume", graph="gnp2d", substrate="2d", src=s, dst=d,
+                 path=copies["2d"], chunk=2)])["results"]
+        mesh_s = time.perf_counter() - t0
+        for where, r in res.items():
+            want = fields(one_shot)
+            got = fields(r)
+            if where == "2d":  # its parent rule: the max over the blocks
+                want, got = want[:2] + want[3:], got[:2] + got[3:]
+                if r.found:
+                    check(validate_path(csr, r.path, s, d, hops=r.hops),
+                          "checkpoint resumed on 2x2: invalid path")
+            check(got == want, f"checkpoint resumed on {where} differs from "
+                  "the one-shot search")
+        print(json.dumps({
+            "phase": "mesh_checkpoint", "mode": "pallas", "pair": [s, d],
+            "levels": one_shot.levels,
+            "snapshot_mb": os.path.getsize(path0) / 1e6,
+            "first_chunk_with_snapshot_s": chunk_s,
+            "chunked_no_file_s": nofile_s,
+            "chunks_no_file": one_shot.levels // 2 + 1,
+            "resume_card_s": card_s, "resume_1d_and_2d_s": mesh_s,
+            "modes": {k: r.mode for k, r in res.items()}}), flush=True)
+        answers.append(["ckpt", {k: fields(r)[:2] for k, r in res.items()}])
+        del g
+        launches = pool.counts()
+        print(json.dumps({"phase": "mesh_launches", **launches}), flush=True)
+        if on_card:
+            for name in MESH_KERNELS:
+                check(launches.get(name, 0) > 0,
+                      f"kernel {name} was not launched on the mesh path")
+        # the dp flush split (after the counts are read): each wave's pairs
+        # sent again as one dp job, its batch clock on the ranks against
+        # the job's round trip (the rest: the ranks' parent copies and path
+        # walks, the results' gather and return)
+        for ln in flushes:
+            t0 = time.perf_counter()
+            res = pool.call("jobs", [dict(
+                kind="dp", graph="gnp", pairs=np.asarray(ln["pairs"]),
+                dt8=on_card)])["results"][0]
+            trip = (time.perf_counter() - t0) * 1e3
+            check([fields(r)[:2] for r in res] == ln["answers"],
+                  f"mesh dp split {ln['queries']}: answers differ from the "
+                  "wave's")
+            print(json.dumps({
+                "phase": "mesh_dp_split", "queries": ln["queries"],
+                "round_trip_ms": trip, "ranks_batch_ms": res[0].time_s * 1e3,
+                "rest_ms": trip - res[0].time_s * 1e3,
+                "wave_flush_ms": ln["flush_ms"],
+                "transport": pool.transport}), flush=True)
+    finally:
+        for eng in engines:
+            eng.close()
+        pool.close()
+        store.close()
+    import hashlib
+
+    digest = hashlib.sha256(json.dumps(answers, default=str).encode()
+                            ).hexdigest()
+    print(json.dumps({"phase": "mesh_total", "transport": pool.transport,
+                      "spawn_s": pool.spawn_s, "store_s": store_s,
+                      "answers": len(answers), "digest": digest,
+                      "flush_ms": {ln["wave"]: [ln["flush_ms"],
+                                                ln["one_device_flush_ms"]]
+                                   for ln in flushes},
+                      "wall_ms": {ln["wave"]: [ln["wall_ms"],
+                                               ln["one_device_wall_ms"]]
+                                  for ln in flushes},
+                      "s": time.perf_counter() - t_phase}), flush=True)
+    return {"launches": launches, "checks": checks}
 
 
 def kind_refs_main(sync: int = KIND_QUERIES["sync"],
@@ -4160,8 +4697,8 @@ def kind_refs_main(sync: int = KIND_QUERIES["sync"],
 
 
 def shard_main(profile_only: bool = False) -> int:
-    """Phase 14 alone, at full size, on every card there is (four for
-    NCCL, else one shared): ``python3 -c 'import chip_smoke, sys;
+    """Phases 14 and 15 alone, at full size, on every card there is (four
+    for NCCL, else one shared): ``python3 -c 'import chip_smoke, sys;
     sys.exit(chip_smoke.shard_main())'`` from the root of a checkout.
     ``profile_only`` builds gnp alone and runs its exchange and
     profiles (the phase's ``sharded_exchange`` and ``sharded_profile``
@@ -4200,8 +4737,11 @@ def shard_main(profile_only: bool = False) -> int:
                   flush=True)
         return 0
     results = {name: {} for name in SHARD_KERNELS}
-    shard_phase(gnp, rmat, results)
-    print(json.dumps({"kernels_sharded": results}), flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip-mesh-") as mesh_dir:
+        shard_phase(gnp, rmat, results, save_dir=mesh_dir)
+        print(json.dumps({"kernels_sharded": results}), flush=True)
+        mesh = mesh_phase(gnp, os.path.join(mesh_dir, "gnp"))
+    print(json.dumps({"kernels_mesh": mesh}), flush=True)
     return 0
 
 
@@ -4211,6 +4751,14 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    laps: dict = {}  # each phase's seconds, in the order they ran
+    t_lap = [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -4221,6 +4769,11 @@ def main() -> int:
     host_ref = multiprocessing.get_context("spawn").Process(
         target=host_sweeps, args=(ref_dir.name,), daemon=True)
     host_ref.start()
+    # phase 4's rmat-s20 host graph, built beside phases 1-8
+    rmat_dir = tempfile.TemporaryDirectory()
+    rmat_proc = multiprocessing.get_context("spawn").Process(
+        target=rmat_prep, args=(rmat_dir.name,), daemon=True)
+    rmat_proc.start()
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -4231,6 +4784,7 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers", "spill")):
                 print(f"ptxas {name}: {line.strip()}")
+    lap("1 build")
 
     # the main-path graph: G(2^20, 8/2^20), plain ELL
     t0 = time.perf_counter()
@@ -4251,6 +4805,7 @@ def main() -> int:
     print(json.dumps({"phase": "query_kinds_prep",
                       "s": time.perf_counter() - t0,
                       "references": len(kinds["refs"])}), flush=True)
+    lap("graph and phase 13 prep")
 
     # phase 2: kernels against their plain versions
     results: dict = {}
@@ -4275,6 +4830,7 @@ def main() -> int:
     floor_ms = time_launch(lambda: torch.cuda._sleep(0))
     print(json.dumps({"phase": "kernels_vs_plain", "ok": True,
                       "launch_floor_ms": floor_ms}), flush=True)
+    lap("2 kernels")
 
     # phase 3: the main path
     rng = np.random.default_rng(7)
@@ -4292,6 +4848,7 @@ def main() -> int:
     print(json.dumps({"phase": "main_path_launches", **main_counts}), flush=True)
     for name in KERNELS:
         check(main_counts[name] > 0, f"kernel {name} was not launched on the main path")
+    lap("3 main path")
 
     # phase 5: the batched search on the main-path graph, 256 queries
     reset_counts()
@@ -4306,6 +4863,7 @@ def main() -> int:
     check(same_batch(raws["auto"], raws["minor8"], n), "auto differs from minor8")
     del raws
     torch.cuda.empty_cache()
+    lap("5 batches")
 
     # phase 9: the lock-step batch of the per-query modes, 256 queries
     lockstep_kernel_phase(g, "gnp-deg8-s20", results)
@@ -4318,25 +4876,28 @@ def main() -> int:
               f"kernel {name} was not launched by the lock-step batches")
     sweep_phase(g, bpairs, "gnp-deg8-s20")
     tail_phase(g, bpairs, "gnp-deg8-s20")
+    lap("9 lock-step")
 
     # phase 7: the serving engine on the main-path graph
     engine_phase(g, n, edges, pairs_all, csr)
+    lap("7 engine")
 
     # phase 8: the pipelined engine on the main-path graph
     pipeline_phase(n, edges, pairs_all, csr)
+    lap("8 pipelined")
 
     # phase 4: tiered RMAT scale 20
     del g
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    n2, e2 = rmat_graph(20, edge_factor=16, seed=7)
-    p2 = canonical_pairs(n2, e2)
-    csr2 = build_csr(n2, pairs=p2)
-    rmat_host = build_tiered(n2, pairs=p2)  # kept for phase 14's ranks
+    # kept for phase 14's ranks
+    n2, e2_count, csr2, rmat_host, child_s, wait_s = rmat_load(
+        rmat_proc, rmat_dir.name)
     g2 = dense.DeviceGraph.from_tiered(rmat_host, dev)
     torch.cuda.synchronize()
     print(json.dumps({"phase": "graph", "name": "rmat-s20-ef16", "n": n2,
-                      "edges": int(e2.shape[0]), "width": g2.width,
+                      "edges": e2_count, "width": g2.width,
+                      "child_build_s": child_s, "wait_s": wait_s,
                       "tiers": [list(m) for m in g2.tier_meta],
                       "build_s": time.perf_counter() - t0}), flush=True)
     # the kernels against their plain versions at the tiered base table
@@ -4369,6 +4930,7 @@ def main() -> int:
     for name in LOCKSTEP:
         check(tl_counts[name] > 0,
               f"kernel {name} was not launched by the tiered lock-step batches")
+    lap("4 rmat-s20")
 
     # phase 6: tiered batches at RMAT scale 17 (the largest scale of the
     # family whose tiers the minor layout admits), and the int8 refill
@@ -4390,16 +4952,19 @@ def main() -> int:
     batch_drive(g3, csr3, pairs3, "rmat-s17-ef16", ["minor"], "sync")
     del g3
     refill_phase(dev)
+    lap("6 rmat-s17")
 
     # phase 10: the blocked tile route
     torch.cuda.empty_cache()
     blocked_launches = blocked_phase(dev, results)
+    lap("10 blocked")
 
     # phase 11: the graph store and the distance oracle
     torch.cuda.empty_cache()
     store_launches = store_and_oracle_phase(csr, results, host_ref,
                                             ref_dir.name)
     ref_dir.cleanup()
+    lap("11 store")
 
     # phase 12: the durable store, its crash and its respawn
     torch.cuda.empty_cache()
@@ -4408,26 +4973,42 @@ def main() -> int:
     print(json.dumps({"phase": "durable_total", "s": time.perf_counter() - t0}),
           flush=True)
     respawn = durable["respawn"]
+    lap("12 durable")
 
     # phase 13: the query kinds
     torch.cuda.empty_cache()
     kind_launches = query_kinds_phase(kinds, results=results)
     kind_dir.cleanup()
+    lap("13 query kinds")
 
     # phase 14: the vertex-sharded search and the data-parallel batch
     torch.cuda.empty_cache()
+    mesh_dir = tempfile.TemporaryDirectory(prefix="chip-mesh-")
+    gnp = dict(host=gnp_host, name="gnp-deg8-s20", n=n, csr=csr, pairs=pairs,
+               want=want, tiered=False, edges=edges, pairs_all=pairs_all)
     shard_launches = shard_phase(
-        dict(host=gnp_host, name="gnp-deg8-s20", n=n, csr=csr, pairs=pairs,
-             want=want, tiered=False),
+        gnp,
         dict(host=rmat_host, name="rmat-s20-ef16", n=n2, csr=csr2,
              pairs=pairs2, want=want2, tiered=True),
-        results)
+        results, save_dir=mesh_dir.name)
+    lap("14 sharded")
+
+    # phase 15: serving from a rank pool, the 2D search, checkpoints
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(gnp, os.path.join(mesh_dir.name, "gnp"))
+    mesh_dir.cleanup()
+    rmat_dir.cleanup()
+    lap("15 mesh")
+    checks = mesh["checks"]
 
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=main_counts[name],
                             launches_sharded=shard_launches.get(name, 0),
+                            launches_mesh=mesh["launches"].get(name, 0),
+                            **({"mesh_ranks": [c[name] for c in checks]}
+                               if name in SHARD_KERNELS else {}),
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
     for name, (_mode, source, replaces) in MINOR.items():
@@ -4435,6 +5016,9 @@ def main() -> int:
                             replaces=replaces, launches=batch_counts[name],
                             launches_durable=respawn[name],
                             launches_data_parallel=shard_launches.get(name, 0),
+                            launches_mesh=mesh["launches"].get(name, 0),
+                            mesh_ranks=[r for c in checks
+                                        for r in c.get(name, [])],
                             **results[name], library_ms=None,
                             launch_floor_ms=floor_ms))
     for name, (_w, _p, source, replaces) in LOCKSTEP.items():
@@ -4459,8 +5043,8 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=kind_launches[name],
                             **results[name], launch_floor_ms=floor_ms))
-    print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start}),
-          flush=True)
+    print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start,
+                      "phases_s": laps}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -109,3 +109,46 @@ def test_spawned_ranks_load_no_jax():
         assert "torch" in r["modules"] and "bibfs_tpu_torch" in r["modules"]
         bad = [m for m in r["modules"] if _forbidden(m)]
         assert not bad, (r["rank"], bad)
+
+
+def test_pool_ranks_load_no_jax():
+    """The ranks of a persistent pool (``parallel.pool.MeshPool``) import
+    neither JAX nor the JAX package after the mesh route's jobs (the 1D
+    batch, the data-parallel batch), the 2D search and checkpointed
+    searches on both meshes."""
+    code = (
+        "import json, os, tempfile\n"
+        "import numpy as np\n"
+        "from bibfs_tpu_torch.parallel.pool import MeshPool\n"
+        "from bibfs_tpu_torch.solvers import sharded as sh\n"
+        "from bibfs_tpu_torch.solvers.sharded2d import Sharded2DHost\n"
+        "e = np.array([[i, i + 1] for i in range(39)])\n"
+        "with MeshPool(2, 'cpu', timeout_s=120) as pool:\n"
+        "    d = os.path.join(pool.workdir, 'g')\n"
+        "    pool.graph('g', sh.save_host_graph(sh.build_host_graph(40, e, 2), d))\n"
+        "    pool.graph('b', Sharded2DHost.build(40, e, 1, 2).save(d + 'b'))\n"
+        "    ck = os.path.join(pool.workdir, 'c.ckpt')\n"
+        "    jobs = [dict(kind='batch', graph='g', pairs=[(0, 39)], mode='fused'),\n"
+        "            dict(kind='dp', graph='g', pairs=[(0, 39)], dt8=True),\n"
+        "            dict(kind='solve2d', graph='b', src=0, dst=39),\n"
+        "            dict(kind='checkpoint', graph='g', src=0, dst=39, path=ck,\n"
+        "                 mode='pallas', chunk=2, max_chunks=1),\n"
+        "            dict(kind='resume', graph='b', substrate='2d', src=0,\n"
+        "                 dst=39, path=ck)]\n"
+        "    out = pool.call('jobs', jobs)['results']\n"
+        "    assert out[0][0].hops == out[1][0].hops == out[2].hops == 39\n"
+        "    assert out[3] is None and out[4].hops == 39\n"
+        "    print(json.dumps(pool.call('hello')))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=180, env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr
+    import json
+
+    hello = json.loads(out.stdout.strip().splitlines()[-1])
+    assert hello["transport"] == "gloo"
+    assert "torch" in hello["modules"] and "bibfs_tpu_torch" in hello["modules"]
+    bad = [m for m in hello["modules"] if _forbidden(m)]
+    assert not bad, bad

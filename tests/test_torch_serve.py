@@ -724,17 +724,23 @@ def test_flush_spans_are_traced():
     pytest.param("mesh", 2, id="mesh-2"),
 ])
 def test_unported_options_raise(option, value):
-    """``mesh=`` comes with a later slice (``NotImplementedError``); the
-    store options are ported and refuse what the reference refuses: an
-    inline graph beside ``store=``, ``graph=`` without a store, and
-    ``oracle_k`` beside ``store=`` (the store owns the oracles)."""
+    """The options once of later slices are ported and refuse what the
+    reference refuses: ``mesh=`` a rank count below 1 (before any rank is
+    spawned), an inline graph beside ``store=``, ``graph=`` without a
+    store, and ``oracle_k`` beside ``store=`` (the store owns the
+    oracles)."""
     from bibfs_tpu_torch.serve import QueryEngine
     from bibfs_tpu_torch.store import GraphStore
 
     n, edges = GRAPHS["skiplink"]
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(n, edges, **{option: value})
+        from bibfs_tpu.serve import QueryEngine as RefEngine
+
+        for bad in (-value, True):
+            with pytest.raises(ValueError, match="mesh"):
+                _engine(n, edges, **{option: bad})
+            with pytest.raises(ValueError, match="mesh"):
+                RefEngine(n, edges, **{option: bad})
         return
     if option == "oracle_k":
         store = GraphStore()

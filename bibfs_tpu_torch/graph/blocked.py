@@ -24,9 +24,9 @@ Layout (block-sparse, only nonempty tiles stored), the JAX package's:
   count) and ``tab[bi, k]`` its dense int8 0/1 adjacency.
 
 ``bwidth`` is the most nonempty tiles of any block row, so the table is
-one ``[nblocks, bwidth, tile, tile]`` array. The weighted tile table
-(``build_blocked_weights``) comes with the query kinds (ROADMAP Queue 1,
-item 7).
+one ``[nblocks, bwidth, tile, tile]`` array. :func:`build_blocked_weights`
+lays the seeded edge weights over the same tiling as a float32 table, the
+input of the blocked SSSP rung (:mod:`bibfs_tpu_torch.ops.semiring_plane`).
 """
 
 from __future__ import annotations
@@ -143,6 +143,38 @@ def build_blocked(
         num_edges=int(pairs.shape[0]) // 2, nnz_blocks=int(uniq.size),
         tab=tab, bcol=bcol, deg=deg,
     )
+
+
+def build_blocked_weights(g: BlockedGraph, pairs: np.ndarray, *,
+                          seed: int = 0) -> np.ndarray:
+    """The float32 ``[nblocks, bwidth, tile, tile]`` weight table over
+    ``g``'s tiling: the seeded symmetric edge-weight hash
+    (:func:`bibfs_tpu_torch.query.weighted.edge_weight_hash`) at every
+    stored edge's slot, ``+inf`` everywhere else (the (min, +) semiring's
+    absent-edge identity, so dead slots and sentinel tiles never win a
+    min). Live entries hash as ``synthetic_weights`` does over the same
+    snapshot, so the blocked SSSP rung answers as the host rungs do. The
+    JAX package's table, byte for byte."""
+    from bibfs_tpu_torch.query.weighted import edge_weight_hash
+
+    wtab = np.full(
+        (g.nblocks, g.bwidth, g.tile, g.tile), np.inf, dtype=np.float32
+    )
+    if pairs is None or not pairs.size:
+        return wtab
+    br = pairs[:, 0] // g.tile
+    bc = pairs[:, 1] // g.tile
+    # dense (block row, block column) -> slot map; the sentinel column
+    # nblocks is written and never looked up by a real pair
+    slot_map = np.full((g.nblocks, g.nblocks + 1), -1, dtype=np.int64)
+    slot_map[np.arange(g.nblocks)[:, None], g.bcol] = \
+        np.arange(g.bwidth)[None, :]
+    w = edge_weight_hash(
+        pairs[:, 0].astype(np.int64), pairs[:, 1].astype(np.int64), seed
+    )
+    wtab[br, slot_map[br, bc], pairs[:, 0] % g.tile,
+         pairs[:, 1] % g.tile] = w.astype(np.float32)
+    return wtab
 
 
 def blocked_bucket_key(g: BlockedGraph) -> tuple:

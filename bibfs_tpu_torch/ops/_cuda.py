@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("pull_expand", "fused_level", "batch_minor", "blocked_expand",
-           "msbfs", "query_device")
+           "msbfs", "query_device", "semiring")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,6 +73,13 @@ SIGNATURES = {
         "bibfs_restricted_sweep": [_P, _P, _I64, _I, _I, _I, _I64, _I64, _I,
                                    _P, _P, _I64, _I64, _P, _P, _P, _P, _P,
                                    _P, _I64, _P, _P, _P],
+    },
+    "semiring": {
+        "bibfs_minplus_fixpoint": [_P, _I, _P, _I64, _I, _I, _I64, _P, _P, _P,
+                                   _P],
+        "bibfs_pagerank": [_P, _P, _P, _I64, _I, _I64, _F, _F, _F, _I64, _P,
+                           _P, _P, _P, _P],
+        "bibfs_tricount": [_P, _P, _I64, _I, _I64, _I, _P, _P],
     },
 }
 

@@ -28,6 +28,9 @@ plane for exactly those bits. The result is the host sweep's contract
   :func:`msbfs_plane_graph` an uploaded
   :class:`~bibfs_tpu_torch.solvers.dense.DeviceGraph` (plain ELL only:
   hub tiers carry edges its rows do not).
+- :func:`msbfs_plane_blocked` runs the sweep over the blocked tile table,
+  a level one tile product of the frontier plane (torch code: no serving
+  path calls it).
 - :func:`frontier_bytes` counts, from a finished plane, the bytes each
   level's frontier needs: the sweep's least traffic.
 
@@ -461,6 +464,55 @@ def graph_csr(g):
         csr = (row_ptr, col_ind)
         g.tables["csr"] = csr
     return csr
+
+
+# ---- the blocked-product sweep ---------------------------------------------
+
+def msbfs_plane_blocked(g, sources) -> np.ndarray:
+    """The K-source sweep over an uploaded blocked tile table
+    (:class:`~bibfs_tpu_torch.solvers.dense.BlockedDeviceGraph`), each
+    level one tile product of the K-column 0/1 frontier plane
+    (:func:`bibfs_tpu_torch.ops.blocked_expand.expand_blocked_plane`):
+    the counterpart of the JAX package's ``msbfs_plane_blocked``, torch
+    code on the table's device with one host read of "anything new" a
+    level. The columns pad to a multiple of 8 (at least 8), as the
+    reference's do. Returns the ELL sweep's ``int16 [n, K]`` (``-1``
+    unreachable)."""
+    global _sweeps_run
+    from bibfs_tpu_torch.ops.blocked_expand import (
+        INF32,
+        chunk_block_rows,
+        expand_blocked_plane,
+    )
+    from bibfs_tpu_torch.oracle.trees import _as_int16_dist
+
+    sources = _check_sources(g.n, sources)
+    k = int(sources.size)
+    if k == 0:
+        return np.zeros((g.n, 0), dtype=np.int16)
+    dev = g.tab.device
+    kp = max(8, -(-k // 8) * 8)
+    rc = min(chunk_block_rows(g.bwidth, kp, 4, g.tile), g.nblocks)
+    cols = torch.arange(k, device=dev)
+    src = torch.from_numpy(sources).to(dev)
+    pending = torch.zeros((g.n_pad, kp), dtype=torch.float32, device=dev)
+    pending[src, cols] = 1.0
+    visited = pending.clone()
+    dist = torch.full((g.n_pad, kp), INF32, dtype=torch.int32, device=dev)
+    dist[src, cols] = 0
+    level = 0
+    while True:
+        level += 1
+        new = expand_blocked_plane(pending, g.tab, g.bcol, rc=rc) & (
+            visited == 0)
+        if not bool(new.any()):
+            break
+        dist[new] = level
+        pending = new.to(torch.float32)
+        visited += pending
+    with _sweeps_lock:
+        _sweeps_run += 1
+    return _as_int16_dist(dist[: g.n, :k].cpu().numpy())
 
 
 # ---- the sweep's least traffic, from a finished plane ----------------------

@@ -1,9 +1,9 @@
 """The typed query/result taxonomy — what replaced the raw ``(s, t)``.
 
 A copy of ``bibfs_tpu/query/types.py`` (backend-free). Both serving
-engines answer every kind here; the whole-graph analytics kinds of
-``QUERY_KINDS`` (``sssp``, ``pagerank``, ``components``, ``triangles``)
-come with a later slice of the port (ROADMAP Queue 1, item 9).
+engines answer every kind here, and the whole-graph analytics kinds of
+``QUERY_KINDS`` (``sssp``, ``pagerank``, ``components``, ``triangles``;
+:mod:`bibfs_tpu_torch.analytics.queries`).
 
 Every layer of the serving stack used to thread one query shape — an
 unweighted point-to-point ``(src, dst)`` hop count plus path — through

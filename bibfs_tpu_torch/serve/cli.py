@@ -42,7 +42,11 @@ graph, and ``graphs`` lists the graphs with their versions.
 the store keeps one index per graph (built in the background on the
 engine's device), with a ``.bin`` the engine builds one at startup. The
 stdin command ``oracle`` prints the current graph's index status and hit
-counts. Command replies land in the result stream.
+counts. ``analytics KIND [k=v ...]`` runs one whole-graph analytics query
+(``sssp source=V [weight_seed=S]``, ``pagerank [damping= tol= max_iters=]``,
+``components``, ``triangles``) on the current graph and replies with its
+one-line JSON summary (the vector stays in the result store and the kind
+cache). Command replies land in the result stream.
 
 ``--durable`` (with ``--store``) turns on the store's durability layer
 (``bibfs_tpu_torch/store/wal.py``): every acked update is written ahead
@@ -94,6 +98,39 @@ def _control_reply(engine, store, cmd: str) -> str:
         payload["metrics_render"] = REGISTRY.render()
     return cmd + " " + json.dumps(
         payload, sort_keys=True, default=str, separators=(",", ":")
+    )
+
+
+def _analytics_command(engine, current, parts: list[str]) -> str:
+    """The stdin ``analytics KIND [k=v ...]`` command: submit one
+    whole-graph kind through the engine's ladder and reply with the
+    one-line JSON summary, never the whole vector. Unknown kinds and
+    malformed params reply ``error invalid:`` in the result stream, as
+    malformed query lines do."""
+    from bibfs_tpu_torch.analytics.queries import (
+        analytics_query_from_spec,
+        analytics_summary,
+    )
+    from bibfs_tpu_torch.serve.resilience import QueryError
+
+    params = {}
+    for tok in parts[2:]:
+        key, eq, val = tok.partition("=")
+        if not eq or not key:
+            return ("error invalid: usage: analytics KIND [k=v ...] "
+                    f"(bad token {tok!r})")
+        params[key] = val
+    try:
+        q = analytics_query_from_spec(parts[1] if len(parts) > 1 else "",
+                                      params)
+        res = engine.query_one(q, graph=current)
+    except (ValueError, TypeError) as e:
+        return f"error invalid: {e}"
+    except QueryError as e:
+        return f"error {e.kind}: {e}"
+    return "analytics " + json.dumps(
+        analytics_summary(res), sort_keys=True, default=str,
+        separators=(",", ":"),
     )
 
 
@@ -562,6 +599,14 @@ def _serve_stdin(args, engine, store) -> int:
                 # resolved results first: the reply doubles as a drain nudge
                 drain()
                 print(_control_reply(engine, store, parts[0]))
+                continue
+            if parts[0] == "analytics":
+                # the whole-graph tier: submit and flush one typed kind;
+                # the forced flush also resolves queued src/dst tickets,
+                # printed (in submit order) before the reply
+                reply = _analytics_command(engine, current, parts)
+                drain()
+                print(reply)
                 continue
             if parts[0] in _STORE_COMMANDS:
                 if store is None:

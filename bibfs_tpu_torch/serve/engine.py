@@ -88,11 +88,14 @@ runs in turn and the pipelined engine
   delta-stepping, the restricted batch BFS of Yen's iterations — ahead of
   its host-tier rung), results cached per (snapshot digest, query key) in
   the kind cache. The counts per kind and route show in
-  ``stats()["query_kinds"]``.
-
-The whole-graph analytics kinds come with a later slice of the port
-(ROADMAP Queue 1, item 9): an analytics query raises
-``NotImplementedError``.
+  ``stats()["query_kinds"]``. The whole-graph analytics kinds (``Sssp``,
+  ``PageRank``, ``Components``, ``Triangles``;
+  :mod:`bibfs_tpu_torch.serve.routes.analytics`) ride the same path, a
+  blocked rung (the kernels of ``csrc/semiring.cu`` on the card) ahead of
+  the host rung; on a store-backed engine their answers persist per
+  snapshot digest in ``GraphStore.analytics``, which serves repeats
+  (route ``store``) and maintains SSSP and components across adds-only
+  updates.
 """
 
 from __future__ import annotations
@@ -344,7 +347,7 @@ class _Pending:
 @guarded_by("_lock", "_graph", "bucket_key", "_host_solver",
             "host_native_graph", "_serial_solver", "host_backend_resolved",
             "_blocked_graph", "blocked_bucket_key", "_blocked_meta",
-            "_weights", "_wtables", "mesh_shipped")
+            "_weights", "_wtables", "_awtabs", "mesh_shipped")
 class _GraphRuntime:
     """Everything an engine knows about solving one immutable graph
     snapshot: the lazily built and uploaded device graph and its bucket
@@ -373,10 +376,12 @@ class _GraphRuntime:
         self._blocked_graph = None
         self.blocked_bucket_key = None
         self._blocked_meta = None
-        # per weight seed: the CSR-aligned derived weights and the weighted
-        # device rung's uploaded tables (weights_for, weighted_device_tables)
+        # per weight seed: the CSR-aligned derived weights, the weighted
+        # device rung's uploaded tables and the blocked SSSP rung's weight
+        # tiles (weights_for, weighted_device_tables, analytics_weight_table)
         self._weights: dict = {}
         self._wtables: dict = {}
+        self._awtabs: dict = {}
         # (pool, "1d" | "dp") -> (pool generation, key, host graph): the
         # mesh route's graphs shipped to a rank pool (mesh_graph, dp_graph)
         self.mesh_shipped: dict = {}
@@ -529,6 +534,24 @@ class _GraphRuntime:
             self._wtables, seed,
             lambda: delta_tables(self.snapshot.ell(), seed,
                                  device=self._device))
+
+    def analytics_weight_table(self, seed: int):
+        """The blocked SSSP rung's float32 weight tile table for one
+        ``weight_seed`` (:func:`bibfs_tpu_torch.graph.blocked.
+        build_blocked_weights` over the snapshot's memoized blocked layout)
+        on the engine's device, memoized like :meth:`weights_for`: one
+        build and upload per (snapshot, seed), freed with the runtime on a
+        hot-swap."""
+        import torch
+
+        from bibfs_tpu_torch.graph.blocked import build_blocked_weights
+
+        seed = int(seed)
+        return self._per_seed(
+            self._awtabs, seed,
+            lambda: torch.from_numpy(build_blocked_weights(
+                self.snapshot.blocked(), self.snapshot.pairs, seed=seed,
+            )).to(self._device))
 
     def get_host_solver(self):
         """The per-query host solver: the native C++ runtime when it
@@ -1200,22 +1223,14 @@ class QueryEngine:
     def _query_rep_pair(q: Query) -> tuple[int, int]:
         """A representative ``(src, dst)`` for a typed query: what error
         messages and pair-targeted chaos rules key on."""
+        rep = getattr(q, "rep_pair", None)
+        if rep is not None:  # the whole-graph analytics kinds declare one
+            return rep()
         if isinstance(q, AsOf):
             return QueryEngine._query_rep_pair(q.inner)
         if isinstance(q, MultiSource):
             return int(q.sources[0]), int(q.dst)
         return int(q.src), int(q.dst)
-
-    @staticmethod
-    def _refuse_unported_kind(q: Query) -> None:
-        """The whole-graph analytics kinds come with a later slice."""
-        from bibfs_tpu_torch.serve.routes.taxonomy import ANALYTICS_KINDS
-
-        if q.kind in ANALYTICS_KINDS:
-            raise NotImplementedError(
-                f"query kind {q.kind!r} is not ported yet (ROADMAP Queue 1, "
-                "item 9)"
-            )
 
     def _check_open(self, query) -> None:
         """Refuse a submit on a closed engine, and on a draining one with
@@ -1231,18 +1246,17 @@ class QueryEngine:
     def submit_query(self, q, graph: str | None = None) -> _Pending:
         """Submit one typed query (:mod:`bibfs_tpu_torch.query`): a
         :class:`PointToPoint` (or a bare pair) delegates to :meth:`submit`;
-        ``MultiSource``, ``Weighted``, ``KShortest`` and ``AsOf`` are
-        validated, counted and looked up in the kind cache (per snapshot
-        digest and query key, on a graph with no pending updates), then
+        the other kinds are validated, counted and looked up in the kind
+        cache (per snapshot digest and query key, on a graph with no
+        pending updates) and, for an analytics kind, in the store's
+        whole-graph result store (:meth:`_consult_analytics_store`), then
         handed to :meth:`_take_kind`: here they queue for their kind
         routes and resolve at the next flush, grouped per kind (the
-        flush's multi-source queries share their sweeps). An analytics
-        kind raises ``NotImplementedError`` (ROADMAP item 9)."""
+        flush's multi-source queries share their sweeps)."""
         q = coerce_query(q)
         if isinstance(q, PointToPoint):
             self._query_cells.cell("pt", "ladder").inc()
             return self.submit(q.src, q.dst, graph)
-        self._refuse_unported_kind(q)
         src, dst = self._query_rep_pair(q)
         self._check_open((src, dst))
         name, rt = self._resolve_graph(graph)
@@ -1258,6 +1272,8 @@ class QueryEngine:
             hit = self._kind_cache.lookup(rt.graph_id, q.cache_key())
             if hit is not None:
                 self._query_cells.cell(q.kind, "cache").inc()
+            else:
+                hit = self._consult_analytics_store(name, rt, q)
         return self._take_kind(t, overlay, hit)
 
     def _kind_ticket(self, src: int, dst: int, name) -> _Pending:
@@ -1498,8 +1514,96 @@ class QueryEngine:
             cell.inc(len(ts))
             if ctx.base:
                 self._kind_cache.put(ctx.graph_id, key, res)
+                self._analytics_store_put(kind, rt, ctx, key, res)
             for t in ts:
                 t.result = res
+
+    def _analytics_store_put(self, kind, rt, ctx, key, res) -> None:
+        """Persist a freshly computed whole-graph analytics answer into the
+        store's per-digest result store (analytics/results.py), the
+        counterpart of the submit-time consult. Base-snapshot answers only
+        (the caller gates on ``ctx.base``); inline engines have no store."""
+        if self._store is None:
+            return
+        from bibfs_tpu_torch.analytics.queries import ANALYTICS_KINDS
+
+        if kind not in ANALYTICS_KINDS:
+            return
+        from bibfs_tpu_torch.analytics.results import result_to_payload
+
+        arrays, scalars = result_to_payload(kind, res)
+        self._store.analytics.put(
+            ctx.name, key, rt.snapshot.digest, kind, arrays, scalars
+        )
+
+    def _consult_analytics_store(self, name, rt, q):
+        """The submit-time whole-graph result-store consult (after a
+        kind-cache miss, only while no overlay is pending: stored entries
+        describe settled snapshots). An exact-digest entry is served as
+        ``route="store"``; an entry whose digest reaches the current one
+        through adds-only deltas is maintained incrementally
+        (decrease-only SSSP relaxation / component re-merge), committed
+        back retagged, and served. Returns the result, or None to go on to
+        the flush."""
+        if self._store is None:
+            return None
+        from bibfs_tpu_torch.analytics.queries import ANALYTICS_KINDS
+
+        if q.kind not in ANALYTICS_KINDS:
+            return None
+        store = self._store.analytics
+        digest = rt.snapshot.digest
+        found = store.lookup(name, q.cache_key(), digest)
+        if found is None:
+            return None
+        from bibfs_tpu_torch.analytics.queries import (
+            ComponentsResult,
+            SsspResult,
+        )
+        from bibfs_tpu_torch.analytics.results import (
+            maintain_components,
+            maintain_sssp,
+            result_from_payload,
+            result_to_payload,
+        )
+
+        t0 = time.perf_counter()
+        if found[0] == "hit":
+            res = result_from_payload(
+                q.kind, found[1].arrays, found[1].scalars
+            )
+        else:
+            _tag, entry, adds = found
+            row_ptr, col_ind = rt.snapshot.csr()
+            if q.kind == "sssp":
+                seed = int(q.weight_seed)
+                w = rt.weights_for(seed, row_ptr, col_ind)
+                dist, _relaxed = maintain_sssp(
+                    entry.arrays["dist"], adds, rt.n, row_ptr, col_ind,
+                    w, seed,
+                )
+                res = SsspResult(
+                    found=True, dist=dist,
+                    reached=int(np.isfinite(dist).sum()),
+                    rounds=int(entry.scalars.get("rounds", 0)),
+                    time_s=time.perf_counter() - t0,
+                )
+            else:  # components: lookup() only offers maintainable kinds
+                labels, count = maintain_components(
+                    entry.arrays["labels"], adds, rt.n
+                )
+                res = ComponentsResult(
+                    found=True, labels=labels, count=count,
+                    rounds=int(entry.scalars.get("rounds", 0)),
+                    time_s=time.perf_counter() - t0,
+                )
+            arrays, scalars = result_to_payload(q.kind, res)
+            store.commit_maintained(
+                name, q.cache_key(), digest, q.kind, arrays, scalars
+            )
+        self._query_cells.cell(q.kind, "store").inc()
+        self._kind_cache.put(rt.graph_id, q.cache_key(), res)
+        return res
 
     def _next_kind_rung(self, ladder, i: int, rt, queries, ctx) -> str:
         """The rung a failed kind-ladder step degrades TO (the ``to`` label

@@ -11,12 +11,17 @@ query-kind routes (:mod:`bibfs_tpu_torch.serve.routes.taxonomy` and
 dispatched by kind at flush time down their own ladders. The mesh rung
 (:mod:`bibfs_tpu_torch.serve.routes.mesh`) leads the ladder when the
 engine has one (``mesh -> blocked -> device -> host``). The analytics
-routes of the JAX package come with their slice of the port (ROADMAP
-Queue 1).
+kinds' host and blocked rungs
+(:mod:`bibfs_tpu_torch.serve.routes.analytics`) join the query-kind set.
 """
 
 from __future__ import annotations
 
+from bibfs_tpu_torch.serve.routes.analytics import (
+    AnalyticsBlockedRoute,
+    AnalyticsHostRoute,
+    build_analytics_routes,
+)
 from bibfs_tpu_torch.serve.routes.base import Route
 from bibfs_tpu_torch.serve.routes.blocked import BlockedConfig, BlockedRoute
 from bibfs_tpu_torch.serve.routes.device import DeviceRoute
@@ -47,7 +52,8 @@ from bibfs_tpu_torch.serve.routes.taxonomy_device import (
     build_taxonomy_device_routes,
 )
 
-__all__ = ["Route", "BlockedConfig", "BlockedRoute", "DeviceRoute",
+__all__ = ["AnalyticsBlockedRoute", "AnalyticsHostRoute",
+           "build_analytics_routes", "Route", "BlockedConfig", "BlockedRoute", "DeviceRoute",
            "HostRoute", "MeshConfig", "MeshRoute", "OracleRoute",
            "OverlayRoute", "SerialRoute",
            "KIND_LADDERS", "KIND_ROUTES", "AsOfRoute", "KindCtx",

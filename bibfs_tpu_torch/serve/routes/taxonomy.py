@@ -37,9 +37,10 @@ theirs degrades as in the reference, on a CUDA engine too
 (``TaxonomyRoute.host_tier``); the kinds' device rungs
 (:mod:`bibfs_tpu_torch.serve.routes.taxonomy_device`) degrade on a CUDA
 engine only for an injected fault. The whole-graph analytics kinds
-(:data:`ANALYTICS_KINDS`) keep their label cells and ladder entries here,
-so a scrape renders the reference's set, but come with a later slice of
-the port: submitting one raises ``NotImplementedError`` (ROADMAP item 9).
+(:data:`~bibfs_tpu_torch.analytics.queries.ANALYTICS_KINDS`) keep their
+label cells and ladder entries here; their rungs
+(:mod:`bibfs_tpu_torch.serve.routes.analytics`) join the set in
+:func:`build_taxonomy_routes`.
 
 Queries solve against a :class:`KindCtx` — the flush-bound CSR truth:
 the snapshot's memoized CSR normally, the overlay-merged CSR while
@@ -83,10 +84,6 @@ from bibfs_tpu_torch.serve.resilience import (
 from bibfs_tpu_torch.serve.routes.base import Route
 from bibfs_tpu_torch.utils.annotations import guarded_by
 
-#: the whole-graph analytics kinds of ``QUERY_KINDS`` (a later slice of
-#: the port, ROADMAP item 9)
-ANALYTICS_KINDS = ("sssp", "pagerank", "components", "triangles")
-
 #: kind -> the Route name serving it (the HOST-tier primary rung; its
 #: ``fallback`` is every kind's terminal answering machinery, and
 #: ``host`` is the terminal rung name in the ladder/fallback counters)
@@ -95,8 +92,8 @@ KIND_ROUTES = {
     "weighted": "weighted",
     "kshortest": "kshortest",
     "asof": "asof",
-    # the whole-graph analytics kinds (a later slice of the port; their
-    # routes do not exist here yet and submitting one raises)
+    # the whole-graph analytics kinds (serve/routes/analytics.py): same
+    # contract, answers are vectors/scalars instead of paths
     "sssp": "sssp",
     "pagerank": "pagerank",
     "components": "components",
@@ -130,8 +127,8 @@ KIND_ROUTE_LABELS = (
     ("kshortest", "kshortest"), ("kshortest", "kshortest_device"),
     ("kshortest", "host"), ("kshortest", "cache"),
     ("asof", "asof"), ("asof", "host"), ("asof", "cache"),
-    # the analytics kinds add a "store" route (their result store comes
-    # with their slice); minted at zero as the reference mints them
+    # the analytics kinds add a "store" route: answers served from the
+    # per-digest whole-graph result store (analytics/results.py)
     ("sssp", "sssp"), ("sssp", "sssp_blocked"),
     ("sssp", "host"), ("sssp", "cache"), ("sssp", "store"),
     ("pagerank", "pagerank"), ("pagerank", "pagerank_blocked"),
@@ -674,4 +671,9 @@ def build_taxonomy_routes(engine, label: str) -> dict:
         ),
     }
     routes.update(build_taxonomy_device_routes(engine, label))
+    # the whole-graph analytics kinds (host + blocked rungs) ride every
+    # engine the same way: kind-dispatched, never from the pt ladder
+    from bibfs_tpu_torch.serve.routes.analytics import build_analytics_routes
+
+    routes.update(build_analytics_routes(engine, label))
     return routes

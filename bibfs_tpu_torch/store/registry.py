@@ -72,7 +72,12 @@ Engines stamp recency through :meth:`GraphStore.touch`.
 :meth:`GraphStore.memory_stats` reports each graph's tier, resident and
 mapped bytes and the headroom (the CLI's stdin ``memory``). A demote
 frees host memos only; the tables an engine uploaded to the card stay.
-The analytics result store comes with item 9.
+The whole-graph analytics result store (:attr:`GraphStore.analytics`,
+:mod:`bibfs_tpu_torch.analytics.results`) rides every store: memory-only,
+or under ``<wal_dir>/analytics/`` on a durable one (the reference's
+format: either package adopts the other's entries); registration,
+updates, compaction and swaps feed it the digest lineage its incremental
+maintenance walks.
 
 Observability: the JAX package's ``bibfs_store_*``, ``bibfs_oracle_*``
 and, on a durable store, ``bibfs_wal_*`` / ``bibfs_checkpoints_total`` /
@@ -360,6 +365,16 @@ class GraphStore:
                 "Duration of the graph's last manifest+replay recovery",
                 ("store", "graph"),
             )
+        # the whole-graph analytics result store rides every registry
+        # (memory-only when the store is not durable); the note_* hooks
+        # below feed it the digest lineage its incremental maintenance walks
+        from bibfs_tpu_torch.analytics.results import AnalyticsResultStore
+
+        self.analytics = AnalyticsResultStore(
+            root=(os.path.join(self.wal_dir, "analytics")
+                  if self.wal_dir is not None else None),
+            store_label=self.obs_label,
+        )
         self._c_index_builds = REGISTRY.counter(
             "bibfs_oracle_index_builds_total",
             "Full landmark-index builds committed per graph "
@@ -393,13 +408,6 @@ class GraphStore:
                 return True
 
             REGISTRY.add_collector(_collect_index_age)
-
-    @property
-    def analytics(self):
-        """The whole-graph analytics result store: not ported yet."""
-        raise NotImplementedError(
-            "GraphStore.analytics is not ported yet (ROADMAP Queue 1, item 9)"
-        )
 
     # ---- registration -----------------------------------------------
     def add(self, name: str, n: int | None = None, edges=None, *,
@@ -437,6 +445,7 @@ class GraphStore:
                     if self._default == name:
                         self._default = min(self._entries, default=None)
                     self._g_graphs.set(len(self._entries))
+                self.analytics.purge(name)
                 raise
         self._kick_oracle(name, entry)
         self._maybe_rebalance()
@@ -475,6 +484,7 @@ class GraphStore:
                 self._g_index_age.labels(
                     store=self.obs_label, graph=name
                 ).set(0.0)
+        self.analytics.note_register(name, snapshot.digest)
         return entry
 
     @classmethod
@@ -1036,6 +1046,10 @@ class GraphStore:
                     overlay.apply(adds, dels, commit=False)
                     entry.wal.append(entry.snapshot.version, adds, dels)
                 counts = overlay.apply(adds, dels)
+                # feed the analytics result store the acked delta (a
+                # leaf-lock append: its maintenance needs the adds-only
+                # lineage, and deletes mark a barrier)
+                self.analytics.note_update(name, adds, dels)
                 # the live graph changed: the gen moves in the same locked
                 # section, so no reader pairs the new edges with the old
                 # index
@@ -1321,6 +1335,11 @@ class GraphStore:
                     self._g_delta.labels(
                         store=self.obs_label, graph=name
                     ).set(len(a2) + len(d2))
+                    # rebase residue means the folded digest is not the
+                    # exact sum of the noted updates: a lineage barrier
+                    self.analytics.note_fold(
+                        name, new.digest, clean=not (a2 or d2)
+                    )
                     entry.compactions += 1
                     self._c_compactions.labels(
                         store=self.obs_label, graph=name
@@ -1478,6 +1497,8 @@ class GraphStore:
                             store=self.obs_label, graph=name
                         ).inc()
                 old = self._swap_locked(name, entry, snapshot)
+                # declared-truth replacement: no maintainable lineage
+                self.analytics.note_swap(name, snapshot.digest)
                 entry.overlay = None
                 self._g_delta.labels(store=self.obs_label, graph=name).set(0)
         except BaseException:
@@ -1654,6 +1675,8 @@ class GraphStore:
                 "retain_history": self.retain_history,
                 "fsync": self.fsync if self.wal_dir is not None else None,
                 "load_errors": list(self.load_errors),
+                # a leaf lock below this one, as the commit hooks take it
+                "analytics": self.analytics.stats(),
                 "device": None if self.device is None else str(self.device),
             }
 

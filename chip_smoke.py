@@ -97,14 +97,14 @@ is unavailable. Phases:
    max_wait_ms=5.0)`` on the card. Wave P, 1024 seeded pairs with 2048
    distinct endpoints (so no answer comes from another's banked forest)
    submitted from 4 threads, ``flush_threshold=1`` so that every flush
-   rides the card, run in turns with a synchronous ``QueryEngine`` on the
-   same pairs (pipelined, sync, sync, pipelined; fresh engines): every
-   answer equals the synchronous engine's field for field but the time,
+   rides the card, beside a synchronous ``QueryEngine`` on the same pairs
+   (pipelined, then sync; fresh engines): every answer equals the
+   synchronous engine's field for field but the time,
    64 seeded ones the oracle's hops, and at least 4 device flushes launch
    ``minor_level<int8_t>``. Wave P-pallas, 64 pairs each through a
    pipelined engine in ``pallas`` (kernel 3) and ``pallas_alt`` (kernel
-   4), in turns with the synchronous engine in that mode and equal to it
-   (each flush a lock-step batch on the batched kernel).
+   4), beside the synchronous engine in that mode and equal to it (each
+   flush a lock-step batch on the batched kernel).
    Wave S, a trickle of 8 fresh queries 20 ms apart from one thread at
    the default crossover: host routed deadline flushes, with per-query
    latency percentiles. Then the
@@ -316,9 +316,7 @@ is unavailable. Phases:
    kernels' ms, the host's ms inside the collective calls; one
    ``sharded_profile`` line each), and the
    data-parallel ``minor8`` batch (128 queries a rank, the median of 3)
-   equal to the one-device batch. On one shared card the gnp exchange is
-   also timed on 4 gloo ranks on the host's CPU (``cpu_gloo_*_ms``: what
-   gloo alone takes beside the staged one). The phase checks
+   equal to the one-device batch. The phase checks
    the transport it asked for, that kernels 1, 3, 4, the fold and the
    ``minor8`` level launched on the ranks, and prints one line with its
    seconds, its transport and a digest of every answer (the same on one
@@ -368,6 +366,43 @@ is unavailable. Phases:
    rmat-s20 built by :func:`rmat_prep`'s child beside gnp's build.
    ``main()``'s ``done`` line holds each phase's seconds (``phases_s``).
 
+16. Whole-graph analytics (run after phase 15) on three seeded graphs,
+   each built on the host with a ``graph`` line of its tiles and bytes:
+   G(10,000, 128/9,999) (n not a tile multiple: 79 x 79 tiles, 102 MB of
+   int8), G(5,000, 64/4,999) (40 x 40 tiles, 105 MB of f32 weights a
+   seed) and phase 10's 64x64 grid (a Bellman depth over 126 sweeps).
+   Independent host references by scipy first (Dijkstra with
+   ``indices``, ``connected_components`` mapped to min labels, a float64
+   sparse power iteration, a row-blocked ``(A @ A) * A`` triangle count).
+   Then each kernel of ``csrc/semiring.cu`` against its plain twin on the
+   card at the rungs' shapes: ``minplus_fixpoint`` (SSSP planes of C = 8
+   and 4 on gnp-5000 and 1 on the grid, labels on gnp-10000 and the grid)
+   bit for bit with equal rounds; ``pagerank`` on gnp-10000 within 1e-6,
+   the same ranks on a second run, iterations equal or one off at a
+   straddled tolerance; ``tricount`` on every 256-column chunk of
+   gnp-10000 exactly. One ``step`` line each: the median ms of 5 launches,
+   the twin's ms, the bound (the live tiles' and the plane's bytes a
+   sweep or step times the sweeps or steps over 3.35 TB/s; for a triangle
+   chunk the larger of the tile bytes and the dense product's int8
+   operations over 1,979 TOP/s) and a one-call PyTorch yardstick
+   (``torch.sparse.mm`` of the adjacency and one vector a power step,
+   a dense ``torch.matmul`` of a chunk). With the counts zeroed, the
+   engines on the card: a synchronous and a pipelined wave of the four
+   kinds on gnp-10000 (PageRank, components, triangles on their blocked
+   rungs; SSSP over the f32 table's x5 gate on the host rung), one flush
+   of 8 + 4 SSSP queries of two weight seeds on gnp-5000 (two planes on
+   the blocked rung), and over a ``GraphStore`` of the grid the four
+   kinds blocked, a repeat on a second (pipelined) engine from the
+   ``store`` route, then an adds-only update of 8 edges, compacted, after
+   which SSSP and components are maintained incrementally (two
+   ``incremental`` events). Every answer equals the scipy references
+   (PageRank within 2e-4), every wave's routes are the expected ones, and
+   no engine falls back, retries, errs or opens a breaker (one
+   ``analytics`` line a wave); ``analytics_launches`` (each kernel
+   launched) and ``analytics_total`` (the phase's seconds by part). On
+   the host, ``analytics_phase("cpu", graphs=...)`` with small graphs
+   rehearses it (the rungs forced as the card's gates place them).
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
 JSON line.
@@ -396,7 +431,7 @@ from bibfs_tpu_torch.graph.csr import (
     build_tiered,
     canonical_pairs,
 )
-from bibfs_tpu_torch.graph.blocked import build_blocked
+from bibfs_tpu_torch.graph.blocked import build_blocked, build_blocked_weights
 from bibfs_tpu_torch.graph.generate import gnp_random_graph, grid_graph, rmat_graph
 from bibfs_tpu_torch.ops import _cuda
 from bibfs_tpu_torch.ops import blocked_expand as be
@@ -405,6 +440,7 @@ from bibfs_tpu_torch.ops import fused_level as fl
 from bibfs_tpu_torch.ops import minor_level as ml
 from bibfs_tpu_torch.ops import msbfs_device as md
 from bibfs_tpu_torch.ops import pull_expand as pe
+from bibfs_tpu_torch.ops import semiring_plane as sr
 from bibfs_tpu_torch.ops.expand import pack_dual
 from bibfs_tpu_torch.solvers import batch_minor as bmin
 from bibfs_tpu_torch.obs.trace import Tracer, set_tracer
@@ -541,6 +577,9 @@ def reset_counts() -> None:
     md.msbfs_levels.launches = 0
     qd.delta_stepping.launches = 0
     qd.restricted_sweep.launches = 0
+    sr.minplus_fixpoint.launches = 0
+    sr.pagerank_blocked.launches = 0
+    sr.triangles_chunk_blocked.launches = 0
 
 
 def counts() -> dict:
@@ -553,6 +592,9 @@ def counts() -> dict:
     out["msbfs_sweep"] = md.msbfs_levels.launches
     out["delta_stepping"] = qd.delta_stepping.launches
     out["restricted_sweep"] = qd.restricted_sweep.launches
+    out["minplus_fixpoint"] = sr.minplus_fixpoint.launches
+    out["pagerank"] = sr.pagerank_blocked.launches
+    out["tricount"] = sr.triangles_chunk_blocked.launches
     return out
 
 
@@ -1773,25 +1815,19 @@ def pipelined_run(n, edges, pairs_all, pairs, wave: str, threads: int, **kw):
 
 
 def in_turns(n, edges, pairs_all, pairs, wave: str, threads: int, **kw):
-    """The pipelined and the synchronous engine in turns on the same
-    pairs (pipelined, sync, sync, pipelined; fresh engines): every answer
-    equals the first synchronous run's field for field. Returns the
-    first pipelined run's results and readings, with the four walls."""
+    """The pipelined and then the synchronous engine on the same pairs
+    (fresh engines): every answer equals the synchronous run's field for
+    field. Returns the pipelined run's results and readings, with both
+    walls."""
     res_a, line_a = pipelined_run(n, edges, pairs_all, pairs, wave, threads, **kw)
     want, sync_a = sync_wave(n, edges, pairs_all, pairs, flush_threshold=1, **kw)
-    res_s, sync_b = sync_wave(n, edges, pairs_all, pairs, flush_threshold=1, **kw)
-    res_b, line_b = pipelined_run(n, edges, pairs_all, pairs, wave, threads, **kw)
-    for got, name in ((res_a, "pipelined"), (res_s, "sync"), (res_b, "pipelined")):
-        for (s, d), r, w in zip(pairs, got, want):
-            check(fields(r) == fields(w) and r.mode == w.mode,
-                  f"wave {wave} {s}->{d}: {name} {fields(r)} != sync {fields(w)}")
+    for (s, d), r, w in zip(pairs, res_a, want):
+        check(fields(r) == fields(w) and r.mode == w.mode,
+              f"wave {wave} {s}->{d}: pipelined {fields(r)} != sync {fields(w)}")
     line_a.update(
         sync_wall_ms=sync_a * 1e3, sync_queries_per_s=len(pairs) / sync_a,
-        turns_wall_ms={"pipelined": [line_a["wall_ms"], line_b["wall_ms"]],
-                       "sync": [sync_a * 1e3, sync_b * 1e3]},
-        second_pipelined={k: line_b[k] for k in (
-            "flushes", "overlap", "stages", "queue_wait_max_ms",
-            "batch_service_max_ms", "spans_ms", "peak_mem_gb")})
+        turns_wall_ms={"pipelined": [line_a["wall_ms"]],
+                       "sync": [sync_a * 1e3]})
     return res_a, line_a
 
 
@@ -4099,15 +4135,6 @@ def shard_phase(gnp: dict, rmat: dict, results: dict | None,
         out = launch(sh.sharded_jobs, SHARD_RANKS, paths, jobs,
                      device=dev.type, timeout_s=900)
         ranks_s = time.perf_counter() - t0
-    cpu_ex = None
-    if out["transport"] == "gloo-staged":
-        # the same exchange on 4 gloo ranks on the host's CPU, no card:
-        # what gloo itself takes on this host beside the staged one
-        bare = sh.build_host_graph(gnp["host"].n_pad, np.array([[0, 1]]),
-                                   SHARD_RANKS)
-        cpu_ex = launch(sh.sharded_jobs, SHARD_RANKS, {"g": bare},
-                        [dict(kind="exchange", graph="g")], device="cpu",
-                        timeout_s=300)["results"][0]
     got = dict(zip(keys, out["results"]))
     transport = out["transport"]
     want_transport = ("nccl" if on_card and torch.cuda.device_count()
@@ -4127,9 +4154,6 @@ def shard_phase(gnp: dict, rmat: dict, results: dict | None,
                           **{k: ex[k] for k in ("n_loc", "bytes_packed",
                                                 "bytes_bool", "gather_ms",
                                                 "reduce_ms")},
-                          **({"cpu_gloo_gather_ms": cpu_ex["gather_ms"],
-                              "cpu_gloo_reduce_ms": cpu_ex["reduce_ms"]}
-                             if cpu_ex and name == "gnp" else {}),
                           "peer_access": [r["peer_access"]
                                           for r in out["ranks"]]}),
               flush=True)
@@ -4665,6 +4689,409 @@ def mesh_phase(gnp: dict, gnp_dir: str, dev_name: str = "cuda") -> dict:
     return {"launches": launches, "checks": checks}
 
 
+# ---- phase 16: whole-graph analytics -----------------------------------------
+# the three kernels of the blocked analytics rungs (csrc/semiring.cu): the
+# wrapper that counts its launches, the source, and the XLA program of the
+# JAX package it replaces (none is a Pallas kernel)
+ANALYTICS_KERNELS = {
+    "minplus_fixpoint": (sr.minplus_fixpoint, "bibfs_tpu_torch/csrc/semiring.cu",
+                         "bibfs_tpu/ops/semiring_plane.py:105"),
+    "pagerank": (sr.pagerank_blocked, "bibfs_tpu_torch/csrc/semiring.cu",
+                 "bibfs_tpu/ops/semiring_plane.py:138"),
+    "tricount": (sr.triangles_chunk_blocked, "bibfs_tpu_torch/csrc/semiring.cu",
+                 "bibfs_tpu/ops/semiring_plane.py:180"),
+}
+# phase 16's graphs: name -> (vertices, edge maker)
+ANALYTICS_GRAPHS = {
+    # dense-ish, near the 256 MB tile budget: 79 x 79 tiles, 102 MB int8
+    "gnp-10000-d128": (10_000, lambda: gnp_random_graph(
+        10_000, 128 / 9_999, seed=161)),
+    # 40 x 40 tiles: the f32 weight tables of two seeds fit the x5 gate
+    "gnp-5000-d64": (5_000, lambda: gnp_random_graph(5_000, 64 / 4_999,
+                                                     seed=163)),
+    # phase 10's grid: a Bellman depth of over 126 sweeps
+    "grid-64x64": (64 * 64, lambda: grid_graph(64, 64, perforation=0.02,
+                                               seed=1)),
+}
+ANALYTICS_SSSP = {0: 8, 1: 4}  # gnp-5000's flush: SSSP queries a weight seed
+ANALYTICS_ADDS = 8  # the adds-only update batch of the grid
+ANALYTICS_REPS = 5  # launches a kernel is timed over
+PR_TOL = 1e-8  # the PageRank queries' tolerance (the kernels resolve 5e-7)
+RANK_ERR = 1e-6  # the PageRank kernel against its twin
+RANK_REF_ERR = 2e-4  # PageRank against the float64 host reference
+
+
+def analytics_graph(name: str, n: int, make) -> dict:
+    """One of phase 16's graphs built on the host: edges, pairs, CSR and
+    the blocked tiling, with a ``graph`` line of its bytes."""
+    t0 = time.perf_counter()
+    edges = make()
+    pairs = canonical_pairs(n, edges)
+    csr = build_csr(n, pairs=pairs)
+    bg = build_blocked(n, pairs=pairs)
+    g = dict(name=name, n=n, edges=edges, pairs=pairs, csr=csr, bg=bg)
+    print(json.dumps({"phase": "graph", "name": name, "n": n,
+                      "edges": int(pairs.shape[0] // 2), "n_pad": bg.n_pad,
+                      "nblocks": bg.nblocks, "bwidth": bg.bwidth,
+                      "nnz_tiles": bg.nnz_blocks, "tab_bytes": bg.tab_bytes,
+                      "f32_weight_bytes": 4 * bg.tab_bytes,
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    return g
+
+
+def analytics_refs(n: int, csr, sources: dict | None = None) -> dict:
+    """Independent host references by scipy, none through the semiring
+    product: Dijkstra from ``sources`` (weight seed -> sources) under the
+    seeded weights, connected components mapped to min labels, a float64
+    sparse power iteration, and the row-blocked ``(A @ A) * A`` triangle
+    count."""
+    import scipy.sparse as sps
+    from scipy.sparse import csgraph
+
+    from bibfs_tpu_torch.query.weighted import synthetic_weights
+
+    rp, ci = csr
+    a = sps.csr_matrix((np.ones(ci.size), ci, rp), shape=(n, n))
+    out: dict = {"dist": {}}
+    for seed, srcs in (sources or {}).items():
+        w = sps.csr_matrix((synthetic_weights(rp, ci, seed), ci, rp),
+                           shape=(n, n))
+        rows = csgraph.dijkstra(w, indices=[int(s) for s in srcs])
+        for s, row in zip(srcs, rows):
+            out["dist"][seed, int(s)] = row
+    _count, lab = csgraph.connected_components(a, directed=False)
+    mins = np.full(lab.max() + 1, n, dtype=np.int64)
+    np.minimum.at(mins, lab, np.arange(n))
+    out["labels"] = mins[lab]
+    deg = np.diff(rp).astype(np.float64)
+    dangling = deg == 0
+    r = np.full(n, 1.0 / n)
+    for _ in range(100):
+        contrib = np.where(dangling, 0.0, r / np.maximum(deg, 1.0))
+        rn = 0.15 / n + 0.85 * (a @ contrib + r[dangling].sum() / n)
+        done = np.abs(rn - r).sum() <= PR_TOL
+        r = rn
+        if done:
+            break
+    out["ranks"] = r
+    ai = a.astype(np.int64)
+    tri = 0
+    for r0 in range(0, n, 1000):
+        rows = ai[r0:r0 + 1000]
+        tri += int((rows @ ai).multiply(rows).sum())
+    out["triangles"] = tri // 6
+    return out
+
+
+def analytics_kernel_phase(graphs: dict, results: dict) -> None:
+    """Each analytics kernel against its plain twin on the card at the
+    shapes the rungs give it (exact planes, rounds, counts; PageRank within
+    :data:`RANK_ERR`), timed, with its bound, the twin's ms and a one-call
+    PyTorch yardstick where there is one; one ``step`` line each."""
+    dev = torch.device("cuda")
+
+    def put(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def twin_ms(fn) -> float:
+        # the twin's second call (the first, compared, warmed it up), its
+        # host reads included, between two events
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    tile_el = 128 * 128
+    # D1: SSSP planes (gnp-5000: C = 8 and 4; the grid: C = 1) and labels
+    cases = []
+    for name, seeds in (("gnp-5000-d64", ANALYTICS_SSSP), ("grid-64x64", {0: 1})):
+        g = graphs[name]
+        for seed, c in seeds.items():
+            srcs = np.random.default_rng(seed).choice(g["n"], c, replace=False)
+            init = np.full((g["bg"].n_pad, c), np.inf, np.float32)
+            init[srcs, np.arange(c)] = 0.0
+            w = put(build_blocked_weights(g["bg"], g["pairs"], seed=seed))
+            cases.append((name, f"sssp C={c}", w, False, put(init), 4))
+    for name in ("gnp-10000-d128", "grid-64x64"):
+        bg = graphs[name]["bg"]
+        cases.append((name, "components", put(bg.tab), True,
+                      put(np.arange(bg.n_pad, dtype=np.float32)[:, None]), 1))
+    for name, step, table, from_tab, init, itemsize in cases:
+        bg = graphs[name]["bg"]
+        bcol = put(bg.bcol)
+        got, rounds = sr.minplus_fixpoint(table, bcol, init, from_tab=from_tab)
+        want, want_rounds = sr.minplus_fixpoint_plain(table, bcol, init,
+                                                      from_tab=from_tab)
+        check(torch.equal(got, want) and rounds == want_rounds,
+              f"minplus_fixpoint {name} {step}: differs from its twin "
+              f"(rounds {rounds} / {want_rounds})")
+        plain_ms = twin_ms(lambda: sr.minplus_fixpoint_plain(
+            table, bcol, init, from_tab=from_tab))
+        ms = time_launch(lambda: sr.minplus_fixpoint(table, bcol, init,
+                                                     from_tab=from_tab),
+                         reps=ANALYTICS_REPS)
+        c = init.shape[1]
+        per_round = bg.nnz_blocks * tile_el * itemsize + 2 * bg.n_pad * c * 4
+        bound = per_round * rounds / HBM_BYTES_PER_S * 1e3
+        line = dict(rounds=rounds, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by="bytes", max_abs_err=0, library_ms=None,
+                    ms_per_round=ms / rounds, c=c)
+        step_line("minplus_fixpoint", name, step, ms, **line)
+        if (name, step) == ("gnp-5000-d64", "sssp C=8"):
+            results["minplus_fixpoint"] = dict(
+                line, ms=ms, geometry=name, step=step)
+    # D2 and D3 on gnp-10000
+    g = graphs["gnp-10000-d128"]
+    bg = g["bg"]
+    tab, bcol, deg = put(bg.tab), put(bg.bcol), put(bg.deg)
+    kw = dict(n=g["n"], damping=0.85, tol=PR_TOL, max_iters=100)
+    ranks, iters, delta = sr.pagerank_blocked(tab, bcol, deg, **kw)
+    again, iters2, _ = sr.pagerank_blocked(tab, bcol, deg, **kw)
+    check(torch.equal(ranks, again) and iters == iters2,
+          "pagerank: two runs differ")
+    want, want_iters, want_delta = sr.pagerank_blocked_plain(tab, bcol, deg, **kw)
+    plain_ms = twin_ms(lambda: sr.pagerank_blocked_plain(tab, bcol, deg, **kw))
+    err = float((ranks - want).abs().max())
+    tol_eff = max(PR_TOL, sr.PAGERANK_TOL_FLOOR)
+    iters_ok = iters == want_iters or (
+        abs(iters - want_iters) == 1 and abs(want_delta - tol_eff) <= 1e-7)
+    check(err <= RANK_ERR and iters_ok,
+          f"pagerank: max abs {err}, iters {iters} / twin {want_iters} "
+          f"(delta {want_delta})")
+    ms = time_launch(lambda: sr.pagerank_blocked(tab, bcol, deg, **kw),
+                     reps=ANALYTICS_REPS)
+    rp, ci = g["csr"]
+    adj = sparse_adjacency(bg.n_pad, g["csr"], dev)
+    vec = torch.rand(bg.n_pad, 1, device=dev)
+    lib_ms = time_launch(lambda: torch.sparse.mm(adj, vec), reps=REPS)
+    bound = bg.nnz_blocks * tile_el * iters / HBM_BYTES_PER_S * 1e3
+    line = dict(iters=iters, twin_iters=want_iters, delta=delta,
+                twin_delta=want_delta, max_abs_err=err, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=lib_ms * iters,
+                library_call_ms=lib_ms, ms_per_iter=ms / iters,
+                library="torch.sparse.mm of the adjacency and one vector, "
+                        "one a power step")
+    step_line("pagerank", g["name"], "pagerank", ms, **line)
+    results["pagerank"] = dict(line, ms=ms, geometry=g["name"])
+    # D3: every chunk against its twin, one chunk timed
+    total = torch.zeros(1, dtype=torch.int64, device=dev)
+    for c0 in range(0, g["n"], sr.TRI_CHUNK):
+        got = sr.triangles_chunk_blocked(tab, bcol, c0)
+        want = sr.triangles_chunk_blocked_plain(tab, bcol, c0)
+        check(torch.equal(got, want), f"tricount chunk {c0}: {int(got)} != "
+              f"twin {int(want)}")
+        total += got
+    plain_ms = twin_ms(lambda: sr.triangles_chunk_blocked_plain(tab, bcol, 0))
+    chunks = -(-g["n"] // sr.TRI_CHUNK)
+    ms = time_launch(lambda: sr.triangles_chunk_blocked(tab, bcol, 0, total),
+                     reps=ANALYTICS_REPS)
+    plane = sr.triangle_plane(tab, bcol, 0)
+    dense = torch.zeros(bg.n_pad, bg.n_pad, device=dev)
+    dense[put(np.repeat(np.arange(g["n"]), np.diff(rp))), put(ci)] = 1.0
+    lib_ms = time_launch(lambda: torch.matmul(dense, plane), reps=REPS)
+    del dense
+    ops = 2 * bg.nnz_blocks * tile_el * sr.TRI_CHUNK
+    t_bytes = bg.tab_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    line = dict(chunks=chunks, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                max_abs_err=0, library_ms=lib_ms,
+                library="dense torch.matmul of the adjacency and the chunk's "
+                        "[n_pad, 256] plane (f32)")
+    step_line("tricount", g["name"], "chunk c0=0", ms, **line)
+    results["tricount"] = dict(line, ms=ms, geometry=g["name"])
+
+
+def analytics_counts() -> dict:
+    return {k: w.launches for k, (w, _s, _r) in ANALYTICS_KERNELS.items()}
+
+
+def analytics_wave(eng, queries, wave: str, graph: str,
+                   expect: dict) -> list:
+    """Serve ``queries`` through ``eng`` (``query_many`` on the
+    synchronous engine, one ``submit_query`` a query on the pipelined);
+    check the engine clean and each kind's new answers counted on the
+    route ``expect`` names; print one ``analytics`` line."""
+    before = eng.stats()["query_kinds"]
+    t0 = time.perf_counter()
+    if isinstance(eng, PipelinedQueryEngine):
+        res = [t.wait(timeout=600) for t in
+               [eng.submit_query(q) for q in queries]]
+    else:
+        res = eng.query_many(queries)
+    wall = time.perf_counter() - t0
+    st = engine_clean(eng, wave)
+    routes = {k: {r: c - before.get(k, {}).get(r, 0) for r, c in v.items()
+                  if c - before.get(k, {}).get(r, 0)}
+              for k, v in st["query_kinds"].items()}
+    routes = {k: v for k, v in routes.items() if v}
+    check(routes == expect, f"analytics wave {wave}: routes {routes}, "
+          f"expected {expect}")
+    print(json.dumps({"phase": "analytics", "wave": wave, "graph": graph,
+                      "queries": len(queries), "routes": routes,
+                      "wall_ms": wall * 1e3,
+                      "answer_ms": {type(r).__name__: r.time_s * 1e3
+                                    for r in res},
+                      "kind_cache": st["kind_cache"]}), flush=True)
+    return res
+
+
+def check_analytics(queries, res, ref: dict, wave: str) -> None:
+    """Every answer of a wave against the scipy references."""
+    from bibfs_tpu_torch.analytics import (
+        ComponentsResult,
+        PageRankResult,
+        SsspResult,
+        TrianglesResult,
+    )
+
+    for q, r in zip(queries, res):
+        if isinstance(r, SsspResult):
+            want = ref["dist"][int(q.weight_seed), int(q.source)]
+            check(np.array_equal(r.dist, want),
+                  f"{wave}: sssp from {q.source} differs from Dijkstra")
+        elif isinstance(r, ComponentsResult):
+            check(np.array_equal(r.labels, ref["labels"]),
+                  f"{wave}: labels differ from connected_components")
+        elif isinstance(r, PageRankResult):
+            err = float(np.max(np.abs(r.ranks - ref["ranks"])))
+            check(err <= RANK_REF_ERR, f"{wave}: ranks off by {err}")
+        elif isinstance(r, TrianglesResult):
+            check(r.count == ref["triangles"],
+                  f"{wave}: {r.count} triangles, scipy {ref['triangles']}")
+
+
+def analytics_phase(dev_name: str = "cuda", results: dict | None = None,
+                    graphs: dict | None = None) -> dict:
+    """Phase 16 (module docstring). ``dev_name="cpu"`` with small
+    ``graphs`` (name -> (n, edge maker), the three names of
+    :data:`ANALYTICS_GRAPHS`) rehearses it on the host: the engines' rungs
+    run the twins and no kernel is timed or counted. Returns the launches
+    of the engines' waves."""
+    from bibfs_tpu_torch.analytics import Components, PageRank, Sssp, Triangles
+
+    t_phase = time.perf_counter()
+    on_card = dev_name == "cuda"
+    spec = graphs or ANALYTICS_GRAPHS
+    g = {name: analytics_graph(name, *spec[name]) for name in spec}
+    big, mid, grid = (g["gnp-10000-d128"], g["gnp-5000-d64"],
+                      g["grid-64x64"])
+    graphs_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(167)
+    sssp_src = {seed: rng.choice(mid["n"], k, replace=False)
+                for seed, k in ANALYTICS_SSSP.items()}
+    big_src = int(rng.integers(big["n"]))
+    refs = {
+        "big": analytics_refs(big["n"], big["csr"], {0: [big_src]}),
+        "mid": analytics_refs(mid["n"], mid["csr"], sssp_src),
+        "grid": analytics_refs(grid["n"], grid["csr"], {0: [0]}),
+    }
+    refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if on_card:
+        analytics_kernel_phase(g, results if results is not None else {})
+        torch.cuda.empty_cache()
+    kernels_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    opts = {} if on_card else {"device": "cpu"}
+
+    def rungs(eng, host_sssp=False):
+        # the host rehearsal reads the cpu calibration's crossovers: force
+        # the blocked rungs on, and SSSP off where the card's x5 gate is
+        if not on_card:
+            for kind in ("sssp", "pagerank", "components", "triangles"):
+                eng.routes[f"{kind}_blocked"].min_edges = 0
+            if host_sssp:
+                eng.routes["sssp_blocked"].min_edges = 1 << 40
+        return eng
+
+    reset_counts()
+    # gnp-10000: pagerank, components, triangles blocked; sssp over the x5
+    # gate on the host rung; synchronous then pipelined
+    qs = [PageRank(tol=PR_TOL), Components(), Triangles(), Sssp(big_src)]
+    expect = {"pagerank": {"pagerank_blocked": 1},
+              "components": {"components_blocked": 1},
+              "triangles": {"triangles_blocked": 1}, "sssp": {"sssp": 1}}
+    for cls, wave in ((QueryEngine, "A[sync]"),
+                      (PipelinedQueryEngine, "A[pipelined]")):
+        eng = rungs(cls(big["n"], big["edges"], pairs=big["pairs"], **opts),
+                    host_sssp=True)
+        res = analytics_wave(eng, qs, wave, big["name"], expect)
+        check_analytics(qs, res, refs["big"], wave)
+        eng.close()
+        del eng
+    # gnp-5000: one flush of 12 SSSP queries, two planes (C = 8 and 4)
+    qs = [Sssp(int(s), weight_seed=seed) for seed, srcs in sssp_src.items()
+          for s in srcs]
+    eng = rungs(QueryEngine(mid["n"], mid["edges"], pairs=mid["pairs"],
+                            **opts))
+    res = analytics_wave(eng, qs, "A[planes]", mid["name"],
+                         {"sssp": {"sssp_blocked": len(qs)}})
+    check_analytics(qs, res, refs["mid"], "A[planes]")
+    eng.close()
+    del eng
+    # the grid through a GraphStore: the four kinds blocked, a repeat
+    # from the store route, an adds-only update maintained incrementally
+    store = GraphStore(compact_threshold=None, device=dev_name)
+    store.add("grid", grid["n"], grid["edges"])
+    qs = [Sssp(0), Components(), PageRank(tol=PR_TOL), Triangles()]
+    eng = rungs(QueryEngine(store=store, graph="grid", **opts))
+    res = analytics_wave(
+        eng, qs, "A[store]", grid["name"],
+        {k: {f"{k}_blocked": 1} for k in ("sssp", "components", "pagerank",
+                                          "triangles")})
+    check_analytics(qs, res, refs["grid"], "A[store]")
+    pipe = rungs(PipelinedQueryEngine(store=store, graph="grid", **opts))
+    res = analytics_wave(
+        pipe, qs, "A[store repeat]", grid["name"],
+        {k: {"store": 1} for k in ("sssp", "components", "pagerank",
+                                   "triangles")})
+    check_analytics(qs, res, refs["grid"], "A[store repeat]")
+    pipe.close()
+    rng = np.random.default_rng(173)
+    have = {tuple(p) for p in grid["pairs"].tolist()}
+    adds = []
+    while len(adds) < ANALYTICS_ADDS:
+        u, v = (int(x) for x in rng.integers(grid["n"], size=2))
+        if u != v and (u, v) not in have:
+            have.update({(u, v), (v, u)})
+            adds.append((u, v))
+    ev0 = dict(store.analytics.stats()["events"])
+    store.update("grid", adds=adds)
+    store.compact("grid")
+    edges2 = np.concatenate([grid["edges"], np.array(adds)])
+    pairs2 = canonical_pairs(grid["n"], edges2)
+    ref2 = analytics_refs(grid["n"], build_csr(grid["n"], pairs=pairs2),
+                          {0: [0]})
+    qs = [Sssp(0), Components()]
+    res = analytics_wave(eng, qs, "A[incremental]", grid["name"],
+                         {"sssp": {"store": 1}, "components": {"store": 1}})
+    check_analytics(qs, res, ref2, "A[incremental]")
+    ev = store.analytics.stats()["events"]
+    check(ev["incremental"] - ev0["incremental"] == 2,
+          f"analytics: incremental events {ev0} -> {ev}")
+    eng.close()
+    store.close()
+    launches = analytics_counts()
+    waves_s = time.perf_counter() - t0
+    print(json.dumps({"phase": "analytics_launches", **launches}), flush=True)
+    if on_card:
+        for name, count in launches.items():
+            check(count > 0, f"kernel {name} was not launched by the "
+                  "analytics waves")
+    print(json.dumps({"phase": "analytics_total", "graphs_s": graphs_s,
+                      "refs_s": refs_s, "kernels_s": kernels_s,
+                      "waves_s": waves_s, "store_events": ev,
+                      "s": time.perf_counter() - t_phase}), flush=True)
+    return launches
+
+
 def kind_refs_main(sync: int = KIND_QUERIES["sync"],
                    pipelined: int = KIND_QUERIES["pipelined"],
                    workers: int = KIND_REF_WORKERS) -> int:
@@ -5001,6 +5428,11 @@ def main() -> int:
     lap("15 mesh")
     checks = mesh["checks"]
 
+    # phase 16: whole-graph analytics
+    torch.cuda.empty_cache()
+    analytics_launches = analytics_phase(results=results)
+    lap("16 analytics")
+
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -5042,6 +5474,11 @@ def main() -> int:
     for name, (source, replaces) in QUERY_KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=kind_launches[name],
+                            **results[name], launch_floor_ms=floor_ms))
+    for name, (_w, source, replaces) in ANALYTICS_KERNELS.items():
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=analytics_launches[name],
                             **results[name], launch_floor_ms=floor_ms))
     print(json.dumps({"phase": "done", "total_s": time.perf_counter() - t_start,
                       "phases_s": laps}), flush=True)

@@ -446,16 +446,36 @@ def _recovered(pkg, d):
     return out
 
 
+def _analytics_state(d) -> dict:
+    """The analytics result store's directory: each entry's arrays and its
+    ``meta.json`` but the solve time, by relative path."""
+    import numpy as np
+
+    out = {}
+    for root, _dirs, files in sorted(os.walk(d)):
+        for fname in sorted(files):
+            path = os.path.join(root, fname)
+            rel = os.path.relpath(path, d)
+            if fname.endswith(".npy"):
+                out[rel] = np.load(path).tolist()
+            else:
+                with open(path) as f:
+                    meta = json.load(f)
+                meta["scalars"].pop("time_s", None)
+                out[rel] = meta
+    return out
+
+
 def _dir_state(d) -> dict:
-    """Every file a durable store leaves (the reference's analytics
-    directory aside): WAL segments, bins and history byte for byte,
-    manifests and sidecar manifests as JSON."""
+    """Every file a durable store leaves: WAL segments, bins and history
+    byte for byte, manifests and sidecar manifests as JSON, and the
+    analytics result store's entries (:func:`_analytics_state`)."""
     out = {}
     for name in sorted(os.listdir(d)):
         path = os.path.join(d, name)
         if name == "analytics":
-            continue
-        if os.path.isdir(path):
+            out[name] = _analytics_state(path)
+        elif os.path.isdir(path):
             out[name] = _manifest(path)
         elif name.endswith(".json"):
             with open(path) as f:
@@ -695,8 +715,7 @@ def test_threshold_compaction_after_recovery_like_reference(tmp_path):
         store = pkg.GraphStore.from_dir(d, durable=True, compact_threshold=4)
         store.close()  # joins the compaction the recovery started
         snap = store.current("g")
-        got[who] = (snap.version, snap.digest,
-                    sorted(f for f in os.listdir(d) if f != "analytics"))
+        got[who] = (snap.version, snap.digest, sorted(os.listdir(d)))
     assert got["port"] == got["ref"]
     assert got["port"][0] == 2
 

@@ -6,7 +6,7 @@ every kind (host rungs, and the device rungs forced on), the
 ``query_kinds`` cells, the kind cache's stats and the fallback counters
 under every chaos site of the kinds; the overlay-pending path; ``AsOf``
 across a hot swap on a durable store and an unknown version refused as
-``kind='invalid'``; the analytics kinds refused naming ROADMAP item 9; the
+``kind='invalid'``; the analytics kinds answered as the reference's; the
 metric families minted at construction; and, on a CUDA-typed engine, a
 device rung's real failure failing its tickets while an injected fault
 degrades to the host rung."""
@@ -291,31 +291,49 @@ def test_asof_across_hot_swap_and_unknown_version(tmp_path, pipelined):
         ps.close()
 
 
+def _same_analytics(a, b) -> bool:
+    """Equal analytics results: every field but the time, vectors entry
+    for entry."""
+    da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+    return type(a).__name__ == type(b).__name__ and all(
+        np.array_equal(v, db[k]) for k, v in da.items() if k != "time_s")
+
+
 @pytest.mark.parametrize("kind", ["sssp", "pagerank", "components",
                                   "triangles"])
 @pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "pipelined"])
 def test_analytics_kinds_raise_naming_item_9(kind, pipelined):
+    """The analytics kinds, once refused naming ROADMAP item 9, answer as
+    the JAX package's engine does on the same graph (the host rungs, by
+    the ``cpu`` calibration's crossover), counted in the same cells; their
+    ``store`` cells render at zero on an engine without a store."""
+    import bibfs_tpu.analytics as RA
+    import bibfs_tpu.serve as RS
+
+    import bibfs_tpu_torch.analytics as PA
     import bibfs_tpu_torch.serve as PS
     from bibfs_tpu_torch.obs.metrics import REGISTRY
-    from bibfs_tpu_torch.query.types import Query
 
-    class _Analytics(Query):
-        def validate(self, n):
-            pass
+    def make(A):
+        return {"sssp": A.Sssp(5, weight_seed=1), "pagerank": A.PageRank(),
+                "components": A.Components(),
+                "triangles": A.Triangles()}[kind]
 
-        def cache_key(self):
-            return (kind,)
-
-    _Analytics.kind = kind
+    rcls = RS.PipelinedQueryEngine if pipelined else RS.QueryEngine
     cls = PS.PipelinedQueryEngine if pipelined else PS.QueryEngine
-    with cls(N, EDGES, device="cpu") as eng:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            eng.submit_query(_Analytics())
-        assert eng.counters["queries"] == 0
-        # its cells render at zero, as the reference mints them
-        text = REGISTRY.render()
-        assert (f'bibfs_query_total{{engine="{eng.obs_label}",kind="{kind}",'
-                f'route="store"}} 0') in text
+    ref = rcls(N, EDGES)
+    try:
+        with cls(N, EDGES, device="cpu") as eng:
+            for _ in range(2):  # the second: a kind-cache hit
+                got = eng.query_one(make(PA))
+                assert _same_analytics(got, ref.query_one(make(RA)))
+            assert eng.counters["queries"] == 2
+            assert _kind_stats(eng) == _kind_stats(ref)
+            text = REGISTRY.render()
+            assert (f'bibfs_query_total{{engine="{eng.obs_label}",'
+                    f'kind="{kind}",route="store"}} 0') in text
+    finally:
+        ref.close()
 
 
 def test_kind_tables_and_metric_families_equal_reference():

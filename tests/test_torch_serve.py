@@ -754,45 +754,39 @@ def test_unported_options_raise(option, value):
 
 
 def test_unported_query_kinds_and_pipelined_raise():
-    """The query kinds are ported (``MultiSource`` and ``Weighted`` answer
-    as the serial oracle says); the whole-graph analytics kinds come with a
-    later slice and raise ``NotImplementedError`` naming ROADMAP item 9 in
-    both engines, counting no query; ``solve_many(pipelined=True)`` serves
-    through the pipelined engine."""
+    """Every query kind is ported: ``MultiSource`` and ``Weighted`` answer
+    as the serial oracle says, and the whole-graph analytics kinds (once
+    refused here) answer in both engines as the JAX package's host rungs
+    do, each counted as a query, also through ``query_many``;
+    ``solve_many(pipelined=True)`` serves through the pipelined engine."""
+    from bibfs_tpu.analytics.semiring import host_sssp, host_triangles
+    from bibfs_tpu.query.weighted import synthetic_weights
+
+    from bibfs_tpu_torch.analytics import Sssp, Triangles
     from bibfs_tpu_torch.graph.csr import build_csr
-    from bibfs_tpu_torch.query.types import MultiSource, Query, Weighted
+    from bibfs_tpu_torch.query.types import MultiSource, Weighted
     from bibfs_tpu_torch.solvers.api import solve_many
     from bibfs_tpu_torch.solvers.serial import solve_serial_csr
 
-    class _Sssp(Query):
-        kind = "sssp"
-
-        def validate(self, n):
-            pass
-
-        def cache_key(self):
-            return ("sssp",)
-
     n, edges = GRAPHS["skiplink"]
     rp, ci = build_csr(n, edges)
+    want = host_sssp(n, rp, ci, synthetic_weights(rp, ci, 0), [0])[0][:, 0]
     eng = _engine(n, edges)
     ms = eng.query_one(MultiSource((0, 1), 5))
     assert ms.per_source == tuple(
         solve_serial_csr(n, rp, ci, s, 5).hops for s in (0, 1))
     assert eng.query_one(Weighted(0, 5)).found
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.submit_query(_Sssp())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.query_many([_Sssp()], return_errors=True)
-    assert eng.counters["queries"] == 2
+    assert np.array_equal(eng.query_one(Sssp(0)).dist, want)
+    got = eng.query_many([Triangles()], return_errors=True)
+    assert got[0].count == host_triangles(n, rp, ci)[0]
+    assert eng.counters["queries"] == 4
     from bibfs_tpu_torch.serve import PipelinedQueryEngine
 
     with PipelinedQueryEngine(n, edges, device="cpu") as pipe:
         assert pipe.query_one(MultiSource((0, 1), 5)).per_source == \
             ms.per_source
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pipe.submit_query(_Sssp())
-        assert pipe.counters["queries"] == 1
+        assert np.array_equal(pipe.query_one(Sssp(0)).dist, want)
+        assert pipe.counters["queries"] == 2
     got = solve_many(n, edges, [(0, 1)], pipelined=True, device="cpu")
     assert _fields(got[0]) == _fields(eng.query(0, 1))
 

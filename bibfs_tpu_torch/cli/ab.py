@@ -44,6 +44,18 @@ call and a synchronize. ``same_results`` compares the distances,
 ``buckets``, ``relaxations`` and ``passes``, and the planes with
 ``levels`` and ``run``; each checkout's last status words are kept.
 
+With ``--analytics GEOM`` (``gnp-10000-d128``, the graph of
+``chip_smoke.py`` phase 16, or any ``gnp-N-dD``: G(N, D / (N - 1)), seed
+161) it times the analytics kernels instead: each checkout builds the
+graph's tile table and uploads it (the change also packs its tile rows
+once, as a serving runtime does), and per turn runs a PageRank solve
+(damping 0.85, tolerance 1e-8, at most 100 steps) and the triangle chunk
+at column 0 three times each (median; CUDA events around the call on the
+card, the host clock on the CPU), and the change's pack alone.
+``same_results`` holds the chunks' counts equal and the ranks within 1e-6
+with the same iterations; the line also carries ``nvidia-smi``'s name and
+power limit of the card.
+
 The host-bound modes' times drift by tens of percent from process to
 process and over minutes; run in turns within one process, both
 checkouts see the same drift. A card is used unless ``--device cpu``.
@@ -348,6 +360,112 @@ def _kinds_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
     return line
 
 
+#: the analytics A/B's graphs, as chip_smoke.py phase 16 (or gnp-N-dD)
+ANALYTICS_GRAPHS = ("gnp-10000-d128",)
+ANALYTICS_SEED = 161  # phase 16's gnp-10000-d128
+RANK_ERR = 1e-6  # the two checkouts' PageRank ranks
+
+
+def _analytics_graph(snap, geom: str):
+    """``(n, BlockedGraph)`` of a --analytics geometry."""
+    kind, n, deg = (geom.split("-") + ["", ""])[:3]
+    if kind != "gnp" or not n.isdigit() or not deg[1:].isdigit() or \
+            deg[:1] != "d" or int(n) < 2:
+        raise ValueError(f"--analytics: no geometry {geom!r}")
+    n = int(n)
+    edges = snap[f"{PKG}.graph.generate"].gnp_random_graph(
+        n, int(deg[1:]) / (n - 1), seed=ANALYTICS_SEED)
+    pairs = snap[f"{PKG}.graph.csr"].canonical_pairs(n, edges)
+    return n, snap[f"{PKG}.graph.blocked"].build_blocked(n, pairs=pairs)
+
+
+def _card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _analytics_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
+    """The PageRank and triangle kernels of both checkouts in turns, and
+    the change's pack (module docstring)."""
+    import inspect
+
+    runs = {}
+    for who, snap in snaps.items():
+        sys.modules.update(snap)
+        n, bg = _analytics_graph(snap, geom)
+        g = snap[f"{PKG}.solvers.dense"].BlockedDeviceGraph.from_host(
+            bg, device=dev)
+        sr = snap[f"{PKG}.ops.semiring_plane"]
+        kw = {}
+        if "bits" in inspect.signature(sr.pagerank_blocked).parameters:
+            kw["bits"] = sr.pack_tile_rows(g.tab)
+        runs[who] = (sr, g, kw)
+    pr_kw = dict(n=n, damping=0.85, tol=1e-8, max_iters=100)
+
+    def timed(fn):
+        ts, out = [], None
+        for _ in range(3):
+            sync()
+            if dev.type == "cuda":
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = fn()
+                b.record()
+                b.synchronize()
+                ts.append(a.elapsed_time(b))
+            else:
+                t0 = time.perf_counter()
+                out = fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+        return out, float(np.median(ts))
+
+    times = {k: [] for k in ("parent/pagerank", "change/pagerank",
+                             "parent/tricount", "change/tricount",
+                             "change/pack")}
+    iters = {}
+    same, err = True, 0.0
+    for rnd in range(rounds):
+        order = ("parent", "change") if rnd % 2 == 0 else ("change", "parent")
+        outs = {}
+        for who in order:
+            sys.modules.update(snaps[who])
+            sr, g, kw = runs[who]
+            sr.pagerank_blocked(g.tab, g.bcol, g.deg, **pr_kw, **kw)  # warm
+            (ranks, it, _d), ms = timed(lambda: sr.pagerank_blocked(
+                g.tab, g.bcol, g.deg, **pr_kw, **kw))
+            times[f"{who}/pagerank"].append(ms)
+            iters[who] = it
+            sr.triangles_chunk_blocked(g.tab, g.bcol, 0, **kw)  # warm
+            tri, ms = timed(lambda: sr.triangles_chunk_blocked(
+                g.tab, g.bcol, 0, **kw))
+            times[f"{who}/tricount"].append(ms)
+            if who == "change":
+                _bits, ms = timed(lambda: sr.pack_tile_rows(g.tab))
+                times["change/pack"].append(ms)
+            outs[who] = (ranks.cpu(), it, int(tri))
+        pa, ch = outs["parent"], outs["change"]
+        diff = float((pa[0] - ch[0]).abs().max())
+        err = max(err, diff)
+        same &= diff <= RANK_ERR and pa[1] == ch[1] and pa[2] == ch[2]
+    bg = runs["change"][1]
+    line = {"geometry": geom, "n": n, "nblocks": bg.nblocks,
+            "bwidth": bg.bwidth, "rounds": rounds,
+            "same_results": bool(same), "max_abs_rank_diff": err}
+    for key, v in times.items():
+        line[key] = {"median_ms": float(np.median(v)),
+                     "p25_ms": float(np.percentile(v, 25)),
+                     "p75_ms": float(np.percentile(v, 75)), "runs": len(v)}
+        if key.endswith("pagerank"):
+            line[key]["iters"] = iters[key.split("/")[0]]
+    return line
+
+
 #: the blocked A/B's grids: (rows, columns), as chip_smoke.py phase 10
 BLOCKED_GRIDS = {"grid-128x1024": (128, 1024), "grid-64x64": (64, 64)}
 
@@ -420,6 +538,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kinds", metavar="GEOM",
                     help="time the query kinds' kernels on this graph "
                          f"({', '.join(KIND_GRAPHS)}, grid-RxC, gnp-deg8-sK)")
+    ap.add_argument("--analytics", metavar="GEOM",
+                    help="time the PageRank and triangle kernels on this "
+                         f"graph ({', '.join(ANALYTICS_GRAPHS)}, gnp-N-dD)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -432,9 +553,14 @@ def main(argv=None) -> int:
 
     saved = {m: mod for m, mod in sys.modules.items() if _ours(m)}
     snaps = {"change": _load(None), "parent": _load(args.parent.resolve())}
-    if args.blocked or args.oracle or args.kinds:
+    if args.blocked or args.oracle or args.kinds or args.analytics:
         try:
-            if args.blocked:
+            if args.analytics:
+                line = _analytics_ab(snaps, args.analytics, args.rounds, dev,
+                                     sync)
+                if dev.type == "cuda":
+                    line["nvidia_smi"] = _card_line()
+            elif args.blocked:
                 line = _blocked_ab(snaps, args.blocked, args.batch or 256,
                                    args.rounds, dev, sync)
             elif args.oracle:

@@ -36,13 +36,24 @@ semantics (what the tests hold against the JAX package):
   ``c0`` and read from the table (:func:`triangle_plane` builds the
   reference's plane from it).
 
+On the card the PageRank and triangle kernels read the table's packed
+tile rows, one bit an entry (:func:`pack_tile_rows` over
+``pack_tile_rows_kernel``; twin :func:`pack_tile_rows_plain`, inverse
+:func:`unpack_tile_rows`): int32 ``[nblocks, bwidth, tile, 4]``, an eighth
+of the int8 table, stored slot-minor (a view of ``[nblocks, tile, bwidth,
+4]`` memory: a tile row of every slot of a block row side by side, what
+the kernels' lanes read together), built once per uploaded graph by the
+serving runtime (``BlockedDeviceGraph.bits``) and passed as ``bits=``; a
+wrapper given none packs the table itself. The CPU twins read the int8
+table.
+
 Exactness: distances (integer weight sums), labels (vertex ids) and
 triangle counts are integers, exact in float32 below 2^24 (the serving
 gates enforce the bound), so the kernels and twins equal the JAX package's
 answers bit for bit whatever their summation order; PageRank's ranks are
 float sums held to a tolerance. Launches count in
-``minplus_fixpoint.launches``, ``pagerank_blocked.launches`` and
-``triangles_chunk_blocked.launches``.
+``minplus_fixpoint.launches``, ``pagerank_blocked.launches``,
+``triangles_chunk_blocked.launches`` and ``pack_tile_rows.launches``.
 """
 
 from __future__ import annotations
@@ -60,9 +71,12 @@ from bibfs_tpu_torch.ops.blocked_expand import (
 #: the triangle count's column chunk (the reference's static width)
 TRI_CHUNK = 256
 
-#: the widest block row ``tricount_kernel`` takes (its shared memory: a
-#: row's tile rows and each warp's list of matched block columns)
-TRI_MAX_WIDTH = 300
+#: the widest block row ``tricount_kernel`` takes (its grid: the chunk's
+#: block rows x bwidth x ceil(bwidth / 32) blocks)
+TRI_MAX_WIDTH = 4096
+
+#: 32-bit words of a packed tile row
+PACK_WORDS = TILE // 32
 
 #: the smallest PageRank tolerance float32 L1 deltas resolve
 PAGERANK_TOL_FLOOR = 5e-7
@@ -73,8 +87,8 @@ _STATUS_LEN = 2
 _ERR_BARRIER = 2
 # a launch's zeroed working block: barrier arrivals and flags
 _CTL_LEN = 8
-# work items a block row of the fixpoint kernels (32 rows each)
-_ITEM_PARTS = TILE // 32
+# the fewest rows of a PageRank work item (a warp each)
+_PR_ITEM_ROWS = 8
 
 
 def minplus_chunk_rows(bwidth: int, c: int, tile: int = TILE) -> int:
@@ -214,6 +228,31 @@ def triangles_chunk_blocked_plain(tab, bcol, c0: int, out=None):
     return out
 
 
+def _slot_minor(words):
+    """``[nblocks, bwidth, tile, 4]`` words as the kernels store them: a
+    view of contiguous ``[nblocks, tile, bwidth, 4]`` memory."""
+    return words.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+
+
+def pack_tile_rows_plain(tab):
+    """Twin of :func:`pack_tile_rows`: ``np.packbits(tab != 0, axis=-1,
+    bitorder="little")`` read as little-endian 32-bit words, int32
+    ``[nblocks, bwidth, tile, tile / 32]``: bit ``j`` of word ``w`` of a
+    tile row is its column ``32 w + j``; stored slot-minor as the kernel
+    stores it."""
+    packed = np.packbits(tab.cpu().numpy() != 0, axis=-1, bitorder="little")
+    words = np.ascontiguousarray(packed).view("<i4").astype(np.int32)
+    return _slot_minor(torch.from_numpy(words)).to(tab.device)
+
+
+def unpack_tile_rows(bits):
+    """The int8 0/1 table whose packed rows are ``bits`` (the inverse of
+    :func:`pack_tile_rows`)."""
+    words = np.ascontiguousarray(bits.cpu().numpy()).astype("<i4")
+    rows = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")
+    return torch.from_numpy(rows.astype(np.int8)).to(bits.device)
+
+
 # ---- the kernels --------------------------------------------------------
 
 def _check_table(table, bcol, dtype) -> None:
@@ -225,6 +264,50 @@ def _check_table(table, bcol, dtype) -> None:
     _cuda.check_dtype(dtype, table=table)
     _cuda.check_dtype(torch.int32, bcol=bcol)
     _cuda.check_cuda(table.device, table=table, bcol=bcol)
+
+
+def _check_bits(bits, tab) -> None:
+    """Raise unless ``bits`` is ``tab``'s packed rows in shape, type,
+    layout and device (int32 ``[nblocks, bwidth, tile, 4]``, slot-minor)."""
+    want = (*tab.shape[:3], PACK_WORDS)
+    if not isinstance(bits, torch.Tensor) or tuple(bits.shape) != want:
+        got = tuple(bits.shape) if isinstance(bits, torch.Tensor) else bits
+        raise ValueError(f"bits must be the packed rows {list(want)}, got "
+                         f"{got}")
+    _cuda.check_dtype(torch.int32, bits=bits)
+    if bits.device != tab.device:
+        raise ValueError(f"bits is on {bits.device}, expected {tab.device}")
+    if not bits.permute(0, 2, 1, 3).is_contiguous():
+        raise ValueError("bits must be stored slot-minor, as "
+                         "pack_tile_rows stores it")
+
+
+def pack_tile_rows(tab):
+    """The int8 tile table packed one bit an entry: int32 ``[nblocks,
+    bwidth, tile, 4]``, bit ``j`` of word ``w`` of a tile row its column
+    ``32 w + j`` (``np.packbits(..., bitorder="little")`` read as
+    little-endian words); sentinel slots, all-zero tiles, pack to zero.
+    Stored slot-minor: the result is a view of contiguous ``[nblocks, tile,
+    bwidth, 4]`` memory. On the card one launch of
+    ``pack_tile_rows_kernel`` (a warp a tile row of 8 slots: eight
+    128-byte rows read, 128 bytes written); on the CPU
+    :func:`pack_tile_rows_plain`."""
+    if tab.dim() != 4 or tab.shape[2:] != (TILE, TILE):
+        raise ValueError("the table must be [nblocks, bwidth, 128, 128]")
+    if not tab.is_cuda:
+        return pack_tile_rows_plain(tab)
+    _cuda.check_dtype(torch.int8, table=tab)
+    _cuda.check_cuda(tab.device, table=tab)
+    nblocks, bwidth = tab.shape[:2]
+    words = torch.empty((nblocks, TILE, bwidth, PACK_WORDS),
+                        dtype=torch.int32, device=tab.device)
+    _cuda.launch("semiring", "bibfs_pack_tile_rows", tab.data_ptr(), nblocks,
+                 bwidth, words.data_ptr())
+    _cuda.count_launch(pack_tile_rows)
+    return words.permute(0, 2, 1, 3)
+
+
+pack_tile_rows.launches = 0
 
 
 def _status(name: str, status: torch.Tensor) -> list:
@@ -289,44 +372,74 @@ def components_blocked(tab, bcol, labels_init):
     return minplus_fixpoint(tab, bcol, labels_init, from_tab=True)
 
 
+def _pagerank_launch(bits, bcol, deg, *, n: int, damping: float,
+                     tol: float, max_iters: int):
+    """One launch of ``pagerank_kernel`` over the packed rows ``bits`` at
+    the float32 tolerance ``tol`` as given (a negative one ends no step
+    early: ``max_iters`` steps), counted in ``pagerank_blocked.launches``;
+    the inputs are the caller's to check. Returns ``(ranks [2, n_pad],
+    status int64 [2])`` unread: the ranks lie in buffer ``iters & 1``, the
+    status holds the iterations (or minus the error code) and the last
+    delta's float32 bits."""
+    nblocks, bwidth = bcol.shape
+    n_pad = nblocks * TILE
+    dev = bits.device
+    # one float block: ranks and contributions, each ping-ponging between
+    # two [n_pad] buffers, and the [parity, (delta, mass), item] partial
+    # sums (an item is at least 8 rows); one int64 block: the zeroed
+    # working words and the status
+    items = n_pad // _PR_ITEM_ROWS
+    work = torch.empty(4 * n_pad + 4 * items, dtype=torch.float32,
+                       device=dev)
+    ranks = work[: 2 * n_pad].view(2, n_pad)
+    contrib = work[2 * n_pad: 4 * n_pad]
+    part = work[4 * n_pad:]
+    words = torch.empty(_CTL_LEN + _STATUS_LEN, dtype=torch.int64,
+                        device=dev)
+    ctl, status = words[:_CTL_LEN], words[_CTL_LEN:]
+    ctl.zero_()
+    _cuda.launch(
+        "semiring", "bibfs_pagerank", bits.data_ptr(), bcol.data_ptr(),
+        deg.data_ptr(), nblocks, bwidth, int(n),
+        float(np.float32((1.0 - float(damping)) / int(n))),
+        float(np.float32(damping)), float(np.float32(tol)), int(max_iters),
+        ranks.data_ptr(), contrib.data_ptr(), part.data_ptr(),
+        ctl.data_ptr(), status.data_ptr(),
+    )
+    _cuda.count_launch(pagerank_blocked)
+    return ranks, status
+
+
 def pagerank_blocked(tab, bcol, deg, *, n: int, damping: float, tol: float,
-                     max_iters: int):
-    """Damped power iteration over the int8 tiles to the L1 tolerance
+                     max_iters: int, bits=None):
+    """Damped power iteration over the tiles to the L1 tolerance
     ``max(tol, 5e-7)`` (what float32 deltas resolve), at most
     ``max_iters`` steps. On the card one cooperative launch of
-    ``pagerank_kernel`` (fixed-order reductions: the same ranks every run)
-    and one read; on the CPU :func:`pagerank_blocked_plain`. Returns
-    ``(ranks float32 [n_pad], iters, delta)``."""
+    ``pagerank_kernel`` over the packed rows ``bits``
+    (:func:`pack_tile_rows` of ``tab``, packed here when not given; a warp
+    a row, a lane a slot; fixed-order reductions: the same ranks every
+    run) and one read; on the CPU :func:`pagerank_blocked_plain` over the
+    int8 ``tab``. Returns ``(ranks float32 [n_pad], iters, delta)``."""
+    if bits is not None:
+        _check_bits(bits, tab)
     if not tab.is_cuda:
         return pagerank_blocked_plain(tab, bcol, deg, n=n, damping=damping,
                                       tol=tol, max_iters=max_iters)
     _check_table(tab, bcol, torch.int8)
-    nblocks, bwidth = bcol.shape
-    n_pad = nblocks * TILE
+    n_pad = bcol.shape[0] * TILE
     if deg.shape != (n_pad,):
         raise ValueError(f"deg must be [{n_pad}]")
     if not 0 < int(n) <= n_pad:
         raise ValueError(f"n={n} outside (0, {n_pad}]")
     _cuda.check_dtype(torch.int32, deg=deg)
     _cuda.check_cuda(tab.device, deg=deg)
-    dev = tab.device
-    ranks = torch.empty((2, n_pad), dtype=torch.float32, device=dev)
-    # [parity, (delta, mass), item] partial sums, one per work item
-    part = torch.empty((2, 2, nblocks * _ITEM_PARTS), dtype=torch.float32,
-                       device=dev)
-    ctl = torch.zeros(_CTL_LEN, dtype=torch.int64, device=dev)
-    status = torch.empty(_STATUS_LEN, dtype=torch.int64, device=dev)
-    tol32 = np.float32(max(float(tol), PAGERANK_TOL_FLOOR))
-    _cuda.launch(
-        "semiring", "bibfs_pagerank", tab.data_ptr(), bcol.data_ptr(),
-        deg.data_ptr(), nblocks, bwidth, int(n),
-        float(np.float32((1.0 - float(damping)) / int(n))),
-        float(np.float32(damping)), float(tol32), int(max_iters),
-        ranks.data_ptr(), part.data_ptr(), ctl.data_ptr(), status.data_ptr(),
-    )
-    _cuda.count_launch(pagerank_blocked)
-    iters, bits = _status("pagerank_kernel", status)
-    delta = float(np.array([bits & 0xFFFFFFFF], dtype=np.uint32)
+    if bits is None:
+        bits = pack_tile_rows(tab)
+    ranks, status = _pagerank_launch(
+        bits, bcol, deg, n=n, damping=damping,
+        tol=max(float(tol), PAGERANK_TOL_FLOOR), max_iters=max_iters)
+    iters, sbits = _status("pagerank_kernel", status)
+    delta = float(np.array([sbits & 0xFFFFFFFF], dtype=np.uint32)
                   .view(np.float32)[0])
     return ranks[iters & 1], iters, delta
 
@@ -334,20 +447,23 @@ def pagerank_blocked(tab, bcol, deg, *, n: int, damping: float, tol: float,
 pagerank_blocked.launches = 0
 
 
-def triangles_chunk_blocked(tab, bcol, c0: int, out=None):
+def triangles_chunk_blocked(tab, bcol, c0: int, out=None, bits=None):
     """One column chunk's ordered-pair triangle total, ``sum((A @ P) * P)``
     over the chunk ``c0 .. c0 + 255`` (:func:`triangle_plane`), added into
     ``out`` (int64 ``[1]``, zeroed here when None) and returned; the caller
     sums the chunks and divides by 6. On the card one launch of
-    ``tricount_kernel`` (exact integer arithmetic: for each edge ``(x, u)``
-    with ``x`` in the chunk, the common neighbours of ``x`` and ``u`` by
-    byte-AND popcounts of their tile rows over the block columns both rows
-    hold; ``bcol`` rows ascending with sentinels last, as
+    ``tricount_kernel`` over the packed rows ``bits`` (:func:`pack_tile_rows`
+    of ``tab``, packed here when not given; exact integer arithmetic: for
+    each edge ``(x, u)`` with ``x`` in the chunk, the common neighbours of
+    ``x`` and ``u`` by popcounts of their packed rows ANDed over the block
+    columns both rows hold; ``bcol`` rows ascending with sentinels last, as
     :func:`~bibfs_tpu_torch.graph.blocked.build_blocked` lays them, and
     ``bwidth`` at most :data:`TRI_MAX_WIDTH`); on the CPU
-    :func:`triangles_chunk_blocked_plain`."""
+    :func:`triangles_chunk_blocked_plain` over the int8 ``tab``."""
     if int(c0) % TILE:
         raise ValueError(f"c0={c0} is not a multiple of {TILE}")
+    if bits is not None:
+        _check_bits(bits, tab)
     if not tab.is_cuda:
         return triangles_chunk_blocked_plain(tab, bcol, c0, out)
     _check_table(tab, bcol, torch.int8)
@@ -361,7 +477,9 @@ def triangles_chunk_blocked(tab, bcol, c0: int, out=None):
     _cuda.check_cuda(tab.device, out=out)
     rows = min(TRI_CHUNK, nblocks * TILE - int(c0))
     if rows > 0:
-        _cuda.launch("semiring", "bibfs_tricount", tab.data_ptr(),
+        if bits is None:
+            bits = pack_tile_rows(tab)
+        _cuda.launch("semiring", "bibfs_tricount", bits.data_ptr(),
                      bcol.data_ptr(), nblocks, bwidth, int(c0), rows,
                      out.data_ptr())
         _cuda.count_launch(triangles_chunk_blocked)

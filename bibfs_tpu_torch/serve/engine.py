@@ -433,7 +433,10 @@ class _GraphRuntime:
         snapshot's memoized :meth:`~bibfs_tpu_torch.store.snapshot.
         GraphSnapshot.blocked` layout and uploaded at the first
         blocked-routed flush (a runtime that never routes blocked never
-        pays the tile build)."""
+        pays the tile build). On the card the upload also packs the tiles'
+        rows one bit an entry (``BlockedDeviceGraph.bits``, an eighth of the
+        table's bytes: what the PageRank and triangle kernels read), so no
+        analytics flush pays the packed copy's allocation."""
         g = self._blocked_graph
         if g is None:
             from bibfs_tpu_torch.graph.blocked import blocked_bucket_key
@@ -444,6 +447,12 @@ class _GraphRuntime:
                 if g is None:
                     bg = self.snapshot.blocked()
                     g = BlockedDeviceGraph.from_host(bg, device=self._device)
+                    if g.tab.is_cuda:
+                        from bibfs_tpu_torch.ops.semiring_plane import (
+                            pack_tile_rows,
+                        )
+
+                        g.bits = pack_tile_rows(g.tab)
                     self.blocked_bucket_key = blocked_bucket_key(bg)
                     self._blocked_graph = g
         return g

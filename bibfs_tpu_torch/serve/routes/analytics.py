@@ -357,7 +357,8 @@ class SsspBlockedRoute(AnalyticsBlockedRoute):
 
 
 class PageRankBlockedRoute(AnalyticsBlockedRoute):
-    """Damped power iteration as one launch per parameter set (tolerance
+    """Damped power iteration as one launch per parameter set over the
+    uploaded graph's packed tile rows (``BlockedDeviceGraph.bits``; tolerance
     clamped to f32 resolution: ranks agree with the host rung to ~1e-6,
     the verification tolerance)."""
 
@@ -374,7 +375,7 @@ class PageRankBlockedRoute(AnalyticsBlockedRoute):
             ranks, iters, delta = pagerank_blocked(
                 bg.tab, bg.bcol, bg.deg, n=ctx.n,
                 damping=float(q.damping), tol=float(q.tol),
-                max_iters=int(q.max_iters),
+                max_iters=int(q.max_iters), bits=bg.bits,
             )
             self.rounds_cell.inc(int(iters))
             out.append(PageRankResult(
@@ -412,8 +413,9 @@ class ComponentsBlockedRoute(AnalyticsBlockedRoute):
 
 
 class TrianglesBlockedRoute(AnalyticsBlockedRoute):
-    """The masked popcount count over the tile tables, one launch a
-    256-column chunk into one int64 total on the device, read once."""
+    """The masked popcount count over the uploaded graph's packed tile
+    rows (``BlockedDeviceGraph.bits``), one launch a 256-column chunk into
+    one int64 total on the device, read once."""
 
     name = "triangles_blocked"
     kind = "triangles"
@@ -428,7 +430,7 @@ class TrianglesBlockedRoute(AnalyticsBlockedRoute):
         total = torch.zeros(1, dtype=torch.int64, device=bg.device)
         chunks = 0
         for c0 in range(0, ctx.n, TRI_CHUNK):
-            triangles_chunk_blocked(bg.tab, bg.bcol, c0, total)
+            triangles_chunk_blocked(bg.tab, bg.bcol, c0, total, bits=bg.bits)
             chunks += 1
         self.rounds_cell.inc(chunks)
         res = TrianglesResult(

@@ -804,7 +804,10 @@ class BlockedDeviceGraph:
     """The blocked tile adjacency on one device, uploaded once per graph
     (the upload of :class:`bibfs_tpu_torch.graph.blocked.BlockedGraph`).
     ``tab`` stays int8: the CUDA kernel's input type; the CPU twin casts
-    at the product."""
+    at the product. ``bits`` is ``tab``'s packed tile rows
+    (:func:`bibfs_tpu_torch.ops.semiring_plane.pack_tile_rows`), packed
+    by a serving runtime's upload on the card
+    (``_GraphRuntime.blocked_graph``); None otherwise."""
 
     n: int
     n_pad: int
@@ -815,6 +818,7 @@ class BlockedDeviceGraph:
     tab: torch.Tensor  # int8 [nblocks, bwidth, tile, tile]
     bcol: torch.Tensor  # int32 [nblocks, bwidth], sentinel nblocks
     deg: torch.Tensor  # int32 [n_pad]
+    bits: torch.Tensor | None = None  # int32 [nblocks, bwidth, tile, 4]
 
     @property
     def device(self) -> torch.device:

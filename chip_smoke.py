@@ -380,16 +380,27 @@ is unavailable. Phases:
    bit for bit with equal rounds; ``pagerank`` on gnp-10000 within 1e-6,
    the same ranks on a second run, iterations equal or one off at a
    straddled tolerance; ``tricount`` on every 256-column chunk of
-   gnp-10000 exactly. One ``step`` line each: the median ms of 5 launches,
-   the twin's ms, the bound (the live tiles' and the plane's bytes a
-   sweep or step times the sweeps or steps over 3.35 TB/s; for a triangle
-   chunk the larger of the tile bytes and the dense product's int8
-   operations over 1,979 TOP/s) and a one-call PyTorch yardstick
-   (``torch.sparse.mm`` of the adjacency and one vector a power step,
-   a dense ``torch.matmul`` of a chunk). With the counts zeroed, the
+   gnp-10000 exactly; the last two over gnp-10000's packed tile rows,
+   whose pack (``pack_tile_rows``) is held to its twin bit for bit. One
+   ``step`` line each: the median ms of 5 launches, the twin's ms, the
+   bound (the live tiles' and the plane's bytes a sweep or step times the
+   sweeps or steps over 3.35 TB/s; for a triangle chunk the larger of the
+   tile bytes and the dense product's int8 operations over 1,979 TOP/s;
+   for the pack the int8 table read and its eighth written), beside it
+   for PageRank and a chunk ``bound_packed_ms`` (the packed rows they
+   read, bcol and the vectors) and ``pack_ms``, for PageRank ``step_ms``
+   (one launch of 50 power steps that no tolerance ends, divided by 50:
+   the steady step without the solve's set-up and host read, beside
+   ``library_call_ms``) and ``floor_ms_per_step`` (the same on an
+   edgeless table of the same rows: a step with no row work), and a
+   one-call PyTorch
+   yardstick (``torch.sparse.mm`` of the adjacency and one vector a power
+   step, a dense ``torch.matmul`` of a chunk). With the counts zeroed, the
    engines on the card: a synchronous and a pipelined wave of the four
    kinds on gnp-10000 (PageRank, components, triangles on their blocked
-   rungs; SSSP over the f32 table's x5 gate on the host rung), one flush
+   rungs; SSSP over the f32 table's x5 gate on the host rung; between
+   them ``A[warm]``, one more PageRank on the warm synchronous engine),
+   one flush
    of 8 + 4 SSSP queries of two weight seeds on gnp-5000 (two planes on
    the blocked rung), and over a ``GraphStore`` of the grid the four
    kinds blocked, a repeat on a second (pipelined) engine from the
@@ -399,7 +410,12 @@ is unavailable. Phases:
    (PageRank within 2e-4), every wave's routes are the expected ones, and
    no engine falls back, retries, errs or opens a breaker (one
    ``analytics`` line a wave); ``analytics_launches`` (each kernel
-   launched) and ``analytics_total`` (the phase's seconds by part). On
+   launched). After the counts are read, ``analytics_split``
+   (:func:`pagerank_split`): a PageRank answer's time on a new engine,
+   first flush and warm, and its route's steps one by one (a pack into a
+   new allocation, the launch's set-up, the kernel, the status and ranks
+   reads; the engine open and closed); then ``analytics_total`` (the
+   phase's seconds by part). On
    the host, ``analytics_phase("cpu", graphs=...)`` with small graphs
    rehearses it (the rungs forced as the card's gates place them).
 
@@ -580,6 +596,7 @@ def reset_counts() -> None:
     sr.minplus_fixpoint.launches = 0
     sr.pagerank_blocked.launches = 0
     sr.triangles_chunk_blocked.launches = 0
+    sr.pack_tile_rows.launches = 0
 
 
 def counts() -> dict:
@@ -595,6 +612,7 @@ def counts() -> dict:
     out["minplus_fixpoint"] = sr.minplus_fixpoint.launches
     out["pagerank"] = sr.pagerank_blocked.launches
     out["tricount"] = sr.triangles_chunk_blocked.launches
+    out["pack_tile_rows"] = sr.pack_tile_rows.launches
     return out
 
 
@@ -4690,9 +4708,10 @@ def mesh_phase(gnp: dict, gnp_dir: str, dev_name: str = "cuda") -> dict:
 
 
 # ---- phase 16: whole-graph analytics -----------------------------------------
-# the three kernels of the blocked analytics rungs (csrc/semiring.cu): the
-# wrapper that counts its launches, the source, and the XLA program of the
-# JAX package it replaces (none is a Pallas kernel)
+# the kernels of the blocked analytics rungs (csrc/semiring.cu): the wrapper
+# that counts its launches, the source, and the XLA program of the JAX
+# package it replaces (none is a Pallas kernel; the pack replaces nothing:
+# it packs the int8 tiles that line of the reference builds, once a graph)
 ANALYTICS_KERNELS = {
     "minplus_fixpoint": (sr.minplus_fixpoint, "bibfs_tpu_torch/csrc/semiring.cu",
                          "bibfs_tpu/ops/semiring_plane.py:105"),
@@ -4700,6 +4719,8 @@ ANALYTICS_KERNELS = {
                  "bibfs_tpu/ops/semiring_plane.py:138"),
     "tricount": (sr.triangles_chunk_blocked, "bibfs_tpu_torch/csrc/semiring.cu",
                  "bibfs_tpu/ops/semiring_plane.py:180"),
+    "pack_tile_rows": (sr.pack_tile_rows, "bibfs_tpu_torch/csrc/semiring.cu",
+                       "bibfs_tpu/graph/blocked.py:139"),
 }
 # phase 16's graphs: name -> (vertices, edge maker)
 ANALYTICS_GRAPHS = {
@@ -4717,6 +4738,7 @@ ANALYTICS_SSSP = {0: 8, 1: 4}  # gnp-5000's flush: SSSP queries a weight seed
 ANALYTICS_ADDS = 8  # the adds-only update batch of the grid
 ANALYTICS_REPS = 5  # launches a kernel is timed over
 PR_TOL = 1e-8  # the PageRank queries' tolerance (the kernels resolve 5e-7)
+PR_FIXED_STEPS = 50  # power steps of the kernel's timed fixed run
 RANK_ERR = 1e-6  # the PageRank kernel against its twin
 RANK_REF_ERR = 2e-4  # PageRank against the float64 host reference
 
@@ -4843,13 +4865,25 @@ def analytics_kernel_phase(graphs: dict, results: dict) -> None:
         if (name, step) == ("gnp-5000-d64", "sssp C=8"):
             results["minplus_fixpoint"] = dict(
                 line, ms=ms, geometry=name, step=step)
-    # D2 and D3 on gnp-10000
+    # the pack, then D2 and D3 over its rows, on gnp-10000
     g = graphs["gnp-10000-d128"]
     bg = g["bg"]
     tab, bcol, deg = put(bg.tab), put(bg.bcol), put(bg.deg)
+    bits = sr.pack_tile_rows(tab)
+    err = int((bits.cpu() != sr.pack_tile_rows_plain(tab.cpu())).sum())
+    check(err == 0, f"pack_tile_rows: {err} words differ from its twin")
+    plain_ms = twin_ms(lambda: sr.pack_tile_rows_plain(tab))
+    pack_ms = time_launch(lambda: sr.pack_tile_rows(tab), reps=ANALYTICS_REPS)
+    packed_bytes = bg.nnz_blocks * 128 * 16  # the stored tiles' packed rows
+    line = dict(plain_ms=plain_ms,
+                bound_ms=(bg.tab_bytes + bg.tab_bytes // 8) / HBM_BYTES_PER_S
+                * 1e3, bound_by="bytes", max_abs_err=err, library_ms=None,
+                tab_bytes=bg.tab_bytes, bits_bytes=bits.numel() * 4)
+    step_line("pack_tile_rows", g["name"], "pack", pack_ms, **line)
+    results["pack_tile_rows"] = dict(line, ms=pack_ms, geometry=g["name"])
     kw = dict(n=g["n"], damping=0.85, tol=PR_TOL, max_iters=100)
-    ranks, iters, delta = sr.pagerank_blocked(tab, bcol, deg, **kw)
-    again, iters2, _ = sr.pagerank_blocked(tab, bcol, deg, **kw)
+    ranks, iters, delta = sr.pagerank_blocked(tab, bcol, deg, bits=bits, **kw)
+    again, iters2, _ = sr.pagerank_blocked(tab, bcol, deg, bits=bits, **kw)
     check(torch.equal(ranks, again) and iters == iters2,
           "pagerank: two runs differ")
     want, want_iters, want_delta = sr.pagerank_blocked_plain(tab, bcol, deg, **kw)
@@ -4861,17 +4895,49 @@ def analytics_kernel_phase(graphs: dict, results: dict) -> None:
     check(err <= RANK_ERR and iters_ok,
           f"pagerank: max abs {err}, iters {iters} / twin {want_iters} "
           f"(delta {want_delta})")
-    ms = time_launch(lambda: sr.pagerank_blocked(tab, bcol, deg, **kw),
-                     reps=ANALYTICS_REPS)
+    ms = time_launch(lambda: sr.pagerank_blocked(tab, bcol, deg, bits=bits,
+                                                 **kw), reps=ANALYTICS_REPS)
+    # the kernel's steady power step: one launch of PR_FIXED_STEPS steps (a
+    # negative tolerance ends none early), no host read in the interval
+    # (its scratch's zeroed words, one fill, are); and the same on an
+    # edgeless table of the same rows, one sentinel slot a block row: a
+    # step with no row work (the grid barrier, the items' sums, the
+    # epilogue)
+    edgeless = (
+        torch.zeros((bg.nblocks, 128, 1, 4), dtype=torch.int32,
+                    device=dev).permute(0, 2, 1, 3),
+        torch.full((bg.nblocks, 1), bg.nblocks, dtype=torch.int32,
+                   device=dev),
+        torch.zeros_like(deg))
+
+    def fixed_ms(rows, cols, degs) -> float:
+        run = []
+        ms = time_launch(lambda: run.append(sr._pagerank_launch(
+            rows, cols, degs, n=g["n"], damping=0.85, tol=-1.0,
+            max_iters=PR_FIXED_STEPS)), reps=ANALYTICS_REPS)
+        steps = int(run[-1][1][0])
+        check(steps == PR_FIXED_STEPS,
+              f"pagerank: a fixed run took {steps} steps")
+        return ms / PR_FIXED_STEPS
+
+    step_ms = fixed_ms(bits, bcol, deg)
+    floor_ms = fixed_ms(*edgeless)
     rp, ci = g["csr"]
     adj = sparse_adjacency(bg.n_pad, g["csr"], dev)
     vec = torch.rand(bg.n_pad, 1, device=dev)
     lib_ms = time_launch(lambda: torch.sparse.mm(adj, vec), reps=REPS)
     bound = bg.nnz_blocks * tile_el * iters / HBM_BYTES_PER_S * 1e3
+    # a step: the packed rows, bcol, deg, contrib and the ranks read, the
+    # next ranks and contrib written
+    step_bytes = packed_bytes + bcol.numel() * 4 + 5 * bg.n_pad * 4
     line = dict(iters=iters, twin_iters=want_iters, delta=delta,
                 twin_delta=want_delta, max_abs_err=err, plain_ms=plain_ms,
-                bound_ms=bound, bound_by="bytes", library_ms=lib_ms * iters,
+                bound_ms=bound, bound_by="bytes",
+                bound_packed_ms=step_bytes * iters / HBM_BYTES_PER_S * 1e3,
+                pack_ms=pack_ms, library_ms=lib_ms * iters,
                 library_call_ms=lib_ms, ms_per_iter=ms / iters,
+                step_ms=step_ms, floor_ms_per_step=floor_ms,
+                fixed_steps=PR_FIXED_STEPS,
                 library="torch.sparse.mm of the adjacency and one vector, "
                         "one a power step")
     step_line("pagerank", g["name"], "pagerank", ms, **line)
@@ -4879,14 +4945,15 @@ def analytics_kernel_phase(graphs: dict, results: dict) -> None:
     # D3: every chunk against its twin, one chunk timed
     total = torch.zeros(1, dtype=torch.int64, device=dev)
     for c0 in range(0, g["n"], sr.TRI_CHUNK):
-        got = sr.triangles_chunk_blocked(tab, bcol, c0)
+        got = sr.triangles_chunk_blocked(tab, bcol, c0, bits=bits)
         want = sr.triangles_chunk_blocked_plain(tab, bcol, c0)
         check(torch.equal(got, want), f"tricount chunk {c0}: {int(got)} != "
               f"twin {int(want)}")
         total += got
     plain_ms = twin_ms(lambda: sr.triangles_chunk_blocked_plain(tab, bcol, 0))
     chunks = -(-g["n"] // sr.TRI_CHUNK)
-    ms = time_launch(lambda: sr.triangles_chunk_blocked(tab, bcol, 0, total),
+    ms = time_launch(lambda: sr.triangles_chunk_blocked(tab, bcol, 0, total,
+                                                        bits=bits),
                      reps=ANALYTICS_REPS)
     plane = sr.triangle_plane(tab, bcol, 0)
     dense = torch.zeros(bg.n_pad, bg.n_pad, device=dev)
@@ -4896,10 +4963,18 @@ def analytics_kernel_phase(graphs: dict, results: dict) -> None:
     ops = 2 * bg.nnz_blocks * tile_el * sr.TRI_CHUNK
     t_bytes = bg.tab_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT8_OPS_PER_S * 1e3
+    # the chunk's packed rows: its block rows' stored tiles and those of
+    # every block row they hold (u's rows), each read once
+    rows_x = bg.bcol[: 2]
+    held = np.unique(rows_x[rows_x < bg.nblocks])
+    brs = np.union1d(np.arange(min(2, bg.nblocks)), held)
+    tiles = int((bg.bcol[brs] < bg.nblocks).sum())
     line = dict(chunks=chunks, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                max_abs_err=0, library_ms=lib_ms,
+                bound_packed_ms=(tiles * 128 * 16 + bg.bcol[brs].size * 4)
+                / HBM_BYTES_PER_S * 1e3,
+                pack_ms=pack_ms, max_abs_err=0, library_ms=lib_ms,
                 library="dense torch.matmul of the adjacency and the chunk's "
                         "[n_pad, 256] plane (f32)")
     step_line("tricount", g["name"], "chunk c0=0", ms, **line)
@@ -4965,6 +5040,95 @@ def check_analytics(queries, res, ref: dict, wave: str) -> None:
                   f"{wave}: {r.count} triangles, scipy {ref['triangles']}")
 
 
+def pagerank_split(big: dict, ref: dict) -> dict:
+    """Where a PageRank answer's time goes on the card. A new synchronous
+    engine over ``big`` (the allocator's cache emptied first, as the
+    kernel checks leave it for the waves): a labelling uploads the tiles
+    and packs their rows, then the engine's answer on its first PageRank
+    flush and on a warm one (``answer_ms``). Then the route's steps one by
+    one on that runtime, the card synchronized between them. ``cold``,
+    the cache emptied: ``alloc_ms`` the packed rows' allocation alone
+    (with the device allocations it made) and ``bits_ms`` a pack into a
+    new allocation (what a flush that packs first pays); in each state
+    ``setup_ms`` the launch's host part (scratch, zeroed words, the
+    call), ``wait_status_ms`` the status read that waits for the kernel,
+    ``ranks_ms`` the ranks' copy to the host and ``kernel_ms`` the same
+    launch alone between CUDA events; ``warm`` the same with the engine
+    open, ``closed`` after it closed, with ``pack_host_ms`` the host's part
+    of a pack into a cached allocation (median of 5). Prints one
+    ``analytics_split`` line; returns it."""
+    from bibfs_tpu_torch.analytics import Components, PageRank
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    eng = QueryEngine(big["n"], big["edges"], pairs=big["pairs"])
+    analytics_wave(eng, [Components()], "A[split tiles]", big["name"],
+                   {"components": {"components_blocked": 1}})
+    answer = {}
+    for k, state in enumerate(("first", "warm")):
+        qs = [PageRank(tol=(2 + k) * PR_TOL)]
+        res = analytics_wave(eng, qs, f"A[split {state}]", big["name"],
+                             {"pagerank": {"pagerank_blocked": 1}})
+        check_analytics(qs, res, ref, f"A[split {state}]")
+        answer[state] = res[0].time_s * 1e3
+    bg = eng._current_rt().blocked_graph()
+    n = big["n"]
+    kw = dict(n=n, damping=0.85, tol=max(PR_TOL, sr.PAGERANK_TOL_FLOOR),
+              max_iters=100)
+    line = {"phase": "analytics_split", "graph": big["name"],
+            "answer_ms": answer}
+
+    def allocs() -> int:
+        return int(torch.cuda.memory_stats().get("num_device_alloc", 0))
+
+    def launch():
+        return sr._pagerank_launch(bg.bits, bg.bcol, bg.deg, **kw)
+
+    def steps() -> dict:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ranks, status = launch()
+        t1 = time.perf_counter()
+        iters, _ = sr._status("pagerank_kernel", status)
+        t2 = time.perf_counter()
+        ranks[iters & 1][:n].cpu().numpy()
+        t3 = time.perf_counter()
+        return dict(setup_ms=(t1 - t0) * 1e3, wait_status_ms=(t2 - t1) * 1e3,
+                    ranks_ms=(t3 - t2) * 1e3, iters=iters,
+                    kernel_ms=time_launch(launch, reps=1))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0, t0 = allocs(), time.perf_counter()
+    probe = torch.empty(tuple(bg.bits.shape), dtype=torch.int32,
+                        device=bg.device)
+    torch.cuda.synchronize()
+    cold = dict(alloc_ms=(time.perf_counter() - t0) * 1e3,
+                alloc_device_allocs=allocs() - a0)
+    del probe
+    torch.cuda.empty_cache()
+    a0, t0 = allocs(), time.perf_counter()
+    bits = sr.pack_tile_rows(bg.tab)
+    torch.cuda.synchronize()
+    cold.update(bits_ms=(time.perf_counter() - t0) * 1e3,
+                bits_device_allocs=allocs() - a0)
+    check(torch.equal(bits, bg.bits), "pagerank split: a pack differs")
+    del bits
+    line["cold"] = dict(cold, **steps())
+    line["warm"] = steps()
+    eng.close()
+    line["closed"] = steps()
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sr.pack_tile_rows(bg.tab)
+        host.append((time.perf_counter() - t0) * 1e3)
+    line["closed"]["pack_host_ms"] = float(np.median(host))
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def analytics_phase(dev_name: str = "cuda", results: dict | None = None,
                     graphs: dict | None = None) -> dict:
     """Phase 16 (module docstring). ``dev_name="cpu"`` with small
@@ -5024,6 +5188,13 @@ def analytics_phase(dev_name: str = "cuda", results: dict | None = None,
                     host_sssp=True)
         res = analytics_wave(eng, qs, wave, big["name"], expect)
         check_analytics(qs, res, refs["big"], wave)
+        if cls is QueryEngine:
+            # a PageRank answer on the warm engine (its tiles and packed
+            # rows built; another tolerance, so no cache answers it)
+            warm = [PageRank(tol=10 * PR_TOL)]
+            res = analytics_wave(eng, warm, "A[warm]", big["name"],
+                                 {"pagerank": {"pagerank_blocked": 1}})
+            check_analytics(warm, res, refs["big"], "A[warm]")
         eng.close()
         del eng
     # gnp-5000: one flush of 12 SSSP queries, two planes (C = 8 and 4)
@@ -5085,6 +5256,9 @@ def analytics_phase(dev_name: str = "cuda", results: dict | None = None,
         for name, count in launches.items():
             check(count > 0, f"kernel {name} was not launched by the "
                   "analytics waves")
+        t0 = time.perf_counter()
+        pagerank_split(big, refs["big"])
+        waves_s += time.perf_counter() - t0
     print(json.dumps({"phase": "analytics_total", "graphs_s": graphs_s,
                       "refs_s": refs_s, "kernels_s": kernels_s,
                       "waves_s": waves_s, "store_events": ev,

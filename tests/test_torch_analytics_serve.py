@@ -177,6 +177,112 @@ def test_sssp_blocked_planes_and_weight_tables():
         port.close()
 
 
+def _watch_bits(semiring_plane):
+    """Patch the pack and the two blocked kernels' wrappers to record the
+    tables packed and the ``bits`` each call is handed; returns ``(packs,
+    seen, undo)``."""
+    packs, seen = [], []
+    real = {name: getattr(semiring_plane, name) for name in
+            ("pack_tile_rows", "pagerank_blocked", "triangles_chunk_blocked")}
+    fake = {}
+
+    def pack(tab):
+        packs.append(tab.shape)
+        return real["pack_tile_rows"](tab)
+
+    def pr(*a, bits=None, **kw):
+        seen.append(bits)
+        return real["pagerank_blocked"](*a, bits=bits, **kw)
+
+    def tri(*a, bits=None, **kw):
+        seen.append(bits)
+        return real["triangles_chunk_blocked"](*a, bits=bits, **kw)
+
+    # the real wrappers count their launches on the module's names
+    for name, fn in (("pack_tile_rows", pack), ("pagerank_blocked", pr),
+                     ("triangles_chunk_blocked", tri)):
+        fn.launches = real[name].launches
+        fake[name] = fn
+        setattr(semiring_plane, name, fn)
+
+    def undo():
+        for name, fn in real.items():
+            fn.launches = fake[name].launches
+            setattr(semiring_plane, name, fn)
+
+    return packs, seen, undo
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "pipelined"])
+def test_packed_rows_packed_once_per_runtime(pipelined):
+    """The blocked PageRank and triangle rungs read the uploaded graph's
+    packed tile rows only on the card: on a CPU engine the upload packs
+    nothing, the graph keeps no packed copy, and both rungs run their
+    twins over the int8 table (handed ``bits=None``) with the answers of an
+    engine whose wrappers are not watched."""
+    import bibfs_tpu_torch.analytics as PA
+    import bibfs_tpu_torch.serve as PS
+    from bibfs_tpu_torch.ops import semiring_plane
+
+    cls = PS.PipelinedQueryEngine if pipelined else PS.QueryEngine
+    port = _force(cls(N, EDGES, device="cpu"), 0)
+    plain = _force(cls(N, EDGES, device="cpu"), 0)
+    flushes = ([PA.Components()], [PA.PageRank()],
+               [PA.Triangles(), PA.PageRank(tol=1e-4)])
+    packs, seen, undo = _watch_bits(semiring_plane)
+    try:
+        got = [port.query_many(qs) for qs in flushes]
+        assert port._current_rt().blocked_graph().bits is None
+        assert not packs
+        assert len(seen) == 2 + -(-N // 256) and all(b is None for b in seen)
+        assert port.stats()["query_kinds"]["triangles"] == {
+            "triangles_blocked": 1}
+    finally:
+        undo()
+        port.close()
+    try:
+        for qs, res in zip(flushes, got):
+            assert all(_same(a, b) for a, b in zip(res, plain.query_many(qs)))
+    finally:
+        plain.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "pipelined"])
+def test_cuda_packed_rows_packed_once_per_runtime(pipelined):
+    """On the card the runtime's upload (here a labelling's) packs the
+    tile rows once; the graph keeps them, every later PageRank and
+    triangle flush is handed them and packs nothing more, and they equal
+    the twin's packing of the table."""
+    import torch
+
+    import bibfs_tpu_torch.analytics as PA
+    import bibfs_tpu_torch.serve as PS
+    from bibfs_tpu_torch.ops import semiring_plane
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    cls = PS.PipelinedQueryEngine if pipelined else PS.QueryEngine
+    port = _force(cls(N, EDGES), 0)
+    packs, seen, undo = _watch_bits(semiring_plane)
+    try:
+        port.query_many([PA.Components()])
+        rt = port._current_rt()
+        bits = rt.blocked_graph().bits
+        assert bits.is_cuda and len(packs) == 1 and not seen
+        for qs in ([PA.PageRank()], [PA.Triangles(), PA.PageRank(tol=1e-4)]):
+            port.query_many(qs)
+        assert rt.blocked_graph().bits is bits and len(packs) == 1
+        assert seen and all(b is bits for b in seen)
+        assert torch.equal(bits.cpu(), semiring_plane.pack_tile_rows_plain(
+            rt.blocked_graph().tab.cpu()))
+        assert port.stats()["query_kinds"]["triangles"] == {
+            "triangles_blocked": 1}
+    finally:
+        undo()
+        port.close()
+
+
 def _adaptive_entries(eng) -> dict:
     out = {}
     for key, ent in eng.stats()["adaptive"]["digests"].items():

@@ -184,6 +184,37 @@ def test_ab_kinds_times_both_checkouts_kernels(geom, capsys):
         ab.main([str(root), "--kinds", "ring-9", "--device", "cpu"])
 
 
+def test_ab_analytics_times_both_checkouts_kernels(capsys):
+    """``cli/ab.py --analytics`` against this very checkout as the parent
+    (a small dense-ish gnp graph, CPU): both checkouts' PageRank solves
+    and triangle chunk agree, each is timed in turns beside the change's
+    pack, and the modules it swapped are put back."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from bibfs_tpu_torch.cli import ab
+    from bibfs_tpu_torch.ops import semiring_plane
+
+    root = Path(ab.__file__).resolve().parents[2]
+    assert ab.main([str(root), "--analytics", "gnp-300-d12", "--rounds", "2",
+                    "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["same_results"] is True and out["card"] == "cpu"
+    assert (out["geometry"], out["n"], out["nblocks"]) == ("gnp-300-d12",
+                                                           300, 3)
+    assert out["max_abs_rank_diff"] == 0.0  # the same twin on the CPU
+    for key in ("parent/pagerank", "change/pagerank", "parent/tricount",
+                "change/tricount", "change/pack"):
+        assert out[key]["runs"] == 2 and out[key]["median_ms"] > 0
+    assert out["parent/pagerank"]["iters"] == out["change/pagerank"]["iters"]
+    assert "nvidia_smi" not in out
+    assert sys.modules["bibfs_tpu_torch.ops.semiring_plane"] is semiring_plane
+    for bad in ("grid-9x9", "gnp-300", "gnp-x-d4"):
+        with pytest.raises(ValueError, match="no geometry"):
+            ab.main([str(root), "--analytics", bad, "--device", "cpu"])
+
+
 def test_ab_build_split_parts_sum_to_the_build():
     """``cli/ab.py``'s ``build_split`` (what ``--oracle`` and
     ``chip_smoke.py`` phase 11 time) on a small grid on the CPU: the index

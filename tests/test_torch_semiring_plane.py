@@ -3,14 +3,17 @@
 msbfs_plane_blocked``) against the JAX package's on the CPU, on the same
 seeded inputs: the weight table byte for byte; the two tile products and
 the fixpoints' planes bit for bit with the same rounds (integer-valued
-data, exact in float32); the triangle chunks' counts exactly; the K-source
-blocked sweep's int16 plane exactly; PageRank's ranks within 1e-6 (float
-sums in another order) with the same iterations, or one off where the JAX
-package's last delta lies within 1e-7 of the tolerance (the two sides
-straddle it). The graphs: G(150, 8 / 150) (n not a tile multiple), two
-components, an empty graph and a 20x20 grid. The kernels of
-``csrc/semiring.cu`` against their twins need the card (``cuda`` marker,
-skipped here)."""
+data, exact in float32); the triangle chunks' counts exactly; the packed
+tile rows word for word against ``np.packbits``, and the twins over the
+table unpacked from them; the K-source blocked sweep's int16 plane
+exactly; PageRank's ranks within 1e-6 (float sums in another order) with
+the same iterations, or one off where the JAX package's last delta lies
+within 1e-7 of the tolerance (the two sides straddle it). The graphs:
+G(150, 8 / 150) (n not a tile multiple), two components, an empty graph
+and a 20x20 grid; the packed rows also on G(2000, 8 / 2000) with a hub of
+1,500 neighbours. The kernels of ``csrc/semiring.cu`` against their twins
+need the card (``cuda`` marker, skipped here), there also on wider
+tables and hub rows (:data:`WIDE`)."""
 
 import numpy as np
 import pytest
@@ -35,8 +38,24 @@ def _graphs():
     }
 
 
+def _hub_edges(n, p, seed, hub):
+    """G(n, p) with vertex 0 joined to ``hub`` other vertices besides."""
+    from bibfs_tpu_torch.graph.generate import gnp_random_graph
+
+    edges = gnp_random_graph(n, p, seed=seed)
+    if not hub:
+        return edges
+    far = np.random.default_rng(seed).choice(np.arange(1, n), size=hub,
+                                             replace=False)
+    star = np.stack([np.zeros(hub, dtype=far.dtype), far], axis=1)
+    return np.concatenate([edges, star.astype(edges.dtype)])
+
+
 GRAPHS = _graphs()
 NAMES = tuple(GRAPHS)
+#: a hub row of 1,500 neighbours: more columns than a PageRank warp lists
+#: at once (512) in one 128-slot group
+HUB = {"hub2000": (2000, _hub_edges(2000, 8 / 2000, 47, 1500))}
 
 
 def _blocked(name):
@@ -45,7 +64,7 @@ def _blocked(name):
     from bibfs_tpu_torch.graph.blocked import build_blocked
     from bibfs_tpu_torch.graph.csr import canonical_pairs
 
-    n, edges = GRAPHS[name]
+    n, edges = {**GRAPHS, **HUB}[name]
     pairs = canonical_pairs(n, edges)
     return n, pairs, build_blocked(n, pairs=pairs), ref_build(n, pairs=pairs)
 
@@ -278,6 +297,103 @@ def test_msbfs_plane_blocked_edges():
         port_ms.msbfs_plane_blocked(g, [150])
 
 
+# ---- the packed tile rows ----------------------------------------------------
+
+@pytest.mark.parametrize("name", NAMES + tuple(HUB))
+def test_pack_tile_rows_twin_is_packbits(name):
+    """The pack's twin is ``np.packbits(tab, bitorder="little")`` read as
+    little-endian 32-bit words, word for word; sentinel slots pack to zero;
+    unpacking gives back the table; on the CPU the wrapper runs the twin
+    (no launch counted)."""
+    from bibfs_tpu_torch.ops import semiring_plane as port
+
+    _n, _pairs, bg, _rg = _blocked(name)
+    before = port.pack_tile_rows.launches
+    bits = port.pack_tile_rows(_t(bg.tab))
+    assert port.pack_tile_rows.launches == before
+    want = np.packbits(bg.tab, axis=-1, bitorder="little")
+    want = np.ascontiguousarray(want).view("<u4").astype(np.int64)
+    assert bits.dtype.itemsize == 4 and tuple(bits.shape) == (
+        bg.nblocks, bg.bwidth, 128, 4)
+    got = bits.numpy().astype(np.int64) & 0xFFFFFFFF
+    assert np.array_equal(got, want)
+    assert np.array_equal(port.pack_tile_rows_plain(_t(bg.tab)).numpy(),
+                          bits.numpy())
+    assert bits.permute(0, 2, 1, 3).is_contiguous()  # stored slot-minor
+    sentinel = bg.bcol >= bg.nblocks
+    assert not bits.numpy()[sentinel].any()
+    back = port.unpack_tile_rows(bits)
+    assert back.dtype == _t(bg.tab).dtype
+    assert np.array_equal(back.numpy(), bg.tab)
+
+
+@pytest.mark.parametrize("name", NAMES + tuple(HUB))
+def test_twins_on_the_unpacked_table_give_jax_answers(name):
+    """The PageRank and triangle twins, fed the table unpacked from the
+    packed rows (and given the rows), answer as the JAX package does on
+    the original table: ranks within :data:`RANK_TOL`, iterations equal
+    or one off at a straddled tolerance, every chunk's count exactly."""
+    from bibfs_tpu.ops import semiring_plane as ref
+
+    from bibfs_tpu_torch.ops import semiring_plane as port
+
+    n, pairs, bg, rg = _blocked(name)
+    bits = port.pack_tile_rows(_t(bg.tab))
+    tab = port.unpack_tile_rows(bits)
+    kw = dict(n=n, damping=0.85, tol=1e-8, max_iters=100)
+    ranks, iters, _ = port.pagerank_blocked(tab, _t(bg.bcol), _t(bg.deg),
+                                            bits=bits, **kw)
+    want, want_iters, want_delta = ref.pagerank_blocked(
+        _j(rg.tab), _j(rg.bcol), _j(rg.deg), **kw)
+    assert np.max(np.abs(ranks.numpy() - np.asarray(want))) <= RANK_TOL
+    assert _iters_agree(iters, int(want_iters), float(want_delta), 1e-8)
+    for c0 in range(0, n, 256):
+        got = port.triangles_chunk_blocked(tab, _t(bg.bcol), c0, bits=bits)
+        plane = _jax_chunk_plane(n, bg.n_pad, pairs, c0)
+        assert int(got) == int(ref.triangles_chunk_blocked(
+            _j(rg.tab), _j(rg.bcol), _j(plane)))
+
+
+def _bad_bits(kind, bg):
+    import torch
+
+    good = (bg.nblocks, bg.bwidth, 128, 4)
+    if kind == "shape":
+        return torch.zeros((bg.nblocks, bg.bwidth, 128, 16), dtype=torch.int32)
+    if kind == "rows":
+        return torch.zeros((bg.nblocks, bg.bwidth + 1, 128, 4),
+                           dtype=torch.int32)
+    if kind == "dtype":
+        return torch.zeros(good, dtype=torch.uint8)
+    if kind == "strided":
+        return torch.zeros((*good[:3], 8), dtype=torch.int32)[..., ::2]
+    if kind == "slot-major":  # the right words, not stored slot-minor
+        return torch.zeros(good, dtype=torch.int32)
+    return np.zeros(good, dtype=np.int32)  # not a tensor
+
+
+@pytest.mark.parametrize("kind", ["shape", "rows", "dtype", "strided",
+                                  "slot-major", "numpy"])
+def test_wrappers_refuse_bits_of_the_wrong_shape_or_type(kind):
+    """Both wrappers refuse packed rows that are not ``tab``'s (shape,
+    type, the slot-minor layout), on the CPU as on the card, before any
+    work; the twin's packing is accepted."""
+    from bibfs_tpu_torch.ops import semiring_plane as port
+
+    n, _pairs, bg, _rg = _blocked("gnp150")
+    bits = _bad_bits(kind, bg)
+    with pytest.raises(ValueError):
+        port.pagerank_blocked(_t(bg.tab), _t(bg.bcol), _t(bg.deg), n=n,
+                              damping=0.85, tol=1e-8, max_iters=5, bits=bits)
+    with pytest.raises(ValueError):
+        port.triangles_chunk_blocked(_t(bg.tab), _t(bg.bcol), 0, bits=bits)
+    with pytest.raises(ValueError, match="128, 128"):
+        port.pack_tile_rows(_t(bg.tab)[..., :64])
+    good = port.pack_tile_rows(_t(bg.tab))
+    assert good.permute(0, 2, 1, 3).is_contiguous()
+    port.triangles_chunk_blocked(_t(bg.tab), _t(bg.bcol), 0, bits=good)
+
+
 # ---- the kernels against their twins, on the card --------------------------
 
 def _card():
@@ -367,3 +483,114 @@ def test_cuda_tricount_equals_twin(name):
         assert port.triangles_chunk_blocked.launches == before + 1
         want = port.triangles_chunk_blocked_plain(tab, bcol, c0)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_pack_equals_twin(name):
+    """``pack_tile_rows_kernel`` against its twin bit for bit, one launch
+    counted; sentinel slots zero."""
+    import torch
+
+    from bibfs_tpu_torch.ops import semiring_plane as port
+
+    _n, bg, tab, _bcol, _deg, _w = _card_graph(name)
+    before = port.pack_tile_rows.launches
+    bits = port.pack_tile_rows(tab)
+    torch.cuda.synchronize()
+    assert port.pack_tile_rows.launches == before + 1
+    assert bits.is_cuda and bits.dtype == torch.int32
+    assert bits.permute(0, 2, 1, 3).is_contiguous()
+    assert torch.equal(bits.cpu(), port.pack_tile_rows_plain(tab.cpu()))
+    assert not bits.cpu().numpy()[bg.bcol >= bg.nblocks].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NAMES)
+def test_cuda_kernels_with_packed_rows_equal_twins(name):
+    """Both kernels given the packed rows: no pack launched, PageRank
+    within :data:`RANK_TOL` of its twin with its iterations and the same
+    ranks bit for bit on a second run, every triangle chunk equal."""
+    import torch
+
+    from bibfs_tpu_torch.ops import semiring_plane as port
+
+    n, _bg, tab, bcol, deg, _w = _card_graph(name)
+    bits = port.pack_tile_rows(tab)
+    packs = port.pack_tile_rows.launches
+    kw = dict(n=n, damping=0.85, tol=1e-8, max_iters=100)
+    ranks, iters, _ = port.pagerank_blocked(tab, bcol, deg, bits=bits, **kw)
+    again, iters2, _ = port.pagerank_blocked(tab, bcol, deg, bits=bits, **kw)
+    assert torch.equal(ranks, again) and iters == iters2
+    want, want_iters, want_delta = port.pagerank_blocked_plain(
+        tab, bcol, deg, **kw)
+    assert float((ranks - want).abs().max()) <= RANK_TOL
+    assert _iters_agree(iters, want_iters, want_delta, 1e-8)
+    for c0 in range(0, n, 256):
+        got = port.triangles_chunk_blocked(tab, bcol, c0, bits=bits)
+        assert torch.equal(got, port.triangles_chunk_blocked_plain(
+            tab, bcol, c0))
+    assert port.pack_tile_rows.launches == packs
+
+
+#: wider tables than the four small graphs, n no chunk multiple: block rows
+#: of 47 and 71 slots (two and three 32-slot pieces a triangle block); a
+#: hub row of 1,500 and one of 3,000 neighbours (more columns in one
+#: 128-slot group than a PageRank warp lists at once: 512); and 157 slots
+#: with a hub of 5,000 (two 128-slot groups a PageRank row, both over 512
+#: columns on the hub's row; five pieces a triangle block). name -> (n, p,
+#: seed, hub degree)
+WIDE = {"gnp6000": (6000, 64 / 6000, 31, 0),
+        "gnp9000": (9000, 40 / 9000, 37, 0),
+        "hub2000": (2000, 8 / 2000, 47, 1500),
+        "hub8000": (8000, 16 / 8000, 41, 3000),
+        "wide20000": (20000, 24 / 20000, 43, 5000)}
+
+
+def _group_columns(bits):
+    """The most set columns a row holds in one 128-slot group of its
+    block row (what ``pagerank_kernel``'s warp lists for that group)."""
+    words = bits.cpu().numpy().view(np.uint32)  # [nblocks, bwidth, 128, 4]
+    per_slot = np.unpackbits(words.view(np.uint8), axis=-1).reshape(
+        *words.shape[:3], -1).sum(axis=-1)
+    return max(int(per_slot[:, s0:s0 + 128].sum(axis=1).max())
+               for s0 in range(0, words.shape[1], 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_cuda_wide_tables_equal_twins(name):
+    """The pack, PageRank (ranks, iterations, the same ranks on a second
+    run) and every triangle chunk on tables whose block rows span more
+    than one 32-slot piece, hub rows whose columns fill a warp's list more
+    than once, and block rows of two 128-slot groups, against their
+    twins."""
+    import torch
+
+    from bibfs_tpu_torch.graph.blocked import build_blocked
+    from bibfs_tpu_torch.graph.csr import canonical_pairs
+    from bibfs_tpu_torch.ops import semiring_plane as port
+
+    dev = _card()
+    n, p, seed, hub = WIDE[name]
+    bg = build_blocked(n, pairs=canonical_pairs(
+        n, _hub_edges(n, p, seed, hub)))
+    assert bg.bwidth > (128 if name == "wide20000" else 32 if not hub else 8)
+    tab, bcol, deg = (torch.from_numpy(np.array(a)).to(dev)
+                      for a in (bg.tab, bg.bcol, bg.deg))
+    bits = port.pack_tile_rows(tab)
+    assert torch.equal(bits.cpu(), port.pack_tile_rows_plain(tab.cpu()))
+    if hub:
+        assert _group_columns(bits) > 512
+    kw = dict(n=n, damping=0.85, tol=1e-8, max_iters=100)
+    ranks, iters, _ = port.pagerank_blocked(tab, bcol, deg, bits=bits, **kw)
+    again, iters2, _ = port.pagerank_blocked(tab, bcol, deg, bits=bits, **kw)
+    assert torch.equal(ranks, again) and iters == iters2
+    want, want_iters, want_delta = port.pagerank_blocked_plain(
+        tab, bcol, deg, **kw)
+    assert float((ranks - want).abs().max()) <= RANK_TOL
+    assert _iters_agree(iters, want_iters, want_delta, 1e-8)
+    for c0 in range(0, n, 256):
+        got = port.triangles_chunk_blocked(tab, bcol, c0, bits=bits)
+        assert torch.equal(got, port.triangles_chunk_blocked_plain(
+            tab, bcol, c0)), c0

@@ -47,14 +47,17 @@ call and a synchronize. ``same_results`` compares the distances,
 With ``--analytics GEOM`` (``gnp-10000-d128``, the graph of
 ``chip_smoke.py`` phase 16, or any ``gnp-N-dD``: G(N, D / (N - 1)), seed
 161) it times the analytics kernels instead: each checkout builds the
-graph's tile table and uploads it (the change also packs its tile rows
-once, as a serving runtime does), and per turn runs a PageRank solve
-(damping 0.85, tolerance 1e-8, at most 100 steps) and the triangle chunk
-at column 0 three times each (median; CUDA events around the call on the
-card, the host clock on the CPU), and the change's pack alone.
-``same_results`` holds the chunks' counts equal and the ranks within 1e-6
-with the same iterations; the line also carries ``nvidia-smi``'s name and
-power limit of the card.
+graph's tile table and uploads it (a checkout whose kernels take packed
+tile rows also packs them once, as a serving runtime does), and per turn
+runs a PageRank solve (damping 0.85, tolerance 1e-8, at most 100 steps),
+the triangle chunk at column 0 and three (min, +) fixpoints of phase 16
+(SSSP from 8 seeded sources on G(5000, 64 / 4999) under weight seed 0,
+labels on GEOM, SSSP from one source on the 64x64 grid) three times each
+(median; CUDA events around the call on the card, the host clock on the
+CPU), and the change's pack alone. ``same_results`` holds the chunks'
+counts, the fixpoints' planes bit for bit and their rounds equal and the
+ranks within 1e-6 with the same iterations; the line also carries
+``nvidia-smi``'s name and power limit of the card.
 
 The host-bound modes' times drift by tens of percent from process to
 process and over minutes; run in turns within one process, both
@@ -364,6 +367,11 @@ def _kinds_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
 ANALYTICS_GRAPHS = ("gnp-10000-d128",)
 ANALYTICS_SEED = 161  # phase 16's gnp-10000-d128
 RANK_ERR = 1e-6  # the two checkouts' PageRank ranks
+#: the fixpoints' graphs, as chip_smoke.py phase 16: G(5000, 64 / 4999)
+#: (n, mean degree, seed) and the 64 x 64 grid (2% of its edges removed);
+#: a test may set smaller ones and restore them
+FIXPOINT_GNP = (5000, 64, 163)
+FIXPOINT_GRID = (64, 64)
 
 
 def _analytics_graph(snap, geom: str):
@@ -389,12 +397,58 @@ def _card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def _analytics_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
-    """The PageRank and triangle kernels of both checkouts in turns, and
-    the change's pack (module docstring)."""
+def _fixpoint_inputs(snap, dev, geom: str, geom_bg) -> dict:
+    """One checkout's three (min, +) fixpoints of ``chip_smoke.py`` phase
+    16, built and uploaded by its own modules: step name -> ``(table,
+    bcol, init, from_tab, kw)``, ``kw`` the packed rows where its
+    ``minplus_fixpoint`` takes them."""
     import inspect
 
-    runs = {}
+    gen = snap[f"{PKG}.graph.generate"]
+    csr = snap[f"{PKG}.graph.csr"]
+    blk = snap[f"{PKG}.graph.blocked"]
+    sr = snap[f"{PKG}.ops.semiring_plane"]
+    packed = "bits" in inspect.signature(sr.minplus_fixpoint).parameters
+
+    def put(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    def blocked(n, edges):
+        pairs = csr.canonical_pairs(n, edges)
+        return pairs, blk.build_blocked(n, pairs=pairs)
+
+    def sssp(n, pairs, bg, c):
+        srcs = np.random.default_rng(0).choice(n, c, replace=False)
+        init = np.full((bg.n_pad, c), np.inf, np.float32)
+        init[srcs, np.arange(c)] = 0.0
+        w = put(blk.build_blocked_weights(bg, pairs, seed=0))
+        return w, put(bg.bcol), put(init), False
+
+    out = {}
+    n, deg, seed = FIXPOINT_GNP
+    pairs, bg = blocked(n, gen.gnp_random_graph(n, deg / (n - 1), seed=seed))
+    out[f"gnp-{n}-d{deg} sssp C=8"] = (*sssp(n, pairs, bg, 8), bg)
+    r, c = FIXPOINT_GRID
+    pairs, gbg = blocked(r * c, gen.grid_graph(r, c, perforation=0.02,
+                                               seed=1))
+    out[f"grid-{r}x{c} sssp C=1"] = (*sssp(r * c, pairs, gbg, 1), gbg)
+    bg = geom_bg
+    out[f"{geom} components"] = (
+        put(bg.tab), put(bg.bcol),
+        put(np.arange(bg.n_pad, dtype=np.float32)[:, None]), True, bg)
+    for step, (table, bcol, init, from_tab, b) in list(out.items()):
+        kw = {"bits": sr.pack_tile_rows(put(b.tab))} if packed else {}
+        out[step] = (table, bcol, init, from_tab, kw)
+    return out
+
+
+def _analytics_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
+    """The PageRank and triangle kernels and the three (min, +) fixpoints
+    of both checkouts in turns, and the change's pack (module
+    docstring)."""
+    import inspect
+
+    runs, fixes = {}, {}
     for who, snap in snaps.items():
         sys.modules.update(snap)
         n, bg = _analytics_graph(snap, geom)
@@ -405,6 +459,7 @@ def _analytics_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
         if "bits" in inspect.signature(sr.pagerank_blocked).parameters:
             kw["bits"] = sr.pack_tile_rows(g.tab)
         runs[who] = (sr, g, kw)
+        fixes[who] = _fixpoint_inputs(snap, dev, geom, bg)
     pr_kw = dict(n=n, damping=0.85, tol=1e-8, max_iters=100)
 
     def timed(fn):
@@ -425,17 +480,29 @@ def _analytics_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
                 ts.append((time.perf_counter() - t0) * 1e3)
         return out, float(np.median(ts))
 
+    steps = list(fixes["change"])
     times = {k: [] for k in ("parent/pagerank", "change/pagerank",
                              "parent/tricount", "change/tricount",
                              "change/pack")}
-    iters = {}
+    times.update({f"{who}/minplus {step}": [] for step in steps
+                  for who in ("parent", "change")})
+    iters, fix_rounds = {}, {}
     same, err = True, 0.0
     for rnd in range(rounds):
         order = ("parent", "change") if rnd % 2 == 0 else ("change", "parent")
-        outs = {}
+        outs, planes = {}, {}
         for who in order:
             sys.modules.update(snaps[who])
             sr, g, kw = runs[who]
+            for step, (table, bcol, init, from_tab, fkw) in fixes[who].items():
+                def fix():
+                    return sr.minplus_fixpoint(table, bcol, init,
+                                               from_tab=from_tab, **fkw)
+                fix()  # warm
+                (plane, r), ms = timed(fix)
+                times[f"{who}/minplus {step}"].append(ms)
+                fix_rounds[who, step] = r
+                planes[who, step] = plane
             sr.pagerank_blocked(g.tab, g.bcol, g.deg, **pr_kw, **kw)  # warm
             (ranks, it, _d), ms = timed(lambda: sr.pagerank_blocked(
                 g.tab, g.bcol, g.deg, **pr_kw, **kw))
@@ -453,6 +520,10 @@ def _analytics_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
         diff = float((pa[0] - ch[0]).abs().max())
         err = max(err, diff)
         same &= diff <= RANK_ERR and pa[1] == ch[1] and pa[2] == ch[2]
+        same &= all(torch.equal(planes["parent", st], planes["change", st])
+                    and fix_rounds["parent", st] == fix_rounds["change", st]
+                    for st in steps)
+        del planes
     bg = runs["change"][1]
     line = {"geometry": geom, "n": n, "nblocks": bg.nblocks,
             "bwidth": bg.bwidth, "rounds": rounds,
@@ -463,6 +534,9 @@ def _analytics_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
                      "p75_ms": float(np.percentile(v, 75)), "runs": len(v)}
         if key.endswith("pagerank"):
             line[key]["iters"] = iters[key.split("/")[0]]
+        if "/minplus " in key:
+            who, step = key.split("/minplus ")
+            line[key]["rounds"] = fix_rounds[who, step]
     return line
 
 
@@ -539,7 +613,7 @@ def main(argv=None) -> int:
                     help="time the query kinds' kernels on this graph "
                          f"({', '.join(KIND_GRAPHS)}, grid-RxC, gnp-deg8-sK)")
     ap.add_argument("--analytics", metavar="GEOM",
-                    help="time the PageRank and triangle kernels on this "
+                    help="time the analytics kernels on this "
                          f"graph ({', '.join(ANALYTICS_GRAPHS)}, gnp-N-dD)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)

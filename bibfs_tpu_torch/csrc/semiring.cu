@@ -8,9 +8,10 @@
 //   sssp_blocked :199 and components_blocked :213): Jacobi (min, +) sweeps
 //   nd[u, c] = min(d[u, c], min over stored (u, v) of w_uv + d[v, c]) over
 //   f32 planes [n_pad, C], until a sweep lowers nothing (that sweep
-//   counted) or max_rounds ran. The table is the f32 weight table of
-//   [nblocks, bwidth, 128, 128] (+inf off the edges), or the int8 adjacency
-//   read as 0 (edge) / +inf (none) for min-label propagation.
+//   counted) or max_rounds ran. The edges are the set bits of the packed
+//   tile rows (below); w_uv is that entry of the f32 weight table of
+//   [nblocks, bwidth, 128, 128] (+inf off the edges), or 0 for min-label
+//   propagation (no table read at all).
 // - pagerank_kernel (_build_pagerank, :138, through pagerank_blocked :226):
 //   damped power iteration r' = mask (base + damping (A c + mass / n)),
 //   c = r / deg on rows of nonzero degree, mass the rank of the live rows of
@@ -23,9 +24,9 @@
 //   s is tab[b, s, r, 32 w + j]), 16 bytes a tile row instead of 128, once
 //   per uploaded graph, stored slot-minor ([nblocks][128][bwidth][4]: a
 //   row's slots side by side, so a warp's lanes on a row's slots, or on
-//   one row of 32 slots, read 512 consecutive bytes); the PageRank and
-//   triangle kernels read only the packed rows. Bound: the int8 table read
-//   once, an eighth of it written.
+//   one row of 32 slots, read 512 consecutive bytes); the other three
+//   kernels read only the packed rows. Bound: the int8 table read once, an
+//   eighth of it written.
 //
 // Exactness. Distances, labels and counts are integers: the (min, +) sums
 // are exact in f32 below 2^24 (the serving gates hold that bound) and a min
@@ -41,17 +42,46 @@
 // 1. Persistent cooperative grids with a grid barrier between sweeps or
 //    power steps (level_common.cuh grid_barrier); the planes ping-pong
 //    between two buffers (Jacobi: a sweep reads only the buffer the last one
-//    finished, so its rounds are the reference's) and a round's "changed"
-//    flag lives in one of three words of the launch's zeroed working block
-//    (the one two rounds ahead is cleared by block 0 at the start of a round:
-//    every block has read it by then). The host reads one status word.
-// 2. (min, +) sweeps: a work item is 32 rows of one block row; its 8 warps
-//    take 4 rows each, a warp's lanes the in-tile columns v = lane + 32 k
-//    (each 128-wide tile row is four coalesced loads). For each stored tile
-//    of the block row the block stages the plane's column block transposed
-//    in shared memory ([columns][128], no bank conflicts) and skips the tile
-//    when that block is all +inf; sentinel slots (bcol == nblocks) are
-//    skipped unread.
+//    finished, so its rounds are the reference's). The host reads one status
+//    word.
+// 2. (min, +) sweeps, edge-driven over a changed-block-row worklist.
+//    - A row is a group of G lanes' (G the power of two that gives a lane
+//      at most 4 of the row's slots: 1 on a lattice's 3-slot rows, 32 on a
+//      dense graph's). The lanes load their slots' packed rows, list the
+//      set entries in shared memory (a popcount and a group scan give each
+//      lane its offsets), then take the listed entries a few at a time:
+//      the entry's own f32 weight (one 32-byte sector, not the 512-byte
+//      tile row; labels read none) and its row's plane columns, the min of
+//      the sums per column; a group butterfly, then min(old, that) is
+//      written. Sentinel slots are skipped unread. The warp's groups walk
+//      their rows together and every warp collective names the whole warp
+//      (shuffles of width G): per-group masks in a converged warp split it
+//      into one path a group.
+//    - Worklist: block row bi cannot change at sweep r unless a block row
+//      it reads (bcol[bi, :]) lowered an entry at sweep r - 1, since d[u]
+//      already bounds min_v(w_uv + d[v]) when no d[v] moved. Each sweep
+//      ORs the block rows it lowered into a bitmap of nblocks bits (three
+//      rotate in the launch's zeroed working block; the one a sweep will
+//      write was cleared by block 0 two sweeps before, when every block had
+//      read it). Sweep r + 1 works on the block rows that read a changed
+//      one AND on the changed ones themselves: the planes ping-pong, so a
+//      row that changed must still write its value into the other buffer
+//      (which holds the value from before that change); an inactive row's
+//      two buffers already agree. Sweep 0 takes every block row. Every
+//      block builds the same worklist from the bitmap and bcol (a flat scan
+//      of bcol, kept in shared memory when it fits, and a scan of the
+//      words), and the grid's lane groups walk its rows in order.
+//    - One-block stretches: while a sweep's rows fill at most kMpSoloRounds
+//      passes of one block's lane groups (512 rows at a lane a row), block 0
+//      runs it alone, with __syncthreads between sweeps and the changed
+//      rows kept in shared memory, while the other blocks park on an epoch
+//      word (level_common.cuh park / unpark, as delta_stepping_kernel does);
+//      when the worklist grows, block 0 stores the sweep and the changed
+//      rows and wakes the grid, which resumes with grid barriers. A row
+//      costs two dependent L2 trips (its packed rows, then its entries'
+//      values), so a block walks more rows than one pass slower than the
+//      grid walks them with a barrier: one pass is the most a stretch
+//      takes.
 // 3. PageRank is latency-bound, not bandwidth-bound: a step reads 16 bytes
 //    of packed row a stored slot (nnz_tiles 128 16 bytes, 12.8 MB on a
 //    79 x 79 table, which stays in the 50 MB L2 from step to step) and 4
@@ -81,8 +111,9 @@
 //    loads in flight while a row's edges are walked. One int64 atomicAdd a
 //    block.
 //
-// Bounds on the H100: a sweep reads every stored tile the skip rule keeps
-// and the plane; a power step the packed rows, bcol and the vectors; a
+// Bounds on the H100: a sweep reads the packed rows of its worklist's block
+// rows, a sector per stored edge's weight (SSSP) and the plane rows it reads
+// and writes; a power step the packed rows, bcol and the vectors; a
 // triangle chunk the packed rows of its edges' tiles, far less than the
 // dense product's 2 nnz_tiles 128^2 256 int8 operations; the pack reads the
 // int8 table once and writes an eighth of it.
@@ -99,14 +130,12 @@ using u64 = unsigned long long;
 constexpr int kTile = 128;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItemRows = 32;                    // rows of a work item
-constexpr int kParts = kTile / kItemRows;        // work items a block row
-constexpr int kRowsPerWarp = kItemRows / kWarps;  // rows a warp
-constexpr int kCols = 8;                         // plane columns a pass
 constexpr u64 kWaitNs = 5000000000ull;
 constexpr float kFInf = __builtin_inff();
 
-enum Ctl : int { kBar = 0, kErr = 1, kFlag = 2 /* 2, 3, 4 */, kCtlLen = 8 };
+// a launch's zeroed working words: the grid barrier's arrivals, the error
+// code, and D1's park epoch, beat and the sweep a parked grid resumes at
+enum Ctl : int { kBar = 0, kErr = 1, kEpoch = 2, kBeat = 3, kSweep = 4, kCtlLen = 8 };
 enum Err : int { kErrBarrier = 2 };
 
 __device__ __forceinline__ u64 ld_volatile(const u64* p) {
@@ -117,118 +146,10 @@ __device__ __forceinline__ bool barrier(u64* ctl) {
   return bibfs::grid_barrier(ctl + kBar, ctl + kErr, (u64)kErrBarrier, kWaitNs);
 }
 
-__device__ __forceinline__ float warp_min(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
-}
-
-// ---- D1: the (min, +) fixpoint ----------------------------------------------
-
-struct MinplusArgs {
-  const void* table;      // f32 weights, or int8 adjacency (kFromTab)
-  const int32_t* bcol;    // [nblocks, bwidth], sentinel nblocks
-  int64_t nblocks;
-  int bwidth;
-  int c;                  // plane columns
-  int64_t max_rounds;
-  float* planes;          // [2, n_pad, c]; buffer 0 holds the start
-  u64* ctl;               // [kCtlLen], zero at launch
-  int64_t* status;        // [0]: rounds, or -error
-};
-
-template <bool kFromTab, int CB>
-__global__ void __launch_bounds__(kThreads)
-minplus_fixpoint_kernel(MinplusArgs a) {
-  __shared__ float d_t[CB][kTile];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t items = a.nblocks * kParts;
-  const int64_t plane_len = a.nblocks * kTile * (int64_t)a.c;
-  int64_t rounds = 0;
-  for (int64_t r = 0;; ++r) {
-    const float* d = a.planes + (r & 1) * plane_len;
-    float* nd = a.planes + ((r + 1) & 1) * plane_len;
-    if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[kFlag + (r + 1) % 3] = 0;
-    int changed = 0;
-    for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
-      const int64_t bi = item / kParts;
-      const int row0 = (int)(item % kParts) * kItemRows + warp * kRowsPerWarp;
-      for (int c0 = 0; c0 < a.c; c0 += CB) {
-        float acc[kRowsPerWarp][CB];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-#pragma unroll
-          for (int cc = 0; cc < CB; ++cc) acc[j][cc] = kFInf;
-        }
-        for (int s = 0; s < a.bwidth; ++s) {
-          const int32_t bj = __ldg(a.bcol + bi * a.bwidth + s);
-          if (bj < 0 || bj >= a.nblocks) continue;  // a sentinel slot
-          __syncthreads();  // the last tile's readers are done with d_t
-          int finite = 0;
-          for (int idx = threadIdx.x; idx < CB * kTile; idx += kThreads) {
-            const int cc = idx / kTile, v = idx % kTile;
-            float x = kFInf;
-            if (c0 + cc < a.c) x = __ldcg(d + ((int64_t)bj * kTile + v) * a.c + c0 + cc);
-            d_t[cc][v] = x;
-            finite |= x < kFInf;
-          }
-          if (!__syncthreads_or(finite)) continue;  // nothing here can lower
-          const int64_t tile0 = (bi * a.bwidth + s) * (int64_t)kTile * kTile;
-#pragma unroll
-          for (int j = 0; j < kRowsPerWarp; ++j) {
-            const int64_t rowp = tile0 + (int64_t)(row0 + j) * kTile;
-            float w[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              if (kFromTab) {
-                w[k] = __ldg((const int8_t*)a.table + rowp + lane + 32 * k) > 0 ? 0.0f : kFInf;
-              } else {
-                w[k] = __ldg((const float*)a.table + rowp + lane + 32 * k);
-              }
-            }
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-#pragma unroll
-              for (int cc = 0; cc < CB; ++cc) {
-                acc[j][cc] = fminf(acc[j][cc], __fadd_rn(w[k], d_t[cc][lane + 32 * k]));
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          const int64_t u = bi * kTile + row0 + j;
-#pragma unroll
-          for (int cc = 0; cc < CB; ++cc) {
-            const float m = warp_min(acc[j][cc]);
-            if (lane == cc && c0 + cc < a.c) {
-              const int64_t at = u * a.c + c0 + cc;
-              const float old = __ldcg(d + at);
-              const float nv = fminf(old, m);
-              nd[at] = nv;
-              changed |= nv < old;
-            }
-          }
-        }
-      }
-    }
-    if (__syncthreads_or(changed) && threadIdx.x == 0) {
-      atomicExch(a.ctl + kFlag + r % 3, 1ull);
-    }
-    if (!barrier(a.ctl)) break;
-    rounds = r + 1;
-    if (ld_volatile(a.ctl + kFlag + r % 3) == 0 || rounds >= a.max_rounds) break;
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const u64 err = ld_volatile(a.ctl + kErr);
-    a.status[0] = err ? -(int64_t)err : rounds;
-  }
 }
 
 // ---- the packed tile rows -------------------------------------------------------
@@ -487,6 +408,446 @@ __global__ void __launch_bounds__(kThreads) pagerank_kernel(PagerankArgs a) {
   }
 }
 
+// ---- D1: the (min, +) fixpoint ----------------------------------------------
+
+constexpr int kMpThreads = 512;
+constexpr int kMpWarps = kMpThreads / 32;
+constexpr int kMpMaxRows = 16384;              // block rows the kernel takes
+constexpr int kMpMapWords = kMpMaxRows / 32;   // a bitmap of them
+constexpr int kMpSlots = 4;       // slots a lane loads at once
+constexpr int kMpListLane = 8;    // list entries a lane's group holds per lane
+// bcol entries a block keeps in (dynamic) shared memory: the whole of bcol
+// when it fits, read by every sweep's worklist and rows
+constexpr int kMpBcolCache = 12288;
+// a sweep runs in block 0 alone while its rows' lane groups fill at most
+// kMpSoloRounds passes of one block
+constexpr int kMpSoloRounds = 1;
+
+enum MpStatus : int { kMpRounds = 0, kMpSolo = 1, kMpGrid = 2, kMpActive = 3 };
+
+struct MinplusArgs {
+  const uint4* bits;      // [nblocks][128][bwidth] packed tile rows
+  const float* weights;   // f32 [nblocks, bwidth, 128, 128], or null: labels
+  const int32_t* bcol;    // [nblocks, bwidth], sentinel nblocks
+  int64_t nblocks;
+  int bwidth;
+  int c;                  // plane columns
+  int group;              // lanes a row (a power of two, at most 32)
+  int bcol_shared;        // bcol is copied into shared memory (stage_bits)
+  int64_t max_rounds;
+  float* planes;          // [2, n_pad, c]; buffer 0 holds the start
+  u64* ctl;               // [kCtlLen] words, then 3 changed-row bitmaps
+  int map_words;          // 32-bit words of one bitmap (even)
+  int64_t* status;        // [4]: rounds (or -error), sweeps one block / grid, active rows
+};
+
+struct MpShared {
+  uint32_t act[kMpMapWords];   // the sweep's block rows
+  uint32_t mine[kMpMapWords];  // the last sweep's changed rows, then the block's
+  int32_t pre[kMpMapWords + 1];  // active rows before each word of act
+  int32_t wsum[kMpWarps];
+  int2 list[kMpThreads * kMpListLane];  // (column, weight offset) a set entry
+};
+
+__device__ __forceinline__ uint32_t* chg_of(const MinplusArgs& a, int64_t r) {
+  return reinterpret_cast<uint32_t*>(a.ctl + kCtlLen) + (r % 3) * a.map_words;
+}
+
+// act's exclusive prefix counts into pre (pre[W] the total); clears mine.
+// All threads; returns the total. Up to 32 words (1,024 block rows) one warp
+// scans them; more take a block scan, two words a thread.
+__device__ int scan_active(MpShared& sh, int W) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (W <= 32) {
+    if (warp == 0) {
+      const int a0 = lane < W ? __popc(sh.act[lane]) : 0;
+      int x = a0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+      }
+      if (lane < W) sh.pre[lane] = x - a0;
+      if (lane == W - 1) sh.pre[W] = x;
+    } else if (t - 32 < W) {
+      sh.mine[t - 32] = 0u;
+    }
+    __syncthreads();
+    return sh.pre[W];
+  }
+  const int a0 = 2 * t < W ? __popc(sh.act[2 * t]) : 0;
+  const int a1 = 2 * t + 1 < W ? __popc(sh.act[2 * t + 1]) : 0;
+  int x = a0 + a1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sh.wsum[warp] = x;
+  for (int w = t; w < W; w += kMpThreads) sh.mine[w] = 0u;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < kMpWarps ? sh.wsum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
+    }
+    if (lane < kMpWarps) sh.wsum[lane] = v;
+  }
+  __syncthreads();
+  const int excl = (warp ? sh.wsum[warp - 1] : 0) + x - a0 - a1;
+  if (2 * t < W) sh.pre[2 * t] = excl;
+  if (2 * t + 1 < W) sh.pre[2 * t + 1] = excl + a0;
+  const int total = sh.wsum[kMpWarps - 1];
+  if (t == 0) sh.pre[W] = total;
+  __syncthreads();
+  return total;
+}
+
+// The lanes of a row (or of a block row's slots): G = a.group lanes, this
+// lane's place lig in its group, the group's first lane in the warp and its
+// lanes as a mask. Every warp collective below runs on the whole warp (full
+// mask, shuffles of width G) with trip counts the same for the warp's
+// groups: a converged warp whose lanes name different masks is split and
+// runs its groups one after another.
+struct Group {
+  int G, lig, first;
+  unsigned mask;
+  __device__ __forceinline__ explicit Group(int g)
+      : G(g), lig(threadIdx.x & (g - 1)), first((threadIdx.x & 31) & ~(g - 1)) {
+    mask = g == 32 ? 0xffffffffu : ((1u << g) - 1u) << first;
+  }
+  // whether any lane of this group has pred (all lanes of the warp call it)
+  __device__ __forceinline__ bool any(bool pred) const {
+    return (__ballot_sync(0xffffffffu, pred) & mask) != 0u;
+  }
+};
+
+// Sweep r's worklist into sh.act: every block row at sweep 0; after it, the
+// block rows that lowered an entry at sweep r - 1 (their values go into the
+// other buffer) and every block row that reads one of them (bcol). Those
+// rows come from chg_of(r - 1), or, after a sweep block 0 ran alone
+// (local), from sh.mine, which is then stored into chg_of(r - 1) for the
+// grid to read should it resume. A lane group a block row tests its slots
+// (a batch of loads at a time, stopping after a changed one); a block row
+// that changed is not tested. All threads; returns the active block rows
+// (0: the last sweep lowered nothing).
+__device__ int worklist(const MinplusArgs& a, MpShared& sh, const int32_t* bcol,
+                        int64_t r, int W, bool local) {
+  const int t = threadIdx.x;
+  if (r == 0) {
+    for (int w = t; w < W; w += kMpThreads) {
+      const int64_t left = a.nblocks - 32 * (int64_t)w;
+      sh.act[w] = left >= 32 ? ~0u : (1u << left) - 1u;
+    }
+    __syncthreads();
+    return scan_active(sh, W);
+  }
+  uint32_t* prev = chg_of(a, r - 1);
+  for (int w = t; w < W; w += kMpThreads) {
+    uint32_t x;
+    if (local) {
+      x = sh.mine[w];
+      prev[w] = x;
+    } else {
+      x = __ldcg(prev + w);
+      sh.mine[w] = x;
+    }
+    sh.act[w] = x;
+  }
+  __syncthreads();
+  const Group grp(a.group);
+  const int per = kMpThreads / grp.G;
+  for (int b0 = 0; b0 < a.nblocks; b0 += per) {  // the same trips for every group
+    const int bi = b0 + t / grp.G;
+    bool hit = false;
+    if (bi < a.nblocks && !(sh.mine[bi >> 5] >> (bi & 31) & 1u)) {
+      const int32_t* cols = bcol + (int64_t)bi * a.bwidth;
+      for (int s0 = 0; s0 < a.bwidth && !hit; s0 += grp.G * kMpSlots) {
+        int32_t bj[kMpSlots];
+#pragma unroll
+        for (int k = 0; k < kMpSlots; ++k) {  // loads issued together
+          const int s = s0 + grp.lig + grp.G * k;
+          bj[k] = s < a.bwidth ? cols[s] : -1;
+        }
+#pragma unroll
+        for (int k = 0; k < kMpSlots; ++k) {
+          hit |= bj[k] >= 0 && bj[k] < a.nblocks && (sh.mine[bj[k] >> 5] >> (bj[k] & 31) & 1u);
+        }
+      }
+    }
+    if (grp.any(hit) && grp.lig == 0) {
+      atomicOr(&sh.act[bi >> 5], 1u << (bi & 31));
+    }
+  }
+  __syncthreads();
+  return scan_active(sh, W);
+}
+
+// The a-th active block row of sh.act.
+__device__ __forceinline__ int64_t nth_active(const MpShared& sh, int W, int a) {
+  int lo = 0, hi = W;  // pre[lo] <= a < pre[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (sh.pre[mid] <= a) lo = mid; else hi = mid;
+  }
+  uint32_t m = sh.act[lo];
+  for (int k = a - sh.pre[lo]; k > 0; --k) m &= m - 1u;
+  return 32 * (int64_t)lo + __ffs(m) - 1;
+}
+
+// Row u's plane columns c0 .. c0 + CB - 1 of the row v (an entry's column)
+// into x: +inf past the plane's width. Read through L1: a grid barrier's or a
+// parked block's ld.acquire.gpu, then bar.sync, order these weak loads after
+// every write of the last sweep (and in one block, bar.sync alone).
+template <int CB>
+__device__ __forceinline__ void load_cols(const float* p, int left, bool vec,
+                                          float (&x)[CB]) {
+  if constexpr (CB >= 4) {
+    if (vec) {
+#pragma unroll
+      for (int j = 0; j < CB; j += 4) {
+        float4 f = make_float4(kFInf, kFInf, kFInf, kFInf);
+        if (j < left) f = __ldca(reinterpret_cast<const float4*>(p + j));
+        x[j] = f.x;
+        x[j + 1] = f.y;
+        x[j + 2] = f.z;
+        x[j + 3] = f.w;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < CB; ++j) x[j] = j < left ? __ldca(p + j) : kFInf;
+}
+
+// One row u = 128 bi + row of one sweep, by a group of G lanes (lane lig of
+// the group; a group whose row is not valid loads nothing and writes
+// nothing, but joins its warp's collectives): for each chunk of CB plane
+// columns, the lanes
+// load their slots' packed rows (lig, lig + G, ...; kMpSlots at a time),
+// list the set entries in the group's shared list in (lane, slot, column)
+// order at offsets from a group scan, then take the entries lig, lig + G,
+// ... kGather at a time: the entry's weight (its own 4 bytes of the table,
+// one sector, not the tile row; 0 for labels) and its row's plane columns,
+// min of the sums. A group butterfly gives every lane the row's minima;
+// lane lig writes the chunk's columns j with j % G == lig: min(old, that).
+// Returns whether this lane lowered a value.
+template <int CB>
+__device__ bool sweep_row(const MinplusArgs& a, const int32_t* bcol, const float* d,
+                          float* nd, int64_t bi, int row, bool valid,
+                          const Group& grp, int2* list) {
+  constexpr int kGather = CB == 8 ? 2 : 4;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int G = grp.G, lig = grp.lig;
+  const int cap = kMpListLane * G;
+  const int64_t u = bi * kTile + row;
+  const uint4* rbits = a.bits + u * a.bwidth;
+  const int32_t* cols = bcol + bi * a.bwidth;
+  const float* wrow = a.weights ? a.weights + (bi * a.bwidth * kTile + row) * kTile
+                                : nullptr;
+  const bool vec = a.c % 4 == 0;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  bool lowered = false;
+  for (int c0 = 0; c0 < a.c; c0 += CB) {
+    const int left = a.c - c0;
+    float acc[CB], old[CB];  // old: the row's own values, this lane's columns
+#pragma unroll
+    for (int j = 0; j < CB; ++j) {
+      acc[j] = kFInf;
+      old[j] = valid && j % G == lig && j < left ? __ldca(d + u * a.c + c0 + j) : kFInf;
+    }
+    for (int s0 = 0; s0 < a.bwidth; s0 += G * kMpSlots) {
+      uint4 w[kMpSlots];
+      int32_t col0[kMpSlots];
+      int cnt = 0;
+#pragma unroll
+      for (int t = 0; t < kMpSlots; ++t) {
+        const int s = s0 + lig + G * t;
+        int32_t bj = -1;
+        w[t] = zero;
+        if (valid && s < a.bwidth) {
+          bj = cols[s];
+          w[t] = __ldg(rbits + s);
+        }
+        if (bj < 0 || bj >= a.nblocks) w[t] = zero;  // a sentinel slot
+        col0[t] = bj * kTile;
+        cnt += __popc(w[t].x) + __popc(w[t].y) + __popc(w[t].z) + __popc(w[t].w);
+      }
+      int off = cnt;  // the group's inclusive scan, then exclusive
+      for (int o = 1; o < G; o <<= 1) {
+        const int y = __shfl_up_sync(kAll, off, o, G);
+        if (lig >= o) off += y;
+      }
+      const int total = __shfl_sync(kAll, off, G - 1, G);
+      off -= cnt;
+      const int most = __reduce_max_sync(kAll, total);  // the warp's passes
+      for (int base = 0; base < most; base += cap) {
+        int at = off;
+#pragma unroll
+        for (int t = 0; t < kMpSlots; ++t) {
+          const int wo = (s0 + lig + G * t) * kTile * kTile;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            uint32_t m = word_of(w[t], k);
+            while (m) {
+              const int j = __ffs(m) - 1;
+              m &= m - 1u;
+              if (at >= base && at < base + cap) {
+                list[at - base] = make_int2(col0[t] + 32 * k + j, wo + 32 * k + j);
+              }
+              ++at;
+            }
+          }
+        }
+        __syncwarp();
+        const int here = total - base < cap ? (total > base ? total - base : 0) : cap;
+        for (int e0 = 0; e0 < here; e0 += G * kGather) {
+          float wt[kGather];
+          float x[kGather][CB];
+#pragma unroll
+          for (int h = 0; h < kGather; ++h) {
+            const int e = e0 + lig + G * h;
+            wt[h] = kFInf;
+#pragma unroll
+            for (int j = 0; j < CB; ++j) x[h][j] = kFInf;
+            if (e < here) {
+              const int2 en = list[e];
+              wt[h] = wrow ? __ldg(wrow + en.y) : 0.0f;
+              load_cols<CB>(d + (int64_t)en.x * a.c + c0, left, vec, x[h]);
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < kGather; ++h) {
+#pragma unroll
+            for (int j = 0; j < CB; ++j) acc[j] = fminf(acc[j], __fadd_rn(wt[h], x[h][j]));
+          }
+        }
+        __syncwarp();  // the list is rewritten for the next pass
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CB; ++j) {
+      for (int o = G >> 1; o > 0; o >>= 1) {
+        acc[j] = fminf(acc[j], __shfl_xor_sync(kAll, acc[j], o, G));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CB; ++j) {
+      if (valid && j % G == lig && j < left) {
+        const float nv = fminf(old[j], acc[j]);
+        nd[u * a.c + c0 + j] = nv;
+        lowered |= nv < old[j];
+      }
+    }
+  }
+  return lowered;
+}
+
+// One sweep r over the worklist in sh (A active block rows): the grid's lane
+// groups, or block 0's alone (solo), walk the active rows and mark the block
+// rows they lowered in sh.mine. On the grid each block then ORs its marks
+// into chg_of(r), one atomicOr a word; block 0 alone keeps them there.
+template <int CB>
+__device__ void minplus_sweep(const MinplusArgs& a, MpShared& sh,
+                              const int32_t* bcol, int64_t r, int W, int A,
+                              bool solo) {
+  const int64_t plane_len = a.nblocks * kTile * (int64_t)a.c;
+  const float* d = a.planes + (r & 1) * plane_len;
+  float* nd = a.planes + ((r + 1) & 1) * plane_len;
+  const Group grp(a.group);
+  int2* list = sh.list + (threadIdx.x / grp.G) * (kMpListLane * grp.G);
+  const int64_t per = kMpThreads / grp.G;
+  const int64_t groups = solo ? per : per * gridDim.x;
+  // the warp's first group's unit: the warp walks its units together
+  const int64_t wq = (solo ? 0 : (int64_t)blockIdx.x * per) + (threadIdx.x & ~31) / grp.G;
+  const int in_warp = (threadIdx.x & 31) / grp.G;
+  const int64_t units = (int64_t)A * kTile;
+  for (int64_t q0 = wq; q0 < units; q0 += groups) {
+    const int64_t q = q0 + in_warp;
+    const bool valid = q < units;
+    const int64_t bi = valid ? nth_active(sh, W, (int)(q / kTile)) : 0;
+    if (sweep_row<CB>(a, bcol, d, nd, bi, (int)(q % kTile), valid, grp, list)) {
+      const uint32_t bit = 1u << (bi & 31);
+      if (!(sh.mine[bi >> 5] & bit)) atomicOr(&sh.mine[bi >> 5], bit);
+    }
+  }
+  __syncthreads();
+  if (solo) return;
+  uint32_t* out = chg_of(a, r);
+  for (int w = threadIdx.x; w < W; w += kMpThreads) {
+    if (sh.mine[w]) atomicOr(out + w, sh.mine[w]);
+  }
+}
+
+template <int CB>
+__global__ void __launch_bounds__(kMpThreads, 1)
+minplus_fixpoint_kernel(MinplusArgs a) {
+  __shared__ MpShared sh;
+  const int W = (int)((a.nblocks + 31) >> 5);
+  const int32_t* bcol = a.bcol;
+  if (a.bcol_shared) {  // read-only for the launch: one copy a block
+    int32_t* cached = reinterpret_cast<int32_t*>(stage_bits);
+    const int n = (int)a.nblocks * a.bwidth;
+    for (int i = threadIdx.x; i < n; i += kMpThreads) cached[i] = __ldg(a.bcol + i);
+    __syncthreads();
+    bcol = cached;
+  }
+  const int64_t solo_cap = (int64_t)kMpSoloRounds * kMpThreads;
+  u64 seen = 0;         // the park epoch this block knows
+  bool alone = false;   // block 0 runs a one-block stretch
+  int64_t r = 0, solo_sweeps = 0, grid_sweeps = 0, active = 0;
+  for (;;) {
+    const int A = r < a.max_rounds ? worklist(a, sh, bcol, r, W, alone) : 0;
+    if (A == 0) {  // the last sweep lowered nothing, or max_rounds ran
+      if (alone && threadIdx.x == 0) bibfs::unpark(a.ctl + kEpoch, seen + 1);
+      break;
+    }
+    const bool solo = (int64_t)A * kTile * a.group <= solo_cap;
+    if (solo && blockIdx.x != 0) {
+      const u64 e = bibfs::park(a.ctl + kEpoch, seen, a.ctl + kBeat,
+                                a.ctl + kErr, (u64)kErrBarrier, kWaitNs);
+      if (e == bibfs::kParkGaveUp || (e & 1ull)) break;
+      seen = e;
+      r = (int64_t)ld_volatile(a.ctl + kSweep);
+      continue;
+    }
+    if (solo) {
+      alone = true;
+    } else if (alone) {  // the stretch ends: the grid resumes at sweep r
+      if (threadIdx.x == 0) {
+        a.ctl[kSweep] = (u64)r;
+        bibfs::unpark(a.ctl + kEpoch, seen + 2);
+      }
+      seen += 2;
+      alone = false;
+    }
+    if (blockIdx.x == 0) {  // every block read it two sweeps ago
+      uint32_t* next = chg_of(a, r + 1);
+      for (int w = threadIdx.x; w < W; w += kMpThreads) next[w] = 0u;
+    }
+    minplus_sweep<CB>(a, sh, bcol, r, W, A, solo);
+    if (solo) {
+      __syncthreads();
+      if (threadIdx.x == 0) *reinterpret_cast<volatile u64*>(a.ctl + kBeat) = (u64)r + 1;
+      ++solo_sweeps;
+    } else {
+      if (!barrier(a.ctl)) break;
+      ++grid_sweeps;
+    }
+    active += A;
+    ++r;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const u64 err = ld_volatile(a.ctl + kErr);
+    a.status[kMpRounds] = err ? -(int64_t)err : r;
+    a.status[kMpSolo] = solo_sweeps;
+    a.status[kMpGrid] = grid_sweeps;
+    a.status[kMpActive] = active;
+  }
+}
+
 // ---- D3: one chunk's triangle count ---------------------------------------------
 
 // the widest block row tricount_kernel takes (its grid: the chunk's block
@@ -593,14 +954,14 @@ tricount_kernel(const uint4* __restrict__ bits, const int32_t* __restrict__ bcol
 }
 
 template <class K>
-int coop_blocks(K kernel, int64_t items, int* blocks) {
+int coop_blocks(K kernel, int threads, int64_t items, int* blocks, size_t dyn = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, dyn);
   }
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -610,50 +971,70 @@ int coop_blocks(K kernel, int64_t items, int* blocks) {
 }
 
 template <class K>
-int launch_coop(K kernel, int64_t items, void* args, void* stream) {
+int launch_coop(K kernel, int threads, int64_t items, void* args, void* stream,
+                size_t dyn = 0) {
   int blocks = 0;
-  const int rc = coop_blocks(kernel, items, &blocks);
+  const int rc = coop_blocks(kernel, threads, items, &blocks, dyn);
   if (rc != 0) return rc;
   void* argv[] = {args};
   return (int)cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
-                                          dim3(kThreads), argv, 0,
+                                          dim3(threads), argv, dyn,
                                           (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// One (min, +) fixpoint (module comment) in one cooperative launch. table
-// f32 (from_tab 0) or int8 (from_tab 1) [nblocks, bwidth, 128, 128], bcol
-// int32 [nblocks, bwidth]; planes f32 [2, nblocks * 128, c] with the start in
-// buffer 0 (the result lands in buffer rounds & 1); ctl [8] int64 zero;
-// status [1] int64 receives the rounds, or minus the error code. The launch's
-// error code is returned.
-extern "C" int bibfs_minplus_fixpoint(const void* table, int from_tab,
+// One (min, +) fixpoint (module comment) in one cooperative launch over the
+// packed tile rows bits int32 [nblocks, 128, bwidth, 4] (16-byte aligned):
+// weights f32 [nblocks, bwidth, 128, 128] (finite exactly at the set bits),
+// or null for labels (0 on every edge); bcol int32 [nblocks, bwidth]; planes
+// f32 [2, nblocks * 128, c] with the start in buffer 0 (the result lands in
+// buffer rounds & 1); ctl int64 [8 + 3 ceil(nblocks / 64)] zero; status [4]
+// int64 receives the rounds (or minus the error code), the sweeps run in
+// one block and on the grid, and the active block rows summed over sweeps.
+// The launch's error code is returned.
+extern "C" int bibfs_minplus_fixpoint(const void* bits, const void* weights,
                                       const void* bcol, int64_t nblocks,
                                       int bwidth, int c, int64_t max_rounds,
                                       void* planes, void* ctl, void* status,
                                       void* stream) {
-  if (nblocks < 1 || nblocks * kTile > INT32_MAX || bwidth < 1 || c < 1 ||
-      max_rounds < 1) {
+  if (nblocks < 1 || nblocks > kMpMaxRows || bwidth < 1 || c < 1 ||
+      max_rounds < 1 || (uintptr_t)bits % 16) {
     return (int)cudaErrorInvalidValue;
   }
   MinplusArgs a;
-  a.table = table;
+  a.bits = (const uint4*)bits;
+  a.weights = (const float*)weights;
   a.bcol = (const int32_t*)bcol;
   a.nblocks = nblocks;
   a.bwidth = bwidth;
   a.c = c;
+  // lanes a row: enough that a lane loads at most kMpSlots slots at once
+  a.group = 1;
+  while (a.group < 32 && a.group * kMpSlots < bwidth) a.group <<= 1;
   a.max_rounds = max_rounds;
   a.planes = (float*)planes;
   a.ctl = (u64*)ctl;
+  a.map_words = (int)(2 * ((nblocks + 63) / 64));
   a.status = (int64_t*)status;
-  const int64_t items = nblocks * kParts;
-  if (from_tab) {
-    return c == 1 ? launch_coop(minplus_fixpoint_kernel<true, 1>, items, &a, stream)
-                  : launch_coop(minplus_fixpoint_kernel<true, kCols>, items, &a, stream);
+  const int64_t slots = nblocks * bwidth;
+  a.bcol_shared = slots <= kMpBcolCache;
+  const size_t dyn = a.bcol_shared ? (size_t)slots * sizeof(int32_t) : 0;
+  const int which = c == 1 ? 0 : c <= 4 ? 1 : 2;
+  void (*const kernel)(MinplusArgs) =
+      which == 0 ? minplus_fixpoint_kernel<1>
+                 : which == 1 ? minplus_fixpoint_kernel<4> : minplus_fixpoint_kernel<8>;
+  static bool ready[3] = {false, false, false};  // bcol's cache allowed
+  if (!ready[which]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMpBcolCache * (int)sizeof(int32_t));
+    if (err != cudaSuccess) return (int)err;
+    ready[which] = true;
   }
-  return c == 1 ? launch_coop(minplus_fixpoint_kernel<false, 1>, items, &a, stream)
-                : launch_coop(minplus_fixpoint_kernel<false, kCols>, items, &a, stream);
+  // sweep 0's lane groups over every row, at most the card's resident blocks
+  const int64_t want = (nblocks * kTile * a.group + kMpThreads - 1) / kMpThreads;
+  return launch_coop(kernel, kMpThreads, want, &a, stream, dyn);
 }
 
 // Pack the int8 tiles' rows, one bit an entry (pack_tile_rows_kernel): tab
@@ -703,7 +1084,8 @@ extern "C" int bibfs_pagerank(const void* bits, const void* bcol, const void* de
   a.part = (float*)part;
   a.ctl = (u64*)ctl;
   a.status = (int64_t*)status;
-  return launch_coop(pagerank_kernel, nblocks * kTile / kPrRows, &a, stream);
+  return launch_coop(pagerank_kernel, kThreads, nblocks * kTile / kPrRows, &a,
+                     stream);
 }
 
 // One chunk's ordered-pair triangle total (module comment): rows c0 .. c0 +

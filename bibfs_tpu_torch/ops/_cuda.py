@@ -75,7 +75,7 @@ SIGNATURES = {
                                    _P, _I64, _P, _P, _P],
     },
     "semiring": {
-        "bibfs_minplus_fixpoint": [_P, _I, _P, _I64, _I, _I, _I64, _P, _P, _P,
+        "bibfs_minplus_fixpoint": [_P, _P, _P, _I64, _I, _I, _I64, _P, _P, _P,
                                    _P],
         "bibfs_pack_tile_rows": [_P, _I64, _I, _P, _P],
         "bibfs_pagerank": [_P, _P, _P, _I64, _I, _I64, _F, _F, _F, _I64, _P,

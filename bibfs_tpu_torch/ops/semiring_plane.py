@@ -24,7 +24,11 @@ semantics (what the tests hold against the JAX package):
 - :func:`sssp_blocked` / :func:`components_blocked` -> :func:`minplus_fixpoint`
   (``minplus_fixpoint_kernel``; twin :func:`minplus_fixpoint_plain`):
   Jacobi sweeps ``nd = min(d, A (x) d)`` until a sweep changes nothing
-  (that sweep counted), at most ``nblocks * tile`` sweeps;
+  (that sweep counted), at most ``nblocks * tile`` sweeps. The kernel
+  sweeps only a worklist of block rows (those a changed block row feeds,
+  and the changed ones); :func:`minplus_fixpoint_worklist` is those sweeps
+  in torch, what :func:`minplus_needed_bytes` and
+  :func:`minplus_sweep_modes` count from;
 - :func:`pagerank_blocked` (``pagerank_kernel``; twin
   :func:`pagerank_blocked_plain`): damped power iteration to the L1
   tolerance ``max(tol, 5e-7)``, the dangling mass spread over the ``n``
@@ -36,16 +40,17 @@ semantics (what the tests hold against the JAX package):
   ``c0`` and read from the table (:func:`triangle_plane` builds the
   reference's plane from it).
 
-On the card the PageRank and triangle kernels read the table's packed
-tile rows, one bit an entry (:func:`pack_tile_rows` over
+On the card the (min, +), PageRank and triangle kernels read the table's
+packed tile rows, one bit an entry (:func:`pack_tile_rows` over
 ``pack_tile_rows_kernel``; twin :func:`pack_tile_rows_plain`, inverse
 :func:`unpack_tile_rows`): int32 ``[nblocks, bwidth, tile, 4]``, an eighth
 of the int8 table, stored slot-minor (a view of ``[nblocks, tile, bwidth,
 4]`` memory: a tile row of every slot of a block row side by side, what
 the kernels' lanes read together), built once per uploaded graph by the
-serving runtime (``BlockedDeviceGraph.bits``) and passed as ``bits=``; a
-wrapper given none packs the table itself. The CPU twins read the int8
-table.
+serving runtime (``BlockedDeviceGraph.bits``) and passed as ``bits=``; the
+PageRank and triangle wrappers given none pack the table themselves, the
+(min, +) wrapper raises (its weight table is not the adjacency). The CPU
+twins read the int8 or float32 table.
 
 Exactness: distances (integer weight sums), labels (vertex ids) and
 triangle counts are integers, exact in float32 below 2^24 (the serving
@@ -89,6 +94,19 @@ _ERR_BARRIER = 2
 _CTL_LEN = 8
 # the fewest rows of a PageRank work item (a warp each)
 _PR_ITEM_ROWS = 8
+# minplus_fixpoint_kernel's status words: rounds (or minus an error code),
+# sweeps run in one block, sweeps run on the grid, active block rows summed
+_MP_STATUS_LEN = 4
+
+#: ``minplus_fixpoint_kernel``'s block, the slots a lane loads at once, and
+#: the passes of one block's lane groups a sweep may fill and still run in
+#: block 0 alone (``csrc/semiring.cu``)
+MINPLUS_THREADS = 512
+MINPLUS_SLOTS = 4
+MINPLUS_SOLO_ROUNDS = 1
+#: the most block rows ``minplus_fixpoint_kernel`` takes (its worklist
+#: bitmaps live in shared memory)
+MINPLUS_MAX_BLOCK_ROWS = 16384
 
 
 def minplus_chunk_rows(bwidth: int, c: int, tile: int = TILE) -> int:
@@ -123,12 +141,14 @@ def minplus_plane(fr, table, bcol, *, rc: int, from_tab: bool):
     """``out[u] = min over edges (u, v) of (w_uv + fr[v])`` per plane
     column. ``table`` is the float32 weight table (+inf at absent slots),
     or with ``from_tab=True`` the int8 adjacency read as 0/inf weights.
-    Sentinel slots gather an all-+inf tile and never win the min."""
+    Sentinel slots gather an all-+inf tile and never win the min. ``table``
+    and ``bcol`` may be some block rows of the graph's (``fr`` the whole
+    plane): the rows of those block rows come out."""
     nblocks, bwidth = bcol.shape
     tile = table.shape[2]
     c = fr.shape[1]
     inf = torch.tensor(float("inf"), dtype=fr.dtype, device=fr.device)
-    f2 = fr.reshape(nblocks, tile, c)
+    f2 = fr.reshape(-1, tile, c)
     f2p = torch.cat([f2, inf.expand(1, tile, c)], dim=0)
     outs = []
     for i0 in range(0, nblocks, rc):
@@ -166,6 +186,94 @@ def minplus_fixpoint_plain(table, bcol, init, *, from_tab: bool,
         d = nd
         rounds += 1
     return d, rounds
+
+
+def minplus_fixpoint_worklist(table, bcol, init, *, from_tab: bool,
+                              max_rounds: int | None = None):
+    """The sweeps of ``minplus_fixpoint_kernel`` in torch: the same planes
+    and rounds as :func:`minplus_fixpoint_plain`, each sweep computed only
+    on its worklist, over two ping-pong buffers as the kernel holds them
+    (the second starts as NaN, so a row no sweep wrote shows). Sweep 0
+    takes every block row; sweep ``r`` the block rows that lowered an entry
+    at sweep ``r - 1`` and every block row whose ``bcol`` row holds one of
+    them. Returns ``(plane, rounds, sweeps)``, ``sweeps`` the active block
+    rows of each sweep (int64 numpy arrays)."""
+    nblocks, bwidth = bcol.shape
+    tile = table.shape[2]
+    if max_rounds is None:
+        max_rounds = nblocks * tile
+    c = init.shape[1]
+    rc = minplus_chunk_rows(bwidth, c, tile)
+    dev = table.device
+    first = init.to(device=dev, dtype=torch.float32)
+    bufs = [first.clone(), torch.full_like(first, float("nan"))]
+    bc = bcol.cpu().numpy()
+    in_tile = torch.arange(tile, device=dev)
+    sweeps: list = []
+    act = np.arange(nblocks)
+    rounds = 0
+    while rounds < max_rounds and act.size:
+        d, nd = bufs[rounds & 1], bufs[(rounds + 1) & 1]
+        rows = torch.as_tensor(act, device=dev)
+        prod = minplus_plane(d, table[rows], bcol[rows], rc=rc,
+                             from_tab=from_tab)
+        idx = (rows[:, None] * tile + in_tile).reshape(-1)
+        old = d[idx]
+        new = torch.minimum(old, prod)
+        nd[idx] = new
+        lowered = (new < old).reshape(act.size, -1).any(dim=1).cpu().numpy()
+        sweeps.append(act)
+        rounds += 1
+        changed = act[lowered]
+        act = np.flatnonzero(np.isin(np.arange(nblocks), changed)
+                             | np.isin(bc, changed).any(axis=1))
+    return bufs[rounds & 1], rounds, sweeps
+
+
+def minplus_group(bwidth: int) -> int:
+    """The lanes ``minplus_fixpoint_kernel`` gives a row: the power of two
+    (at most 32) that leaves a lane at most :data:`MINPLUS_SLOTS` of its
+    slots."""
+    g = 1
+    while g < 32 and g * MINPLUS_SLOTS < bwidth:
+        g *= 2
+    return g
+
+
+def minplus_sweep_modes(bwidth: int, sweeps) -> tuple:
+    """``(one-block sweeps, grid sweeps)`` of ``minplus_fixpoint_kernel``
+    over these worklists: a sweep runs in block 0 alone while its rows'
+    lane groups fill at most :data:`MINPLUS_SOLO_ROUNDS` passes of one
+    block."""
+    cap = MINPLUS_SOLO_ROUNDS * MINPLUS_THREADS
+    g = minplus_group(bwidth)
+    solo = sum(1 for act in sweeps if len(act) * TILE * g <= cap)
+    return solo, len(sweeps) - solo
+
+
+def minplus_needed_bytes(table, bcol, sweeps, c: int, *, from_tab: bool):
+    """The bytes the worklist's sweeps must move: for each sweep the packed
+    rows of its active block rows' stored slots (16 bytes a tile row), one
+    32-byte sector for each of their stored edges' weights (SSSP; labels
+    read no weight), and the plane rows read (the active block rows and the
+    block rows they read, once) and written (the active ones), ``4 c``
+    bytes a row."""
+    nblocks, bwidth = bcol.shape
+    tile = table.shape[2]
+    bc = bcol.cpu().numpy()
+    live = (bc < nblocks).sum(axis=1)
+    edges = (table != 0 if from_tab else torch.isfinite(table)).sum(
+        dim=(1, 2, 3)).cpu().numpy()
+    row_bytes = tile * 4 * int(c)
+    total = 0
+    for act in sweeps:
+        held = bc[act]
+        read = np.union1d(act, held[held < nblocks])
+        total += int(live[act].sum()) * tile * 16
+        if not from_tab:
+            total += int(edges[act].sum()) * 32
+        total += (read.size + len(act)) * row_bytes
+    return total
 
 
 def pagerank_blocked_plain(tab, bcol, deg, *, n: int, damping: float,
@@ -320,38 +428,73 @@ def _status(name: str, status: torch.Tensor) -> list:
     return got
 
 
+def _minplus_launch(bits, weights, bcol, init, *, max_rounds: int):
+    """One launch of ``minplus_fixpoint_kernel`` over the packed rows
+    ``bits`` (``weights`` the float32 weight table, or None for labels),
+    counted in ``minplus_fixpoint.launches``; the inputs are the caller's
+    to check. Returns ``(planes [2, n_pad, C], status int64 [4])`` unread:
+    the plane lies in buffer ``rounds & 1``, the status holds the rounds
+    (or minus the error code), the sweeps run in one block and on the
+    grid, and the active block rows summed over the sweeps."""
+    nblocks, bwidth = bcol.shape
+    n_pad = nblocks * TILE
+    dev = bits.device
+    c = init.shape[1]
+    planes = torch.empty((2, n_pad, c), dtype=torch.float32, device=dev)
+    planes[0].copy_(init)
+    # one int64 block: the zeroed working words (control words and three
+    # changed-block-row bitmaps of ceil(nblocks / 64) words) and the status
+    ctl_len = _CTL_LEN + 3 * (-(-nblocks // 64))
+    words = torch.empty(ctl_len + _MP_STATUS_LEN, dtype=torch.int64,
+                        device=dev)
+    ctl, status = words[:ctl_len], words[ctl_len:]
+    ctl.zero_()
+    _cuda.launch(
+        "semiring", "bibfs_minplus_fixpoint", bits.data_ptr(),
+        0 if weights is None else weights.data_ptr(), bcol.data_ptr(),
+        nblocks, bwidth, c, int(max_rounds), planes.data_ptr(),
+        ctl.data_ptr(), status.data_ptr(),
+    )
+    _cuda.count_launch(minplus_fixpoint)
+    return planes, status
+
+
 def minplus_fixpoint(table, bcol, init, *, from_tab: bool,
-                     max_rounds: int | None = None):
+                     max_rounds: int | None = None, bits=None):
     """The (min, +) fixpoint over ``[n_pad, C]`` planes: Jacobi sweeps
     ``nd = min(d, A (x) d)`` until one lowers nothing (that sweep counted)
     or ``max_rounds`` (default ``nblocks * tile``) ran. ``table`` is the
     float32 weight table, or with ``from_tab`` the int8 adjacency (0/inf
-    derived on the fly). On the card one cooperative launch of
-    ``minplus_fixpoint_kernel`` (ping-pong planes, a grid barrier between
-    sweeps) and one 8-byte read; on the CPU :func:`minplus_fixpoint_plain`.
+    weights). On the card one cooperative launch of
+    ``minplus_fixpoint_kernel`` over the adjacency's packed rows ``bits``
+    (:func:`pack_tile_rows`; required there: the kernel lists each row's
+    edges from them, reads one weight an edge from ``table`` and no int8
+    tile) and one 8-byte read; a sweep works only on the block rows a
+    changed block row feeds and the changed ones, narrow sweeps in one
+    block. On the CPU :func:`minplus_fixpoint_plain` over ``table``.
     Returns ``(plane float32 [n_pad, C], rounds)``."""
+    if bits is not None:
+        _check_bits(bits, table)
     if not table.is_cuda:
         return minplus_fixpoint_plain(table, bcol, init, from_tab=from_tab,
                                       max_rounds=max_rounds)
     _check_table(table, bcol, torch.int8 if from_tab else torch.float32)
+    if bits is None:
+        raise ValueError("minplus_fixpoint_kernel lists the edges from the "
+                         "packed tile rows: pass bits= (pack_tile_rows of "
+                         "the int8 adjacency)")
     nblocks, bwidth = bcol.shape
+    if nblocks > MINPLUS_MAX_BLOCK_ROWS:
+        raise ValueError(f"{nblocks} block rows exceed minplus_fixpoint_"
+                         f"kernel's {MINPLUS_MAX_BLOCK_ROWS}")
     n_pad = nblocks * TILE
     if init.dim() != 2 or init.shape[0] != n_pad or init.shape[1] < 1:
         raise ValueError(f"init must be [{n_pad}, C]")
     if max_rounds is None:
         max_rounds = n_pad
-    dev = table.device
-    c = init.shape[1]
-    planes = torch.empty((2, n_pad, c), dtype=torch.float32, device=dev)
-    planes[0].copy_(init)
-    ctl = torch.zeros(_CTL_LEN, dtype=torch.int64, device=dev)
-    status = torch.empty(_STATUS_LEN, dtype=torch.int64, device=dev)
-    _cuda.launch(
-        "semiring", "bibfs_minplus_fixpoint", table.data_ptr(),
-        int(bool(from_tab)), bcol.data_ptr(), nblocks, bwidth, c,
-        int(max_rounds), planes.data_ptr(), ctl.data_ptr(), status.data_ptr(),
-    )
-    _cuda.count_launch(minplus_fixpoint)
+    planes, status = _minplus_launch(
+        bits, None if from_tab else table, bcol, init,
+        max_rounds=max_rounds)
     rounds = _status("minplus_fixpoint_kernel", status[:1])[0]
     return planes[rounds & 1], rounds
 
@@ -359,17 +502,21 @@ def minplus_fixpoint(table, bcol, init, *, from_tab: bool,
 minplus_fixpoint.launches = 0
 
 
-def sssp_blocked(wtab, bcol, sources_init):
+def sssp_blocked(wtab, bcol, sources_init, bits=None):
     """Multi-source Bellman fixpoint over a float32 weight table;
     ``sources_init`` is the ``[n_pad, C]`` plane (0 at each source's
-    column, +inf elsewhere). Returns ``(dist [n_pad, C], rounds)``."""
-    return minplus_fixpoint(wtab, bcol, sources_init, from_tab=False)
+    column, +inf elsewhere); ``bits`` the adjacency's packed rows (needed
+    on the card). Returns ``(dist [n_pad, C], rounds)``."""
+    return minplus_fixpoint(wtab, bcol, sources_init, from_tab=False,
+                            bits=bits)
 
 
-def components_blocked(tab, bcol, labels_init):
-    """Min-label propagation fixpoint over the int8 adjacency. Returns
-    ``(labels [n_pad, 1], rounds)``."""
-    return minplus_fixpoint(tab, bcol, labels_init, from_tab=True)
+def components_blocked(tab, bcol, labels_init, bits=None):
+    """Min-label propagation fixpoint over the int8 adjacency (``bits`` its
+    packed rows, needed on the card). Returns ``(labels [n_pad, 1],
+    rounds)``."""
+    return minplus_fixpoint(tab, bcol, labels_init, from_tab=True,
+                            bits=bits)
 
 
 def _pagerank_launch(bits, bcol, deg, *, n: int, damping: float,

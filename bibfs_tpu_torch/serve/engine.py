@@ -435,7 +435,7 @@ class _GraphRuntime:
         blocked-routed flush (a runtime that never routes blocked never
         pays the tile build). On the card the upload also packs the tiles'
         rows one bit an entry (``BlockedDeviceGraph.bits``, an eighth of the
-        table's bytes: what the PageRank and triangle kernels read), so no
+        table's bytes: what the analytics kernels read), so no
         analytics flush pays the packed copy's allocation."""
         g = self._blocked_graph
         if g is None:

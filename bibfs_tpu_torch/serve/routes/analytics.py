@@ -329,7 +329,9 @@ class SsspBlockedRoute(AnalyticsBlockedRoute):
     """Multi-source (min, +) fixpoint over the float32 weight tables
     (``graph/blocked.build_blocked_weights``, uploaded and memoized per
     (runtime, seed): ``_GraphRuntime.analytics_weight_table``), one plane
-    of a flush's same-seed sources."""
+    of a flush's same-seed sources; on the card the kernel lists each
+    row's edges from the uploaded graph's packed tile rows
+    (``BlockedDeviceGraph.bits``) and reads one weight an edge."""
 
     name = "sssp_blocked"
     kind = "sssp"
@@ -348,7 +350,7 @@ class SsspBlockedRoute(AnalyticsBlockedRoute):
                                device=wtab.device)
             init[src, torch.arange(len(group), device=wtab.device)] = 0.0
             self._note_exec(bg.nblocks, bg.bwidth, extra=(len(group),))
-            dist, rounds = sssp_blocked(wtab, bg.bcol, init)
+            dist, rounds = sssp_blocked(wtab, bg.bcol, init, bits=bg.bits)
             dist = dist[: ctx.n].cpu().numpy().astype(np.float64)
             self.rounds_cell.inc(int(rounds))
             for col, (i, _q) in enumerate(group):
@@ -388,8 +390,9 @@ class PageRankBlockedRoute(AnalyticsBlockedRoute):
 
 
 class ComponentsBlockedRoute(AnalyticsBlockedRoute):
-    """Min-label propagation over the int8 adjacency (0/inf weights
-    derived on the fly: no weight table materialized)."""
+    """Min-label propagation over the adjacency (0 on every edge: no
+    weight table; on the card the edges come from the uploaded graph's
+    packed tile rows, ``BlockedDeviceGraph.bits``)."""
 
     name = "components_blocked"
     kind = "components"
@@ -401,7 +404,8 @@ class ComponentsBlockedRoute(AnalyticsBlockedRoute):
         self._note_exec(bg.nblocks, bg.bwidth)
         init = torch.arange(bg.n_pad, dtype=torch.float32,
                             device=bg.device)[:, None]
-        labels, rounds = components_blocked(bg.tab, bg.bcol, init)
+        labels, rounds = components_blocked(bg.tab, bg.bcol, init,
+                                            bits=bg.bits)
         labels = labels[: ctx.n, 0].cpu().numpy().astype(np.int64)
         count = int(np.unique(labels).size) if ctx.n else 0
         self.rounds_cell.inc(int(rounds))

@@ -375,9 +375,13 @@ is unavailable. Phases:
    ``indices``, ``connected_components`` mapped to min labels, a float64
    sparse power iteration, a row-blocked ``(A @ A) * A`` triangle count).
    Then each kernel of ``csrc/semiring.cu`` against its plain twin on the
-   card at the rungs' shapes: ``minplus_fixpoint`` (SSSP planes of C = 8
-   and 4 on gnp-5000 and 1 on the grid, labels on gnp-10000 and the grid)
-   bit for bit with equal rounds; ``pagerank`` on gnp-10000 within 1e-6,
+   card at the rungs' shapes: ``minplus_fixpoint`` over each graph's
+   packed tile rows (SSSP planes of C = 8 and 4 on gnp-5000 and 1 on the
+   grid, labels on gnp-10000 and the grid) bit for bit with equal rounds,
+   and its status words (sweeps in one block and on the grid, active block
+   rows) equal to what the worklist twin's sweeps give, after a
+   ``minplus_floor`` line (a near-empty sweep's ms in each mode, on a
+   2,000-vertex path); ``pagerank`` on gnp-10000 within 1e-6,
    the same ranks on a second run, iterations equal or one off at a
    straddled tolerance; ``tricount`` on every 256-column chunk of
    gnp-10000 exactly; the last two over gnp-10000's packed tile rows,
@@ -386,7 +390,10 @@ is unavailable. Phases:
    bound (the live tiles' and the plane's bytes a sweep or step times the
    sweeps or steps over 3.35 TB/s; for a triangle chunk the larger of the
    tile bytes and the dense product's int8 operations over 1,979 TOP/s;
-   for the pack the int8 table read and its eighth written), beside it
+   for the pack the int8 table read and its eighth written; for the
+   fixpoint also ``needed_bound_ms``, the bytes its worklist sweeps need,
+   ``floor_ms``, its sweeps at the floor's cost, ``active_rows`` and the
+   sweeps by mode), beside it
    for PageRank and a chunk ``bound_packed_ms`` (the packed rows they
    read, bcol and the vectors) and ``pack_ms``, for PageRank ``step_ms``
    (one launch of 50 power steps that no tolerance ends, divided by 50:
@@ -395,7 +402,10 @@ is unavailable. Phases:
    edgeless table of the same rows: a step with no row work), and a
    one-call PyTorch
    yardstick (``torch.sparse.mm`` of the adjacency and one vector a power
-   step, a dense ``torch.matmul`` of a chunk). With the counts zeroed, the
+   step, a dense ``torch.matmul`` of a chunk); and ``msbfs_plane_blocked``
+   (row B, torch code with no hand kernel) on the grid from 64 sources
+   against the ELL sweep's plane, with its bound and a ``torch.sparse.mm``
+   yardstick. With the counts zeroed, the
    engines on the card: a synchronous and a pipelined wave of the four
    kinds on gnp-10000 (PageRank, components, triangles on their blocked
    rungs; SSSP over the f32 table's x5 gate on the host rung; between
@@ -4805,6 +4815,94 @@ def analytics_refs(n: int, csr, sources: dict | None = None) -> dict:
     return out
 
 
+MINPLUS_FLOOR_PATH = 2000  # the floor runs' path: 16 block rows, 2000 sweeps
+MINPLUS_FLOOR_WIDTH = 128  # the grid floor's slots a block row (32 lanes a row)
+B_SOURCES = 64  # msbfs_plane_blocked's sources on the grid
+
+
+def minplus_floor(dev, put) -> dict:
+    """A near-empty (min, +) sweep's ms in each mode: labels from vertex 0
+    (0 there, +inf elsewhere) along a path of 2,000 vertices, one vertex
+    lowered a sweep, 2,000 sweeps (1-3 block rows active after sweep 0,
+    which takes all 16 on the grid). ``solo``: the path's own table (3
+    slots a block row: a lane a row, every later sweep in one block);
+    ``grid``: the same rows with 125 more slots a block row, all pointing
+    at an empty 17th block row that never changes (32 lanes a row: every
+    sweep on the grid). Prints one ``minplus_floor`` line; returns the ms
+    a sweep of each (sweep 0 in it)."""
+    n = MINPLUS_FLOOR_PATH
+    edges = np.array([[v, v + 1] for v in range(n - 1)])
+    bg = build_blocked(n, pairs=canonical_pairs(n, edges))
+    out, line = {}, {"phase": "minplus_floor", "path": n}
+    wide = np.zeros((bg.nblocks + 1, MINPLUS_FLOOR_WIDTH, 128, 128), np.int8)
+    wide[: bg.nblocks, : bg.bwidth] = bg.tab
+    wcol = np.full((bg.nblocks + 1, MINPLUS_FLOOR_WIDTH), bg.nblocks,
+                   np.int32)
+    wcol[: bg.nblocks, : bg.bwidth] = np.where(
+        bg.bcol < bg.nblocks, bg.bcol, bg.nblocks)
+    for mode, tab, bcol in (("solo", bg.tab, bg.bcol), ("grid", wide, wcol)):
+        tab, bcol = put(tab), put(bcol)
+        rows = sr.pack_tile_rows(tab)
+        init = torch.full((bcol.shape[0] * 128, 1), float("inf"),
+                          device=dev)
+        init[0, 0] = 0.0
+        planes, status = sr._minplus_launch(rows, None, bcol, init,
+                                            max_rounds=init.shape[0])
+        rounds, solo, grid, active = status.tolist()
+        plane = planes[rounds & 1][:, 0]
+        # sweep 0 takes every block row, on the grid in both
+        want = (rounds - 1, 1) if mode == "solo" else (0, rounds)
+        check(rounds == n and bool((plane[:n] == 0).all())
+              and bool(torch.isinf(plane[n:]).all())
+              and (solo, grid) == want,
+              f"minplus floor {mode}: {rounds} rounds, split {solo}/{grid}")
+        ms = time_launch(lambda: sr._minplus_launch(
+            rows, None, bcol, init, max_rounds=init.shape[0]),
+            reps=ANALYTICS_REPS)
+        out[mode] = ms / rounds
+        line[mode] = dict(ms=ms, rounds=rounds, ms_per_sweep=ms / rounds,
+                          solo_sweeps=solo, grid_sweeps=grid,
+                          active_rows=active, bwidth=int(bcol.shape[1]),
+                          group=sr.minplus_group(int(bcol.shape[1])))
+    print(json.dumps(line), flush=True)
+    return out
+
+
+def msbfs_blocked_step(g: dict, dev, put) -> None:
+    """Row B (``msbfs_plane_blocked``, torch code off every serving path)
+    on the card: 64 seeded sources on the grid, its int16 plane against
+    the ELL sweep's (B1, ``msbfs_plane_csr``) from the same sources; the
+    median ms of 5 calls (CUDA events; a host read a level in it), its
+    bound (a level reads the live int8 tiles and the f32 frontier plane and
+    writes the next plane and the new int32 distances, times its levels),
+    and ``torch.sparse.mm`` of the adjacency and the 0/1 plane, one a
+    level, as the yardstick. One ``step`` line."""
+    bg = g["bg"]
+    srcs = np.random.default_rng(181).choice(g["n"], B_SOURCES, replace=False)
+    bdg = dense.BlockedDeviceGraph.from_host(bg, device=dev)
+    got = md.msbfs_plane_blocked(bdg, srcs)
+    rp, ci = g["csr"]
+    want = md.msbfs_plane_csr(g["n"], rp, ci, srcs, device=dev)
+    err = int(np.abs(got.astype(np.int64) - np.asarray(want, np.int64)).max())
+    check(err == 0 and got.shape == (g["n"], B_SOURCES),
+          f"msbfs_plane_blocked: differs from msbfs_levels by {err}")
+    ms = time_launch(lambda: md.msbfs_plane_blocked(bdg, srcs),
+                     reps=ANALYTICS_REPS)
+    levels = int(got.max()) + 1  # the last level finds nothing
+    kp = max(8, -(-B_SOURCES // 8) * 8)
+    per_level = bg.nnz_blocks * 128 * 128 + bg.n_pad * kp * (4 + 4 + 4)
+    adj = sparse_adjacency(bg.n_pad, g["csr"], dev)
+    plane = torch.zeros(bg.n_pad, kp, device=dev)
+    plane[put(srcs), torch.arange(B_SOURCES, device=dev)] = 1.0
+    lib_ms = time_launch(lambda: torch.sparse.mm(adj, plane), reps=REPS)
+    step_line("msbfs_plane_blocked", g["name"], f"K={B_SOURCES}", ms,
+              levels=levels, bound_ms=per_level * levels / HBM_BYTES_PER_S
+              * 1e3, bound_by="bytes", max_abs_err=err,
+              library_ms=lib_ms * levels, library_call_ms=lib_ms,
+              library="torch.sparse.mm of the adjacency and the 0/1 [n_pad, "
+                      "K] plane, one a level", route="torch (no hand kernel)")
+
+
 def analytics_kernel_phase(graphs: dict, results: dict) -> None:
     """Each analytics kernel against its plain twin on the card at the
     shapes the rungs give it (exact planes, rounds, counts; PageRank within
@@ -4827,7 +4925,11 @@ def analytics_kernel_phase(graphs: dict, results: dict) -> None:
         return a.elapsed_time(b)
 
     tile_el = 128 * 128
-    # D1: SSSP planes (gnp-5000: C = 8 and 4; the grid: C = 1) and labels
+    floors = minplus_floor(dev, put)
+    # D1: SSSP planes (gnp-5000: C = 8 and 4; the grid: C = 1) and labels,
+    # over each graph's packed tile rows
+    bits = {name: sr.pack_tile_rows(put(graphs[name]["bg"].tab))
+            for name in ("gnp-5000-d64", "grid-64x64", "gnp-10000-d128")}
     cases = []
     for name, seeds in (("gnp-5000-d64", ANALYTICS_SSSP), ("grid-64x64", {0: 1})):
         g = graphs[name]
@@ -4843,28 +4945,56 @@ def analytics_kernel_phase(graphs: dict, results: dict) -> None:
                       put(np.arange(bg.n_pad, dtype=np.float32)[:, None]), 1))
     for name, step, table, from_tab, init, itemsize in cases:
         bg = graphs[name]["bg"]
-        bcol = put(bg.bcol)
-        got, rounds = sr.minplus_fixpoint(table, bcol, init, from_tab=from_tab)
+        bcol, rows = put(bg.bcol), bits[name]
+        got, rounds = sr.minplus_fixpoint(table, bcol, init, from_tab=from_tab,
+                                          bits=rows)
         want, want_rounds = sr.minplus_fixpoint_plain(table, bcol, init,
                                                       from_tab=from_tab)
         check(torch.equal(got, want) and rounds == want_rounds,
               f"minplus_fixpoint {name} {step}: differs from its twin "
               f"(rounds {rounds} / {want_rounds})")
+        # the worklist twin's sweeps: what the kernel's status words must
+        # say (its one-block / grid split, the active block rows), and the
+        # bytes those sweeps need
+        wl, wl_rounds, sweeps = sr.minplus_fixpoint_worklist(
+            table, bcol, init, from_tab=from_tab)
+        planes, status = sr._minplus_launch(
+            rows, None if from_tab else table, bcol, init,
+            max_rounds=bg.n_pad)
+        k_rounds, solo, grid, active = status.tolist()
+        want_split = sr.minplus_sweep_modes(bg.bwidth, sweeps)
+        check(torch.equal(wl, want) and wl_rounds == rounds == k_rounds
+              and torch.equal(planes[k_rounds & 1], want)
+              and (solo, grid) == want_split
+              and active == sum(len(a) for a in sweeps),
+              f"minplus_fixpoint {name} {step}: worklist {wl_rounds} rounds, "
+              f"split {(solo, grid)} / {want_split}, active {active}")
         plain_ms = twin_ms(lambda: sr.minplus_fixpoint_plain(
             table, bcol, init, from_tab=from_tab))
-        ms = time_launch(lambda: sr.minplus_fixpoint(table, bcol, init,
-                                                     from_tab=from_tab),
-                         reps=ANALYTICS_REPS)
+        ms = time_launch(lambda: sr.minplus_fixpoint(
+            table, bcol, init, from_tab=from_tab, bits=rows),
+            reps=ANALYTICS_REPS)
         c = init.shape[1]
         per_round = bg.nnz_blocks * tile_el * itemsize + 2 * bg.n_pad * c * 4
         bound = per_round * rounds / HBM_BYTES_PER_S * 1e3
+        needed = sr.minplus_needed_bytes(table, bcol, sweeps, c,
+                                         from_tab=from_tab)
         line = dict(rounds=rounds, plain_ms=plain_ms, bound_ms=bound,
                     bound_by="bytes", max_abs_err=0, library_ms=None,
-                    ms_per_round=ms / rounds, c=c)
+                    ms_per_round=ms / rounds, c=c,
+                    needed_bound_ms=needed / HBM_BYTES_PER_S * 1e3,
+                    needed_mb=needed / 1e6,
+                    floor_ms=solo * floors["solo"] + grid * floors["grid"],
+                    active_rows=active, solo_sweeps=solo, grid_sweeps=grid,
+                    group=sr.minplus_group(bg.bwidth), nblocks=bg.nblocks)
         step_line("minplus_fixpoint", name, step, ms, **line)
         if (name, step) == ("gnp-5000-d64", "sssp C=8"):
+            # the kernels line's bound: what this run's sweeps need
             results["minplus_fixpoint"] = dict(
-                line, ms=ms, geometry=name, step=step)
+                line, ms=ms, geometry=name, step=step,
+                bound_ms=line["needed_bound_ms"], whole_table_bound_ms=bound)
+    del cases, bits
+    msbfs_blocked_step(graphs["grid-64x64"], dev, put)
     # the pack, then D2 and D3 over its rows, on gnp-10000
     g = graphs["gnp-10000-d128"]
     bg = g["bg"]

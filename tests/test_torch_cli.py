@@ -184,11 +184,13 @@ def test_ab_kinds_times_both_checkouts_kernels(geom, capsys):
         ab.main([str(root), "--kinds", "ring-9", "--device", "cpu"])
 
 
-def test_ab_analytics_times_both_checkouts_kernels(capsys):
+def test_ab_analytics_times_both_checkouts_kernels(capsys, monkeypatch):
     """``cli/ab.py --analytics`` against this very checkout as the parent
-    (a small dense-ish gnp graph, CPU): both checkouts' PageRank solves
-    and triangle chunk agree, each is timed in turns beside the change's
-    pack, and the modules it swapped are put back."""
+    (a small dense-ish gnp graph, CPU; the fixpoints' graphs cut to
+    G(400, 16 / 399) and a 16x16 grid): both checkouts' PageRank solves,
+    triangle chunk and three (min, +) fixpoints agree, each is timed in
+    turns beside the change's pack, and the modules it swapped are put
+    back."""
     import json
     import sys
     from pathlib import Path
@@ -196,6 +198,8 @@ def test_ab_analytics_times_both_checkouts_kernels(capsys):
     from bibfs_tpu_torch.cli import ab
     from bibfs_tpu_torch.ops import semiring_plane
 
+    monkeypatch.setattr(ab, "FIXPOINT_GNP", (400, 16, 163))
+    monkeypatch.setattr(ab, "FIXPOINT_GRID", (16, 16))
     root = Path(ab.__file__).resolve().parents[2]
     assert ab.main([str(root), "--analytics", "gnp-300-d12", "--rounds", "2",
                     "--device", "cpu"]) == 0
@@ -208,6 +212,11 @@ def test_ab_analytics_times_both_checkouts_kernels(capsys):
                 "change/tricount", "change/pack"):
         assert out[key]["runs"] == 2 and out[key]["median_ms"] > 0
     assert out["parent/pagerank"]["iters"] == out["change/pagerank"]["iters"]
+    for step in ("gnp-400-d16 sssp C=8", "grid-16x16 sssp C=1",
+                 "gnp-300-d12 components"):
+        pa, ch = out[f"parent/minplus {step}"], out[f"change/minplus {step}"]
+        assert pa["runs"] == ch["runs"] == 2 and ch["median_ms"] > 0
+        assert pa["rounds"] == ch["rounds"] > 1
     assert "nvidia_smi" not in out
     assert sys.modules["bibfs_tpu_torch.ops.semiring_plane"] is semiring_plane
     for bad in ("grid-9x9", "gnp-300", "gnp-x-d4"):

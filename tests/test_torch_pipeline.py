@@ -794,7 +794,10 @@ def test_launch_counts_are_exact_across_threads():
 def test_cuda_pipelined_flush_equals_cpu_engine(mode):
     """On the card: the pipelined engine's device flushes, launched on
     its flusher thread, equal the CPU engine's field for field, with the
-    level kernel's launches counted and no fallback or retry."""
+    level kernel's launches counted and no fallback or retry. A device
+    flush of ``pallas`` / ``pallas_alt`` runs the lock-step batch, so it
+    launches kernels 3 and 4 with a query axis (``pull_dual_batch``,
+    ``pull_single_batch``), not the single-query kernels."""
     import torch
 
     if not torch.cuda.is_available():
@@ -809,8 +812,8 @@ def test_cuda_pipelined_flush_equals_cpu_engine(mode):
               device_batches=True)
     counted = {"auto": (minor_level.minor_level, "minor8"),
                "minor": (minor_level.minor_level, "minor"),
-               "pallas": (pull_expand.pull_dual, None),
-               "pallas_alt": (pull_expand.pull_single, None)}[mode]
+               "pallas": (pull_expand.pull_dual_batch, None),
+               "pallas_alt": (pull_expand.pull_single_batch, None)}[mode]
 
     def launches():
         wrapper, key = counted

@@ -18,7 +18,7 @@ Every family carries labels (engine, route, cache, program): one family,
 many children, each child a cheap cell created once at component
 construction or first label use, so the serving hot path only
 increments existing cells. :meth:`MetricsRegistry.render` is the
-``/metrics`` payload (the HTTP surface comes with the network slice);
+``/metrics`` payload (:mod:`bibfs_tpu_torch.obs.http` serves it);
 component ``stats()`` dicts are snapshot views over these cells
 (:class:`MetricBank`).
 """
@@ -303,6 +303,24 @@ class LogHistogram:
                 "max_ms": round(self.max_s * 1e3, 4),
             }
 
+    def to_dict(self) -> dict:
+        """Full-fidelity JSON export: sparse ``[bucket_index, count]``
+        pairs plus the bucket geometry, so any consumer can rebuild the
+        edges with ``base * ratio**i`` and re-read quantiles."""
+        with self._lock:
+            buckets = [
+                [i, c] for i, c in enumerate(self._counts) if c
+            ]
+            return {
+                "base_s": self._BASE,
+                "ratio": round(self._RATIO, 6),
+                "nbuckets": self._NBUCKETS,
+                "buckets": buckets,
+                "count": self.count,
+                "sum_s": round(self.total_s, 6),
+                "max_s": round(self.max_s, 6),
+            }
+
     def cumulative(self) -> list:
         """(upper_edge_seconds, cumulative_count) pairs for Prometheus
         rendering; empty trailing buckets are collapsed into +Inf."""
@@ -578,6 +596,11 @@ class MetricsRegistry:
                 )
             snap[fam.name] = entry
         return snap
+
+    def child_count(self) -> int:
+        """Labeled cells across every family: the allocation meter that
+        shows unsampled queries mint no registry objects."""
+        return sum(len(f.children()) for f in self.families())
 
 
 #: the process-wide default registry every serving component lands in

@@ -91,6 +91,14 @@ class Tracer:
         its ``with`` body."""
         return _Span(self, name, cat, args)
 
+    def instant(self, name: str, cat: str = "bibfs", **args) -> None:
+        """A zero-duration marker ("i" event)."""
+        self._append({
+            "name": name, "cat": cat, "ph": "i", "s": "t",
+            "ts": self._ts(time.perf_counter()),
+            "pid": self._pid, "tid": self._tid(), "args": args,
+        })
+
     def _ts(self, t: float) -> float:
         return round((t - self._t0) * 1e6, 3)  # µs, Chrome-trace unit
 
@@ -175,3 +183,47 @@ def span(name: str, cat: str = "bibfs", **args):
     if t is None:
         return _NULL_SPAN
     return t.span(name, cat, **args)
+
+
+def instant(name: str, cat: str = "bibfs", **args) -> None:
+    t = _GLOBAL
+    if t is not None:
+        t.instant(name, cat, **args)
+
+
+def uninstall_and_save(tracer: Tracer, path: str, stream=None) -> int | None:
+    """The CLI's teardown sequence: clear the global hook, write the
+    Chrome-trace file, report to ``stream`` (default stderr). A bad path
+    never discards the served work: the OSError is reported, not raised.
+    Returns the event count, or None when the save failed."""
+    import sys
+
+    stream = sys.stderr if stream is None else stream
+    set_tracer(None)
+    try:
+        nev = tracer.save(path)
+    except OSError as e:
+        print(f"warning: could not write trace to {path}: {e}",
+              file=stream)
+        return None
+    print(f"[Obs] wrote {nev} trace events to {path} "
+          "(open in https://ui.perfetto.dev)", file=stream)
+    return nev
+
+
+def overlapping_pairs(events, name_a: str, name_b: str) -> list:
+    """(a, b) pairs of ``name_a`` / ``name_b`` complete events whose time
+    intervals intersect while running on DIFFERENT threads: the
+    machine-checkable form of "the launch overlapped the finish"."""
+    a_evs = [e for e in events if e.get("ph") == "X" and e["name"] == name_a]
+    b_evs = [e for e in events if e.get("ph") == "X" and e["name"] == name_b]
+    out = []
+    for a in a_evs:
+        a0, a1 = a["ts"], a["ts"] + a["dur"]
+        for b in b_evs:
+            if a.get("tid") == b.get("tid"):
+                continue
+            b0, b1 = b["ts"], b["ts"] + b["dur"]
+            if a0 < b1 and b0 < a1:
+                out.append((a, b))
+    return out

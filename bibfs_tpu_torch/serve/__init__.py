@@ -2,10 +2,11 @@
 (:mod:`bibfs_tpu_torch.serve.engine`) and the pipelined one
 (:mod:`bibfs_tpu_torch.serve.pipeline`) over the batched device search
 and the native host runtime, with shape buckets, a distance/result
-cache, fault injection and the resilience ladder, and the
-``bibfs-torch-serve`` CLI (:mod:`bibfs_tpu_torch.serve.cli`). The
-counterpart of ``bibfs_tpu/serve`` for one inline graph; the graph store
-and the network surfaces come with later slices (ROADMAP Queue 1)."""
+cache, fault injection and the resilience ladder, the network front door
+(:mod:`bibfs_tpu_torch.serve.net`) and the ``bibfs-torch-serve`` CLI
+(:mod:`bibfs_tpu_torch.serve.cli`): the counterpart of
+``bibfs_tpu/serve``. The fleet comes with a later slice (ROADMAP
+Queue 1)."""
 
 from bibfs_tpu_torch.serve.buckets import (  # noqa: F401
     DEFAULT_EXEC_CACHE,

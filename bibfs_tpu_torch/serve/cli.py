@@ -58,9 +58,25 @@ rebuilds from the ``.bin``). ``--residency-budget BYTES`` demotes the
 least recently used graphs past the budget to the compressed cold tier,
 and the stdin command ``memory`` prints each graph's tier and bytes.
 
-The engine runs on ``cuda`` unless ``--device cpu`` is given. The mesh,
-network, load-harness, metrics and trace flags of ``bibfs-serve`` come
-with later slices of the port (ROADMAP Queue 1).
+``--port PORT`` (with ``--pipeline``) serves the network front door
+(:mod:`bibfs_tpu_torch.serve.net`) instead of the stdin loop:
+length-prefixed JSON frames over TCP with correlation ids, per-request
+deadlines, per-tenant quotas (``--net-quota-qps`` / ``--net-quota-burst``),
+an in-flight cap (``--net-max-inflight``), the opt-in brownout
+(``--net-brownout``) and a graceful drain on SIGTERM. Port 0 binds an
+ephemeral port, published atomically to ``--port-file``.
+``--metrics-port`` serves ``/metrics`` and ``/healthz``
+(:mod:`bibfs_tpu_torch.obs.http`), ``--trace FILE`` writes the process's
+spans as Chrome-trace JSON on exit, and ``--trace-spool DIR`` (with
+``--trace-sample``) appends sampled queries' distributed-trace spans to
+``DIR/serve.<pid>.jsonl`` (:mod:`bibfs_tpu_torch.obs.dtrace`; merge with
+``bibfs-torch-trace merge DIR``). On stdin a query line may end in an
+``@t:TRACE:SPAN`` token that carries its trace context, and
+``flightrec [dump]`` prints (and dumps) the flight-recorder ring.
+
+The engine runs on ``cuda`` unless ``--device cpu`` is given. The pod and
+load-harness flags of ``bibfs-serve`` come with later slices of the port
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -348,6 +364,66 @@ def main(argv=None):
                     help="latency SLO of --pipeline: a sub-crossover queue "
                     "flushes once its oldest query has waited this long "
                     "(default 5.0)")
+    ap.add_argument("--port", type=int, default=None, metavar="PORT",
+                    help="serve the network front door instead of the stdin "
+                    "loop (serve/net.py): length-prefixed JSON frames over "
+                    "TCP, correlation ids, per-request deadlines, per-tenant "
+                    "token-bucket quotas, structured capacity refusals, a "
+                    "graceful drain on SIGTERM. PORT 0 binds an ephemeral "
+                    "port (printed to stderr; see --port-file). Needs "
+                    "--pipeline (its flusher resolves framed submits)")
+    ap.add_argument("--port-file", default=None, metavar="FILE",
+                    help="atomically write 'host port' to FILE once the "
+                    "--port listener is bound (the readiness handshake a "
+                    "spawning process polls)")
+    ap.add_argument("--net-host", default="127.0.0.1", metavar="HOST",
+                    help="bind address of --port (default 127.0.0.1; 0.0.0.0 "
+                    "serves off-host)")
+    ap.add_argument("--net-max-inflight", type=int, default=512, metavar="N",
+                    help="in-flight request cap of --port (default 512): "
+                    "excess submits answer structured capacity errors "
+                    "instead of queueing behind the engine's blocking "
+                    "admission")
+    ap.add_argument("--net-quota-qps", type=float, default=None,
+                    metavar="RATE",
+                    help="per-tenant token-bucket quota of --port (queries/s "
+                    "sustained; default unlimited); over-quota submits answer "
+                    "structured capacity errors with reason=quota")
+    ap.add_argument("--net-quota-burst", type=float, default=None,
+                    metavar="TOKENS",
+                    help="per-tenant burst above --net-quota-qps (default "
+                    "twice the rate)")
+    ap.add_argument("--net-deadline-ms", type=float, default=None,
+                    metavar="MS",
+                    help="per-request deadline of --port queries that carry "
+                    "none (default none: requests wait for their result)")
+    ap.add_argument("--net-brownout", action="store_true",
+                    help="arm the overload brownout on --port (serve/net.py "
+                    "BrownoutPolicy defaults): deadline-feasibility shedding "
+                    "and the expensive-kind ladder, counted in "
+                    "bibfs_admission_shed_total. Default off: no shedding")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve the process metrics registry over HTTP: GET "
+                    "/metrics returns Prometheus text exposition, /healthz "
+                    "the engine's health. PORT 0 binds an ephemeral port; "
+                    "the chosen one is printed to stderr")
+    ap.add_argument("--trace", default=None, metavar="FILE",
+                    help="record tracing spans (flushes, device launches and "
+                    "finishes, host batches, cache operations) and write "
+                    "them to FILE as Chrome-trace JSON on exit (open in "
+                    "https://ui.perfetto.dev)")
+    ap.add_argument("--trace-spool", default=None, metavar="DIR",
+                    help="distributed tracing: append this process's sampled "
+                    "spans to DIR/serve.<pid>.jsonl (merge spools with "
+                    "'bibfs-torch-trace merge DIR'); queries sampled at "
+                    "ingress carry their trace context across net frames and "
+                    "the stdin line protocol. Equivalent to BIBFS_TRACE_SPOOL")
+    ap.add_argument("--trace-sample", type=float, default=None,
+                    metavar="RATE",
+                    help="fraction of ingress queries sampled into the spool "
+                    "(default 1.0 with --trace-spool; 0 samples none but "
+                    "keeps propagating contexts minted upstream). Equivalent "
+                    "to BIBFS_TRACE_SAMPLE")
     ap.add_argument("--inject-faults", default=None, metavar="SPEC",
                     help="inject faults at the serving seams per SPEC (the "
                     "grammar of bibfs_tpu_torch/serve/faults, e.g. "
@@ -371,7 +447,27 @@ def main(argv=None):
                      f"{args.mesh!r}")
     if args.mesh_shard_min_n is not None and args.mesh is None:
         ap.error("--mesh-shard-min-n applies to --mesh only")
+    # the distributed-trace flags set the environment the installer (and
+    # any child process) reads: one configuration surface either way
+    import os
 
+    from bibfs_tpu_torch.obs import dtrace
+
+    if args.trace_spool is not None:
+        os.environ[dtrace.ENV_SPOOL] = args.trace_spool
+    if args.trace_sample is not None:
+        os.environ[dtrace.ENV_SAMPLE] = str(args.trace_sample)
+    if args.port is not None:
+        if not args.pipeline:
+            print("Error: --port needs --pipeline (the background flusher "
+                  "resolves framed submits)", file=sys.stderr)
+            return 2
+        if args.pairs is not None:
+            print("Error: --port serves the network front door; it does not "
+                  "combine with --pairs", file=sys.stderr)
+            return 2
+
+    n = edges = store = None
     if args.store is not None:
         if args.graph is not None:
             print("Error: pass a .bin graph OR --store DIR, not both",
@@ -410,22 +506,60 @@ def main(argv=None):
                     ),
                     file=sys.stderr, flush=True,
                 )
-        return _serve(args, None, None, store)
-    if args.durable:
+    elif args.durable:
         print("Error: --durable needs --store DIR", file=sys.stderr)
         return 2
-    if args.graph is None:
+    elif args.graph is None:
         print("Error: a .bin graph (or --store DIR) is required",
               file=sys.stderr)
         return 2
-    from bibfs_tpu_torch.graph.io import read_graph_bin
+    else:
+        from bibfs_tpu_torch.graph.io import read_graph_bin
 
+        try:
+            n, edges = read_graph_bin(args.graph)
+        except (OSError, ValueError) as e:
+            print(f"Error reading graph: {e}", file=sys.stderr)
+            return 2
+
+    # the observability surfaces wrap the whole serving run
+    metrics_server = None
+    if args.metrics_port is not None:
+        from bibfs_tpu_torch.obs.http import start_metrics_server
+
+        try:
+            metrics_server = start_metrics_server(args.metrics_port)
+        except OSError as e:
+            print(f"Error: cannot bind metrics port {args.metrics_port}: "
+                  f"{e}", file=sys.stderr)
+            if store is not None:
+                store.close()
+            return 2
+        print(f"[Obs] serving /metrics on {metrics_server.url}",
+              file=sys.stderr, flush=True)
+    tracer = None
+    if args.trace is not None:
+        from bibfs_tpu_torch.obs.trace import Tracer, set_tracer
+
+        tracer = Tracer()
+        set_tracer(tracer)
+    # the distributed-trace spool and the flight recorder's dump path;
+    # None unless --trace-spool / BIBFS_TRACE_SPOOL
+    dtracer = dtrace.install_from_env("serve")
     try:
-        n, edges = read_graph_bin(args.graph)
-    except (OSError, ValueError) as e:
-        print(f"Error reading graph: {e}", file=sys.stderr)
-        return 2
-    return _serve(args, n, edges, None)
+        return _serve(args, n, edges, store, metrics_server)
+    finally:
+        if tracer is not None:
+            from bibfs_tpu_torch.obs.trace import uninstall_and_save
+
+            # a bad trace path reports, never turns a served run into a
+            # traceback or skips the teardown below
+            uninstall_and_save(tracer, args.trace)
+        if dtracer is not None:
+            dtrace.set_dtracer(None)
+            dtracer.close()
+        if metrics_server is not None:
+            metrics_server.close()
 
 
 def _build_engine(args, n, edges, store):
@@ -469,7 +603,70 @@ def _build_engine(args, n, edges, store):
     return QueryEngine(**kwargs)
 
 
-def _serve(args, n, edges, store) -> int:
+def _serve_net(args, engine, store) -> int:
+    """The ``--port`` serving loop: bind the framed front door, park until
+    SIGTERM or SIGINT, then drain (new queries refused with structured
+    capacity errors, pending tickets resolved, reply buffers flushed)
+    before the caller's engine teardown."""
+    import signal
+    import threading
+
+    from bibfs_tpu_torch.serve.net import (
+        BrownoutPolicy,
+        NetServer,
+        write_port_file,
+    )
+
+    try:
+        server = NetServer(
+            engine, store=store, host=args.net_host, port=args.port,
+            max_inflight=args.net_max_inflight,
+            quota_qps=args.net_quota_qps,
+            quota_burst=args.net_quota_burst,
+            default_deadline_ms=args.net_deadline_ms,
+            brownout=BrownoutPolicy() if args.net_brownout else None,
+        )
+    except OSError as e:
+        print(f"Error: cannot bind --port {args.port}: {e}", file=sys.stderr)
+        return 2
+    try:
+        if args.port_file:
+            write_port_file(args.port_file, server.host, server.port)
+        print(f"[Net] serving on {server.host}:{server.port}",
+              file=sys.stderr, flush=True)
+        stop = threading.Event()
+
+        def _on_signal(signum, frame):
+            stop.set()
+
+        prev = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev[sig] = signal.signal(sig, _on_signal)
+            except ValueError:
+                pass  # not the main thread (in-process embedding)
+        try:
+            while not stop.wait(0.5):
+                pass
+        except KeyboardInterrupt:
+            pass
+        finally:
+            for sig, handler in prev.items():
+                try:
+                    signal.signal(sig, handler)
+                except ValueError:
+                    pass
+        print("[Net] SIGTERM: draining (refusing new queries, finishing "
+              "in-flight)", file=sys.stderr, flush=True)
+        server.drain(timeout=30.0)
+        engine.begin_drain()
+        engine.flush()
+    finally:
+        server.close()
+    return 0
+
+
+def _serve(args, n, edges, store, metrics_server=None) -> int:
     try:
         engine = _build_engine(args, n, edges, store)
     except (KeyError, ValueError, RuntimeError) as e:
@@ -477,8 +674,23 @@ def _serve(args, n, edges, store) -> int:
         if store is not None:
             store.close()
         return 2
+    from bibfs_tpu_torch.obs.dtrace import get_dtracer
+
+    dt = get_dtracer()
+    if dt is not None and engine._faults is not None:
+        # arm the trace_flush chaos seam: a spool append fires the
+        # engine's fault plan first (a failed flush drops the span, never
+        # the query)
+        dt.faults = engine._faults
+    if metrics_server is not None:
+        # /healthz answers from the live engine from here on
+        metrics_server.set_health(engine.health_snapshot)
     try:
-        if args.pairs is not None:
+        if args.port is not None:
+            rc = _serve_net(args, engine, store)
+            if rc:
+                return rc
+        elif args.pairs is not None:
             import numpy as np
 
             pairs = np.loadtxt(args.pairs, dtype=np.int64, ndmin=2)
@@ -541,6 +753,13 @@ def _serve_stdin(args, engine, store) -> int:
     tickets."""
     import signal
 
+    from bibfs_tpu_torch.obs.dtrace import (
+        FLIGHT,
+        TOKEN_PREFIX,
+        dspan,
+        parse_token,
+        sample_ctx,
+    )
     from bibfs_tpu_torch.serve.resilience import QueryError
 
     tickets: list = []
@@ -600,6 +819,22 @@ def _serve_stdin(args, engine, store) -> int:
                 drain()
                 print(_control_reply(engine, store, parts[0]))
                 continue
+            if parts[0] == "flightrec":
+                # the always-on post-mortem ring, dumped on demand (the
+                # net front door's flightrec op is the same surface)
+                if len(parts) == 2 and parts[1] == "dump":
+                    snap = FLIGHT.snapshot()
+                    snap["dumped_to"] = FLIGHT.dump(reason="demand")
+                elif len(parts) == 1:
+                    snap = FLIGHT.snapshot()
+                else:
+                    print("error invalid: usage: flightrec [dump]")
+                    continue
+                drain()
+                print("flightrec " + json.dumps(
+                    snap, sort_keys=True, default=str, separators=(",", ":"),
+                ))
+                continue
             if parts[0] == "analytics":
                 # the whole-graph tier: submit and flush one typed kind;
                 # the forced flush also resolves queued src/dst tickets,
@@ -623,6 +858,12 @@ def _serve_stdin(args, engine, store) -> int:
                 reply, current = _store_command(store, current, parts)
                 print(reply)
                 continue
+            # a trailing '@t:TRACE:SPAN' token carries the query's trace
+            # context; a bare 'src dst' line may be sampled here, where
+            # this process is the ingress
+            ctx = None
+            if len(parts) == 3 and parts[2].startswith(TOKEN_PREFIX):
+                ctx = parse_token(parts.pop())
             if len(parts) != 2:
                 print("error invalid: expected 'src dst', got "
                       f"{line.strip()!r}")
@@ -633,17 +874,24 @@ def _serve_stdin(args, engine, store) -> int:
                 print("error invalid: non-integer node id in "
                       f"{line.strip()!r}")
                 continue
+            if ctx is None:
+                ctx = sample_ctx()
+            sp = dspan("repl_ingress", ctx, src=src, dst=dst)
             try:
-                tickets.append(engine.submit(src, dst, current))
+                tickets.append(engine.submit(src, dst, current, ctx=sp.ctx))
+                sp.finish()
             except QueryError as e:
                 # a draining engine refuses with a structured capacity
                 # error: answer it and keep serving what is queued
+                sp.finish(error=e.kind)
                 print(f"error {e.kind}: {src} -> {dst}: {e}")
                 continue
             except RuntimeError as e:
+                sp.finish(error="capacity")
                 print(f"error capacity: {src} -> {dst}: {e}")
                 continue
             except ValueError as e:
+                sp.finish(error="invalid")
                 print(f"error invalid: {src} -> {dst}: {e}")
                 continue
             drain()

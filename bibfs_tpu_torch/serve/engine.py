@@ -330,11 +330,15 @@ class _Pending:
     bound with it); ``query`` the typed query of a ticket of another kind
     than point-to-point (None for a ``(src, dst)`` ticket, whose ``src`` /
     ``dst`` are then its pair; else they hold a representative pair for
-    error reporting)."""
+    error reporting); ``ctx`` the distributed-trace context
+    (:mod:`bibfs_tpu_torch.obs.dtrace`) its ingress hop sampled, None on
+    an unsampled query, where it costs one slot and nothing else."""
 
-    __slots__ = ("src", "dst", "graph", "result", "error", "cutoff", "query")
+    __slots__ = ("src", "dst", "graph", "result", "error", "cutoff", "query",
+                 "ctx")
 
-    def __init__(self, src: int, dst: int, graph: str | None = None):
+    def __init__(self, src: int, dst: int, graph: str | None = None,
+                 ctx=None):
         self.src = src
         self.dst = dst
         self.graph = graph
@@ -342,6 +346,7 @@ class _Pending:
         self.error: BaseException | None = None
         self.cutoff: int | None = None
         self.query = None
+        self.ctx = ctx
 
 
 @guarded_by("_lock", "_graph", "bucket_key", "_host_solver",
@@ -1011,6 +1016,10 @@ class QueryEngine:
             # stages of its own)
             self._stage_cells = stage_histogram()
             self._stage_acc: dict = {}
+            # the sampled trace context of the flush being walked down the
+            # ladder (the first sampled ticket's), for routes that carry it
+            # across a process hop
+            self._launch_ctx = None
         except BaseException:
             # close a pool this engine owns: nothing else would
             if self._mesh_pool_owned:
@@ -1174,18 +1183,21 @@ class QueryEngine:
         return self._current_rt().host_backend_resolved
 
     # ---- submission --------------------------------------------------
-    def submit(self, src: int, dst: int, graph: str | None = None) -> _Pending:
+    def submit(self, src: int, dst: int, graph: str | None = None,
+               ctx=None) -> _Pending:
         """Queue one query (``graph`` names a store graph on a store-backed
         engine; None: the default graph). Oracle answers, cache hits and
         trivial queries resolve immediately; everything else resolves at
         the next flush (an overfull queue flushes itself at
-        ``max_batch``)."""
+        ``max_batch``). ``ctx`` is a sampled distributed-trace context
+        (:mod:`bibfs_tpu_torch.obs.dtrace`) that rides the ticket; None
+        (the default) adds no work."""
         self._check_open((int(src), int(dst)))
         src, dst = int(src), int(dst)
         name, rt = self._resolve_graph(graph)
         if not (0 <= src < rt.n and 0 <= dst < rt.n):
             raise ValueError(f"src/dst out of range for n={rt.n}")
-        t = _Pending(src, dst, name)
+        t = _Pending(src, dst, name, ctx)
         self._c_queries.inc()
         if src == dst:
             self._c_trivial.inc()
@@ -1410,8 +1422,17 @@ class QueryEngine:
             if overlay is not None:
                 self._flush_overlay(overlay, pairs, unique)
                 return
-            for i in range(0, len(pairs), self.max_batch):
-                self._flush_ladder(pairs[i: i + self.max_batch], unique)
+            # the flush's sampled trace context (the first sampled
+            # ticket's: one per batch, not per query) rides on the engine
+            # for the ladder walk
+            self._launch_ctx = next(
+                (t.ctx for t in pend if t.ctx is not None), None
+            )
+            try:
+                for i in range(0, len(pairs), self.max_batch):
+                    self._flush_ladder(pairs[i: i + self.max_batch], unique)
+            finally:
+                self._launch_ctx = None
 
     def _flush_overlay(self, overlay, pairs, unique) -> None:
         """Exact answering while live edge updates are pending

@@ -14,8 +14,12 @@ seams. This package's synchronous engine fires three of them:
   native-solver failure seam.
 
 The parser accepts every site the JAX package knows (:data:`KNOWN_SITES`),
-so one ``BIBFS_FAULTS`` spec drives both packages; sites of unported
-layers (mesh, blocked, the store, the query kinds) never fire here.
+so one ``BIBFS_FAULTS`` spec drives both packages; the mesh, blocked,
+store, query-kind and analytics layers fire their sites as the JAX
+package's do. ``trace_flush`` fires in the distributed-trace spool writer
+(:class:`~bibfs_tpu_torch.obs.dtrace.DTracer`): a trip there drops one
+span, never a query. Every trip is noted in the flight recorder
+(:func:`~bibfs_tpu_torch.obs.dtrace.flight_on_fault`) before it acts.
 
 A rule either raises :class:`InjectedFault` (kind ``error``) or sleeps
 (kind ``latency``), probabilistically (``p=0.1``, seeded — chaos runs
@@ -291,6 +295,17 @@ class FaultPlan:
                     sleep_ms += r.latency_ms
                 elif boom is None:
                     boom = InjectedFault(site, r.describe())
+        if sleep_ms > 0.0 or boom is not None:
+            # the flight recorder's fault hook: record the trip (and dump
+            # the ring, rate-limited, when a dump path is armed) before
+            # the injected error propagates; the post-mortem never adds a
+            # failure of its own
+            try:
+                from bibfs_tpu_torch.obs.dtrace import flight_on_fault
+
+                flight_on_fault(site)
+            except Exception:  # pragma: no cover - defensive
+                pass
         if sleep_ms > 0.0:
             time.sleep(sleep_ms / 1e3)
         if boom is not None:

@@ -51,8 +51,14 @@ updates answers its group exactly through the overlay route on the
 flusher. The oracle is consulted at submit time, before the cache; a
 consult that yields bounds arms the serial host rung's cutoff.
 
-Trace contexts and the flight recorder come with a later slice of the
-port (ROADMAP Queue 1, item 10).
+**Trace contexts.** ``submit(..., ctx=)`` takes a sampled distributed-
+trace context (:mod:`bibfs_tpu_torch.obs.dtrace`); the ticket carries it,
+its resolution emits ``queue`` and ``resolve`` spans parented under it
+and notes the query in the flight recorder, and a flush hands the first
+sampled ticket's context to the ladder walk (``_launch_ctx``). An
+unsampled query keeps ``ctx=None`` all the way down: no span, no metric
+cell. Every resolved batch and every route fallback is noted in the
+flight recorder.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ import time
 from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 
+from bibfs_tpu_torch.obs.dtrace import FLIGHT, emit_span
 from bibfs_tpu_torch.obs.metrics import REGISTRY, LogHistogram, MetricBank
 from bibfs_tpu_torch.obs.trace import span
 from bibfs_tpu_torch.serve.engine import QueryEngine, _Pending
@@ -183,8 +190,8 @@ class QueryTicket(_Pending):
     __slots__ = ("t_submit", "t_launch", "t_done", "_engine")
 
     def __init__(self, src: int, dst: int, engine=None,
-                 graph: str | None = None):
-        super().__init__(src, dst, graph)
+                 graph: str | None = None, ctx=None):
+        super().__init__(src, dst, graph, ctx)
         self.t_submit = time.perf_counter()
         self.t_launch: float | None = None  # stamped at batch pop
         self.t_done: float | None = None
@@ -341,19 +348,21 @@ class PipelinedQueryEngine(QueryEngine):
         self._flusher.start()
 
     # ---- submission --------------------------------------------------
-    def submit(self, src: int, dst: int, graph: str | None = None
-               ) -> QueryTicket:
+    def submit(self, src: int, dst: int, graph: str | None = None,
+               ctx=None) -> QueryTicket:
         """Queue one query WITHOUT blocking on any solve (``graph`` names a
         store graph on a store-backed engine). Trivial queries, oracle
         answers and cache hits (on an idle engine) resolve before
         returning; everything else resolves when the flusher's batch lands
-        (depth, deadline or drain, whichever comes first)."""
+        (depth, deadline or drain, whichever comes first). ``ctx`` is a
+        sampled distributed-trace context (module docstring); None, the
+        default, adds one attribute store and nothing else."""
         self._check_open((int(src), int(dst)))
         src, dst = int(src), int(dst)
         name, rt = self._resolve_graph(graph)
         if not (0 <= src < rt.n and 0 <= dst < rt.n):
             raise ValueError(f"src/dst out of range for n={rt.n}")
-        t = QueryTicket(src, dst, self, name)
+        t = QueryTicket(src, dst, self, name, ctx)
         if src == dst:
             with self._lock:
                 if self._closed:
@@ -667,6 +676,18 @@ class PipelinedQueryEngine(QueryEngine):
         )
         for t in batch:
             unique.setdefault((t.src, t.dst), []).append(t)
+        # the batch's sampled trace context rides on the engine for the
+        # ladder walk (one per batch); only the flusher thread runs this,
+        # so it is race-free
+        self._launch_ctx = next(
+            (t.ctx for t in batch if t.ctx is not None), None
+        )
+        try:
+            self._launch_group_routed(name, unique)
+        finally:
+            self._launch_ctx = None
+
+    def _launch_group_routed(self, name, unique) -> None:
         overlay = self._overlay_pending(name)
         rt = self._pin_rt(name)
         with self._bound(rt):
@@ -969,6 +990,7 @@ class PipelinedQueryEngine(QueryEngine):
     # the component's lock: here the flusher AND the finish worker reach
     # the fallback and error cells (cold paths only)
     def _note_fallback(self, frm: str, to: str) -> None:
+        FLIGHT.note("route", fallback=frm, to=to)
         with self._lock:
             super()._note_fallback(frm, to)
 
@@ -1020,6 +1042,26 @@ class PipelinedQueryEngine(QueryEngine):
             return False
         t.t_done = time.perf_counter()
         t.result = res
+        if t.ctx is not None:
+            # a sampled query: its ticket timeline becomes spans in this
+            # process's spool, parented under the ingress span whose
+            # context rode in on the submit
+            if t.t_launch is not None:
+                emit_span("queue", t.ctx, t.t_submit,
+                          t.t_launch - t.t_submit)
+                emit_span("resolve", t.ctx, t.t_launch,
+                          t.t_done - t.t_launch)
+            else:  # resolved inline at submit (trivial, oracle, cache)
+                emit_span("resolve", t.ctx, t.t_submit,
+                          t.t_done - t.t_submit)
+            FLIGHT.note(
+                "query", trace=t.ctx.trace_id, src=t.src, dst=t.dst,
+                queue_ms=(
+                    None if t.t_launch is None
+                    else round((t.t_launch - t.t_submit) * 1e3, 3)
+                ),
+                total_ms=round((t.t_done - t.t_submit) * 1e3, 3),
+            )
         return True
 
     def _fail_ticket(self, t: QueryTicket, err: BaseException) -> None:
@@ -1046,9 +1088,10 @@ class PipelinedQueryEngine(QueryEngine):
                            finish_s: float | None = None,
                            resolve_s: float | None = None) -> None:
         """One resolved batch's cost attribution (under the engine lock:
-        the flusher and the finish worker both land here). Launch, finish
-        and resolve take one histogram sample each; the queue stage is
-        per query, histogrammed in one ``record_many``."""
+        the flusher and the finish worker both land here) and its
+        flight-recorder entry. Launch, finish and resolve take one
+        histogram sample each; the queue stage is per query, histogrammed
+        in one ``record_many``."""
         queue_sum = 0.0
         if queue_list:
             self._stage_cells["queue"].record_many(queue_list)
@@ -1063,6 +1106,19 @@ class PipelinedQueryEngine(QueryEngine):
                 self._note_stage(route, "finish", finish_s)
             if resolve_s is not None:
                 self._note_stage(route, "resolve", resolve_s)
+        FLIGHT.note(
+            "batch", route=route, queries=n,
+            queue_ms=round(queue_sum * 1e3, 3),
+            launch_ms=(
+                None if launch_s is None else round(launch_s * 1e3, 3)
+            ),
+            finish_ms=(
+                None if finish_s is None else round(finish_s * 1e3, 3)
+            ),
+            resolve_ms=(
+                None if resolve_s is None else round(resolve_s * 1e3, 3)
+            ),
+        )
 
     def _note_batch_done(self, t_launch: float, tickets: int) -> None:
         service_ms = (time.perf_counter() - t_launch) * 1e3

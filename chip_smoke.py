@@ -118,6 +118,30 @@ is unavailable. Phases:
    batch service, the stage clock's overlap, the span ms, the peak
    device memory) and fails on any fallback, retry or error, a ticket
    still pending after ``close()`` or an engine thread still alive.
+   Between wave P[pallas*] and wave S, the network front door
+   (``net_phase``): a ``NetServer`` on 127.0.0.1 over a pipelined engine
+   like wave P's (``max_queue`` 1024, above the door's in-flight bound of
+   512). Wave N: wave P's 1024 pairs from 4 ``NetClient`` threads (128 in
+   flight each), every answer equal to wave P's (no new host search), no
+   fallback, retry or error, ``minor_level<int8_t>`` launched. Then, the
+   engine's distance cache emptied before each: N[traced], 64 queries
+   sampled into a ``DTracer`` spool whose merge gives each one
+   ``net_client`` -> ``net_ingress`` -> (``queue``, ``resolve``) and no
+   orphan; N[deadline], 64 queries with ``deadline_ms = 1``, each a right
+   answer or one ``timeout``, the timeouts equal to the rise of
+   ``bibfs_net_deadline_misses_total``; N[capacity], a burst of 64 at a
+   second door with ``max_inflight = 8``, its refusals equal to the rise
+   of ``bibfs_net_rejections_total{reason="capacity"}`` and every
+   admitted answer right; N[control], ``ping``, ``health``, ``stats``,
+   ``metrics`` (the render holds ``NET_METRIC_FAMILIES``) and
+   ``flightrec``. One ``{"phase": "net", ...}`` line a wave (wall,
+   queries/s, the client-side p50 / p99, launches, seconds). The CLI
+   wave adds ``bibfs-torch-serve --pipeline --port 0 --port-file F
+   --metrics-port 0 --trace-spool DIR`` as a child (``N[CLI]``): 64
+   queries sampled at this process's client equal the oracle, its
+   ``/metrics`` lists the net families and ``/healthz`` answers 200,
+   SIGTERM drains it to exit 0, and every sampled query's trace spans
+   both processes with no orphan.
 
 9. The lock-step batch of the per-query modes (run after phase 5 on the
    phase 3 graph): kernels 3 and 4 with a query axis
@@ -425,7 +449,9 @@ is unavailable. Phases:
    first flush and warm, and its route's steps one by one (a pack into a
    new allocation, the launch's set-up, the kernel, the status and ranks
    reads; the engine open and closed); then ``analytics_total`` (the
-   phase's seconds by part). On
+   phase's seconds by part). The pipelined engine of gnp-10000 also
+   answers one ``analytics`` op through a ``NetServer`` (``N[analytics]``),
+   equal to its own answer. On
    the host, ``analytics_phase("cpu", graphs=...)`` with small graphs
    rehearses it (the rungs forced as the card's gates place them).
 
@@ -1734,16 +1760,22 @@ def sync_wave(n, edges, pairs_all, pairs, **kw) -> tuple[list, float]:
 def cli_phase(n, edges, csr, pairs) -> dict:
     """``bibfs-torch-serve`` as subprocesses over a ``.bin`` of the graph:
     ``--pipeline --pairs`` (hops held against the oracle), then a stdin
-    stream answering ``health`` and ``stats`` and drained by SIGTERM."""
+    stream answering ``health`` and ``stats`` and drained by SIGTERM, then
+    the ``--port`` child (started first: its start-up overlaps the other
+    two)."""
+    import contextlib
+
     from bibfs_tpu_torch.graph.io import write_graph_bin
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root)
     cmd = [sys.executable, "-m", "bibfs_tpu_torch.serve.cli"]
     out: dict = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
         gpath = os.path.join(tmp, "g.bin")
         write_graph_bin(gpath, n, edges)
+        net_child = cli_net_start(cmd, env, root, gpath, tmp)
+        stack.callback(stop_child, net_child["proc"])
         ppath = os.path.join(tmp, "pairs.txt")
         np.savetxt(ppath, np.asarray(pairs), fmt="%d")
         spath = os.path.join(tmp, "stats.json")
@@ -1756,7 +1788,8 @@ def cli_phase(n, edges, csr, pairs) -> dict:
         check(run.returncode == 0, f"CLI --pipeline --pairs exited {run.returncode}: {run.stderr[-2000:]}")
         lines = run.stdout.splitlines()
         check(len(lines) == len(pairs), f"CLI printed {len(lines)} lines for {len(pairs)} pairs")
-        for (s, d), line, w in zip(pairs, lines, oracle(n, csr, pairs)):
+        wants = oracle(n, csr, pairs)
+        for (s, d), line, w in zip(pairs, lines, wants):
             want = (f"{s} -> {d}: length = {w.hops}" if w.found
                     else f"{s} -> {d}: no path")
             check(line == want, f"CLI line {line!r} != oracle {want!r}")
@@ -1820,7 +1853,457 @@ def cli_phase(n, edges, csr, pairs) -> dict:
         check(stats["device"].startswith("cuda"), f"CLI engine device {stats['device']}")
         out.update(stdin_queries=len(stream), health=health["state"],
                    stats_device=stats["device"])
+
+        # the network door as a user serves it, traced across processes
+        net = cli_net_child(net_child, pairs[:NET_SUB], wants[:NET_SUB])
+        print(json.dumps({"phase": "net", "wave": "N[CLI]", **net}), flush=True)
+        out["net_s"] = net["s"]
     return out
+
+
+def stop_child(proc) -> None:
+    """Kill a child still running (a failed phase leaves none behind)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+def cli_net_start(cmd, env, root, gpath, tmp, dev_name: str = "cuda") -> dict:
+    """Start ``bibfs-torch-serve --pipeline --port 0 --port-file F
+    --metrics-port 0 --trace-spool DIR`` over ``gpath``; returns its
+    handle for :func:`cli_net_child` (the process, a queue of its stderr
+    lines, the spool and port file paths, its start time)."""
+    spool = os.path.join(tmp, "spool")
+    port_file = os.path.join(tmp, "net.port")
+    proc = subprocess.Popen(
+        cmd + [gpath, "--pipeline", "--no-path", "--device", dev_name,
+               "--port", "0", "--port-file", port_file, "--metrics-port", "0",
+               "--trace-spool", spool],
+        stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+    err_q: queue.Queue = queue.Queue()
+
+    def reader():
+        for ln in proc.stderr:
+            err_q.put(ln.rstrip("\n"))
+        err_q.put(None)
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    return {"proc": proc, "err_q": err_q, "reader": th, "spool": spool,
+            "port_file": port_file, "t0": time.perf_counter(),
+            "dev_name": dev_name}
+
+
+def cli_net_child(child: dict, pairs, wants) -> dict:
+    """The ``--port`` child :func:`cli_net_start` started: ``pairs``
+    sampled at a NetClient of this process (its spans spooled beside the
+    child's) equal the oracle's ``wants``; ``/metrics`` lists the net
+    families, ``/healthz`` answers 200; SIGTERM drains it to exit 0; every
+    sampled query's trace spans both processes with no orphan. ``s`` is
+    the time from this call; ``ready_s`` the child's start-up from its
+    start, overlapped with the other CLI runs."""
+    import urllib.request
+
+    from bibfs_tpu_torch.obs import dtrace
+    from bibfs_tpu_torch.obs.names import NET_METRIC_FAMILIES
+    from bibfs_tpu_torch.serve.net import NetClient, read_port_file
+
+    t0 = time.perf_counter()
+    proc, err_q, th = child["proc"], child["err_q"], child["reader"]
+    spool, port_file, dev_name = (child["spool"], child["port_file"],
+                                  child["dev_name"])
+    err: list = []
+    client = None
+    tracer = dtrace.DTracer(spool, "smoke", sample=1.0)
+    prev = dtrace.set_dtracer(tracer)
+    try:
+        metrics_url = None
+        while metrics_url is None:
+            ln = err_q.get(timeout=300)
+            check(ln is not None, f"CLI --port child ended: {err[-20:]}")
+            err.append(ln)
+            if ln.startswith("[Obs] serving /metrics on "):
+                metrics_url = ln.split(" on ", 1)[1].strip()
+        deadline = time.monotonic() + 300
+        addr = None
+        while addr is None:
+            check(proc.poll() is None, f"CLI --port child died: {err[-20:]}")
+            check(time.monotonic() < deadline, "CLI --port: no port file")
+            addr = read_port_file(port_file)
+            if addr is None:
+                time.sleep(0.05)
+        ready_s = time.perf_counter() - child["t0"]
+        client = NetClient(*addr)
+        t1 = time.perf_counter()
+        tickets = [client.submit(s, d) for s, d in pairs]
+        outs = [net_outcome(t) for t in tickets]
+        wall = time.perf_counter() - t1
+        for (s, d), o, w in zip(pairs, outs, wants):
+            check(o == ("ok", w.found, w.hops), f"CLI --port {s}->{d}: {o}, oracle {w.hops}")
+        stats = client.request("stats")
+        check(stats["device"].startswith(dev_name),
+              f"CLI --port device {stats['device']}")
+        with urllib.request.urlopen(metrics_url, timeout=30) as r:
+            body = r.read().decode()
+        for fam in NET_METRIC_FAMILIES:
+            check(fam in body, f"CLI --port /metrics lacks {fam}")
+        with urllib.request.urlopen(metrics_url.replace("/metrics", "/healthz"),
+                                    timeout=30) as r:
+            health_status = r.status
+        check(health_status == 200, f"CLI --port /healthz {health_status}")
+        client.close()
+        client = None
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        dtrace.set_dtracer(prev)
+        tracer.close()
+        if client is not None:
+            client.close()
+        stop_child(proc)
+    th.join(timeout=60)
+    while True:
+        ln = err_q.get(timeout=60)
+        if ln is None:
+            break
+        err.append(ln)
+    check(rc == 0, f"CLI --port exited {rc} on SIGTERM: {err[-20:]}")
+    check(any("SIGTERM: draining" in ln for ln in err), "CLI --port did not drain")
+    rep = dtrace.merge_spools(spool)
+    crossed = dtrace.cross_process_traces(rep, min_procs=2)
+    sampled = {t.span.ctx.trace_id for t in tickets}
+    check(sampled <= {t["trace"] for t in crossed},
+          f"CLI --port: {len(sampled - {t['trace'] for t in crossed})} sampled "
+          "queries not traced across both processes")
+    return {"queries": len(pairs), "ready_s": ready_s, "wall_ms": wall * 1e3,
+            "cross_process_traces": len(crossed), "spans": rep["spans"],
+            "orphans": rep["orphan_parents"], "healthz": health_status,
+            "device": stats["device"], "device_queries": stats["device_queries"],
+            "host_queries": stats["host_queries"],
+            "s": time.perf_counter() - t0}
+
+
+# ---- phase 8's network door --------------------------------------------
+NET_CLIENTS = 4  # NetClient threads of the main wave, one connection each
+NET_SUB = 64  # queries of each sub-wave
+
+
+def series_value(text: str, series: str) -> float:
+    """The value of one exposition series (``name`` or ``name{labels}``)
+    in a Prometheus render."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    fail(f"series {series} is not in the render")
+
+
+def net_outcome(ticket, timeout: float = 300.0) -> tuple:
+    """``("ok", found, hops)`` or ``("error", kind, message)`` of a
+    NetTicket; a reply that never comes raises."""
+    try:
+        r = ticket.wait(timeout=timeout)
+    except TimeoutError:
+        raise
+    except Exception as e:  # a structured refusal: returned, checked after
+        return ("error", getattr(e, "kind", type(e).__name__), str(e))
+    return ("ok", r.found, r.hops)
+
+
+def net_drive(host: str, port: int, pairs, k: int, window: int | None = None,
+              **kw) -> tuple:
+    """``k`` NetClient threads, each on its own connection, submit their
+    stripe of ``pairs``, each keeping at most ``window`` queries in flight
+    (None: every submit before the first wait). Returns the outcomes in
+    pair order, the client-side latencies (submit to the reader's resolve
+    stamp, s), the tickets and the wall from the threads' common start to
+    the last reply."""
+    from collections import deque
+
+    from bibfs_tpu_torch.serve.net import NetClient
+
+    outs: list = [None] * len(pairs)
+    lats: list = [None] * len(pairs)
+    tickets: list = [None] * len(pairs)
+    errors: list = []
+    start = threading.Barrier(k + 1)
+
+    def worker(j):
+        client = NetClient(host, port)
+        try:
+            start.wait(timeout=60)
+            sent: deque = deque()
+
+            def reap():
+                i, t0 = sent.popleft()
+                outs[i] = net_outcome(tickets[i])
+                lats[i] = tickets[i].t_done - t0
+
+            for i in range(j, len(pairs), k):
+                if window is not None and len(sent) >= window:
+                    reap()
+                t0 = time.perf_counter()
+                tickets[i] = client.submit(*pairs[i], **kw)
+                sent.append((i, t0))
+            while sent:
+                reap()
+        except Exception as e:  # reported below
+            errors.append(f"{type(e).__name__}: {e}")
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=worker, args=(j,)) for j in range(k)]
+    for th in threads:
+        th.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(th.is_alive() for th in threads),
+          f"net clients failed: {errors}")
+    return outs, lats, tickets, wall
+
+
+def net_threads_gone(wave: str) -> None:
+    """Wait for every front-door thread (server IO and completer, client
+    readers) to end after its close."""
+    deadline = time.monotonic() + 10.0
+    while True:
+        live = [th.name for th in threading.enumerate()
+                if th.name.startswith("bibfs-net")]
+        if not live:
+            return
+        check(time.monotonic() < deadline,
+              f"net {wave}: threads alive after close: {live}")
+        time.sleep(0.05)
+
+
+def net_percentiles(lats) -> dict:
+    ms = np.asarray(lats, dtype=np.float64) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "max_ms": float(ms.max())}
+
+
+def net_phase(n, edges, pairs_all, pairs, truth, dev_name: str = "cuda"
+              ) -> None:
+    """Phase 8's network door (module docstring): a ``NetServer`` over a
+    pipelined engine like wave P's, ``pairs`` (with ``truth``, their
+    ``(found, hops)``) through ``NET_CLIENTS`` clients, then the traced,
+    deadline, admission and control sub-waves. ``dev_name="cpu"``
+    rehearses it on the host (the engine's device route forced, the
+    launch check skipped)."""
+    from bibfs_tpu_torch.obs import dtrace
+    from bibfs_tpu_torch.obs.metrics import REGISTRY
+    from bibfs_tpu_torch.obs.names import NET_METRIC_FAMILIES
+    from bibfs_tpu_torch.serve.net import NetClient, NetServer
+
+    on_card = dev_name == "cuda"
+    t_phase = time.perf_counter()
+    opts = {} if on_card else {"device": "cpu", "device_batches": True}
+    # max_queue above the door's in-flight bound (512): the IO thread
+    # must never park in the engine's admission gate
+    eng = PipelinedQueryEngine(n, edges, pairs=pairs_all, max_batch=BATCH,
+                               cache_entries=512, max_wait_ms=5.0,
+                               flush_threshold=1, max_queue=4 * BATCH, **opts)
+    eng.graph
+    srv = NetServer(eng)
+    check(srv._max_inflight < eng.max_queue,
+          f"net: in-flight bound {srv._max_inflight} >= max_queue {eng.max_queue}")
+    setup_s = time.perf_counter() - t_phase
+    laps = {"setup": setup_s}
+
+    def wrong(outs, subset, wave):
+        for p, o in zip(subset, outs):
+            if o[0] == "ok":
+                check(o[1:] == truth[p], f"net {wave} {p}: {o} != {truth[p]}")
+
+    # wave N: the pairs through 4 clients, every answer the truth's
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.synchronize()
+    reset_counts()
+    # each client keeps 128 in flight: 4 x 128 = the door's bound of 512
+    outs, lats, _t, wall = net_drive(srv.host, srv.port, pairs, NET_CLIENTS,
+                                     window=srv._max_inflight // NET_CLIENTS)
+    launches = counts()
+    check(all(o[0] == "ok" for o in outs),
+          f"net N: refusals {[o for o in outs if o[0] != 'ok'][:4]}")
+    wrong(outs, pairs, "N")
+    st = engine_clean(eng, "N")
+    if on_card:
+        check(launches.get("minor_level[minor8]", 0) > 0,
+              "net N did not launch minor_level_kernel<int8_t>")
+    pipe = st["pipeline"]
+    laps["N"] = time.perf_counter() - t0
+    print(json.dumps({
+        "phase": "net", "wave": "N", "queries": len(pairs),
+        "clients": NET_CLIENTS, "wall_ms": wall * 1e3,
+        "queries_per_s": len(pairs) / wall, **net_percentiles(lats),
+        "minor_level_launches": launches.get("minor_level[minor8]", 0),
+        "launches": {k: v for k, v in launches.items() if v},
+        "device_batches": st["device_batches"],
+        "device_queries": st["device_queries"],
+        "host_queries": st["host_queries"], "cache_served": st["cache_served"],
+        "flushes": pipe["flushes"], "queue_wait_max_ms": pipe["queue_wait_max_ms"],
+        "engine_latency_ms": st["latency_ms"], "stages": st["stages"],
+        "overlap": st["overlap"], "setup_s": setup_s,
+        "s": laps["N"]}), flush=True)
+
+    # N[traced]: sampled at the client, spooled, merged: each query a trace
+    # of net_client -> net_ingress -> (queue, resolve), no orphan
+    t0 = time.perf_counter()
+    eng.dist_cache.invalidate(eng.graph_id)
+    sub = pairs[:NET_SUB]
+    spool = tempfile.TemporaryDirectory(prefix="chip-spool-")
+    tracer = dtrace.DTracer(spool.name, "smoke", sample=1.0)
+    prev = dtrace.set_dtracer(tracer)
+    try:
+        outs, lats, tickets, wall = net_drive(srv.host, srv.port, sub, 1)
+    finally:
+        dtrace.set_dtracer(prev)
+        tracer.close()
+    check(all(o[0] == "ok" for o in outs), "net N[traced]: a refusal")
+    wrong(outs, sub, "N[traced]")
+    rep = dtrace.merge_spools(spool.name)
+    spool.cleanup()
+    check(rep["truncated_lines"] == 0 and rep["orphan_parents"] == 0,
+          f"net N[traced]: {rep['truncated_lines']} torn lines, "
+          f"{rep['orphan_parents']} orphans")
+    spans: dict = {}
+    for ev in rep["events"]:
+        if ev["ph"] == "X":
+            a = ev["args"]
+            spans.setdefault(a["trace"], {})[ev["name"]] = (a["span"], a.get("parent"))
+    for t in tickets:
+        tr = spans.get(t.span.ctx.trace_id, {})
+        check({"net_client", "net_ingress", "queue", "resolve"} <= tr.keys(),
+              f"net N[traced]: trace spans {sorted(tr)}")
+        client, ingress = tr["net_client"], tr["net_ingress"]
+        check(client[1] is None and ingress[1] == client[0]
+              and tr["queue"][1] == ingress[0] and tr["resolve"][1] == ingress[0],
+              f"net N[traced]: parentage {tr}")
+    laps["N[traced]"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "net", "wave": "N[traced]", "queries": len(sub),
+                      "traces": len(spans), "spans": rep["spans"],
+                      "orphans": rep["orphan_parents"], "wall_ms": wall * 1e3,
+                      **net_percentiles(lats), "s": laps["N[traced]"]}), flush=True)
+
+    # N[deadline]: 1 ms deadlines; each gets its result or one timeout, and
+    # the timeouts equal the counter's delta (late results answer nothing)
+    t0 = time.perf_counter()
+    eng.dist_cache.invalidate(eng.graph_id)
+    sub = pairs[NET_SUB: 2 * NET_SUB]
+    misses = "bibfs_net_deadline_misses_total"
+    before = series_value(REGISTRY.render(), misses)
+    outs, lats, _t, wall = net_drive(srv.host, srv.port, sub, 1, deadline_ms=1.0)
+    eng.flush(timeout=300)
+    time.sleep(0.2)  # past a late result's landing
+    delta = series_value(REGISTRY.render(), misses) - before
+    timeouts = sum(o[:2] == ("error", "timeout") for o in outs)
+    check(all(o[0] == "ok" or o[1] == "timeout" for o in outs),
+          f"net N[deadline]: {[o for o in outs if o[0] != 'ok' and o[1] != 'timeout'][:4]}")
+    wrong(outs, sub, "N[deadline]")
+    check(timeouts == delta, f"net N[deadline]: {timeouts} timeouts, counter +{delta}")
+    st = eng.stats()
+    res = st["resilience"]
+    check(not any(res["fallbacks"].values()) and res["retries"] == 0
+          and set(k for k, v in res["errors"].items() if v) <= {"timeout"},
+          f"net N[deadline]: resilience {res}")
+    laps["N[deadline]"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "net", "wave": "N[deadline]", "queries": len(sub),
+                      "deadline_ms": 1.0, "timeouts": timeouts,
+                      "results": len(sub) - timeouts, "counter_delta": delta,
+                      "engine_errors": res["errors"], "wall_ms": wall * 1e3,
+                      "s": laps["N[deadline]"]}), flush=True)
+
+    # N[capacity]: a second door with an in-flight bound of 8 takes a burst;
+    # its refusals equal the counter's delta, every admitted answer right
+    t0 = time.perf_counter()
+    eng.dist_cache.invalidate(eng.graph_id)
+    sub = pairs[2 * NET_SUB: 3 * NET_SUB]
+    small = NetServer(eng, max_inflight=8)
+    series = 'bibfs_net_rejections_total{reason="capacity"}'
+    before = series_value(REGISTRY.render(), series)
+    outs, lats, _t, wall = net_drive(small.host, small.port, sub, 1)
+    delta = series_value(REGISTRY.render(), series) - before
+    small.close()
+    refused = sum(o[:2] == ("error", "capacity") for o in outs)
+    check(all(o[0] == "ok" or (o[1] == "capacity" and "(capacity)" in o[2])
+              for o in outs), f"net N[capacity]: {[o for o in outs if o[0] != 'ok'][:4]}")
+    wrong(outs, sub, "N[capacity]")
+    check(refused == delta, f"net N[capacity]: {refused} refused, counter +{delta}")
+    laps["N[capacity]"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "net", "wave": "N[capacity]", "queries": len(sub),
+                      "max_inflight": 8, "refused": refused,
+                      "admitted": len(sub) - refused, "counter_delta": delta,
+                      "wall_ms": wall * 1e3, "s": laps["N[capacity]"]}), flush=True)
+
+    # N[control]: the control ops over the wire
+    t0 = time.perf_counter()
+    client = NetClient(srv.host, srv.port)
+    try:
+        check(client.request("ping") == {"pong": True}, "net: ping")
+        health = client.request("health")
+        check(health["state"] in ("ready", "degraded"), f"net: health {health}")
+        stats = client.request("stats")
+        check(stats["graph"]["n"] == n and stats["device"].startswith(dev_name),
+              f"net: stats {stats['graph']} on {stats['device']}")
+        render = client.request("metrics")["render"]
+        for fam in NET_METRIC_FAMILIES:
+            check(fam in render, f"net: metrics render lacks {fam}")
+        fr = client.request("flightrec")
+        check(fr["pid"] == os.getpid() and fr["capacity"] > 0
+              and any(e["kind"] == "batch" for e in fr["entries"]),
+              f"net: flightrec {sorted(fr)}")
+    finally:
+        client.close()
+    srv.close()
+    net_threads_gone("N[control]")
+    # the deadline wave's cancellations are the engine's only errors
+    # (checked above); nothing else may be left in its pipeline
+    pipe = eng.stats()["pipeline"]
+    check(not pipe["errors"] and pipe["outstanding"] == 0,
+          f"net: pipeline {pipe['errors']}, {pipe['outstanding']} outstanding")
+    eng.close()
+    live = [th.name for th in threading.enumerate() if th.name.startswith("bibfs-")]
+    check(not live, f"net: threads alive after close: {live}")
+    laps["N[control]"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "net", "wave": "N[control]",
+                      "ops": ["ping", "health", "stats", "metrics", "flightrec"],
+                      "health": health["state"], "flight_entries": len(fr["entries"]),
+                      "s": laps["N[control]"],
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    del eng
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def net_analytics(eng, res, queries, wave: str) -> None:
+    """One ``analytics`` op over the wire on ``eng`` (a wave just served
+    ``queries`` with answers ``res`` on it): each kind's summary equals
+    the engine's own answer's (its time aside)."""
+    from bibfs_tpu_torch.analytics.queries import analytics_summary
+    from bibfs_tpu_torch.serve.net import NetClient, NetServer
+
+    t0 = time.perf_counter()
+    srv = NetServer(eng)
+    client = NetClient(srv.host, srv.port)
+    try:
+        got = client.request("analytics", kind="triangles")
+    finally:
+        client.close()
+        srv.close()
+    want = analytics_summary(next(r for q, r in zip(queries, res)
+                                  if type(q).__name__ == "Triangles"))
+    got.pop("time_s", None)
+    want.pop("time_s", None)
+    check(got == want, f"net analytics on {wave}: {got} != {want}")
+    net_threads_gone("N[analytics]")
+    print(json.dumps({"phase": "net", "wave": "N[analytics]", "engine": wave,
+                      "kind": "triangles", "answer": got,
+                      "s": time.perf_counter() - t0}), flush=True)
 
 
 def pipelined_run(n, edges, pairs_all, pairs, wave: str, threads: int, **kw):
@@ -1876,7 +2359,13 @@ def pipeline_phase(n, edges, pairs_all, csr) -> None:
     print(json.dumps({"phase": "engine_pipelined", "wave": "P", "queries": len(pairs_p),
                       "threads": 4, **line,
                       "modes": sorted({r.mode for r in res_p if r.mode})}), flush=True)
+    # wave P's answers (equal to the synchronous engine's, a sample to the
+    # oracle's) are the network door's truth: no new host search
+    truth = {p: (r.found, r.hops) for p, r in zip(pairs_p, res_p)}
     del res_p
+
+    # the network front door over a pipelined engine on the card
+    net_phase(n, edges, pairs_all, pairs_p, truth)
 
     # wave P-pallas: the pull kernels through the pipelined engine
     pairs_k = [(int(s), int(d)) for s, d in np.random.default_rng(47).choice(
@@ -5318,6 +5807,9 @@ def analytics_phase(dev_name: str = "cuda", results: dict | None = None,
                     host_sssp=True)
         res = analytics_wave(eng, qs, wave, big["name"], expect)
         check_analytics(qs, res, refs["big"], wave)
+        if cls is PipelinedQueryEngine:
+            # the same engine behind the network door: its analytics op
+            net_analytics(eng, res, qs, wave)
         if cls is QueryEngine:
             # a PageRank answer on the warm engine (its tiles and packed
             # rows built; another tolerance, so no cache answers it)

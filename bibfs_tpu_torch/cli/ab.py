@@ -59,6 +59,16 @@ counts, the fixpoints' planes bit for bit and their rounds equal and the
 ranks within 1e-6 with the same iterations; the line also carries
 ``nvidia-smi``'s name and power limit of the card.
 
+With ``--store GEOM`` (``gnp-deg8-s20``, the graph of ``chip_smoke.py``
+phases 3 and 17, or ``gnp-deg8-sK`` cut small) it times a compaction of
+the graph store's delta overlay instead, host code only: each checkout
+builds the graph's ``GraphSnapshot``, and per turn a fresh
+``DeltaOverlay`` over it applies ``--adds`` seeded non-edges and
+``--dels`` seeded base edges (the first ``apply`` builds the overlay's
+base-edge index) and folds them into a new snapshot (``snapshot()``),
+each step timed once on the host clock. ``same_results`` holds the
+folded snapshots' pairs and digests equal.
+
 The host-bound modes' times drift by tens of percent from process to
 process and over minutes; run in turns within one process, both
 checkouts see the same drift. A card is used unless ``--device cpu``.
@@ -541,6 +551,75 @@ def _analytics_ab(snaps, geom: str, rounds: int, dev, sync) -> dict:
 
 
 #: the blocked A/B's grids: (rows, columns), as chip_smoke.py phase 10
+STORE_GRAPHS = ("gnp-deg8-s20",)
+STORE_SEED = 171  # the seeded delta's edges
+
+
+def _store_delta(n: int, pairs: np.ndarray, adds: int, dels: int):
+    """``adds`` seeded non-edges and ``dels`` seeded base edges of the
+    canonical ``pairs``, as ``(u, v)`` tuples with ``u < v``."""
+    rng = np.random.default_rng(STORE_SEED)
+    und = pairs[pairs[:, 0] < pairs[:, 1]]
+    keys = und[:, 0] * np.int64(n) + und[:, 1]
+    gone = [tuple(map(int, e)) for e in
+            und[rng.choice(len(und), size=dels, replace=False)]]
+    fresh: set = set()
+    while len(fresh) < adds:
+        u, v = sorted(int(x) for x in rng.integers(0, n, 2))
+        k = u * n + v
+        i = int(np.searchsorted(keys, k))
+        if u != v and not (i < keys.size and keys[i] == k):
+            fresh.add((u, v))
+    return sorted(fresh), gone
+
+
+def _store_ab(snaps, geom: str, rounds: int, adds: int, dels: int) -> dict:
+    """Overlay compactions of both checkouts in turns (module
+    docstring)."""
+    kind, _, shape = geom.partition("-")
+    if kind != "gnp" or not shape.startswith("deg8-s") or \
+            not shape[len("deg8-s"):].isdigit():
+        raise ValueError(f"--store: no geometry {geom!r}")
+    n = 1 << int(shape[len("deg8-s"):])
+    bases, delta = {}, None
+    for who, snap in snaps.items():
+        sys.modules.update(snap)
+        edges = snap[f"{PKG}.graph.generate"].gnp_random_graph(n, 8 / n,
+                                                                 seed=7)
+        bases[who] = snap[f"{PKG}.store.snapshot"].GraphSnapshot.build(n,
+                                                                      edges)
+        if delta is None:
+            delta = _store_delta(n, bases[who].pairs, adds, dels)
+    times = {(w, step): [] for w in snaps for step in ("apply", "snapshot")}
+    same = True
+    for rnd in range(rounds):
+        order = ("parent", "change") if rnd % 2 == 0 else ("change", "parent")
+        outs = {}
+        for who in order:
+            sys.modules.update(snaps[who])
+            ov = snaps[who][f"{PKG}.store.delta"].DeltaOverlay(bases[who])
+            t0 = time.perf_counter()
+            ov.apply(*delta)
+            t1 = time.perf_counter()
+            outs[who] = ov.snapshot()[0]
+            t2 = time.perf_counter()
+            times[(who, "apply")].append((t1 - t0) * 1e3)
+            times[(who, "snapshot")].append((t2 - t1) * 1e3)
+        same &= (np.array_equal(outs["parent"].pairs, outs["change"].pairs)
+                 and outs["parent"].digest == outs["change"].digest)
+        del outs
+    line = {"geometry": geom, "n": n,
+            "edges": int(bases["change"].pairs.shape[0] // 2),
+            "adds": adds, "dels": dels, "rounds": rounds,
+            "same_results": bool(same)}
+    for (who, step), v in times.items():
+        line[f"{who}/{step}"] = {
+            "median_ms": float(np.median(v)),
+            "p25_ms": float(np.percentile(v, 25)),
+            "p75_ms": float(np.percentile(v, 75)), "runs": len(v)}
+    return line
+
+
 BLOCKED_GRIDS = {"grid-128x1024": (128, 1024), "grid-64x64": (64, 64)}
 
 
@@ -615,6 +694,13 @@ def main(argv=None) -> int:
     ap.add_argument("--analytics", metavar="GEOM",
                     help="time the analytics kernels on this "
                          f"graph ({', '.join(ANALYTICS_GRAPHS)}, gnp-N-dD)")
+    ap.add_argument("--store", metavar="GEOM",
+                    help="time a delta overlay's compaction on this graph "
+                         f"({', '.join(STORE_GRAPHS)}, gnp-deg8-sK)")
+    ap.add_argument("--adds", type=int, default=24,
+                    help="seeded edge inserts of the --store delta")
+    ap.add_argument("--dels", type=int, default=8,
+                    help="seeded edge deletes of the --store delta")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -627,9 +713,15 @@ def main(argv=None) -> int:
 
     saved = {m: mod for m, mod in sys.modules.items() if _ours(m)}
     snaps = {"change": _load(None), "parent": _load(args.parent.resolve())}
-    if args.blocked or args.oracle or args.kinds or args.analytics:
+    if args.blocked or args.oracle or args.kinds or args.analytics or \
+            args.store:
         try:
-            if args.analytics:
+            if args.store:
+                line = _store_ab(snaps, args.store, args.rounds, args.adds,
+                                 args.dels)
+                if dev.type == "cuda":
+                    line["nvidia_smi"] = _card_line()
+            elif args.analytics:
                 line = _analytics_ab(snaps, args.analytics, args.rounds, dev,
                                      sync)
                 if dev.type == "cuda":

@@ -5,8 +5,9 @@ and the native host runtime, with shape buckets, a distance/result
 cache, fault injection and the resilience ladder, the network front door
 (:mod:`bibfs_tpu_torch.serve.net`) and the ``bibfs-torch-serve`` CLI
 (:mod:`bibfs_tpu_torch.serve.cli`): the counterpart of
-``bibfs_tpu/serve``. The fleet comes with a later slice (ROADMAP
-Queue 1)."""
+``bibfs_tpu/serve``. The fleet of replicas behind a router is
+:mod:`bibfs_tpu_torch.fleet` (``bibfs-torch-fleet``), and its soak is
+:func:`bibfs_tpu_torch.serve.loadgen.run_fleet`."""
 
 from bibfs_tpu_torch.serve.buckets import (  # noqa: F401
     DEFAULT_EXEC_CACHE,

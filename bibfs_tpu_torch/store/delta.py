@@ -49,16 +49,24 @@ class DeltaOverlay:
         self._lock = threading.Lock()
         self._adds: set[tuple[int, int]] = set()
         self._dels: set[tuple[int, int]] = set()
-        self._base_edges: set | None = None  # lazy membership index
+        self._base_edges: np.ndarray | None = None  # lazy membership index
         self._base_csr = None  # own handle: survives base retirement
 
     # ---- mutation ----------------------------------------------------
     def _base_has(self, e: tuple[int, int]) -> bool:
+        """Whether the canonical edge ``e`` is in the base snapshot. The
+        index is one sorted ``int64`` key a base edge (``u * n + v``,
+        ``u < v``), searched by bisection: an O(E) NumPy pass to build,
+        where a Python set of the edge tuples took seconds and gigabytes
+        on a graph of millions of edges. The keys are ascending because
+        the snapshot's pairs are canonical (sorted) by contract."""
+        n = self.base.n
         if self._base_edges is None:
-            self._base_edges = set(
-                map(tuple, self.base.undirected_edges().tolist())
-            )
-        return e in self._base_edges
+            u = self.base.undirected_edges()
+            self._base_edges = u[:, 0].astype(np.int64) * n + u[:, 1]
+        key = int(e[0]) * n + int(e[1])
+        i = int(np.searchsorted(self._base_edges, key))
+        return i < self._base_edges.size and int(self._base_edges[i]) == key
 
     def ensure_index(self) -> None:
         """Build the O(E) base-edge membership index now (the store calls
@@ -224,6 +232,44 @@ class DeltaOverlay:
             )
         return base
 
+    def merged_pairs(self, adds: set, dels: set) -> np.ndarray:
+        """The canonical pairs of base + delta, equal to
+        ``canonical_pairs(n, merged_edges(adds, dels))``: the delta's keys
+        (``u * n + v``, both orientations) are deleted from and inserted
+        into the base's sorted keys by bisection, one pass over the base
+        instead of a sort of every edge. The base's pairs are canonical
+        by the snapshot's contract, so its keys are already ascending."""
+        n = self.base.n
+        pairs = self.base.pairs
+        keys = pairs[:, 0] * np.int64(n) + pairs[:, 1]
+
+        def both(edges) -> np.ndarray:
+            if not edges:
+                return np.zeros(0, dtype=np.int64)
+            e = np.array(sorted(edges), dtype=np.int64)
+            return np.unique(np.concatenate(
+                [e[:, 0] * n + e[:, 1], e[:, 1] * n + e[:, 0]]))
+
+        dk = both(dels)
+        if dk.size and keys.size:
+            pos = np.searchsorted(keys, dk)
+            inside = pos < keys.size
+            pos = pos[inside]
+            keys = np.delete(keys, pos[keys[pos] == dk[inside]])
+        ak = both(adds)
+        if ak.size:
+            pos = np.searchsorted(keys, ak)
+            if keys.size:
+                fresh = (pos >= keys.size) | (
+                    keys[np.minimum(pos, keys.size - 1)] != ak)
+            else:
+                fresh = np.ones(ak.size, dtype=bool)
+            keys = np.insert(keys, pos[fresh], ak[fresh])
+        out = np.empty((keys.size, 2), dtype=np.int64)
+        out[:, 0] = keys // n
+        out[:, 1] = keys % n
+        return out
+
     def snapshot(self, adds: set | None = None,
                  dels: set | None = None) -> tuple[GraphSnapshot, set, set]:
         """Build base + delta into a fresh snapshot (the compaction; run it
@@ -232,7 +278,7 @@ class DeltaOverlay:
         if adds is None or dels is None:
             adds, dels = self.capture()
         snap = GraphSnapshot.build(
-            self.base.n, self.merged_edges(adds, dels)
+            self.base.n, pairs=self.merged_pairs(adds, dels)
         )
         return snap, adds, dels
 

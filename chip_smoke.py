@@ -455,6 +455,43 @@ is unavailable. Phases:
    the host, ``analytics_phase("cpu", graphs=...)`` with small graphs
    rehearses it (the rungs forced as the card's gates place them).
 
+17. The fleet (run after phase 16). 17a (``fleet_soak``): the port's
+   ``run_fleet`` in the JAX package's soak shape on ``cuda`` engines (3
+   replicas over their own stores of 30 grids of 150x150 at 2%
+   perforation, 6000 queries a phase twice, 48-pair hot pools at 85%
+   repeats, cache 128, max batch 64, 3000 chaos queries over 24 s with a
+   kill and a restart, a roll of 24 adds and 8 deletes under load, a burst
+   of 240 with the spill depth lowered, a live ``/metrics``), throughput
+   reported (``qps_factor=None``) and every other gate failing the run;
+   one ``{"phase": "fleet", "step": "soak", ...}`` line (single and fleet
+   queries/s, their ratio, the recovery seconds, the roll, spills,
+   tickets, launches). 17b (``fleet_phase``): phase 3's gnp-deg8-s20
+   through a ``Router`` over a pipelined in-process ``EngineReplica`` on
+   the card (``flush_threshold=1``: every flush on the device route), a
+   ``ProcessReplica`` child over a durable store directory (``--store
+   DIR --durable``) and a ``NetReplica`` child (``--store DIR --port 0``),
+   both children the port's serving CLI on ``cuda``, started together.
+   With every count set to 0, 512 fresh pairs from 4 threads, every answer
+   the native host solver's, ``minor_level<int8_t>`` launched; one edge
+   (a wave pair at least 4 hops apart) rolled with ``rolling_swap``,
+   every replica declaring version 2 and 65 answers exact on it; the
+   child SIGKILLed while a wave of 256 is in flight, zero lost; the child
+   restarted, recovered by remap at version 2, answering the rolled pair
+   in 1 hop, directly and through the router; the in-process replica
+   killed and respawned by one ``Supervisor.tick()``; the children exit
+   0 at close. One ``{"phase": "fleet", "step": "gnp", ...}`` line: spawn
+   seconds, the wave's wall, launches, routes and per-replica counts, the
+   roll's seconds per replica, the kill's pending tickets and reroutes,
+   the respawn's and re-admissions' seconds, the recovery record and
+   ``torch.cuda.memory_allocated()`` before the wave, after it, after the
+   kill (with the waves' tickets held, then dropped: a resolved ticket
+   keeps its engine) and after the restart. In the whole smoke the two
+   children start up beside 17a, so 17a's single-replica and fleet
+   queries/s are read while they load their graphs on the same host and
+   card. ``fleet_main()`` runs this phase alone in that form;
+   ``fleet_main(overlap=False)`` starts the children only after 17a has
+   ended, for 17a's queries/s without that start-up beside them.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
 JSON line.
@@ -5888,6 +5925,439 @@ def analytics_phase(dev_name: str = "cuda", results: dict | None = None,
     return launches
 
 
+FLEET_WAVE = 512  # phase 17b's first wave, from FLEET_THREADS submitters
+FLEET_KILL_WAVE = 256  # the wave the ProcessReplica child dies under
+FLEET_AFTER = 64  # fresh pairs after the roll, besides the changed pair
+FLEET_THREADS = 4
+FLEET_SPILL = 64  # the router's spill depth: a backed-up owner spills
+FLEET_SPAWN_S = 900.0  # a child's bound: the .bin read, store, engine
+FLEET_NAMES = ("e0", "p0", "n0")  # the ring gives "gnp" to p0, then n0
+
+
+def fleet_soak(dev_name: str = "cuda", overlap: bool = True, **kw) -> dict:
+    """Phase 17a (module docstring): ``run_fleet`` in the JAX package's
+    soak shape on engines of ``dev_name``; ``kw`` shrinks it for a
+    rehearsal on the host. Fails on any gate but throughput, which is
+    printed. ``overlap`` says whether 17b's children start up beside it
+    (it goes on the line beside the queries/s)."""
+    from bibfs_tpu_torch.serve.loadgen import run_fleet
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_fleet(device=dev_name, qps_factor=None, **kw)
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in counts().items() if v}
+    gates = ("zero_lost", "zero_failed", "verified_vs_truth", "recovery_ok",
+             "roll_ok", "reroutes_ok", "spill_ok", "metrics_ok", "ok")
+    line = {
+        "phase": "fleet", "step": "soak", "device": dev_name,
+        "beside_children_startup": overlap,
+        "graphs": out["graphs"], "grid": out["grid"],
+        "replicas": out["replicas"],
+        "queries_per_phase": out["queries_per_phase"],
+        "qps_single": out["qps"]["single"], "qps_fleet": out["qps"]["fleet"],
+        "ratio": out["qps"]["ratio"],
+        "cache_served": {"single": out["qps"]["single_timed_cache_served"],
+                         "fleet": out["qps"]["fleet_timed_cache_served"]},
+        "recovery_s": out["chaos"]["recovery_s"], "chaos": out["chaos"],
+        "roll": {k: out["roll"][k] for k in (
+            "ok", "changed_answers", "mixed_versions_served",
+            "post_versions")},
+        "roll_s": [r.get("roll_s") for r in out["roll"]["replicas"]],
+        "spill": out["spill"], "router": out["router"],
+        "tickets": out["tickets"], "metrics": out["metrics"],
+        "gates": {g: out[g] for g in gates}, "launches": launches,
+        "setup_to_drain_s": out["setup_to_drain_s"], "s": seconds,
+    }
+    print(json.dumps(line, default=str), flush=True)
+    for g in gates:
+        check(out[g], f"phase 17a: gate {g} failed: failed "
+              f"{out['failed_sample'][:3]} mismatches {out['mismatches'][:3]}"
+              f" audit {out['truth_audit_mismatches'][:3]}")
+    return line
+
+
+def fleet_wave(router, pairs, truth, wave: str, threads: int = 1,
+               kill=None) -> tuple[list, float]:
+    """Submit ``pairs`` on ``gnp`` through ``router`` from ``threads``
+    threads and wait every ticket; each answer's (found, hops) must equal
+    ``truth`` (the native host solver's on the version the ticket's
+    replica declared: ``truth`` maps a version to its list, in pair
+    order). ``kill(i)``,
+    when given, runs before the i-th submit of thread 0. Returns the
+    tickets in pair order and the wall seconds."""
+    tickets: list = [None] * len(pairs)
+    errors: list = []
+
+    def work(lo):
+        try:
+            for i in range(lo, len(pairs), threads):
+                if kill is not None and lo == 0:
+                    kill(i)
+                s, d = pairs[i]
+                tickets[i] = router.submit(s, d, "gnp")
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=600.0)
+    check(not errors, f"fleet wave {wave}: a submit raised {errors[:1]!r}")
+    lost = []
+    for i, ((s, d), t) in enumerate(zip(pairs, tickets)):
+        try:
+            r = t.wait(timeout=600.0)
+        except Exception as e:  # noqa: BLE001 - a lost ticket fails below
+            lost.append(f"{s}->{d}: {type(e).__name__}: {e}"[:200])
+            continue
+        check(t.declared_version in truth,
+              f"fleet wave {wave} {s}->{d}: declared v{t.declared_version}")
+        want = truth[t.declared_version][i]
+        check((r.found, r.hops) == tuple(want),
+              f"fleet wave {wave} {s}->{d} on {t.replica} "
+              f"v{t.declared_version}: {(r.found, r.hops)} != {want}")
+    check(not lost, f"fleet wave {wave}: {len(lost)} tickets lost: {lost[:3]}")
+    return tickets, time.perf_counter() - t0
+
+
+def wait_until(cond, timeout: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout, f"fleet: {what} timed out")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def child_counters(rep) -> dict:
+    st = rep.stats()
+    return {k: st.get(k) for k in (
+        "queries", "device_queries", "device_batches", "host_queries",
+        "cache_served")}
+
+
+def fleet_truths(gnp: dict) -> dict:
+    """17b's seeded pairs and their native host answers on both versions
+    (the rolled edge joins the first wave pair at least 4 hops apart):
+    host work that :func:`fleet_children` runs in a thread beside 17a."""
+    n, edges = gnp["n"], gnp["edges"]
+    rng = np.random.default_rng(171)
+    pairs = fresh_pairs(rng, n, FLEET_WAVE)
+    truth1 = native_hops(n, edges, pairs, gnp["csr"])
+    far = next(i for i, (f, h) in enumerate(truth1) if f and h >= 4)
+    s_c, d_c = pairs[far]
+    edges2 = np.vstack([edges, [[s_c, d_c]]])
+    after = [(s_c, d_c)] + fresh_pairs(rng, n, FLEET_AFTER)
+    kill_pairs = fresh_pairs(rng, n, FLEET_KILL_WAVE)
+    truth2 = native_hops(n, edges2, after + kill_pairs, build_csr(n, edges2))
+    return dict(pairs=pairs, truth1=truth1, far=far, edge=(s_c, d_c),
+                after=after, kill_pairs=kill_pairs,
+                truth_after=truth2[:len(after)],
+                truth_kill=truth2[len(after):])
+
+
+ROLL_STEPS = ("begin_drain", "flush", "version", "roll", "end_drain",
+              "probe", "health")
+
+
+def clock_calls(reps, names) -> dict:
+    """Time every call of ``names`` on each replica object (instance
+    attributes over the class's methods; :func:`unclock_calls` removes
+    them): ``{replica: {name: [calls, seconds]}}``. The router's poller
+    calls ``health`` and ``version`` too, so those include its polls."""
+    spent = {r.name: {} for r in reps}
+    for r in reps:
+        for m in names:
+            def clocked(*a, _fn=getattr(r, m), _c=spent[r.name], _m=m, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    c = _c.setdefault(_m, [0, 0.0])
+                    c[0] += 1
+                    c[1] += time.perf_counter() - t0
+            setattr(r, m, clocked)
+    return spent
+
+
+def unclock_calls(reps, names) -> None:
+    for r in reps:
+        for m in names:
+            delattr(r, m)
+
+
+def fleet_children(gnp: dict, dev_name: str = "cuda") -> dict:
+    """Start phase 17b's two children (module docstring) over store
+    directories of ``gnp`` in a temporary directory, each constructor in a
+    thread of its own: a ``ProcessReplica`` over a durable directory and a
+    ``NetReplica``. Their start-up (the ``.bin`` read, the store, the
+    engine, the readiness reply) runs beside 17a. :func:`fleet_phase`
+    joins them; :func:`fleet_children_close` stops whatever started."""
+    import shutil
+
+    from bibfs_tpu_torch.fleet import NetReplica, ProcessReplica
+    from bibfs_tpu_torch.graph.io import write_graph_bin
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-fleet-")
+    pdir, ndir = os.path.join(tmp, "durable"), os.path.join(tmp, "net")
+    os.makedirs(pdir)
+    os.makedirs(ndir)
+    write_graph_bin(os.path.join(pdir, "gnp.bin"), gnp["n"], gnp["edges"])
+    shutil.copyfile(os.path.join(pdir, "gnp.bin"), os.path.join(ndir, "gnp.bin"))
+    kids = {"tmp": tmp, "spawned": {}, "write_s": time.perf_counter() - t0}
+
+    def spawn(key, make):
+        t1 = time.perf_counter()
+        try:
+            kids["spawned"][key] = (make(), time.perf_counter() - t1)
+        except BaseException as e:  # noqa: BLE001 - reported by the phase
+            kids["spawned"][key] = (e, time.perf_counter() - t1)
+
+    makers = {
+        "process": lambda: ProcessReplica(
+            FLEET_NAMES[1], store_dir=pdir, durable=True, device=dev_name,
+            spawn_timeout_s=FLEET_SPAWN_S),
+        "net": lambda: NetReplica(
+            FLEET_NAMES[2], store_dir=ndir, device=dev_name,
+            spawn_timeout_s=FLEET_SPAWN_S),
+    }
+    makers["truths"] = lambda: fleet_truths(gnp)
+    kids["threads"] = [threading.Thread(target=spawn, args=kv, daemon=True)
+                       for kv in makers.items()]
+    for t in kids["threads"]:
+        t.start()
+    return kids
+
+
+def fleet_children_close(kids: dict) -> None:
+    """Stop both children (a no-op for a closed one) and remove their
+    directories."""
+    import shutil
+
+    for t in kids["threads"]:
+        t.join(timeout=FLEET_SPAWN_S + 60.0)
+    for key, (rep, _s) in kids["spawned"].items():
+        if key != "truths" and not isinstance(rep, BaseException):
+            rep.close()
+    shutil.rmtree(kids["tmp"], ignore_errors=True)
+
+
+def fleet_phase(gnp: dict, kids: dict, dev_name: str = "cuda") -> dict:
+    """Phase 17b (module docstring) on phase 3's graph (``gnp``: ``n``,
+    ``edges``, ``csr``) with the children :func:`fleet_children` started;
+    ``dev_name="cpu"`` on a small graph rehearses it on the host (the
+    in-process engine's device route forced, the launch checks skipped).
+    Returns the launches of the first wave."""
+    import gc
+
+    from bibfs_tpu_torch.fleet import (
+        Router,
+        ScalePolicy,
+        Supervisor,
+        engine_replica,
+    )
+
+    on_card = dev_name == "cuda"
+    t_phase = time.perf_counter()
+    n, edges = gnp["n"], gnp["edges"]
+    t0 = time.perf_counter()
+    store = GraphStore(compact_threshold=None)
+    if gnp.get("pairs_all") is not None:
+        store.add("gnp", n, pairs=gnp["pairs_all"])  # canonical already
+    else:
+        store.add("gnp", n, edges)
+    eng_kw = dict(pipelined=True, max_batch=256, cache_entries=512,
+                  max_wait_ms=5.0, flush_threshold=1)
+    if not on_card:
+        eng_kw.update(device=dev_name, device_batches=True)
+    erep = engine_replica(FLEET_NAMES[0], store, **eng_kw)
+    engine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in kids["threads"]:
+        t.join(timeout=FLEET_SPAWN_S + 60.0)
+    spawned = kids["spawned"]
+    for key in ("process", "net", "truths"):
+        rep, s = spawned.get(key, (None, None))
+        check(rep is not None and not isinstance(rep, BaseException),
+              f"fleet: {key} failed after {s} s: {rep!r}")
+    tr = spawned["truths"][0]
+    prep, nrep = spawned["process"][0], spawned["net"][0]
+    router = sup = None
+    line: dict = {"phase": "fleet", "step": "gnp", "n": n,
+                  "edges": int(edges.shape[0]), "device": dev_name,
+                  "bin_write_s": kids["write_s"],
+                  "spawn_s": {k: v[1] for k, v in spawned.items()
+                              if k != "truths"},
+                  "truths_s": spawned["truths"][1],
+                  "engine_build_s": engine_s,
+                  "spawn_wait_s": time.perf_counter() - t0}
+    try:
+        router = Router([erep, prep, nrep], poll_interval_s=0.25,
+                        spill_after=FLEET_SPILL)
+        check(router.owner("gnp") == FLEET_NAMES[1],
+              f"fleet: the ring gives gnp to {router.owner('gnp')}")
+        pairs, truth1 = tr["pairs"], tr["truth1"]
+        # 1. the wave, every count set to 0 just before
+        gc.collect()
+        mem = {"before_wave": torch.cuda.memory_allocated() if on_card else 0}
+        before = dict(erep.engine.counters)
+        kids0 = {"process": child_counters(prep), "net": child_counters(nrep)}
+        reset_counts()
+        tickets, wall = fleet_wave(router, pairs, {1: truth1}, "F",
+                                   threads=FLEET_THREADS)
+        launches = counts()
+        mem["after_wave"] = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            check(launches["minor_level[minor8]"] > 0,
+                  "fleet wave F: minor_level<int8_t> was not launched")
+        st = erep.engine.stats()
+        grown = {k: {c: (v or 0) - (kids0[k][c] or 0)
+                     for c, v in child_counters(r).items()}
+                 for k, r in (("process", prep), ("net", nrep))}
+        line["wave"] = {
+            "queries": len(pairs), "wall_s": wall,
+            "queries_per_s": len(pairs) / wall,
+            "launches": {k: v for k, v in launches.items() if v},
+            "engine": {k: st[k] - before[k] for k in (
+                "device_queries", "device_batches", "host_queries",
+                "cache_served")},
+            "children": grown,
+            "replicas": {r: sum(t.replica == r for t in tickets)
+                         for r in FLEET_NAMES},
+        }
+        check(line["wave"]["engine"]["device_batches"] > 0,
+              "fleet wave F: the in-process replica made no device flush")
+        # 2. one edge update rolled across the fleet: a pair of the wave at
+        # least 4 hops apart joined directly
+        s_c, d_c = tr["edge"]
+        reps = [router.replica(r) for r in FLEET_NAMES]
+        steps = clock_calls(reps, ROLL_STEPS)
+        t0 = time.perf_counter()
+        try:
+            roll = router.rolling_swap("gnp", adds=[(s_c, d_c)],
+                                       drain_timeout_s=600.0,
+                                       ready_timeout_s=600.0)
+        finally:
+            unclock_calls(reps, ROLL_STEPS)
+        roll_s = time.perf_counter() - t0
+        check(roll["ok"], f"fleet: the rolling swap failed: {roll}")
+        versions = {r: router.replica(r).version("gnp") for r in FLEET_NAMES}
+        check(all(v == 2 for v in versions.values()),
+              f"fleet: versions after the roll {versions}")
+        after, kill_pairs = tr["after"], tr["kill_pairs"]
+        check(tuple(tr["truth_after"][0]) == (True, 1),
+              f"fleet: the added edge reads {tr['truth_after'][0]}")
+        t_after, _ = fleet_wave(router, after, {2: tr["truth_after"]},
+                                "F[after roll]")
+        line["roll"] = {
+            "s": roll_s, "edge": [s_c, d_c],
+            "hops_before": truth1[tr["far"]][1], "steps": steps,
+            "replicas": [{k: r.get(k) for k in ("replica", "ok", "version",
+                                                 "roll_s")}
+                         for r in roll["replicas"]],
+            "versions": versions,
+            "after": {r: sum(t.replica == r for t in t_after)
+                      for r in FLEET_NAMES},
+        }
+        # 3. the ProcessReplica child SIGKILLed under a wave in flight
+        state = {"killed_at": None, "pending": None}
+        reroutes0 = router.stats()["reroutes"]
+
+        def kill(i):
+            if state["killed_at"] is None and i >= FLEET_KILL_WAVE // 3 and (
+                    prep.load() > 0 or i >= FLEET_KILL_WAVE - 1):
+                state["killed_at"], state["pending"] = i, prep.load()
+                prep.kill()
+
+        t_kill, kill_wall = fleet_wave(
+            router, kill_pairs, {2: tr["truth_kill"]}, "F[kill]",
+            threads=1, kill=kill)
+        check(state["killed_at"] is not None, "fleet: the child was not killed")
+        line["kill"] = {"at": state["killed_at"], "pending": state["pending"],
+                        "reroutes": router.stats()["reroutes"] - reroutes0,
+                        "wall_s": kill_wall, "lost": 0}
+        # 4. the child restarted over its durable directory: recovered by
+        # remap at version 2, the changed pair's answer is the new edge
+        t0 = time.perf_counter()
+        prep.restart()
+        respawn_s = time.perf_counter() - t0
+        readmit_s = wait_until(
+            lambda: router.table().get(FLEET_NAMES[1]) == "ready", 120.0,
+            "the respawned child's re-admission")
+        rec = prep.stats()["store"]["graphs"]["gnp"]["durable"]["recovered"]
+        check(rec is not None and rec["version"] == 2 and rec["remapped"],
+              f"fleet: the respawn did not recover v2 by remap: {rec}")
+        got = prep.wait_ticket(prep.submit(s_c, d_c, "gnp"), timeout=120.0)
+        check((got.found, got.hops) == (True, 1),
+              f"fleet: the respawned child answers {s_c}->{d_c} "
+              f"{(got.found, got.hops)}")
+        via = router.submit(s_c, d_c, "gnp")
+        check(via.wait(timeout=120.0).hops == 1 and via.declared_version == 2,
+              "fleet: the router's answer after the respawn")
+        line["respawn"] = {"s": respawn_s, "readmit_s": readmit_s,
+                           "recovered": rec, "via": via.replica}
+        # 5. the in-process replica killed; one supervisor tick respawns it.
+        # A resolved ticket keeps its engine (as the JAX package's does):
+        # the memory is read with the waves' tickets held, then dropped
+        erep.kill()
+        wait_until(lambda: router.table().get(FLEET_NAMES[0]) == "dead", 60.0,
+                   "the killed engine's ejection")
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+        mem["after_kill_tickets_held"] = (torch.cuda.memory_allocated()
+                                          if on_card else 0)
+        del tickets, t_after, t_kill, via
+        gc.collect()
+        mem["after_kill"] = torch.cuda.memory_allocated() if on_card else 0
+        sup = Supervisor(router, lambda idx: None,
+                         policy=ScalePolicy(min_replicas=3, max_replicas=3,
+                                            respawn_backoff_s=0.0),
+                         poll_interval_s=3600.0)
+        t0 = time.perf_counter()
+        sup.tick()
+        tick_s = time.perf_counter() - t0
+        readmit_e = wait_until(
+            lambda: router.table().get(FLEET_NAMES[0]) == "ready", 120.0,
+            "the supervisor's respawn")
+        got = erep.wait_ticket(erep.submit(s_c, d_c, "gnp"), timeout=120.0)
+        check((got.found, got.hops) == (True, 1),
+              f"fleet: the respawned engine answers {(got.found, got.hops)}")
+        mem["after_restart"] = torch.cuda.memory_allocated() if on_card else 0
+        events = [(e["dir"], e["reason"]) for e in sup.events()]
+        check(events == [("respawn", "dead")],
+              f"fleet: supervisor events {events}")
+        line["supervisor"] = {"tick_s": tick_s, "readmit_s": readmit_e,
+                              "events": events,
+                              "generation": erep.generation}
+        line["memory_allocated"] = mem
+        rst = router.stats()
+        line["router"] = {
+            "routed": {r: rst["replicas"][r]["routed"] for r in FLEET_NAMES},
+            "reroutes": rst["reroutes"], "spills": rst["spills"],
+            "rolls": rst["rolls"], "catchups": rst["catchups"],
+            "table": router.table()}
+    finally:
+        if sup is not None:
+            sup.close()
+        if router is not None:
+            router.close()
+        else:
+            erep.close()
+        fleet_children_close(kids)
+        store.close()
+    codes = {"process": prep._proc.returncode, "net": nrep._proc.returncode}
+    line["child_exit"] = codes
+    line["s"] = time.perf_counter() - t_phase
+    print(json.dumps(line, default=str), flush=True)
+    check(codes == {"process": 0, "net": 0},
+          f"fleet: the children exited {codes}")
+    return launches
+
+
 def kind_refs_main(sync: int = KIND_QUERIES["sync"],
                    pipelined: int = KIND_QUERIES["pipelined"],
                    workers: int = KIND_REF_WORKERS) -> int:
@@ -5965,6 +6435,42 @@ def shard_main(profile_only: bool = False) -> int:
         print(json.dumps({"kernels_sharded": results}), flush=True)
         mesh = mesh_phase(gnp, os.path.join(mesh_dir, "gnp"))
     print(json.dumps({"kernels_mesh": mesh}), flush=True)
+    return 0
+
+
+def fleet_main(overlap: bool = True) -> int:
+    """Phase 17 alone, at full size, on one card: ``python3 -c 'import
+    chip_smoke, sys; sys.exit(chip_smoke.fleet_main())'`` from the root of
+    a checkout (the kernels built, gnp-deg8-s20 made as ``main()`` makes
+    it, then 17a beside 17b's children's start-up, then 17b). With
+    ``overlap=False`` the children start only after 17a has ended."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    print(json.dumps({"phase": "build", "nvcc_s": _cuda.build(),
+                      "total_s": time.perf_counter() - t0}), flush=True)
+    n = 1 << 20
+    edges = gnp_random_graph(n, 8 / n, seed=7)
+    pairs_all = canonical_pairs(n, edges)
+    gnp = dict(n=n, edges=edges, pairs_all=pairs_all,
+               csr=build_csr(n, pairs=pairs_all))
+    t0 = time.perf_counter()
+    kids = fleet_children(gnp) if overlap else None
+    try:
+        soak = fleet_soak(overlap=overlap)
+        if kids is None:
+            kids = fleet_children(gnp)
+        fleet_phase(gnp, kids)
+    finally:
+        if kids is not None:
+            fleet_children_close(kids)
+    print(json.dumps({"phase": "fleet_total", "s": time.perf_counter() - t0,
+                      "soak_s": soak["s"], "overlap": overlap}), flush=True)
     return 0
 
 
@@ -6229,6 +6735,19 @@ def main() -> int:
     analytics_launches = analytics_phase(results=results)
     lap("16 analytics")
 
+    # phase 17: the fleet, the soak's shape, then gnp-deg8-s20 mixed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    kids = fleet_children(gnp)  # 17b's children start up beside 17a
+    try:
+        soak = fleet_soak()
+        fleet_launches = fleet_phase(gnp, kids)
+    finally:
+        fleet_children_close(kids)
+    print(json.dumps({"phase": "fleet_total", "s": time.perf_counter() - t0,
+                      "soak_s": soak["s"]}), flush=True)
+    lap("17 fleet")
+
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -6245,6 +6764,8 @@ def main() -> int:
                             launches_durable=respawn[name],
                             launches_data_parallel=shard_launches.get(name, 0),
                             launches_mesh=mesh["launches"].get(name, 0),
+                            launches_fleet=fleet_launches[name],
+                            launches_fleet_soak=soak["launches"].get(name, 0),
                             mesh_ranks=[r for c in checks
                                         for r in c.get(name, [])],
                             **results[name], library_ms=None,

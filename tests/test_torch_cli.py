@@ -224,6 +224,49 @@ def test_ab_analytics_times_both_checkouts_kernels(capsys, monkeypatch):
             ab.main([str(root), "--analytics", bad, "--device", "cpu"])
 
 
+def test_ab_store_times_both_checkouts_compaction(capsys):
+    """``cli/ab.py --store`` against this very checkout as the parent (a
+    small gnp graph, CPU): both checkouts' overlays apply the same seeded
+    delta and fold it into equal snapshots (pairs and digest), each step
+    is timed in turns, the folded graph has the delta's edge count, and
+    the modules it swapped are put back."""
+    import json
+    import sys
+    from pathlib import Path
+
+    from bibfs_tpu_torch.cli import ab
+    from bibfs_tpu_torch.store import delta
+
+    root = Path(ab.__file__).resolve().parents[2]
+    assert ab.main([str(root), "--store", "gnp-deg8-s10", "--rounds", "2",
+                    "--adds", "5", "--dels", "3", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["same_results"] is True and out["card"] == "cpu"
+    assert (out["geometry"], out["n"], out["adds"], out["dels"]) == (
+        "gnp-deg8-s10", 1024, 5, 3)
+    for who in ("parent", "change"):
+        for step in ("apply", "snapshot"):
+            row = out[f"{who}/{step}"]
+            assert row["runs"] == 2 and row["median_ms"] > 0
+    assert "nvidia_smi" not in out
+    assert sys.modules["bibfs_tpu_torch.store.delta"] is delta
+    from bibfs_tpu_torch.graph.csr import canonical_pairs
+    from bibfs_tpu_torch.graph.generate import gnp_random_graph
+    from bibfs_tpu_torch.store.snapshot import GraphSnapshot
+
+    n = 1024
+    pairs = canonical_pairs(n, gnp_random_graph(n, 8 / n, seed=7))
+    adds, dels = ab._store_delta(n, pairs, 5, 3)
+    base = {tuple(map(int, e)) for e in pairs if e[0] < e[1]}
+    assert len(set(adds)) == 5 and not set(adds) & base
+    assert len(set(dels)) == 3 and set(dels) <= base
+    ov = delta.DeltaOverlay(GraphSnapshot.build(n, pairs=pairs))
+    ov.apply(adds, dels)
+    assert ov.snapshot()[0].pairs.shape[0] == 2 * (len(base) + 5 - 3)
+    with pytest.raises(ValueError, match="no geometry"):
+        ab.main([str(root), "--store", "grid-9x9", "--device", "cpu"])
+
+
 def test_ab_build_split_parts_sum_to_the_build():
     """``cli/ab.py``'s ``build_split`` (what ``--oracle`` and
     ``chip_smoke.py`` phase 11 time) on a small grid on the CPU: the index

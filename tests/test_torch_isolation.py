@@ -152,3 +152,67 @@ def test_pool_ranks_load_no_jax():
     assert "torch" in hello["modules"] and "bibfs_tpu_torch" in hello["modules"]
     bad = [m for m in hello["modules"] if _forbidden(m)]
     assert not bad, bad
+
+
+def test_fleet_children_load_no_jax(tmp_path):
+    """The children the fleet spawns (a ``ProcessReplica`` over a store
+    directory and a ``NetReplica`` over a ``.bin``, both ``--device cpu``)
+    import neither JAX nor the JAX package after serving a query and a
+    roll. A ``sitecustomize`` on the children's path records each
+    process's modules at exit."""
+    import json
+
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(
+        "import atexit, json, os, sys\n"
+        "_dir = os.environ.get('FLEET_MODULES_DIR')\n"
+        "if _dir:\n"
+        "    def _dump():\n"
+        "        path = os.path.join(_dir, f'{os.getpid()}.json')\n"
+        "        with open(path, 'w') as f:\n"
+        "            json.dump(sorted(sys.modules), f)\n"
+        "    atexit.register(_dump)\n"
+    )
+    mods = tmp_path / "mods"
+    mods.mkdir()
+    code = (
+        "import json, os, sys\n"
+        "import numpy as np\n"
+        "from bibfs_tpu_torch.fleet import NetReplica, ProcessReplica\n"
+        "from bibfs_tpu_torch.graph.io import write_graph_bin\n"
+        "d = sys.argv[1]\n"
+        "os.makedirs(os.path.join(d, 'store'))\n"
+        "e = np.array([[i, i + 1] for i in range(39)])\n"
+        "write_graph_bin(os.path.join(d, 'store', 'a.bin'), 40, e)\n"
+        "write_graph_bin(os.path.join(d, 'g.bin'), 40, e)\n"
+        "reps = [ProcessReplica('p0', store_dir=os.path.join(d, 'store'),\n"
+        "                       device='cpu', spawn_timeout_s=120),\n"
+        "        NetReplica('n0', os.path.join(d, 'g.bin'), device='cpu',\n"
+        "                   spawn_timeout_s=120)]\n"
+        "pids = []\n"
+        "for r in reps:\n"
+        "    assert r.wait_ticket(r.submit(0, 39), timeout=60).hops == 39\n"
+        "    pids.append(r.pid)\n"
+        "assert reps[0].roll('a', adds=[(0, 39)]) == 2\n"
+        "assert reps[0].wait_ticket(reps[0].submit(0, 39, 'a'), timeout=60).hops == 1\n"
+        "for r in reps:\n"
+        "    r.close()\n"
+        "print(json.dumps(pids))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={"PATH": "/usr/bin:/bin", "PYTHONPATH": f"{hook}:{ROOT}",
+             "FLEET_MODULES_DIR": str(mods)},
+    )
+    assert out.returncode == 0, out.stderr
+    pids = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(pids) == 2
+    for pid in pids:
+        path = mods / f"{pid}.json"
+        assert path.exists(), f"child {pid} left no module list"
+        loaded = json.loads(path.read_text())
+        assert "torch" in loaded and "bibfs_tpu_torch.serve.engine" in loaded
+        bad = [m for m in loaded if _forbidden(m)]
+        assert not bad, (pid, bad)

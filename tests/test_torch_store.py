@@ -379,3 +379,63 @@ def test_durable_options_name_the_durability_slice(kwargs, tmp_path):
         stores[port].analytics.stats()
     for store in stores.values():
         store.close()
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_overlay_base_index_equals_set_membership(seed):
+    """The overlay's base-edge index (sorted int64 keys searched by
+    bisection) answers every membership question as the JAX package's
+    Python set of edge tuples does: each base edge, its reverse
+    orientation's canonical form, and seeded non-edges, on snapshots
+    built from a sorted edge list and from a shuffled, reversed one
+    (``GraphSnapshot.build`` canonicalizes both, so the index always
+    reads canonical pairs)."""
+    from bibfs_tpu.store.delta import DeltaOverlay as RefOverlay
+    from bibfs_tpu.store.snapshot import GraphSnapshot as RefSnapshot
+    from bibfs_tpu_torch.store.delta import DeltaOverlay
+    from bibfs_tpu_torch.store.snapshot import GraphSnapshot
+
+    n, edges = _gnp(400, 4.0, seed)
+    rng = np.random.default_rng(seed)
+    shuffled = edges[rng.permutation(len(edges))][:, ::-1].copy()
+    probes = [tuple(sorted(map(int, e))) for e in edges[:50]]
+    probes += [tuple(sorted(map(int, p)))
+               for p in rng.integers(0, n, size=(200, 2)) if p[0] != p[1]]
+    for given in (edges, shuffled):
+        port = DeltaOverlay(GraphSnapshot.build(n, given))
+        ref = RefOverlay(RefSnapshot.build(n, given))
+        got = [port._base_has(e) for e in probes]
+        assert got == [ref._base_has(e) for e in probes]
+        assert any(got) and not all(got)
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_overlay_merged_pairs_equal_reference_snapshot(seed):
+    """A compaction's pairs, merged into the base's sorted pairs by
+    bisection, equal the JAX package's snapshot of the same base + delta
+    (pairs and digest), with deletes, adds, an empty delta and a base
+    emptied of every edge."""
+    from bibfs_tpu.store.snapshot import GraphSnapshot as RefSnapshot
+    from bibfs_tpu_torch.store.delta import DeltaOverlay
+    from bibfs_tpu_torch.store.snapshot import GraphSnapshot
+
+    n, edges = _gnp(120, 3.0, seed)
+    rng = np.random.default_rng(seed)
+    snap = GraphSnapshot.build(n, edges)
+    base = [tuple(map(int, e)) for e in snap.undirected_edges()]
+    have = set(base)
+    for k_del in (0, 7, len(base)):
+        dels = set(base[:k_del])
+        adds = set()
+        while len(adds) < 9:
+            u, v = sorted(int(x) for x in rng.integers(0, n, 2))
+            if u != v and (u, v) not in have:
+                adds.add((u, v))
+        for a in (set(), adds):
+            ov = DeltaOverlay(snap)
+            got, _, _ = ov.snapshot(a, dels)
+            live = sorted((have - dels) | a)
+            ref = RefSnapshot.build(n, np.array(live, dtype=np.int64)
+                                    .reshape(-1, 2))
+            assert np.array_equal(got.pairs, ref.pairs)
+            assert got.digest == ref.digest

@@ -7,8 +7,8 @@ every ``*_METRIC_FAMILIES`` tuple groups the families one component
 mints at its construction (so they render at zero before traffic), and
 :data:`ALL_METRIC_NAMES` is their union. Render gates (the smoke's
 ``/metrics`` checks, the tests) read the tuples instead of spelling the
-names out. Groups whose component is not ported yet (the fleet, the pod
-worker's epoch) are kept so a name means the same to either package.
+names out. Every group's component is ported: the fleet's families mint
+in ``fleet/``, the pod worker's epoch gauge in ``parallel/podmesh.py``.
 
 Data only, no imports: scripts and tests read it without pulling the
 serving stack.

@@ -1,6 +1,8 @@
 """Device meshes as ``torch.distributed`` process groups: the counterpart
-of ``bibfs_tpu/parallel/mesh.py`` (its 1D and 2D meshes; the multi-host
-job of the reference's pod comes later).
+of ``bibfs_tpu/parallel/mesh.py`` (its 1D and 2D meshes, and
+:func:`init_multihost`, the join of processes that something other than
+:func:`launch` started, such as the pod's primary and workers of
+:mod:`bibfs_tpu_torch.parallel.podmesh`).
 
 The JAX package runs one SPMD program under ``shard_map`` from a single
 controller. Here a mesh is a process group with one rank per device, each
@@ -261,17 +263,46 @@ def placement(num_ranks: int, device="cuda") -> tuple[list, str, bool]:
     return ["cuda:0"] * num_ranks, "gloo", True
 
 
+def process_placement(num_processes: int, process_id: int,
+                      local_processes: int | None = None
+                      ) -> tuple[str, str, bool]:
+    """``(device, backend, staged)`` of process ``process_id`` of a job of
+    ``num_processes`` that joins by itself (:func:`init_distributed` with
+    ``device=None``): card ``process_id % count``, over NCCL when every
+    process on this host has a card of its own, else over staged gloo.
+    ``local_processes`` is the number of the job's processes on this
+    host; None reads ``LOCAL_WORLD_SIZE`` (as ``torchrun`` sets it) and,
+    when that is unset, takes the whole job to be on this host. Raises
+    without a card."""
+    count = torch.cuda.device_count()
+    if count == 0:
+        raise RuntimeError(
+            "init_distributed found no CUDA card; pass device='cpu' to "
+            "join on the host over gloo")
+    if local_processes is None:
+        local_processes = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                             num_processes))
+    staged = count < int(local_processes)
+    return (f"cuda:{int(process_id) % count}", "gloo" if staged else "nccl",
+            staged)
+
+
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None, *, device=None,
                      backend: str | None = None, staged: bool = False,
-                     timeout_s: float = DEFAULT_TIMEOUT_S
+                     timeout_s: float = DEFAULT_TIMEOUT_S,
+                     local_processes: int | None = None
                      ) -> DistributedContext:
     """Join a process group and report what was joined. The rendezvous is
     explicit (``tcp://host:port`` or ``file://path``, with the job size and
     this process's index): a bare call raises :class:`ValueError`, as the
     reference's does, instead of waiting for peers that never come.
-    ``device`` is this rank's device (a card is made current), ``backend``
+    ``device`` is this rank's device (a card is made current); ``None``
+    places the process on a card by :func:`process_placement` (and then
+    also sets ``backend`` and ``staged``; ``local_processes`` is the
+    job's processes on this host), and raises without one: the host is
+    used only when asked for (``device="cpu"``). ``backend``
     defaults to ``nccl`` on a card and ``gloo`` on the CPU; ``staged``
     marks ranks sharing one card (gloo through pinned host buffers). The
     group's collectives time out after ``timeout_s``. NCCL is started
@@ -284,7 +315,11 @@ def init_distributed(coordinator_address: str | None = None,
             "file://), num_processes and process_id; on one host, "
             "launch() starts the ranks and joins them"
         )
-    dev = torch.device(device if device is not None else "cpu")
+    if device is None:
+        device, placed, staged = process_placement(
+            num_processes, process_id, local_processes)
+        backend = placed if backend is None else backend
+    dev = torch.device(device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" and not staged else "gloo"
     if backend == "nccl" and (dev.type != "cuda" or staged):
@@ -309,6 +344,47 @@ def init_distributed(coordinator_address: str | None = None,
     # one collective now: a transport that cannot start fails the join
     mesh.all_reduce(torch.ones(1, dtype=torch.int32, device=dev), "sum")
     return ctx
+
+
+def init_multihost(coordinator_address: str | None = None,
+                   num_processes: int | None = None,
+                   process_id: int | None = None, *, auto: bool = False,
+                   device=None, timeout_s: float = DEFAULT_TIMEOUT_S,
+                   local_processes: int | None = None) -> int:
+    """Join a multi-process job whose processes were started by something
+    other than :func:`launch` (the reference's ``mpirun -hostfile``
+    analog): every process runs the same program, and after this call
+    :func:`make_1d_mesh` spans all of them. Returns this process's index.
+
+    The rendezvous is explicit: ``coordinator_address`` (``tcp://host:port``,
+    ``file://path``, or a bare ``host:port``, read as ``tcp://``) with
+    ``num_processes`` and ``process_id``. Without one it raises
+    :class:`ValueError` at once, as the reference's does, instead of
+    waiting in connection retry; a single-host job needs :func:`launch`,
+    not this. The reference's ``auto=True`` is JAX's cluster
+    auto-detection (TPU pods, GKE, SLURM, Open MPI), which has no
+    counterpart here: it raises :class:`NotImplementedError`.
+
+    ``device``, ``timeout_s`` and ``local_processes`` go to
+    :func:`init_distributed`: with ``device=None`` the process takes a
+    card (NCCL when each process on its host has one, staged gloo when
+    they share), and the CPU only when asked for."""
+    if auto:
+        raise NotImplementedError(
+            "init_multihost(auto=True) is JAX cluster auto-detection, which "
+            "the port does not have; pass coordinator_address, "
+            "num_processes and process_id")
+    if coordinator_address is None or num_processes is None or process_id is None:
+        raise ValueError(
+            "init_multihost needs a coordinator_address (tcp://host:port or "
+            "file://path), num_processes and process_id; on a single host "
+            "launch() starts and joins the ranks")
+    addr = str(coordinator_address)
+    if "://" not in addr:
+        addr = f"tcp://{addr}"
+    return init_distributed(addr, num_processes, process_id, device=device,
+                            timeout_s=timeout_s,
+                            local_processes=local_processes).process_index
 
 
 def make_1d_mesh(num_devices: int | None = None) -> Mesh:

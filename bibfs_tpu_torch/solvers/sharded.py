@@ -568,9 +568,11 @@ def _gather_rows(g: ShardedGraph, *rows):
     return tuple(allr[:, i].reshape(-1) for i in range(len(rows)))
 
 
-def _search(g: ShardedGraph, src: int, dst: int, mode: str, cap: int, stats):
+def _search(g: ShardedGraph, src: int, dst: int, mode: str, cap: int, stats,
+            gather: bool = True):
     """The torch-composed and pull-kernel modes: one replicated scalar
-    read a round on the host, the round on every rank."""
+    read a round on the host, the round on every rank. ``gather=False``
+    returns this rank's local parent rows instead of the gathered ones."""
     k = max(cap, 1)
     use_kernel = SHARDED_MODES[mode][2]
     kind = None
@@ -587,11 +589,14 @@ def _search(g: ShardedGraph, src: int, dst: int, mode: str, cap: int, stats):
         if not _cond(sc):
             break
         st = body(st, sc)
-    par_s, par_t = _gather_rows(g, st["par_s"], st["par_t"])
+    par_s, par_t = st["par_s"], st["par_t"]
+    if gather:
+        par_s, par_t = _gather_rows(g, par_s, par_t)
     return (sc["best"], sc["meet"], par_s, par_t, sc["levels"], sc["edges"])
 
 
-def _fused_search(g: ShardedGraph, src: int, dst: int, unroll: int, stats):
+def _fused_search(g: ShardedGraph, src: int, dst: int, unroll: int, stats,
+                  gather: bool = True):
     """Mode ``fused`` on plain ELL: kernel 1 over the local rows with the
     global bitmaps, then per round one gather of both sides' new local
     words, one all-reduce of the counts and degree sums and one (min) of
@@ -655,24 +660,26 @@ def _fused_search(g: ShardedGraph, src: int, dst: int, unroll: int, stats):
             stats["host_syncs"] += 1
         if not active(sc):
             break
-    par_s, par_t = _gather_rows(g, par_s, par_t)
+    if gather:
+        par_s, par_t = _gather_rows(g, par_s, par_t)
     return (sc[S["best"]], sc[S["meet"]], par_s, par_t, sc[S["levels"]],
             sc[S["edges"]])
 
 
 def _run(g: ShardedGraph, src: int, dst: int, mode: str, unroll: int,
-         stats, push_cap: int | None = None):
+         stats, push_cap: int | None = None, gather: bool = True):
     """``(ran_mode, out)`` of one search on every rank; ``push_cap``
-    overrides the mode's cap (Beamer modes only)."""
+    overrides the mode's cap (Beamer modes only); ``gather=False`` leaves
+    the parent rows local."""
     if unroll < 1:
         raise ValueError(f"unroll must be >= 1, got {unroll}")
     ran = resolve_sharded_mode(mode, g.tier_meta)
     if ran == "fused":
-        return ran, _fused_search(g, src, dst, unroll, stats)
+        return ran, _fused_search(g, src, dst, unroll, stats, gather)
     cap = kernel_cap(ran, g.n_pad, g.device.type)
     if push_cap is not None and SHARDED_MODES[ran][1]:
         cap = push_cap
-    return ran, _search(g, src, dst, ran, cap, stats)
+    return ran, _search(g, src, dst, ran, cap, stats, gather)
 
 
 def _check_pair(g: ShardedGraph, src: int, dst: int) -> None:
@@ -714,18 +721,72 @@ def time_search(g: ShardedGraph, src: int, dst: int, *, repeats: int = 30,
     )
 
 
-def solve_batch_sharded_graph(g: ShardedGraph, pairs, *, mode: str = "sync"
-                              ) -> list[BFSResult]:
-    """Solve many queries through the collective program, one after
-    another: each result equals its own solve (what the reference's
-    ``vmap`` of the program gives). Every ``time_s`` is the whole batch's
-    wall clock, as in ``dense.solve_batch_graph``."""
+def _batch_dispatch(g: ShardedGraph, pairs, mode: str, each=None):
+    """``(pairs, thunk)`` of a batch, the seam the pod's workers and its
+    primary call on every rank (the reference's ``_batch_dispatch``):
+    ``pairs`` normalized to ``int64[B, 2]`` and range-checked before
+    anything runs, ``thunk()`` every pair through the collective search
+    on this rank, one after another, with no host read beyond the
+    searches' own. The thunk returns the six :data:`RAW_FIELDS`: the
+    replicated ``best``, ``meet``, ``levels`` and ``edges`` as
+    ``int64[B]`` tensors on the graph's device, and ``par_s``/``par_t``
+    as this rank's local parent rows, ``int32[B, n_loc]`` (the
+    reference's batch leaves them sharded too). ``each``, when given, is
+    called on every rank with ``(ran, out, host_syncs)`` as each query's
+    search ends (``out`` its raw outputs with this rank's local rows,
+    ``ran`` the mode that ran); the thunk then keeps no rows
+    (``par_s``/``par_t`` are None), so the batch holds one query's rows
+    at a time."""
     pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
     if pairs.size and not ((0 <= pairs).all() and (pairs < g.n).all()):
         raise ValueError(f"src/dst out of range for n={g.n}")
+
+    def thunk():
+        scalars, rows = [], []
+        for s, d in pairs:
+            st = {"host_syncs": 0}
+            ran, o = _run(g, int(s), int(d), mode, 1, st, gather=False)
+            scalars.append((o[0], o[1], o[4], o[5]))  # host ints already
+            if each is None:
+                rows.append(o[2:4])
+            else:
+                each(ran, o, st["host_syncs"])
+        best, meet, levels, edges = torch.tensor(
+            scalars, dtype=torch.int64, device=g.device).reshape(-1, 4).unbind(1)
+        if each is not None:
+            par_s = par_t = None
+        elif rows:
+            par_s, par_t = (torch.stack(r) for r in zip(*rows))
+        else:
+            par_s = par_t = torch.empty((0, g.n_loc), dtype=torch.int32,
+                                        device=g.device)
+        return best, meet, par_s, par_t, levels, edges
+
+    return pairs, thunk
+
+
+def solve_batch_sharded_graph(g: ShardedGraph, pairs, *, mode: str = "sync"
+                              ) -> list[BFSResult]:
+    """Solve many queries through the collective program, one after
+    another (:func:`_batch_dispatch`): each query's parent rows are
+    gathered and materialized as its search ends, as its own solve would
+    be, so the batch holds one query's rows at a time. Each result equals
+    its own solve (what the reference's ``vmap`` of the program gives).
+    Every ``time_s`` is the whole batch's wall clock, as in
+    ``dense.solve_batch_graph``."""
+    from bibfs_tpu_torch.solvers.timing import force_scalar
+
+    results: list[BFSResult] = []
+
+    def each(ran, out, host_syncs):
+        par_s, par_t = _gather_rows(g, out[2], out[3])
+        results.append(_materialize(
+            (out[0], out[1], par_s, par_t, out[4], out[5]), 0.0, mode=ran,
+            host_syncs=host_syncs))
+
+    pairs, dispatch = _batch_dispatch(g, pairs, mode, each=each)
     t0 = time.perf_counter()
-    results = [solve_sharded_graph(g, int(s), int(d), mode=mode)
-               for s, d in pairs]
+    force_scalar(dispatch())
     elapsed = time.perf_counter() - t0
     for r in results:
         r.time_s = elapsed
@@ -735,16 +796,13 @@ def solve_batch_sharded_graph(g: ShardedGraph, pairs, *, mode: str = "sync"
 def time_batch_sharded(g: ShardedGraph, pairs, *, repeats: int = 5,
                        mode: str = "sync") -> tuple[list[float], list[BFSResult]]:
     """A sharded batch under the shared timing protocol (warm-up excluded,
-    CUDA events on a card); the results carry the median."""
+    CUDA events on a card): each timed batch runs every query's search
+    and the gather of its parent rows, keeping none; then one
+    materializing batch, whose results carry the median."""
     from bibfs_tpu_torch.solvers.timing import timed_batch_repeats
 
-    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
-    if pairs.size and not ((0 <= pairs).all() and (pairs < g.n).all()):
-        raise ValueError(f"src/dst out of range for n={g.n}")
-
-    def dispatch():
-        return [_run(g, int(s), int(d), mode, 1, None)[1] for s, d in pairs]
-
+    _p, dispatch = _batch_dispatch(
+        g, pairs, mode, each=lambda _ran, out, _s: _gather_rows(g, *out[2:4]))
     times, _ = timed_batch_repeats(dispatch, repeats, device=g.device)
     results = solve_batch_sharded_graph(g, pairs, mode=mode)
     med = float(np.median(times))

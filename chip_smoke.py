@@ -492,6 +492,48 @@ is unavailable. Phases:
    ``fleet_main(overlap=False)`` starts the children only after 17a has
    ended, for 17a's queries/s without that start-up beside them.
 
+18. The pod (run after phase 17; ``pod_phase``): one replica across four
+   processes on phase 3's gnp-deg8-s20, all over ``tcp://127.0.0.1``: a
+   primary, process 0, in a spawned child (``pod_primary``: the
+   ``parallel.podmesh.PodPrimary`` on port 0, then ``init_multihost``)
+   and three workers, processes 1-3, each a ``python -c`` child
+   (``POD_WORKER``: ``init_multihost``, then ``run_pod_worker`` with a
+   heartbeat). Every process takes its device from ``init_multihost``'s
+   default (staged gloo on one card, NCCL on four), with a 120 s group
+   timeout. The primary's side does by hand what the reference's pod
+   route does (``pod_solve``): ``post_solve``, the ``join`` barrier,
+   ``commit_solve``, its own rank-0 ``sharded._batch_dispatch`` batch,
+   the workers' ``done``. One ``{"phase": "pod", ...}`` line a wave:
+   ``join`` (the workers, their epochs, the transport, the seconds to
+   form the group and accept); ``graph`` (the ~8.4M canonical pairs in
+   20k-edge chunks, timed from outside ``ensure_graph``: the post, the
+   primary's own build after it through the ``build`` callback, the wait
+   for the workers' rebuilds); ``graph_split`` (the same frames encoded
+   once more apart from the sends: the encoding's seconds, the bytes on
+   the wire, the sends as the post less the encoding); ``solve`` (16
+   seeded pairs, one ``src == dst``, one to an
+   isolated vertex, in ``sync``, ``pallas``, ``pallas_alt`` and
+   ``fused``, one descriptor each); ``refuse`` (an unknown digest: every
+   worker refuses the join, ``PodError`` on the host, ``abort_solve``,
+   then a solve of 4 pairs answers); ``swap_graph`` and ``swap`` (the
+   graph plus one edge joining a pair at least 4 hops apart: a new
+   digest, re-broadcast and rebuilt, the pair then 1 hop); ``trace`` (a
+   sampled ``ctx``: each worker's spool holds a ``pod_worker_solve`` span
+   parented by the primary's ``pod_broadcast``, and ``merge_spools`` /
+   ``cross_process_traces`` join them in one trace of four processes);
+   ``death`` (a worker SIGKILLed between two solves: the next launch
+   fails as ``PodError`` on the host, the seconds to notice, then the
+   shutdown, every child gone: the primary and the survivors exit 0);
+   ``total`` (seconds by part, each rank's device, each worker's rebuilds
+   and launches). Every worker's ``best`` equals the primary's, every
+   found/hops the oracle's, and ``best``, ``meet``, ``levels`` and
+   ``edges`` the one-device dense search's of the same mode; kernels 1,
+   3, 4 and the fold launched on every rank, each counting from 0 just
+   before the first solve wave (the kernels line's ``launches_pod``:
+   their sum over the primary and the two workers that report; the
+   SIGKILLed worker's are lost with it). ``pod_main()`` runs this phase alone;
+   ``pod_phase(gnp, "cpu")`` with a small graph rehearses it on the host.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and before that the ``kernels``
 JSON line.
@@ -504,6 +546,7 @@ import multiprocessing
 import os
 import queue
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -6358,6 +6401,541 @@ def fleet_phase(gnp: dict, kids: dict, dev_name: str = "cuda") -> dict:
     return launches
 
 
+# ---- phase 18: the pod ---------------------------------------------------
+
+POD_WORKERS = 3  # processes 1-3 beside the primary, process 0
+POD_MODES = ("sync", "pallas", "pallas_alt", "fused")
+POD_PAIRS = 16  # a solve wave's pairs: 14 seeded, src == dst, an isolated end
+POD_TIMEOUT_S = 120.0  # the group's collectives and every control wait
+POD_HEARTBEAT_S = 0.5  # the workers' heartbeat
+POD_HB_TIMEOUT_S = 10.0  # the primary's verdict on a silent worker
+POD_KERNELS = ("fused_dual_round", "fold_round", "pull_dual", "pull_single")
+# one pod worker (``python -c``): join, serve descriptors until shutdown,
+# then report its launches and its graph rebuilds on one line
+POD_WORKER = """
+import json, os, sys, time
+import torch
+torch.set_num_threads(2)
+from bibfs_tpu_torch.obs.dtrace import install_from_env
+from bibfs_tpu_torch.parallel import podmesh as pm
+from bibfs_tpu_torch.parallel.mesh import init_multihost, make_1d_mesh
+from bibfs_tpu_torch.ops import fused_level as fl, pull_expand as pe
+from bibfs_tpu_torch.solvers.sharded import kernel_launches
+
+args = json.loads(sys.argv[1])
+builds = []
+_build = pm._build_worker_graph
+
+
+def timed_build(msg, parts, mesh):
+    t0 = time.perf_counter()
+    digest, sg = _build(msg, parts, mesh)
+    builds.append({"digest": digest, "rows": sg.n_loc, "offset": sg.offset,
+                   "s": time.perf_counter() - t0})
+    if len(builds) == 1:  # the solve waves come next: count from 0
+        for fn in (fl.fused_dual_round, fl.fold_round, pe.pull_dual,
+                   pe.pull_single):
+            fn.launches = 0
+    return digest, sg
+
+
+pm._build_worker_graph = timed_build
+install_from_env("pod-worker-%d" % args["pid"])
+t0 = time.perf_counter()
+idx = init_multihost("127.0.0.1:%d" % args["coord"], args["procs"],
+                     args["pid"], device=args["device"],
+                     timeout_s=args["timeout_s"])
+mesh = make_1d_mesh()
+join_s = time.perf_counter() - t0
+rc = pm.run_pod_worker("127.0.0.1", args["pod_port"], process_index=idx,
+                       connect_timeout_s=args["timeout_s"],
+                       heartbeat_s=args["heartbeat_s"],
+                       log=lambda m: print(m, flush=True))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "bibfs_tpu"))
+print("POD_WORKER " + json.dumps({
+    "worker": idx, "rc": rc, "device": str(mesh.device),
+    "transport": mesh.transport, "join_s": join_s, "builds": builds,
+    "launches": kernel_launches(), "bad": bad}), flush=True)
+os._exit(rc)
+"""
+
+
+def pod_line(wave: str, **fields) -> dict:
+    line = {"phase": "pod", "wave": wave, **fields}
+    print(json.dumps(line, default=str), flush=True)
+    return line
+
+
+def pod_solve(pod, sg, digest: str, mode: str, pairs, ctx=None) -> dict:
+    """One launch of the pod by hand, as the reference's pod route
+    launches it: broadcast, the join barrier, ``go``, this rank's batch,
+    then every worker's ``done`` with its ``best``. A failed join aborts
+    the launch on the host and raises ``PodError``."""
+    from bibfs_tpu_torch.parallel.podmesh import PodError
+    from bibfs_tpu_torch.solvers import sharded as sh
+
+    t0 = time.perf_counter()
+    pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    seq = pod.post_solve(digest, mode, pairs, len(pairs), ctx=ctx)
+    try:
+        pod.await_phase(seq, "join", POD_TIMEOUT_S)
+    except PodError:
+        pod.abort_solve(seq)
+        raise
+    join_s = time.perf_counter() - t0
+    pod.commit_solve(seq)
+    _p, thunk = sh._batch_dispatch(sg, pairs, mode)
+    best, meet, _ps, _pt, levels, edges = thunk()
+    best, meet, levels, edges = (t.cpu().tolist()
+                                 for t in (best, meet, levels, edges))
+    acks = pod.await_phase(seq, "done", POD_TIMEOUT_S)
+    return {"best": best, "meet": meet, "levels": levels, "edges": edges,
+            "workers": {str(p): a["best"] for p, a in sorted(acks.items())},
+            "join_s": join_s, "wall_s": time.perf_counter() - t0}
+
+
+def pod_primary(args: dict, conn) -> None:
+    """The pod's process 0 (module docstring, phase 18), in a child of the
+    smoke: the control plane's primary, joined through
+    ``init_multihost``'s default device, driven wave by wave. It prints
+    one ``pod`` line a wave and sends its answers to the smoke, which
+    holds them to the oracle and the dense search."""
+    from bibfs_tpu_torch.obs import dtrace
+    from bibfs_tpu_torch.parallel import podmesh as pm
+    from bibfs_tpu_torch.parallel.mesh import init_multihost, make_1d_mesh
+    from bibfs_tpu_torch.serve.buckets import repad_rows
+    from bibfs_tpu_torch.solvers import sharded as sh
+    from bibfs_tpu_torch.store.snapshot import GraphSnapshot
+
+    torch.set_num_threads(2)
+    t_phase = time.perf_counter()
+    pod = pm.PodPrimary(args["workers"], host="127.0.0.1",
+                        accept_timeout_s=POD_TIMEOUT_S,
+                        heartbeat_timeout_s=POD_HB_TIMEOUT_S)
+    conn.send({"port": pod.port})
+    try:
+        init_multihost(f"127.0.0.1:{args['coord']}", args["workers"] + 1, 0,
+                       device=args["device"], timeout_s=POD_TIMEOUT_S)
+    except Exception as e:  # noqa: BLE001 - the smoke retries a taken port
+        conn.send({"error": repr(e)})
+        return
+    conn.send({"joined": True})
+    mesh = make_1d_mesh()
+    join_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    pod.accept_workers()
+    out = {"transport": mesh.transport, "device": str(mesh.device)}
+    pod_line("join", workers=sorted(pod._workers),
+             epochs=[pod.worker_epoch(p) for p in sorted(pod._workers)],
+             transport=mesh.transport, device=str(mesh.device),
+             group_join_s=join_s, accept_s=time.perf_counter() - t0)
+    pids = conn.recv()["pids"]
+
+    # a graph broadcast from the outside: its post (the frames' encoding
+    # and sends), the primary's build, then the wait for the rebuilds
+    def broadcast(snap, wave: str) -> tuple:
+        marks = {}
+
+        def build():
+            marks["built_from"] = time.perf_counter()
+            g = sh.ShardedGraph(repad_rows(snap.ell(), mesh.size), mesh)
+            if g.device.type == "cuda":
+                torch.cuda.synchronize(g.device)
+            marks["built"] = time.perf_counter()
+            return g
+
+        t1 = time.perf_counter()
+        sg = pod.ensure_graph(snap, build=build, timeout=POD_TIMEOUT_S)
+        t2 = time.perf_counter()
+        split = dict(post_s=marks["built_from"] - t1,
+                     primary_build_s=marks["built"] - marks["built_from"],
+                     ack_wait_s=t2 - marks["built"], wall_s=t2 - t1)
+        pod_line(wave, edges=snap.num_edges, pairs=int(snap.pairs.shape[0]),
+                 chunks=-(-int(snap.pairs.size) // (2 * pm.GRAPH_CHUNK_EDGES)),
+                 **split, digest=snap.digest, primary_rows=sg.n_loc,
+                 n_pad=sg.n_pad, width=sg.width)
+        return sg, split
+
+    def encode_graph(snap) -> dict:
+        """The graph descriptor's frames as ``post_graph`` builds and
+        encodes them (the seqs aside), timed once apart from the sends."""
+        t1 = time.perf_counter()
+        flat = np.asarray(snap.pairs, dtype=np.int64).ravel()
+        step = 2 * pm.GRAPH_CHUNK_EDGES
+        chunks = [flat[i: i + step].tolist()
+                  for i in range(0, len(flat), step)]
+        size = len(pm.encode_frame({
+            "op": "graph", "n": int(snap.n), "digest": snap.digest,
+            "version": int(snap.version), "chunks": len(chunks), "seq": 1}))
+        for i, chunk in enumerate(chunks):
+            size += len(pm.encode_frame({"op": "graph_chunk", "for": 1,
+                                         "i": i, "pairs": chunk,
+                                         "seq": 2 + i}))
+        return {"encode_s": time.perf_counter() - t1,
+                "wire_mb": size * args["workers"] / 1e6}
+
+    # graph
+    pairs_all = np.load(args["pairs_all"])
+    t1 = time.perf_counter()
+    snap = GraphSnapshot.build(args["n"], pairs=pairs_all)
+    snap_s = time.perf_counter() - t1
+    sg, split = broadcast(snap, "graph")
+    enc = encode_graph(snap)
+    pod_line("graph_split", **enc, send_s=split["post_s"] - enc["encode_s"])
+    out["graph"] = {"digest": snap.digest, "snapshot_s": snap_s}
+
+    # solve: one descriptor a mode
+    pairs = args["pairs"]
+    reset_counts()  # the solve waves' launches, counted from 0
+    out["solve"] = {}
+    for mode in POD_MODES:
+        got = pod_solve(pod, sg, snap.digest, mode, pairs)
+        check(all(b == got["best"] for b in got["workers"].values()),
+              f"pod solve {mode}: a worker's best differs from the primary's")
+        out["solve"][mode] = got
+        pod_line("solve", mode=mode, queries=len(pairs),
+                 wall_s=got["wall_s"], join_s=got["join_s"],
+                 ms_per_query=got["wall_s"] * 1e3 / len(pairs),
+                 found=sum(b < INF32 for b in got["best"]))
+
+    # refuse: an unknown digest, every worker refuses, nobody enters
+    t1 = time.perf_counter()
+    seq = pod.post_solve("0" * 32, "sync", np.asarray(pairs[:4]), 4)
+    check(wait_for(lambda: len(pod._acks.get((seq, "join"), {}))
+                   == args["workers"], POD_TIMEOUT_S),
+          "pod refuse: not every worker answered the join")
+    with pod._lock:
+        refusals = {str(p): (a["ok"], a.get("error", ""))
+                    for p, a in pod._acks[(seq, "join")].items()}
+    try:
+        pod.await_phase(seq, "join", POD_TIMEOUT_S)
+        fail("pod refuse: an unknown digest was joined")
+    except pm.PodError as e:
+        refused = str(e)
+    pod.abort_solve(seq)
+    check(all(not ok and "unknown graph digest" in err
+              for ok, err in refusals.values()),
+          f"pod refuse: {refusals}")
+    after = pod_solve(pod, sg, snap.digest, "sync", pairs[:4])
+    check(after["best"] == out["solve"]["sync"]["best"][:4]
+          and all(b == after["best"] for b in after["workers"].values()),
+          "pod refuse: the solve after the refusal differs")
+    pod_line("refuse", refused=refused, workers_refusing=len(refusals),
+             after_queries=4, wall_s=time.perf_counter() - t1)
+
+    # swap: the graph plus one edge, re-broadcast by digest
+    t1 = time.perf_counter()
+    u, v = args["swap_edge"]
+    pairs2 = canonical_pairs(args["n"], np.concatenate(
+        [pairs_all, [[u, v]]]))
+    snap2 = GraphSnapshot.build(args["n"], pairs=pairs2)
+    del pairs_all
+    sg2, _split = broadcast(snap2, "swap_graph")
+    del sg
+    swapped = pod_solve(pod, sg2, snap2.digest, "fused", args["swap_pairs"])
+    check(all(b == swapped["best"] for b in swapped["workers"].values()),
+          "pod swap: a worker's best differs from the primary's")
+    out["swap"] = dict(swapped, digest=snap2.digest)
+    pod_line("swap", digest=snap2.digest, queries=len(args["swap_pairs"]),
+             wall_s=time.perf_counter() - t1, solve_s=swapped["wall_s"])
+
+    # trace: one sampled launch, its spans in every process's spool
+    t1 = time.perf_counter()
+    tracer = dtrace.DTracer(args["spool"], "pod-primary")
+    dtrace.set_dtracer(tracer)
+    ctx = tracer.sample()
+    traced = pod_solve(pod, sg2, snap2.digest, "pallas", args["swap_pairs"],
+                       ctx=ctx)
+    dtrace.set_dtracer(None)
+    tracer.close()
+    out["trace"] = {"trace_id": ctx.trace_id, "best": traced["best"]}
+    pod_line("trace", trace_id=ctx.trace_id, wall_s=time.perf_counter() - t1)
+
+    # death: a worker killed between two solves
+    ok = pod_solve(pod, sg2, snap2.digest, "sync", args["swap_pairs"][:2])
+    check(all(b == ok["best"] for b in ok["workers"].values()),
+          "pod death: the solve before the kill differs")
+    victim = pids[-1]
+    os.kill(victim, signal.SIGKILL)
+    t_kill = time.perf_counter()
+    try:
+        pod_solve(pod, sg2, snap2.digest, "sync", args["swap_pairs"][:2])
+        fail("pod death: a launch with a dead worker succeeded")
+    except pm.PodError as e:
+        death = str(e)
+    notice_s = time.perf_counter() - t_kill
+    dead = pod.dead_workers()
+    t1 = time.perf_counter()
+    pod.shutdown(timeout=POD_TIMEOUT_S)
+    out["death"] = {"error": death, "notice_s": notice_s,
+                    "dead": {str(p): why for p, why in dead.items()},
+                    "shutdown_s": time.perf_counter() - t1}
+    out["launches"] = sh.kernel_launches()
+    out["total_s"] = time.perf_counter() - t_phase
+    conn.send({"done": out})
+    conn.close()
+    sys.stdout.flush()
+    os._exit(0)  # the group's store lives here; its peers are gone
+
+
+def wait_for(cond, timeout: float) -> bool:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def pod_start(args: dict, tmp: str, dev_name: str, attempt: int) -> tuple:
+    """Start the primary (a spawned child) on a fresh rendezvous port, read
+    its control port, then start the workers (``python -c`` children,
+    their output in ``tmp``) and hand the primary their pids. Returns
+    ``(primary, workers, conn)``; the primary's first message says whether
+    the group formed."""
+    ctx = multiprocessing.get_context("spawn")
+    env = dict(os.environ, BIBFS_TRACE_SPOOL=args["spool"])
+    args = dict(args, coord=free_port())
+    conn, child = ctx.Pipe()
+    primary = ctx.Process(target=pod_primary, args=(args, child), daemon=True)
+    primary.start()
+    check(conn.poll(POD_TIMEOUT_S), "pod: the primary did not start")
+    port = conn.recv()["port"]
+    workers = []
+    for pid in range(1, args["workers"] + 1):
+        log = open(os.path.join(tmp, f"worker{pid}.{attempt}.log"), "w")
+        wargs = dict(coord=args["coord"], procs=args["workers"] + 1, pid=pid,
+                     pod_port=port, timeout_s=POD_TIMEOUT_S,
+                     heartbeat_s=POD_HEARTBEAT_S,
+                     device=None if dev_name == "cuda" else "cpu")
+        workers.append((subprocess.Popen(
+            [sys.executable, "-c", POD_WORKER, json.dumps(wargs)],
+            stdout=log, stderr=subprocess.STDOUT, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__))), log))
+    conn.send({"pids": [w.pid for w, _ in workers]})
+    return primary, workers, conn
+
+
+def pod_stop(primary, workers, bound: float = POD_TIMEOUT_S) -> dict:
+    """Stop whatever still runs (waits of ``bound`` seconds, then SIGKILL)
+    and return every child's exit code."""
+    codes = {}
+    primary.join(timeout=bound)
+    if primary.is_alive():
+        primary.kill()
+        primary.join()
+    codes["primary"] = primary.exitcode
+    for i, (w, log) in enumerate(workers, start=1):
+        try:
+            codes[str(i)] = w.wait(timeout=bound)
+        except subprocess.TimeoutExpired:
+            w.kill()
+            codes[str(i)] = w.wait()
+        log.close()
+    return codes
+
+
+def pod_log_tails(workers, lines: int = 20) -> None:
+    """The last lines of each worker's output, on stderr (a failed pod)."""
+    for i, (_w, log) in enumerate(workers, start=1):
+        with open(log.name) as f:
+            tail = f.read().splitlines()[-lines:]
+        print(f"pod worker {i}:\n" + "\n".join(tail), file=sys.stderr)
+
+
+def pod_reports(tmp: str, workers) -> dict:
+    """Each worker's last ``POD_WORKER`` line, by process index."""
+    out = {}
+    for i, (_w, log) in enumerate(workers, start=1):
+        with open(log.name) as f:
+            for line in f:
+                if line.startswith("POD_WORKER "):
+                    out[str(i)] = json.loads(line.split(" ", 1)[1])
+    return out
+
+
+def pod_refs(gnp: dict, pairs, swap_pairs, dev_name: str) -> dict:
+    """The one-device dense search's raw fields (best, meet, levels, edges)
+    of phase 18's pairs in every pod mode, on phase 3's graph, and the
+    oracle's answers on the swapped graph."""
+    n = gnp["n"]
+    dev = torch.device(dev_name)
+    g = dense.DeviceGraph.from_ell(gnp["host"], dev)
+    refs = {"dense": {}}
+    for mode in POD_MODES:
+        rows = []
+        for s, d in pairs:
+            best, meet, _ps, _pt, levels, edges = dense._run(
+                g, s, d, mode, 1, None)
+            rows.append((int(best), int(meet), int(levels), int(edges)))
+        refs["dense"][mode] = rows
+    del g
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    u, v = swap_pairs[0]
+    pairs2 = canonical_pairs(n, np.concatenate([gnp["pairs_all"], [[u, v]]]))
+    csr2 = build_csr(n, pairs=pairs2)
+    refs["swap"] = [(r.found, r.hops) for r in oracle(n, csr2, swap_pairs)]
+    return refs
+
+
+def pod_phase(gnp: dict, dev_name: str = "cuda") -> dict:
+    """Phase 18 (module docstring) on phase 3's graph (``gnp``: ``n``,
+    ``csr``, ``host``, ``pairs_all``). ``dev_name="cpu"`` with a small
+    graph rehearses it on the host (gloo, the kernels' twins). Returns the
+    pod's launches summed over its ranks."""
+    from bibfs_tpu_torch.obs.dtrace import (
+        cross_process_traces,
+        merge_spools,
+        read_spool,
+    )
+
+    t_phase = time.perf_counter()
+    n, csr = gnp["n"], gnp["csr"]
+    rng = np.random.default_rng(181)
+    isolated = np.flatnonzero(np.diff(csr[0]) == 0)
+    linked = np.flatnonzero(np.diff(csr[0]) > 0)
+    check(isolated.size > 0, "pod: the graph has no isolated vertex")
+    pairs = seeded_pairs(rng, linked, POD_PAIRS - 2)
+    pairs.append((int(linked[0]), int(isolated[0])))
+    # the swapped edge joins the ends of the first pair at least 4 hops apart
+    want = [(r.found, r.hops) for r in oracle(n, csr, pairs)]
+    far = next(i for i, (_f, h) in enumerate(want) if h is not None and h >= 4)
+    swap_pairs = [pairs[far]] + [p for i, p in enumerate(pairs[:4])
+                                 if i != far][:3]
+    tmp = tempfile.TemporaryDirectory(prefix="chip-pod-")
+    spool = os.path.join(tmp.name, "spool")
+    np.save(os.path.join(tmp.name, "pairs.npy"), gnp["pairs_all"])
+    args = dict(n=n, pairs_all=os.path.join(tmp.name, "pairs.npy"),
+                pairs=[list(p) for p in pairs],
+                swap_edge=list(pairs[far]),
+                swap_pairs=[list(p) for p in swap_pairs],
+                workers=POD_WORKERS, spool=spool,
+                device=None if dev_name == "cuda" else "cpu")
+    t0 = time.perf_counter()
+    refs = None
+    for attempt in range(3):
+        primary, workers, conn = pod_start(args, tmp.name, dev_name, attempt)
+        if refs is None:  # beside the children's start-up
+            t1 = time.perf_counter()
+            refs = pod_refs(gnp, pairs, swap_pairs, dev_name)
+            refs["oracle"] = want
+            refs_s = time.perf_counter() - t1
+        check(conn.poll(POD_TIMEOUT_S), "pod: the group did not form")
+        msg = conn.recv()
+        if "error" not in msg:
+            break
+        pod_stop(primary, workers, bound=0.0)
+        if "address already in use" not in msg["error"].lower():
+            pod_log_tails(workers)
+        check("address already in use" in msg["error"].lower(),
+              f"pod: the primary could not join: {msg['error']}")
+    else:
+        fail("pod: no free rendezvous port in 3 attempts")
+    start_s = time.perf_counter() - t0
+    res = None
+    try:
+        while "done" not in msg:
+            check(conn.poll(POD_TIMEOUT_S * 4), "pod: the primary went silent")
+            msg = conn.recv()
+        res = msg["done"]
+    except EOFError:
+        fail("pod: the primary ended without its answers")
+    finally:
+        # a failed wave leaves its children no reason to wait
+        t0 = time.perf_counter()
+        codes = pod_stop(primary, workers,
+                         bound=POD_TIMEOUT_S if res is not None else 5.0)
+        stop_s = time.perf_counter() - t0
+        if res is None:
+            pod_log_tails(workers)
+    reports = pod_reports(tmp.name, workers)
+    victim = str(POD_WORKERS)
+    check(codes == {"primary": 0, victim: -signal.SIGKILL,
+                    **{str(i): 0 for i in range(1, POD_WORKERS)}},
+          f"pod: the children exited {codes}")
+    check(sorted(reports) == [str(i) for i in range(1, POD_WORKERS)],
+          f"pod: reports from {sorted(reports)}")
+    # the answers: every rank the same, the oracle's, the dense search's
+    for mode in POD_MODES:
+        got = res["solve"][mode]
+        check([(b < INF32, b if b < INF32 else None) for b in got["best"]]
+              == [(f, h) for f, h in refs["oracle"]],
+              f"pod {mode}: found/hops differ from the oracle")
+        check(list(zip(got["best"], got["meet"], got["levels"], got["edges"]))
+              == [tuple(r) for r in refs["dense"][mode]],
+              f"pod {mode}: best/meet/levels/edges differ from the dense "
+              "search's")
+        check(set(got["workers"]) == {str(i)
+                                      for i in range(1, POD_WORKERS + 1)},
+              f"pod {mode}: acks from {sorted(got['workers'])}")
+    check([(b < INF32, b if b < INF32 else None)
+           for b in res["swap"]["best"]] == [tuple(r) for r in refs["swap"]],
+          "pod swap: the answers differ from the oracle on the new graph")
+    check(res["swap"]["best"][0] == 1, "pod swap: the added edge is not 1 hop")
+    check(res["trace"]["best"] == res["swap"]["best"],
+          "pod trace: the traced solve differs")
+    # the trace: one broadcast span parents every worker's solve span
+    report = merge_spools(spool)
+    recs = [r for f in sorted(os.listdir(spool)) if f.endswith(".jsonl")
+            for r in read_spool(os.path.join(spool, f))[0]
+            if r["t"] == res["trace"]["trace_id"]]
+    casts = [r for r in recs if r["n"] == "pod_broadcast"]
+    solves = [r for r in recs if r["n"] == "pod_worker_solve"]
+    check(len(casts) == 1 and casts[0]["pr"] == "pod-primary",
+          f"pod trace: broadcast spans {casts}")
+    check(sorted(r["pr"] for r in solves)
+          == [f"pod-worker-{i}" for i in range(1, POD_WORKERS + 1)]
+          and all(r.get("p") == casts[0]["s"] for r in solves),
+          f"pod trace: worker spans {solves}")
+    joined = [t for t in cross_process_traces(report,
+                                              min_procs=POD_WORKERS + 1)
+              if t["trace"] == res["trace"]["trace_id"]]
+    check(len(joined) == 1, "pod trace: no cross-process trace")
+    # the death: a PodError on the host, noticed within the heartbeat bound
+    death = res["death"]
+    check(f"pod worker {victim}" in death["error"]
+          and death["notice_s"] < POD_HB_TIMEOUT_S + 5,
+          f"pod death: {death}")
+    # launches: kernels 1, 3, 4 and the fold on every rank
+    ranks = {"0": res["launches"], **{p: r["launches"]
+                                      for p, r in reports.items()}}
+    on_card = dev_name == "cuda"
+    for rank, counts_ in ranks.items():
+        for name in POD_KERNELS:
+            check(not on_card or counts_.get(name, 0) > 0,
+                  f"pod: {name} was not launched on rank {rank}")
+    for p, r in reports.items():
+        check(r["bad"] == [] and r["rc"] == 0, f"pod worker {p}: {r}")
+        check([b["digest"] for b in r["builds"]]
+              == [res["graph"]["digest"], res["swap"]["digest"]],
+              f"pod worker {p}: rebuilt {r['builds']}")
+    pod_line("death", error=death["error"], notice_s=death["notice_s"],
+             dead=death["dead"], shutdown_s=death["shutdown_s"],
+             stop_s=stop_s, exit_codes=codes)
+    launches = {name: sum(c.get(name, 0) for c in ranks.values())
+                for name in POD_KERNELS}
+    line = pod_line(
+        "total", s=time.perf_counter() - t_phase, start_s=start_s,
+        refs_s=refs_s, primary_s=res["total_s"], transport=res["transport"],
+        devices={"0": res["device"], **{p: r["device"]
+                                        for p, r in reports.items()}},
+        worker_join_s={p: r["join_s"] for p, r in reports.items()},
+        worker_builds={p: r["builds"] for p, r in reports.items()},
+        launches=launches, launches_by_rank=ranks)
+    tmp.cleanup()
+    return line
+
+
 def kind_refs_main(sync: int = KIND_QUERIES["sync"],
                    pipelined: int = KIND_QUERIES["pipelined"],
                    workers: int = KIND_REF_WORKERS) -> int:
@@ -6471,6 +7049,30 @@ def fleet_main(overlap: bool = True) -> int:
             fleet_children_close(kids)
     print(json.dumps({"phase": "fleet_total", "s": time.perf_counter() - t0,
                       "soak_s": soak["s"], "overlap": overlap}), flush=True)
+    return 0
+
+
+def pod_main() -> int:
+    """Phase 18 alone, at full size, on one card: ``python3 -c 'import
+    chip_smoke, sys; sys.exit(chip_smoke.pod_main())'`` from the root of a
+    checkout (the kernels built, gnp-deg8-s20 made as ``main()`` makes it,
+    then the pod)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    print(json.dumps({"phase": "build", "nvcc_s": _cuda.build(),
+                      "total_s": time.perf_counter() - t0}), flush=True)
+    n = 1 << 20
+    edges = gnp_random_graph(n, 8 / n, seed=7)
+    pairs_all = canonical_pairs(n, edges)
+    gnp = dict(n=n, pairs_all=pairs_all, csr=build_csr(n, pairs=pairs_all),
+               host=build_ell(n, pairs=pairs_all))
+    pod_phase(gnp)
     return 0
 
 
@@ -6748,12 +7350,18 @@ def main() -> int:
                       "soak_s": soak["s"]}), flush=True)
     lap("17 fleet")
 
+    # phase 18: the pod, one replica across four processes
+    torch.cuda.empty_cache()
+    pod = pod_phase(gnp)
+    lap("18 pod")
+
     kernels = []
     for name, (_w, _p, source, replaces) in KERNELS.items():
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=main_counts[name],
                             launches_sharded=shard_launches.get(name, 0),
                             launches_mesh=mesh["launches"].get(name, 0),
+                            launches_pod=pod["launches"].get(name, 0),
                             **({"mesh_ranks": [c[name] for c in checks]}
                                if name in SHARD_KERNELS else {}),
                             **results[name], library_ms=None,

@@ -451,6 +451,13 @@ def test_launch_ctx_is_the_first_sampled_ticket(tracer):
             eng.flush()
             for t in tickets:
                 assert t.result is not None
+            # the pipelined flusher clears the context in a ``finally``
+            # after the host rung has resolved the tickets: wait (bounded)
+            # for its round to end before reading the field
+            deadline = time.monotonic() + WAIT_S
+            while (eng._launch_ctx is not None
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
             assert eng._launch_ctx is None
         finally:
             eng.close()

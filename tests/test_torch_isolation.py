@@ -216,3 +216,80 @@ def test_fleet_children_load_no_jax(tmp_path):
         assert "torch" in loaded and "bibfs_tpu_torch.serve.engine" in loaded
         bad = [m for m in loaded if _forbidden(m)]
         assert not bad, (pid, bad)
+
+
+def test_pod_children_load_no_jax():
+    """A pod's primary and its worker, each a child joined through
+    ``init_multihost`` over ``tcp://127.0.0.1`` (``parallel.podmesh``),
+    import neither JAX nor the JAX package after a graph broadcast, a
+    ``fused`` solve and the shutdown."""
+    import json
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = s.getsockname()[1]
+    s.close()
+    report = (
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'bibfs_tpu'))\n"
+        "print('MODULES', json.dumps([who, 'bibfs_tpu_torch.parallel.podmesh'"
+        " in sys.modules, bad]), flush=True)\n"
+        "os._exit(0)\n"
+    )
+    primary = (
+        "import json, os, sys\n"
+        "import numpy as np\n"
+        "from bibfs_tpu_torch.parallel.mesh import init_multihost, make_1d_mesh\n"
+        "from bibfs_tpu_torch.parallel.podmesh import PodPrimary\n"
+        "from bibfs_tpu_torch.serve.buckets import repad_rows\n"
+        "from bibfs_tpu_torch.solvers import sharded as sh\n"
+        "from bibfs_tpu_torch.store.snapshot import GraphSnapshot\n"
+        "pod = PodPrimary(1, host='127.0.0.1', accept_timeout_s=60)\n"
+        "print('PORT', pod.port, flush=True)\n"
+        f"init_multihost('127.0.0.1:{coord}', 2, 0, device='cpu', timeout_s=60)\n"
+        "mesh = make_1d_mesh()\n"
+        "pod.accept_workers()\n"
+        "snap = GraphSnapshot.build(40, np.array([[i, i + 1] for i in range(39)]))\n"
+        "g = pod.ensure_graph(snap, build=lambda: sh.ShardedGraph(\n"
+        "    repad_rows(snap.ell(), mesh.size), mesh))\n"
+        "seq = pod.post_solve(snap.digest, 'fused', [[0, 39]], 1)\n"
+        "pod.await_phase(seq, 'join')\n"
+        "pod.commit_solve(seq)\n"
+        "best = int(sh._batch_dispatch(g, [[0, 39]], 'fused')[1]()[0][0])\n"
+        "assert pod.await_phase(seq, 'done')[1]['best'] == [best] == [39]\n"
+        "pod.shutdown()\n"
+        "who = 'primary'\n" + report
+    )
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
+           "OMP_NUM_THREADS": "1"}
+    kids = [subprocess.Popen([sys.executable, "-c", primary], cwd=ROOT,
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)]
+    try:
+        line = kids[0].stdout.readline()
+        assert line.startswith("PORT"), line + kids[0].stdout.read()
+        worker = (
+            "import json, os, sys\n"
+            "from bibfs_tpu_torch.parallel.mesh import init_multihost\n"
+            "from bibfs_tpu_torch.parallel.podmesh import run_pod_worker\n"
+            f"init_multihost('127.0.0.1:{coord}', 2, 1, device='cpu', "
+            "timeout_s=60)\n"
+            f"assert run_pod_worker('127.0.0.1', {int(line.split()[1])}, "
+            "process_index=1) == 0\n"
+            "who = 'worker'\n" + report
+        )
+        kids.append(subprocess.Popen([sys.executable, "-c", worker], cwd=ROOT,
+                                     env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True))
+        outs = [k.communicate(timeout=120)[0] for k in kids]
+    finally:
+        for k in kids:
+            if k.poll() is None:
+                k.kill()
+                k.wait()
+    for k, out in zip(kids, outs):
+        assert k.returncode == 0, out[-2000:]
+    got = [json.loads(line.split(" ", 1)[1]) for out in outs
+           for line in out.splitlines() if line.startswith("MODULES ")]
+    assert got == [["primary", True, []], ["worker", True, []]]

@@ -11,6 +11,7 @@ memory-tier options, each accepted or refused as the reference does
 and ``test_torch_memtier.py``)."""
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -231,9 +232,39 @@ def test_background_compaction_keeps_the_live_graph():
     assert lives[0] == lives[1]
 
 
+def _index_builds_quiet(store, timeout: float = 60.0) -> None:
+    """Wait (bounded) until no background index build of ``store`` is in
+    flight: a build thread kicked by a delete or a compaction may still be
+    running, or only now finishing, when the index it or another built is
+    already served."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with store._lock:
+            busy = [name for name, e in store._entries.items()
+                    if e.oracle_builder is not None]
+        if not busy:
+            return
+        assert time.monotonic() < deadline, f"index builds of {busy} still run"
+        time.sleep(0.01)
+
+
+def _differing(got, want, path: str = "") -> list:
+    """The paths of the leaves where two nested dicts differ."""
+    if isinstance(got, dict) and isinstance(want, dict):
+        return [d for k in sorted(set(got) | set(want), key=str)
+                for d in _differing(got.get(k), want.get(k), f"{path}.{k}")]
+    return [] if got == want else [f"{path}: {got!r} != {want!r}"]
+
+
 def test_store_oracle_lifecycle_equals_reference():
     """Index builds, an adds-only repair, a delete's invalidation and the
-    rebuild after compaction: the same index arrays and counts."""
+    rebuild after compaction: the same index arrays and counts. The
+    compaction's pairs and digest are the canonical form of the overlay's
+    merged edges, and ``stats()`` is read once no index build is in flight (a
+    mismatch names the fields that differ)."""
+    from bibfs_tpu_torch.graph.csr import canonical_pairs
+    from bibfs_tpu_torch.store.snapshot import content_digest
+
     ref, port = _packages()
     n, edges = _gnp(140, 2.5, seed=4)
     seen = []
@@ -250,10 +281,15 @@ def test_store_oracle_lifecycle_equals_reference():
                     orc.index.repaired_edges))
         store.update("g", dels=[sorted(live)[0]])
         rec.append(store.oracle("g"))  # a delete invalidates
-        store.compact("g")
+        merged = canonical_pairs(n, store.overlay("g").merged_edges())
+        kept = store.compact("g")
+        np.testing.assert_array_equal(kept.pairs, merged)
+        assert kept.digest == content_digest(n, merged)
         assert store.wait_for_index("g", timeout=60)
         rec.append(store.oracle("g").index.dist.copy())
+        _index_builds_quiet(store)
         store.close()
+        _index_builds_quiet(store)
         rec.append(_store_stats(store.stats()))
         seen.append(rec)
     want, got = seen
@@ -262,7 +298,7 @@ def test_store_oracle_lifecycle_equals_reference():
     assert got[1][1:] == want[1][1:]
     assert got[2] is None and want[2] is None
     np.testing.assert_array_equal(got[3], want[3])
-    assert got[4] == want[4]
+    assert got[4] == want[4], _differing(got[4], want[4])
     assert got[4]["graphs"]["g"]["oracle"]["repairs"] == 1
 
 

@@ -7,7 +7,8 @@ holds — plus the control loop itself over stub replicas on a real
 drain-before-retire scale-in that only ever victimizes
 supervisor-spawned replicas, paced dead-replica respawn, the
 catch-up-wedge escape hatch, and pod-worker heal callbacks over a fake
-pod (``watch_pod`` is duck-typed). Then both packages side by side:
+pod (``watch_pod`` is duck-typed) and over a real ``PodPrimary`` of each
+package with scripted workers. Then both packages side by side:
 ``decide_scale`` returns the same verdicts and streaks over a grid of
 signals, streaks, clocks and policies, and the fleet metric families a
 router and a supervisor mint render with the same names, kinds, labels
@@ -440,6 +441,182 @@ def test_pod_heal_respawns_dead_workers_with_backoff():
     finally:
         sup.close()
         router.close()
+
+
+class _PodWorker:
+    """A pod worker's control socket, scripted: a hello at its epoch,
+    heartbeats every ``hb_s`` until :meth:`silence`, and a reader that acks
+    each graph descriptor (its chunks read) at its epoch and counts it."""
+
+    def __init__(self, port: int, pidx: int, epoch: int = 0,
+                 hb_s: float = 0.05):
+        import socket
+        import threading
+
+        from bibfs_tpu_torch.serve.net import encode_frame, extract_frames
+
+        self._encode = encode_frame
+        self._extract = extract_frames
+        self.pidx, self.epoch = int(pidx), int(epoch)
+        self.graphs = 0
+        self.sock = socket.create_connection(("127.0.0.1", port))
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._wlock = threading.Lock()
+        self._quiet = threading.Event()
+        self._send({"op": "hello", "process": self.pidx, "epoch": self.epoch})
+        threading.Thread(target=self._beat, args=(hb_s,), daemon=True).start()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _send(self, msg: dict) -> None:
+        with self._wlock:
+            self.sock.sendall(self._encode(msg))
+
+    def _beat(self, hb_s: float) -> None:
+        while not self._quiet.wait(hb_s):
+            try:
+                self._send({"op": "hb", "process": self.pidx,
+                            "epoch": self.epoch})
+            except OSError:
+                return
+
+    def _read(self) -> None:
+        import json
+
+        buf, chunks = bytearray(), {}
+        try:
+            while True:
+                data = self.sock.recv(1 << 16)
+                if not data:
+                    return
+                buf += data
+                for raw in self._extract(buf):
+                    msg = json.loads(raw.decode())
+                    if msg.get("op") == "graph":
+                        chunks[msg["seq"]] = msg["chunks"]
+                    elif msg.get("op") == "graph_chunk":
+                        chunks[msg["for"]] -= 1
+                    else:
+                        continue
+                    for seq in [k for k, left in chunks.items() if not left]:
+                        del chunks[seq]
+                        self.graphs += 1
+                        self._send({"seq": seq, "phase": "done", "ok": True,
+                                    "epoch": self.epoch})
+        except (OSError, ValueError):
+            return
+
+    def silence(self) -> None:
+        self._quiet.set()
+
+    def close(self) -> None:
+        self.silence()
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+class _PodSnap:
+    def __init__(self):
+        import numpy as np
+
+        self.n = 10
+        self.pairs = np.array([[i, i + 1] for i in range(9)], dtype=np.int64)
+        self.digest = "g" * 16
+        self.version = 1
+
+
+def _pod_heal_run(which: str) -> dict:
+    """One scripted heal of a real ``PodPrimary`` of package ``which``
+    under that package's ``Supervisor`` (the module docstring of
+    :func:`test_pod_heal_with_a_real_primary`)."""
+    if which == "ref":
+        from bibfs_tpu.fleet import Router as R
+        from bibfs_tpu.fleet import ScalePolicy as P
+        from bibfs_tpu.fleet import Supervisor as S
+        from bibfs_tpu.parallel.podmesh import PodPrimary
+    else:
+        from bibfs_tpu_torch.parallel.podmesh import PodPrimary
+
+        R, P, S = Router, ScalePolicy, Supervisor
+    pod = PodPrimary(2, host="127.0.0.1", heartbeat_timeout_s=1.0)
+    workers = {p: _PodWorker(pod.port, p) for p in (1, 2)}
+    pod.accept_workers()
+    router = R([_Stub("s0")], poll_interval_s=3600.0)
+    sup = S(router, lambda idx: _Stub(f"x{idx}"),
+            policy=P(cooldown_s=0.0, respawn_backoff_s=30.0),
+            poll_interval_s=3600.0)
+    rec: dict = {"respawned": []}
+
+    def respawn(p, pidx):
+        epoch = p.worker_epoch(pidx) + 1
+        old = workers[pidx]
+        workers[pidx] = _PodWorker(p.port, pidx, epoch)
+        assert p.accept_rejoin(timeout_s=10.0) == pidx
+        old.close()
+        rec["respawned"].append((pidx, epoch))
+
+    def pod_events():
+        return sum(e["dir"] == "respawn" and e["reason"] == "pod_worker"
+                   for e in sup.events())
+
+    def fall_silent(pidx):
+        """Stop ``pidx``'s heartbeats and wait past the primary's timeout."""
+        workers[pidx].silence()
+        time.sleep(0.1)  # a beat already on the wire lands first
+        with pod._lock:
+            last = pod._last_hb[pidx]
+        time.sleep(max(0.0, last + 1.2 - time.monotonic()))
+
+    snap = _PodSnap()
+    try:
+        assert _wait(lambda: len(pod._last_hb) == 2)
+        sup.watch_pod(pod, respawn)
+        assert pod.ensure_graph(snap, build=lambda: "built",
+                                timeout=10.0) == "built"
+        sup.tick()
+        rec["healthy"] = (pod_events(), pod.dead_workers())
+        fall_silent(2)
+        # one tick sweeps the heartbeats, marks worker 2 dead and heals
+        # it: one respawn at epoch 1
+        sup.tick()
+        rec["healed"] = (pod_events(), pod.dead_workers(),
+                         pod.worker_epoch(1), pod.worker_epoch(2))
+        assert pod.ensure_graph(snap, build=lambda: "again",
+                                timeout=10.0) == "again"
+        rec["graphs"] = (workers[1].graphs, workers[2].graphs)
+        # dead again at once: the tick marks it, the backoff holds the
+        # next respawn
+        assert _wait(lambda: 2 in pod._last_hb)
+        fall_silent(2)
+        sup.tick()
+        rec["backoff"] = (pod_events(), sorted(pod.dead_workers()),
+                          pod.worker_epoch(2))
+        rec["fenced"] = pod.fenced_frames
+    finally:
+        sup.close()
+        router.close()
+        pod.close()
+        for w in workers.values():
+            w.close()
+    return rec
+
+
+def test_pod_heal_with_a_real_primary():
+    """A real ``PodPrimary`` of each package, two scripted workers sending
+    heartbeats: a worker falls silent, ``Supervisor.tick()`` marks it dead
+    through ``check_heartbeats`` and its respawn callback rejoins a
+    scripted worker at epoch + 1 through ``accept_rejoin``; the next
+    ``ensure_graph`` re-broadcasts the unchanged graph to both; a second
+    silence inside the backoff is left dead. The port's supervisor and
+    primary count the same events at each step as the reference's."""
+    ref, port = _pod_heal_run("ref"), _pod_heal_run("port")
+    assert port == ref
+    assert port["healthy"] == (0, {})
+    assert port["healed"] == (1, {}, 0, 1)
+    assert port["respawned"] == [(2, 1)]
+    assert port["graphs"] == (2, 1)
+    assert port["backoff"] == (1, [2], 1)
 
 
 def test_supervisor_metric_families_render():
